@@ -1,0 +1,57 @@
+"""Fused probes: per-sample norms (and book-keeping banks) computed inside
+the backward pass (port of ``core/fused.py``).
+
+Each parameterized op routes its pre-activation through ``Probe``, an
+identity ``torch.autograd.Function`` that keeps the op's input ``a`` and a
+0-dim dummy leaf ``z``::
+
+    forward:   s -> s                       (identity; saves a)
+    backward:  ds = g                       (the cotangent flows on)
+               bank = ghost.tap_bank(a, g)  -> runtime.banks[name]
+               dz = 0                       (z only marks the probe)
+
+The JAX version returns the bank as ``z``'s cotangent.  Here the bank is
+written to the step's ``ClipRuntime`` instead, and ``z`` only gives the
+first backward something to ask for: ``torch.autograd.grad(losses,
+inputs=zs)`` runs every probe while autograd prunes every parameter-
+gradient kernel (the counterpart of XLA's dead-code elimination of the
+parameter grads, ``clipping.py:492`` in the JAX package).
+
+A second backward over the same graph (``mixed_ghost``'s clipped-gradient
+pass) runs ``Probe.backward`` again; with ``runtime.phase == "grad"`` it
+only passes the cotangent through, so the banks are computed once per step
+(in JAX the second pullback's bank computation is dead code).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import ghost
+from repro_torch.core.taps import ClipRuntime, TapMeta
+
+
+class Probe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, a, z, name, meta, runtime):  # noqa: ARG004 - z marks the probe
+        ctx.save_for_backward(a)
+        ctx.name = name
+        ctx.meta = meta
+        ctx.runtime = runtime
+        return s.view_as(s)
+
+    @staticmethod
+    def backward(ctx, g):
+        runtime: ClipRuntime = ctx.runtime
+        if runtime.phase != "bank":
+            return g, None, None, None, None, None
+        (a,) = ctx.saved_tensors
+        runtime.banks[ctx.name] = ghost.tap_bank(ctx.meta, a, g, mode=runtime.mode)
+        return g, None, g.new_zeros(()), None, None, None
+
+
+def probe(
+    s: torch.Tensor, a: torch.Tensor, z: torch.Tensor, name: str, meta: TapMeta,
+    runtime: ClipRuntime,
+) -> torch.Tensor:
+    """Identity on ``s`` whose backward banks tap ``name`` into ``runtime``."""
+    return Probe.apply(s, a.detach(), z, name, meta, runtime)

@@ -1,0 +1,278 @@
+"""Per-tap per-sample gradient norms, book-keeping banks, weighted gradients
+(port of ``core/ghost.py``).
+
+Given a tap's recorded activation ``a``, its cotangent ``g = dL/ds`` from
+the first backward pass, and its ``TapMeta``, this module computes the
+per-sample squared gradient norm on the branch the layerwise decision picked
+(Alg. 1) and, for book-keeping, the weighted gradient ``sum_i C_i g_i``
+directly from the banked residuals, skipping the second backward.
+
+- ``tap_norm_sq``          per-sample norm^2 from (a, g);
+- ``tap_bank``             the fused probe's backward payload for one tap;
+- ``bank_weighted_grads``  ``sum_i C_i g_i`` from a tap's bank;
+- ``tap_weighted_grads``   the same from an (a, g) book.
+
+Canonical layouts: matmul a (N, T, D), g (N, T, p); scale a, g (N, T, p)
+with grad = sum_T g*a; bias g (N, T, p) with grad = sum_T g.  Per-sample
+conv gradients are in the parameter's own OIHW layout (p, d, kh, kw).
+
+This slice covers the kinds the CNNs use (``matmul``, ``scale``, ``bias``).
+``embedding`` arrives with the ViT slice, ``dw_conv``, ``scale_grouped`` and
+stacked layers (whose stack dims fold into the per-sample sums) with the LM
+slice.  Torch saves integer ids in autograd, so the JAX package's fp32 id
+side channel and its 2^24 vocab guard will have no counterpart there.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.decision import decide
+from repro_torch.core.taps import TapMeta
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.ghost_norm import ops as gops
+from repro_torch.nn.conv import conv_padding, pad_nchw, unfold2d
+
+# The plain instantiated norm's fan-in chunk (the JAX ClipConfig default).
+# Per-tap block sizes, the time-priority decision rule and per-tap branch
+# overrides come back with the tuner's ClipPlan.
+INST_BLOCK_D = 8192
+
+_LATER = {
+    "embedding": "the ViT slice (with embedding_ghost_norm_sq)",
+    "dw_conv": "the LM slice",
+    "scale_grouped": "the LM slice",
+}
+
+
+def _unsupported(meta: TapMeta) -> NotImplementedError:
+    later = _LATER.get(meta.kind)
+    if later is None:
+        return NotImplementedError(f"unknown tap kind {meta.kind!r}")
+    return NotImplementedError(
+        f"tap kind {meta.kind!r} ({meta.param_path}) is ported with {later}"
+    )
+
+
+def _canonical_ag(meta: TapMeta, a: torch.Tensor, g: torch.Tensor):
+    """Return a (N, T, D), g (N, T, p) with N = B*G."""
+    rows = meta.batch_size * max(meta.n_groups, 1)
+    gg = g.reshape(rows, meta.T, meta.p)
+    if meta.conv is not None:
+        # a is the raw (B, H, W, d) input: unfold lazily to (N, T, D)
+        aa = unfold2d(a.reshape((meta.batch_size,) + tuple(a.shape[-3:])), meta.conv)
+    else:
+        aa = a.reshape(rows, meta.T, meta.D)
+    return aa, gg
+
+
+def tap_norm_sq(
+    meta: TapMeta,
+    a: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    mode: str = "mixed_ghost",
+    include_bias: bool = True,
+) -> torch.Tensor:
+    """Per-sample squared norm contributions: (B,) fp32 (weight + bias)."""
+    b = meta.batch_size
+    g = g.float()
+    if meta.kind == "matmul":
+        aa, gg = _canonical_ag(meta, a, g)
+        if decide(meta, mode=mode) == "ghost":
+            rows = dispatch.ghost_norm_sq(aa, gg)
+        else:
+            rows = gops.instantiated_norm_sq(aa, gg, block_d=INST_BLOCK_D)
+        total = rows.reshape(b, max(meta.n_groups, 1)).sum(dim=1)
+    elif meta.kind in ("scale", "bias"):
+        grad = _small_psg(meta, a, g)
+        total = grad.square().sum(dim=1)
+    else:
+        raise _unsupported(meta)
+    if meta.bias_path is not None and include_bias:
+        bias_grad = g.reshape(b, -1, meta.p).sum(dim=1)
+        total = total + bias_grad.square().sum(dim=1)
+    return total
+
+
+def psg_param_shape(meta: TapMeta) -> tuple[int, ...]:
+    """Shape of one sample's banked gradient = the parameter's layout.
+
+    conv (p, d, kh, kw) | dense (D, p) | grouped (G, D, p) | scale, bias (p,).
+    """
+    if meta.kind == "matmul":
+        if meta.conv is not None:
+            d_in = meta.D // (meta.conv.kernel[0] * meta.conv.kernel[1])
+            return (meta.p, d_in) + tuple(meta.conv.kernel)
+        if meta.n_groups > 1:
+            return (meta.n_groups, meta.D, meta.p)
+        return (meta.D, meta.p)
+    if meta.kind in ("scale", "bias"):
+        return (meta.p,)
+    raise _unsupported(meta)
+
+
+def _conv_psg(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Per-sample conv weight gradients (B, p, d, kh, kw), without im2col.
+
+    dW_b[o, i, u, v] = sum_{y,x} g_b[o, y, x] * xpad_b[i, u + s*y, v + s*x]
+    is itself a convolution: the padded input with its batch as channels,
+    correlated with each sample's cotangent as a kernel dilated by the
+    stride, one group per sample.
+    """
+    info = meta.conv
+    b = meta.batch_size
+    kh, kw = info.kernel
+    x = a.reshape((b,) + tuple(a.shape[-3:])).float().permute(0, 3, 1, 2)  # (B, d, H, W)
+    xp = pad_nchw(x, conv_padding(info.padding, x.shape[2:], info.kernel, info.strides))
+    go = g.float().reshape((b,) + tuple(meta.s_shape[-3:])).permute(0, 3, 1, 2)
+    ho, wo = go.shape[2:]
+    kernel = go.reshape(b * meta.p, 1, ho, wo)
+    out = F.conv2d(xp.transpose(0, 1), kernel, dilation=tuple(info.strides), groups=b)
+    d_in = x.shape[1]
+    out = out[:, :, :kh, :kw].reshape(d_in, b, meta.p, kh, kw)
+    return out.permute(1, 2, 0, 3, 4).contiguous()
+
+
+def _matmul_psg(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Per-sample weight gradients (B,) + psg_param_shape(meta)."""
+    if meta.conv is not None:
+        return _conv_psg(meta, a, g)
+    b = meta.batch_size
+    gdim = max(meta.n_groups, 1)
+    aa = a.float().reshape(b * gdim, meta.T, meta.D)
+    gg = g.float().reshape(b * gdim, meta.T, meta.p)
+    psg = torch.bmm(aa.transpose(1, 2), gg)
+    return psg.reshape((b,) + psg_param_shape(meta))
+
+
+def _small_psg(meta: TapMeta, a: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
+    """Per-sample gradients of the small forced-instantiate kinds: (B, p)."""
+    b = meta.batch_size
+    gf = g.float().reshape(b, meta.T, meta.p)
+    if meta.kind == "scale":
+        return (gf * a.float().reshape(b, meta.T, meta.p)).sum(dim=1)
+    if meta.kind == "bias":
+        return gf.sum(dim=1)
+    raise _unsupported(meta)
+
+
+def tap_bank(
+    meta: TapMeta,
+    a: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    mode: str = "mixed_ghost",
+) -> dict[str, torch.Tensor]:
+    """The fused probe's backward payload for one tap.
+
+    Every bank carries ``n``, the tap's per-sample squared norm (B,).  In
+    ``bk_mixed`` it also carries what the weighted-gradient stage needs:
+    the per-sample gradients ``psg`` (+ ``psg_b`` for a bias) for
+    instantiate-branch and small taps, or the ``(a, g)`` book for
+    ghost-branch matmuls.
+    """
+    if mode != "bk_mixed":
+        return {"n": tap_norm_sq(meta, a, g, mode=mode)}
+    b = meta.batch_size
+    g32 = g.float()
+    bank: dict[str, torch.Tensor] = {}
+    if meta.kind == "matmul":
+        if decide(meta, mode="bk_mixed") == "instantiate":
+            psg = _matmul_psg(meta, a, g32)
+            bank["psg"] = psg
+            n = psg.square().reshape(b, -1).sum(dim=-1)
+        else:
+            bank["a"], bank["g"] = a, g
+            n = tap_norm_sq(meta, a, g, mode="ghost", include_bias=False)
+    elif meta.kind in ("scale", "bias"):
+        psg = _small_psg(meta, a, g32)
+        bank["psg"] = psg
+        n = psg.square().sum(dim=-1)
+    else:
+        raise _unsupported(meta)
+
+    if meta.bias_path is not None:
+        bias_grad = g32.reshape(b, -1, meta.p).sum(dim=1)
+        if "g" not in bank:
+            # the book reconstructs the bias grad itself; psg banks keep it
+            bank["psg_b"] = bias_grad
+        n = n + bias_grad.square().sum(dim=-1)
+    bank["n"] = n
+    return bank
+
+
+def _finish_matmul_grad(
+    meta: TapMeta, w: torch.Tensor, param_shape: tuple[int, ...]
+) -> torch.Tensor:
+    """Weighted matmul grad (G, D, p) -> the parameter's own layout.
+
+    The unfold's fan-in is channel-major, so a conv's (D, p) gradient is the
+    transpose of its OIHW weight flattened to (p, D).
+    """
+    if meta.conv is not None:
+        return w.reshape(meta.D, meta.p).t().reshape(param_shape)
+    return w.reshape(param_shape)
+
+
+def tap_weighted_grads(
+    meta: TapMeta,
+    a: torch.Tensor,
+    g: torch.Tensor,
+    clip: torch.Tensor,  # (B,) clip factors C_i
+    param_shape: tuple[int, ...],
+) -> dict[str, torch.Tensor]:
+    """Book-keeping gradients sum_i C_i g_i of a matmul tap, from its (a, g) book.
+
+    The weight goes through ``dispatch.book_weighted_grad`` (the CUDA kernel
+    scales cotangent tiles in shared memory, so ``C_i * g_i`` never reaches
+    device memory).  Returns {param_path: grad, [bias_path: grad]}.
+    """
+    if meta.kind != "matmul":
+        raise NotImplementedError(
+            f"book contraction of {meta.kind!r} taps comes with the *_taps executors"
+        )
+    b = meta.batch_size
+    gdim = max(meta.n_groups, 1)
+    cw = clip.float()
+    if meta.conv is not None:
+        aa = unfold2d(a.reshape((b,) + tuple(a.shape[-3:])), meta.conv)
+    else:
+        aa = a
+    aa = aa.reshape(b, gdim, meta.T, meta.D)
+    gg = g.reshape(b, gdim, meta.T, meta.p)
+    # canonical (M, R, .) book: rows = (B, T) folded, one weight per row;
+    # group instances ride the leading dim
+    a2 = aa.transpose(0, 1).reshape(gdim, b * meta.T, meta.D)
+    g2 = gg.transpose(0, 1).reshape(gdim, b * meta.T, meta.p)
+    w2 = cw[:, None].expand(b, meta.T).reshape(1, b * meta.T).expand(gdim, b * meta.T)
+    w = dispatch.book_weighted_grad(a2, g2, w2)
+    out = {meta.param_path: _finish_matmul_grad(meta, w, param_shape)}
+    if meta.bias_path is not None:
+        gb = g.float().reshape(b, -1, meta.p) * cw[:, None, None]
+        out[meta.bias_path] = gb.sum(dim=(0, 1))
+    return out
+
+
+def bank_weighted_grads(
+    meta: TapMeta,
+    bank: dict[str, torch.Tensor],
+    clip: torch.Tensor,  # (B,) clip factors C_i
+    param_shape: tuple[int, ...],
+) -> dict[str, torch.Tensor]:
+    """Book-keeping gradient stage of one tap: sum_i C_i g_i from its bank.
+
+    Ghost-banked taps replay the weighted book contraction; psg-banked taps
+    contract their per-sample gradients with the clip factors
+    (``dispatch.psg_contract``, once for the weight and once for a bias).
+    """
+    if "g" in bank:
+        return tap_weighted_grads(meta, bank["a"], bank["g"], clip, param_shape)
+    cw = clip.float()
+    psg = bank["psg"].reshape((meta.batch_size,) + psg_param_shape(meta))
+    out = {meta.param_path: dispatch.psg_contract(psg, cw, axis=0).reshape(param_shape)}
+    if "psg_b" in bank:
+        out[meta.bias_path] = dispatch.psg_contract(bank["psg_b"], cw, axis=0)
+    return out

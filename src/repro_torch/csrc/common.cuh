@@ -1,0 +1,20 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel takes fp32 or bf16 operands and accumulates in fp32, as the
+// Pallas kernels they replace do.  The dtype crosses the C interface as an
+// int code (kFloat32 / kBFloat16) that the Python wrappers set.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+}  // namespace repro

@@ -1,0 +1,132 @@
+"""Kernel dispatch for the clipping hot ops (port of ``kernels/dispatch.py``).
+
+The hand-written CUDA kernels (``ghost_norm/ghost_norm.py``,
+``psg_contract/psg_contract.py``) and their plain PyTorch versions
+(``*/ops.py``) compute the same values; this module is the one place that
+picks between them:
+
+    op            cuda impl                     torch impl
+    ------------  ----------------------------  ---------------------------
+    ghost_norm    ghost_norm_sq_cuda            gops.ghost_norm_sq
+    psg_contract  book_weighted_grad_cuda /     cops.book_weighted_grad /
+                  psg_contract_cuda             cops.psg_contract
+
+Resolution order, per call:
+
+1. an explicit ``impl=`` argument;
+2. a ``force_impl`` context override (tests, and ``chip_smoke.py`` running
+   the whole step on the plain versions for comparison);
+3. the device default: ``cuda`` for a CUDA tensor, ``torch`` for a CPU one.
+
+There is no fallback: a CUDA tensor goes to its kernel, which raises if it
+cannot build or launch, and ``cuda`` asked for a CPU tensor raises too.
+``embedding_ghost_norm`` and ``flash_attention`` join with the slices that
+use them.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Optional
+
+import torch
+
+from repro_torch.kernels import launches
+from repro_torch.kernels.ghost_norm import ops as gops
+from repro_torch.kernels.psg_contract import ops as cops
+
+OPS = ("ghost_norm", "psg_contract")
+IMPLS = ("cuda", "torch")
+
+# force_impl() state: {op: impl}, consulted per call
+_forced: dict[str, str] = {}
+
+
+def default_impl(op: str, x: torch.Tensor) -> str:
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if op not in OPS:
+        raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
+    return "cuda" if x.is_cuda else "torch"
+
+
+def resolve(op: str, x: torch.Tensor, impl: Optional[str] = None) -> str:
+    """Pick the impl for one op: explicit > forced > device default."""
+    if op not in OPS:
+        raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
+    if impl is None:
+        impl = _forced.get(op)
+    if impl is None:
+        return default_impl(op, x)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown kernel impl {impl!r} for {op}; have {IMPLS}")
+    return impl
+
+
+@contextlib.contextmanager
+def force_impl(impl: Optional[str] = None, **per_op: str) -> Iterator[None]:
+    """Override the impl of every op (``impl``) or of single ops (kwargs)."""
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"unknown kernel impl {impl!r}; have {IMPLS}")
+    for op, i in per_op.items():
+        if op not in OPS:
+            raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
+        if i not in IMPLS:
+            raise ValueError(f"unknown kernel impl {i!r} for {op}; have {IMPLS}")
+    saved = dict(_forced)
+    try:
+        if impl is not None:
+            _forced.update({op: impl for op in OPS})
+        _forced.update(per_op)
+        yield
+    finally:
+        _forced.clear()
+        _forced.update(saved)
+
+
+# -- the dispatched ops ----------------------------------------------------
+def ghost_norm_sq(
+    a: torch.Tensor, g: torch.Tensor, *, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Ghost norm (Eq. 2.7): a (N,T,D), g (N,T,p) -> (N,) fp32."""
+    if resolve("ghost_norm", a, impl) == "cuda":
+        from repro_torch.kernels.ghost_norm.ghost_norm import ghost_norm_sq_cuda
+
+        return ghost_norm_sq_cuda(a.contiguous(), g.contiguous())
+    launches.record("ghost_norm_sq", "torch")
+    return gops.ghost_norm_sq(a, g)
+
+
+def book_weighted_grad(
+    a: torch.Tensor, g: torch.Tensor, w: torch.Tensor, *, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Weighted (a,g)-book contraction: sum_r w[m,r] a[m,r]^T g[m,r].
+
+    a (M,R,D), g (M,R,p), w (M,R) -> (M,D,p) fp32.
+    """
+    if resolve("psg_contract", a, impl) == "cuda":
+        from repro_torch.kernels.psg_contract.psg_contract import book_weighted_grad_cuda
+
+        return book_weighted_grad_cuda(
+            a.contiguous(), g.contiguous(), w.float().contiguous()
+        )
+    launches.record("book_weighted_grad", "torch")
+    return cops.book_weighted_grad(a, g, w)
+
+
+def psg_contract(
+    psg: torch.Tensor, c: torch.Tensor, *, axis: int = 0, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Weighted bank sum over the sample axis: sum_n c[n] * psg[..n..].
+
+    The result drops ``axis`` and keeps the remaining dims in order, fp32.
+    """
+    moved = torch.movedim(psg, axis, 0)
+    out_shape = moved.shape[1:]
+    flat = moved.reshape(moved.shape[0], -1)
+    if resolve("psg_contract", psg, impl) == "cuda":
+        from repro_torch.kernels.psg_contract.psg_contract import psg_contract_cuda
+
+        out = psg_contract_cuda(flat.contiguous(), c.float().contiguous())
+    else:
+        launches.record("psg_contract", "torch")
+        out = cops.psg_contract(flat, c)
+    return out.reshape(out_shape)

@@ -1,0 +1,88 @@
+"""The bank-contraction CUDA kernels and their plain versions.
+
+Ports of ``kernels/psg_contract/psg_contract.py``:
+
+- ``book_weighted_grad_cuda`` (``csrc/book_weighted_grad.cu``) replaces
+  ``book_weighted_grad_pallas``: out[m] = sum_r w[m,r] a[m,r]^T g[m,r],
+  with the weighted cotangent kept in shared memory;
+- ``psg_contract_cuda`` (``csrc/psg_contract.cu``) replaces
+  ``psg_contract_pallas``: out = sum_n c[n] psg[n].
+
+Each launches its kernel on CUDA tensors and raises on anything else.  The
+``*_plain`` functions beside them are the same maps in plain PyTorch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import checks, launches
+from repro_torch.kernels.psg_contract.ops import book_weighted_grad as book_weighted_grad_plain
+from repro_torch.kernels.psg_contract.ops import psg_contract as psg_contract_plain
+
+__all__ = [
+    "book_weighted_grad_cuda", "book_weighted_grad_plain",
+    "psg_contract_cuda", "psg_contract_plain",
+]
+
+_MAX_GRID_Z = 65535
+
+
+def book_weighted_grad_cuda(
+    a: torch.Tensor, g: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """a (M,R,D), g (M,R,p) same dtype (fp32 or bf16), w (M,R) fp32 -> (M,D,p) fp32."""
+    from repro_torch.kernels.build import check, library
+
+    checks.operand("a", a, 3)
+    checks.operand("g", g, 3, dtypes=(a.dtype,))
+    checks.operand("w", w, 2, dtypes=(torch.float32,))
+    checks.same_device(a=a, g=g, w=w)
+    m, r, d = a.shape
+    p = g.shape[2]
+    if g.shape[:2] != (m, r) or tuple(w.shape) != (m, r):
+        raise ValueError(
+            f"a {tuple(a.shape)}, g {tuple(g.shape)}, w {tuple(w.shape)} disagree on (M, R)"
+        )
+    if m > _MAX_GRID_Z:
+        raise ValueError(f"M = {m} exceeds the kernel's grid limit {_MAX_GRID_Z}")
+    for name, size in (("R * D", r * d), ("R * p", r * p), ("D * p", d * p)):
+        checks.fits_int32(name, size)
+    out = torch.empty((m, d, p), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    if r == 0:
+        return out.zero_()
+    with torch.cuda.device(a.device):
+        code = library().book_weighted_grad_launch(
+            a.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
+            m, r, d, p, checks.DTYPE_CODES[a.dtype], checks.stream(a.device),
+        )
+    check(code, "book_weighted_grad")
+    launches.record("book_weighted_grad", "cuda")
+    return out
+
+
+def psg_contract_cuda(psg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """psg (N, F) fp32 or bf16, c (N,) fp32 -> (F,) fp32."""
+    from repro_torch.kernels.build import check, library
+
+    checks.operand("psg", psg, 2)
+    checks.operand("c", c, 1, dtypes=(torch.float32,))
+    checks.same_device(psg=psg, c=c)
+    n, f = psg.shape
+    if c.shape[0] != n:
+        raise ValueError(f"psg {tuple(psg.shape)} and c {tuple(c.shape)} disagree on N")
+    checks.fits_int32("N", n)
+    out = torch.empty((f,), dtype=torch.float32, device=psg.device)
+    if f == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    with torch.cuda.device(psg.device):
+        code = library().psg_contract_launch(
+            psg.data_ptr(), c.data_ptr(), out.data_ptr(), n, f,
+            checks.DTYPE_CODES[psg.dtype], checks.stream(psg.device),
+        )
+    check(code, "psg_contract")
+    launches.record("psg_contract", "cuda")
+    return out

@@ -1,0 +1,123 @@
+"""Convolution layers with DP taps (port of ``nn/conv.py``).
+
+Activations are channels-last (B, H, W, C) at every module boundary, as in
+the JAX package; ``Conv2d`` hands cuDNN a permuted view (NCHW shape,
+channels-last memory) and keeps its weight as torch's OIHW
+(d_out, d_in, kh, kw).
+
+``Conv2d`` records its *raw* input plus unfold metadata; the clipping engine
+unfolds lazily (``unfold2d``) only on the branch that needs the patches.
+
+``SAME`` padding follows XLA: for stride 2 on an even input the padding is
+(0, 1), not torch's symmetric (1, 1), so it is computed per dim and applied
+the same way by the conv and by ``unfold2d``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.taps import ConvInfo, Ctx
+from repro_torch.nn.module import Module, Params, normal_init
+
+
+def same_padding(size: int, k: int, stride: int, dilation: int = 1) -> tuple[int, int]:
+    """XLA's SAME padding (lo, hi) for one spatial dim."""
+    out = -(-size // stride)
+    eff_k = (k - 1) * dilation + 1
+    total = max((out - 1) * stride + eff_k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_padding(padding: Any, spatial, kernel, strides) -> tuple[tuple[int, int], ...]:
+    """Explicit ((lo, hi), ...) per spatial dim for "SAME" / "VALID" / pairs."""
+    if padding == "SAME":
+        return tuple(same_padding(n, k, s) for n, k, s in zip(spatial, kernel, strides))
+    if padding == "VALID":
+        return tuple((0, 0) for _ in spatial)
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def pad_nchw(x: torch.Tensor, pads: tuple[tuple[int, int], ...]) -> torch.Tensor:
+    (hl, hh), (wl, wh) = pads
+    if hl == hh == wl == wh == 0:
+        return x
+    return F.pad(x, (wl, wh, hl, hh))
+
+
+def unfold2d(x: torch.Tensor, info: ConvInfo) -> torch.Tensor:
+    """U(a): (B, H, W, d) -> (B, H_out*W_out, d*kh*kw).
+
+    Feature order is channel-major (c * kh*kw + i * kw + j), as XLA's
+    ``conv_general_dilated_patches``; the OIHW weight of a (p, d, kh, kw)
+    conv flattens to (p, D) in the same order.
+    """
+    pads = conv_padding(info.padding, x.shape[1:3], info.kernel, info.strides)
+    xp = pad_nchw(x.permute(0, 3, 1, 2), pads)
+    patches = F.unfold(xp, info.kernel, stride=info.strides)
+    return patches.transpose(1, 2)  # (B, L, D)
+
+
+class Conv2d(Module):
+    """Channels-last conv with a DP "matmul" tap (T = H_out*W_out, D = d*kh*kw)."""
+
+    def __init__(
+        self, name: str, d_in: int, d_out: int, kernel: tuple[int, int], *,
+        strides: tuple[int, int] = (1, 1), padding="SAME", use_bias: bool = True,
+        dtype=torch.float32, device: torch.device, dp: bool = True,
+    ):
+        self.name = name
+        self.d_in = d_in
+        self.d_out = d_out
+        self.kernel = tuple(kernel)
+        self.strides = tuple(strides)
+        self.padding = padding
+        self.use_bias = use_bias
+        self.dtype = dtype
+        self.device = device
+        self.dp = dp
+
+    def init(self, generator: torch.Generator) -> Params:
+        fan_in = self.d_in * math.prod(self.kernel)
+        p = {
+            "w": normal_init(
+                generator, (self.d_out, self.d_in, *self.kernel),
+                1.0 / math.sqrt(fan_in), self.dtype, self.device,
+            )
+        }
+        if self.use_bias:
+            p["b"] = torch.zeros((self.d_out,), dtype=self.dtype, device=self.device)
+        return p
+
+    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        x = x.to(self.dtype)
+        pads = conv_padding(self.padding, x.shape[1:3], self.kernel, self.strides)
+        xc = x.permute(0, 3, 1, 2)
+        if all(lo == hi for lo, hi in pads):
+            s = F.conv2d(xc, params["w"].to(self.dtype), stride=self.strides,
+                         padding=tuple(lo for lo, _ in pads))
+        else:
+            s = F.conv2d(pad_nchw(xc, pads), params["w"].to(self.dtype), stride=self.strides)
+        s = s.permute(0, 2, 3, 1)  # back to (B, H_out, W_out, p)
+        if self.use_bias:
+            s = s + params["b"].to(self.dtype)
+        if self.dp and ctx.collect:
+            s = ctx.tap(
+                "out", s, kind="matmul", a=x,  # raw input; the engine unfolds lazily
+                T=int(s.shape[1] * s.shape[2]), D=self.d_in * math.prod(self.kernel),
+                p=self.d_out, param_path="w", bias_path="b" if self.use_bias else None,
+                conv=ConvInfo(kernel=self.kernel, strides=self.strides, padding=self.padding),
+            )
+        return s
+
+
+def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """VALID max pooling on (B, H, W, C)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(1, 2))

@@ -10,6 +10,12 @@ import pytest  # noqa: E402
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written kernels); skips elsewhere"
+    )
+
+
 @pytest.fixture(autouse=True)
 def _reset_obs_sinks():
     # the obs sink registry is process-wide; a test that configures a run
