@@ -38,7 +38,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core import ghost
-from repro_torch.core.taps import ClipRuntime, Ctx, TapMeta
+from repro_torch.core.taps import ClipRuntime, Ctx, TapMeta, bank_keys
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 LossFn = Callable[..., torch.Tensor]  # (params, batch, ctx) -> (B,) losses
@@ -217,8 +217,9 @@ class FusedExecutor(ClipExecutor):
         runtime.phase = "grad"
         b = losses.shape[0]
         norms2 = torch.zeros(b, dtype=torch.float32, device=losses.device)
-        for name in ctx.meta:
-            norms2 = norms2 + runtime.banks[name]["n"]
+        for name, m in ctx.meta.items():  # a stacked tap: one bank per layer
+            for key in bank_keys(name, m):
+                norms2 = norms2 + runtime.banks[key]["n"]
         return _NormState(
             losses=losses.detach() if self.is_bk else losses,
             norms2=norms2, leaves=leaves, runtime=runtime, meta=ctx.meta,
@@ -231,9 +232,8 @@ class FusedExecutor(ClipExecutor):
         flat_params = flatten_dict(params)
         flat_grads: dict[str, torch.Tensor] = {}
         for name, m in st.meta.items():
-            ws = ghost.bank_weighted_grads(
-                m, st.runtime.banks.pop(name), c, tuple(flat_params[m.param_path].shape)
-            )
+            bank = _stack_banks([st.runtime.banks.pop(k) for k in bank_keys(name, m)])
+            ws = ghost.bank_weighted_grads(m, bank, c, tuple(flat_params[m.param_path].shape))
             for path, val in ws.items():
                 flat_grads[path] = flat_grads[path] + val if path in flat_grads else val
         for path, leaf in flat_params.items():
@@ -242,6 +242,14 @@ class FusedExecutor(ClipExecutor):
             else:
                 flat_grads[path] = flat_grads[path].to(leaf.dtype)
         return unflatten_dict(flat_grads)
+
+
+def _stack_banks(banks: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """One tap's per-layer banks, stacked in layer order (the norm ``n`` is
+    already summed by the norms stage)."""
+    if len(banks) == 1:
+        return banks[0]
+    return {k: torch.stack([bk[k] for bk in banks]) for k in banks[0] if k != "n"}
 
 
 _EXECUTORS = {

@@ -7,8 +7,11 @@ identity ``torch.autograd.Function`` that keeps the op's input ``a`` and a
 
     forward:   s -> s                       (identity; saves a)
     backward:  ds = g                       (the cotangent flows on)
-               bank = ghost.tap_bank(a, g)  -> runtime.banks[name]
+               bank = ghost.tap_bank(a, g)  -> runtime.banks[key]
                dz = 0                       (z only marks the probe)
+
+``key`` is ``(tap name, layer)``: each layer of a stack banks under its own
+key with the per-layer meta, where the JAX package's scan stacks the banks.
 
 The JAX version returns the bank as ``z``'s cotangent.  Here the bank is
 written to the step's ``ClipRuntime`` instead, and ``z`` only gives the
@@ -27,14 +30,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ghost
-from repro_torch.core.taps import ClipRuntime, TapMeta
+from repro_torch.core.taps import BankKey, ClipRuntime, TapMeta
 
 
 class Probe(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, s, a, z, name, meta, runtime):  # noqa: ARG004 - z marks the probe
+    def forward(ctx, s, a, z, key, meta, runtime):  # noqa: ARG004 - z marks the probe
         ctx.save_for_backward(a)
-        ctx.name = name
+        ctx.key = key
         ctx.meta = meta
         ctx.runtime = runtime
         return s.view_as(s)
@@ -45,13 +48,13 @@ class Probe(torch.autograd.Function):
         if runtime.phase != "bank":
             return g, None, None, None, None, None
         (a,) = ctx.saved_tensors
-        runtime.banks[ctx.name] = ghost.tap_bank(ctx.meta, a, g, mode=runtime.mode)
+        runtime.banks[ctx.key] = ghost.tap_bank(ctx.meta, a, g, mode=runtime.mode)
         return g, None, g.new_zeros(()), None, None, None
 
 
 def probe(
-    s: torch.Tensor, a: torch.Tensor, z: torch.Tensor, name: str, meta: TapMeta,
+    s: torch.Tensor, a: torch.Tensor, z: torch.Tensor, key: BankKey, meta: TapMeta,
     runtime: ClipRuntime,
 ) -> torch.Tensor:
-    """Identity on ``s`` whose backward banks tap ``name`` into ``runtime``."""
-    return Probe.apply(s, a.detach(), z, name, meta, runtime)
+    """Identity on ``s`` whose backward banks ``key`` into ``runtime``."""
+    return Probe.apply(s, a.detach(), z, key, meta, runtime)

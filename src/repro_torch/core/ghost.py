@@ -8,19 +8,25 @@ per-sample squared gradient norm on the branch the layerwise decision picked
 directly from the banked residuals, skipping the second backward.
 
 - ``tap_norm_sq``          per-sample norm^2 from (a, g);
-- ``tap_bank``             the fused probe's backward payload for one tap;
+- ``tap_bank``             the fused probe's backward payload for one tap
+                           (one layer of a stack);
 - ``bank_weighted_grads``  ``sum_i C_i g_i`` from a tap's bank;
 - ``tap_weighted_grads``   the same from an (a, g) book.
 
-Canonical layouts: matmul a (N, T, D), g (N, T, p); scale a, g (N, T, p)
-with grad = sum_T g*a; bias g (N, T, p) with grad = sum_T g.  Per-sample
-conv gradients are in the parameter's own OIHW layout (p, d, kh, kw).
+Canonical layouts (stack dims folded into the row dim N = L * B * G):
+matmul a (N, T, D), g (N, T, p); embedding ids (N, T), g (N, T, p); scale
+a, g (N, T, p) with grad = sum_T g*a; bias g (N, T, p) with grad = sum_T g.
+Per-sample conv gradients are in the parameter's own OIHW layout
+(p, d, kh, kw).  The norm, bank and gradient functions take a stacked meta
+(``stack_dims = (L,)``) as the JAX package's do: the stack folds into the
+per-sample sums, and the book and bank contractions run once per stacked
+tap.
 
-This slice covers the kinds the CNNs use (``matmul``, ``scale``, ``bias``).
-``embedding`` arrives with the ViT slice, ``dw_conv``, ``scale_grouped`` and
-stacked layers (whose stack dims fold into the per-sample sums) with the LM
-slice.  Torch saves integer ids in autograd, so the JAX package's fp32 id
-side channel and its 2^24 vocab guard will have no counterpart there.
+The activation reaches the kernels in the model dtype and the cotangent in
+fp32, as in the JAX package; each kernel takes its two operands in their
+own dtypes.  ``dw_conv`` and ``scale_grouped`` arrive with the LM slice.
+Autograd saves integer ids, so the JAX package's fp32 id side channel and
+its 2^24 vocab guard have no counterpart here.
 """
 from __future__ import annotations
 
@@ -40,11 +46,7 @@ from repro_torch.nn.conv import conv_padding, pad_nchw, unfold2d
 # overrides come back with the tuner's ClipPlan.
 INST_BLOCK_D = 8192
 
-_LATER = {
-    "embedding": "the ViT slice (with embedding_ghost_norm_sq)",
-    "dw_conv": "the LM slice",
-    "scale_grouped": "the LM slice",
-}
+_LATER = {"dw_conv": "the LM slice", "scale_grouped": "the LM slice"}
 
 
 def _unsupported(meta: TapMeta) -> NotImplementedError:
@@ -56,13 +58,25 @@ def _unsupported(meta: TapMeta) -> NotImplementedError:
     )
 
 
+def _fold(meta: TapMeta, x: torch.Tensor, trailing: tuple[int, ...]) -> torch.Tensor:
+    """(stack..., B, <middle>) -> (L, B, *trailing)."""
+    return x.reshape((meta.n_stack, meta.batch_size) + trailing)
+
+
+def _per_sample(meta: TapMeta, rows: torch.Tensor) -> torch.Tensor:
+    """(L*B*G,) row norms -> (B,) per-sample sums (over stack and groups)."""
+    return rows.reshape(meta.n_stack, meta.batch_size, max(meta.n_groups, 1)).sum(dim=(0, 2))
+
+
 def _canonical_ag(meta: TapMeta, a: torch.Tensor, g: torch.Tensor):
-    """Return a (N, T, D), g (N, T, p) with N = B*G."""
-    rows = meta.batch_size * max(meta.n_groups, 1)
+    """Return a (N, T, D), g (N, T, p) with N = L*B*G."""
+    lead = meta.n_stack
+    rows = lead * meta.batch_size * max(meta.n_groups, 1)
     gg = g.reshape(rows, meta.T, meta.p)
     if meta.conv is not None:
-        # a is the raw (B, H, W, d) input: unfold lazily to (N, T, D)
-        aa = unfold2d(a.reshape((meta.batch_size,) + tuple(a.shape[-3:])), meta.conv)
+        # a is the raw (L*B, H, W, d) input: unfold lazily to (N, T, D)
+        a4 = a.reshape((lead * meta.batch_size,) + tuple(a.shape[-3:]))
+        aa = unfold2d(a4, meta.conv)
     else:
         aa = a.reshape(rows, meta.T, meta.D)
     return aa, gg
@@ -85,15 +99,20 @@ def tap_norm_sq(
             rows = dispatch.ghost_norm_sq(aa, gg)
         else:
             rows = gops.instantiated_norm_sq(aa, gg, block_d=INST_BLOCK_D)
-        total = rows.reshape(b, max(meta.n_groups, 1)).sum(dim=1)
+        total = _per_sample(meta, rows)
+    elif meta.kind == "embedding":
+        n = meta.n_stack * b
+        rows = dispatch.embedding_ghost_norm_sq(
+            a.reshape(n, meta.T), g.reshape(n, meta.T, meta.p)
+        )
+        total = _per_sample(meta, rows)
     elif meta.kind in ("scale", "bias"):
-        grad = _small_psg(meta, a, g)
-        total = grad.square().sum(dim=1)
+        total = _small_psg(meta, a, g).square().sum(dim=(0, 2))
     else:
         raise _unsupported(meta)
     if meta.bias_path is not None and include_bias:
-        bias_grad = g.reshape(b, -1, meta.p).sum(dim=1)
-        total = total + bias_grad.square().sum(dim=1)
+        bias_grad = g.reshape(meta.n_stack, b, -1, meta.p).sum(dim=2)
+        total = total + bias_grad.square().sum(dim=(0, 2))
     return total
 
 
@@ -149,14 +168,13 @@ def _matmul_psg(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor
 
 
 def _small_psg(meta: TapMeta, a: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
-    """Per-sample gradients of the small forced-instantiate kinds: (B, p)."""
-    b = meta.batch_size
-    gf = g.float().reshape(b, meta.T, meta.p)
+    """Per-sample gradients of the small forced-instantiate kinds: (L, B, p)."""
+    if meta.kind not in ("scale", "bias"):
+        raise _unsupported(meta)
+    gf = _fold(meta, g.float(), (meta.T, meta.p))
     if meta.kind == "scale":
-        return (gf * a.float().reshape(b, meta.T, meta.p)).sum(dim=1)
-    if meta.kind == "bias":
-        return gf.sum(dim=1)
-    raise _unsupported(meta)
+        gf = gf * _fold(meta, a.float(), (meta.T, meta.p))
+    return gf.sum(dim=-2)
 
 
 def tap_bank(
@@ -172,7 +190,8 @@ def tap_bank(
     ``bk_mixed`` it also carries what the weighted-gradient stage needs:
     the per-sample gradients ``psg`` (+ ``psg_b`` for a bias) for
     instantiate-branch and small taps, or the ``(a, g)`` book for
-    ghost-branch matmuls.
+    ghost-branch matmuls and embeddings.  ``meta`` is one layer's (no stack
+    dims): the engine stacks a stacked tap's per-layer banks afterwards.
     """
     if mode != "bk_mixed":
         return {"n": tap_norm_sq(meta, a, g, mode=mode)}
@@ -187,8 +206,11 @@ def tap_bank(
         else:
             bank["a"], bank["g"] = a, g
             n = tap_norm_sq(meta, a, g, mode="ghost", include_bias=False)
+    elif meta.kind == "embedding":
+        bank["a"], bank["g"] = a, g
+        n = tap_norm_sq(meta, a, g, mode="bk_mixed", include_bias=False)
     elif meta.kind in ("scale", "bias"):
-        psg = _small_psg(meta, a, g32)
+        psg = _small_psg(meta, a, g32)[0]
         bank["psg"] = psg
         n = psg.square().sum(dim=-1)
     else:
@@ -207,13 +229,13 @@ def tap_bank(
 def _finish_matmul_grad(
     meta: TapMeta, w: torch.Tensor, param_shape: tuple[int, ...]
 ) -> torch.Tensor:
-    """Weighted matmul grad (G, D, p) -> the parameter's own layout.
+    """Weighted matmul grad (L*G, D, p) -> the parameter's own layout.
 
     The unfold's fan-in is channel-major, so a conv's (D, p) gradient is the
     transpose of its OIHW weight flattened to (p, D).
     """
     if meta.conv is not None:
-        return w.reshape(meta.D, meta.p).t().reshape(param_shape)
+        return w.reshape(meta.n_stack, meta.D, meta.p).transpose(1, 2).reshape(param_shape)
     return w.reshape(param_shape)
 
 
@@ -224,35 +246,44 @@ def tap_weighted_grads(
     clip: torch.Tensor,  # (B,) clip factors C_i
     param_shape: tuple[int, ...],
 ) -> dict[str, torch.Tensor]:
-    """Book-keeping gradients sum_i C_i g_i of a matmul tap, from its (a, g) book.
+    """Book-keeping gradients sum_i C_i g_i of a matmul or embedding tap,
+    from its (a, g) book (stack dims leading).
 
-    The weight goes through ``dispatch.book_weighted_grad`` (the CUDA kernel
-    scales cotangent tiles in shared memory, so ``C_i * g_i`` never reaches
-    device memory).  Returns {param_path: grad, [bias_path: grad]}.
+    A matmul's weight goes through one ``dispatch.book_weighted_grad``
+    launch with the layers and groups on its leading dim, M = L*G (the CUDA
+    kernel scales cotangent tiles in shared memory, so ``C_i * g_i`` never
+    reaches device memory).  An embedding's weighted rows are scatter-added
+    by id.  Returns {param_path: grad, [bias_path: grad]}.
     """
-    if meta.kind != "matmul":
+    if meta.kind not in ("matmul", "embedding"):
         raise NotImplementedError(
             f"book contraction of {meta.kind!r} taps comes with the *_taps executors"
         )
     b = meta.batch_size
+    lead = meta.n_stack
     gdim = max(meta.n_groups, 1)
     cw = clip.float()
-    if meta.conv is not None:
-        aa = unfold2d(a.reshape((b,) + tuple(a.shape[-3:])), meta.conv)
+    if meta.kind == "embedding":
+        gw = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
+        w = torch.zeros(param_shape, dtype=torch.float32, device=g.device)
+        out = {meta.param_path: w.index_add_(0, a.reshape(-1), gw.reshape(-1, meta.p))}
     else:
-        aa = a
-    aa = aa.reshape(b, gdim, meta.T, meta.D)
-    gg = g.reshape(b, gdim, meta.T, meta.p)
-    # canonical (M, R, .) book: rows = (B, T) folded, one weight per row;
-    # group instances ride the leading dim
-    a2 = aa.transpose(0, 1).reshape(gdim, b * meta.T, meta.D)
-    g2 = gg.transpose(0, 1).reshape(gdim, b * meta.T, meta.p)
-    w2 = cw[:, None].expand(b, meta.T).reshape(1, b * meta.T).expand(gdim, b * meta.T)
-    w = dispatch.book_weighted_grad(a2, g2, w2)
-    out = {meta.param_path: _finish_matmul_grad(meta, w, param_shape)}
+        if meta.conv is not None:
+            aa = unfold2d(a.reshape((lead * b,) + tuple(a.shape[-3:])), meta.conv)
+        else:
+            aa = a
+        aa = aa.reshape(lead, b, gdim, meta.T, meta.D)
+        gg = g.reshape(lead, b, gdim, meta.T, meta.p)
+        # canonical (M, R, .) book: rows = (B, T) folded, one weight per row;
+        # layer and group instances ride the leading dim
+        a2 = aa.transpose(1, 2).reshape(lead * gdim, b * meta.T, meta.D)
+        g2 = gg.transpose(1, 2).reshape(lead * gdim, b * meta.T, meta.p)
+        w2 = cw[:, None].expand(b, meta.T).reshape(1, b * meta.T).expand(lead * gdim, -1)
+        w = dispatch.book_weighted_grad(a2, g2, w2)
+        out = {meta.param_path: _finish_matmul_grad(meta, w, param_shape)}
     if meta.bias_path is not None:
-        gb = g.float().reshape(b, -1, meta.p) * cw[:, None, None]
-        out[meta.bias_path] = gb.sum(dim=(0, 1))
+        gb = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
+        out[meta.bias_path] = gb.sum(dim=(1, 2)).reshape(meta.stack_dims + (meta.p,))
     return out
 
 
@@ -262,17 +293,23 @@ def bank_weighted_grads(
     clip: torch.Tensor,  # (B,) clip factors C_i
     param_shape: tuple[int, ...],
 ) -> dict[str, torch.Tensor]:
-    """Book-keeping gradient stage of one tap: sum_i C_i g_i from its bank.
+    """Book-keeping gradient stage of one tap: sum_i C_i g_i from its bank
+    (a stacked tap's bank holds its layers' banks stacked, in layer order).
 
     Ghost-banked taps replay the weighted book contraction; psg-banked taps
-    contract their per-sample gradients with the clip factors
-    (``dispatch.psg_contract``, once for the weight and once for a bias).
+    contract their per-sample gradients with the clip factors along the
+    sample axis (``dispatch.psg_contract``, once for the weight and once
+    for a bias).
     """
     if "g" in bank:
         return tap_weighted_grads(meta, bank["a"], bank["g"], clip, param_shape)
     cw = clip.float()
-    psg = bank["psg"].reshape((meta.batch_size,) + psg_param_shape(meta))
-    out = {meta.param_path: dispatch.psg_contract(psg, cw, axis=0).reshape(param_shape)}
+    lead = meta.n_stack
+    psg = bank["psg"].reshape((lead, meta.batch_size) + psg_param_shape(meta))
+    out = {meta.param_path: dispatch.psg_contract(psg, cw, axis=1).reshape(param_shape)}
     if "psg_b" in bank:
-        out[meta.bias_path] = dispatch.psg_contract(bank["psg_b"], cw, axis=0)
+        psg_b = bank["psg_b"].reshape(lead, meta.batch_size, meta.p)
+        out[meta.bias_path] = dispatch.psg_contract(psg_b, cw, axis=1).reshape(
+            meta.stack_dims + (meta.p,)
+        )
     return out

@@ -14,8 +14,15 @@ Tap names and param paths are the JAX package's (``conv4/out``,
 
 Layouts follow the JAX package at the tap: convolutions record their raw
 NHWC input and NHWC pre-activation; ``a`` and ``g`` of dense and scale taps
-are (B, T, width).  Tap kinds in this slice: ``matmul`` (dense and conv)
-and ``scale`` (norm gains), each with an optional bias.
+are (B, T, width); an embedding records its integer ids (B, T).  Tap kinds
+in this slice: ``matmul`` (dense and conv), ``scale`` (norm gains), each
+with an optional bias, and ``embedding``.
+
+Stacked layers (``nn/stack.py``'s ``ScannedStack``) run one block per layer
+under the same tap names.  The meta is recorded once per name with a
+leading stack dim (``TapMeta.with_stack``), and each layer's probe banks
+under its own key ``(name, layer)``; the clipping engine sums the norms
+over the layers and contracts the stacked banks once per name.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from typing import Any, Optional
 
 import torch
 
-TapKind = str  # "matmul" | "scale"
+TapKind = str  # "matmul" | "scale" | "embedding"
+BankKey = tuple[str, Optional[int]]  # (tap name, layer index; None unstacked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +57,20 @@ class TapMeta:
     param_path: str  # param-tree path ("a/b/w") of the weight for this tap
     bias_path: Optional[str] = None  # set when the op has a bias param
     n_groups: int = 1
-    stack_dims: tuple[int, ...] = ()  # stacked layers arrive with the ViT/LM slices
+    stack_dims: tuple[int, ...] = ()  # leading dims added by ScannedStack
     conv: Optional[ConvInfo] = None
     batch_size: int = 0
     a_shape: Optional[tuple[int, ...]] = None
     a_dtype: Any = None
+
+    def with_stack(self, n: int) -> "TapMeta":
+        """The meta of ``n`` stacked copies of this tap."""
+        return dataclasses.replace(
+            self,
+            stack_dims=(n,) + self.stack_dims,
+            s_shape=(n,) + tuple(self.s_shape),
+            a_shape=(n,) + tuple(self.a_shape) if self.a_shape is not None else None,
+        )
 
     @property
     def n_stack(self) -> int:
@@ -61,6 +78,13 @@ class TapMeta:
         for s in self.stack_dims:
             out *= s
         return out
+
+
+def bank_keys(name: str, meta: TapMeta) -> list[BankKey]:
+    """The keys tap ``name`` banks under: one per layer when stacked."""
+    if not meta.stack_dims:
+        return [(name, None)]
+    return [(name, layer) for layer in range(meta.n_stack)]
 
 
 @dataclasses.dataclass
@@ -76,7 +100,7 @@ class ClipRuntime:
 
     mode: str = "mixed_ghost"
     phase: str = "bank"
-    banks: dict[str, dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+    banks: dict[BankKey, dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
 
 
 class Ctx:
@@ -86,10 +110,11 @@ class Ctx:
     DP bookkeeping entirely (the non-private step).  Under the fused engine
     each tap adds one 0-dim dummy leaf to ``zs``: the first backward asks
     autograd for the gradients of those leaves only, which runs every probe
-    and prunes every parameter-gradient kernel.
+    and prunes every parameter-gradient kernel.  ``stack`` is set inside a
+    ``ScannedStack``: (this layer's index, the number of layers).
     """
 
-    __slots__ = ("meta", "path", "collect", "clip", "zs")
+    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack")
 
     def __init__(
         self,
@@ -97,16 +122,24 @@ class Ctx:
         path: str = "",
         collect: bool = True,
         clip: Optional[ClipRuntime] = None,
-        zs: Optional[dict[str, torch.Tensor]] = None,
+        zs: Optional[dict[BankKey, torch.Tensor]] = None,
+        stack: Optional[tuple[int, int]] = None,
     ):
         self.meta = {} if meta is None else meta
         self.path = path
         self.collect = collect
         self.clip = clip
         self.zs = {} if zs is None else zs
+        self.stack = stack
 
     def scope(self, name: str) -> "Ctx":
-        return Ctx(self.meta, self._join(name), self.collect, self.clip, self.zs)
+        return Ctx(self.meta, self._join(name), self.collect, self.clip, self.zs, self.stack)
+
+    def layer(self, index: int, n: int) -> "Ctx":
+        """The context of layer ``index`` of an ``n``-layer stack."""
+        if self.stack is not None:
+            raise NotImplementedError("nested layer stacks come with the LM slice")
+        return Ctx(self.meta, self.path, self.collect, self.clip, self.zs, (index, n))
 
     def _join(self, name: str) -> str:
         return f"{self.path}/{name}" if self.path else name
@@ -143,14 +176,20 @@ class Ctx:
             a_shape=tuple(int(d) for d in a.shape),
             a_dtype=a.dtype,
         )
-        self.meta[full] = meta
+        if self.stack is None:
+            self.meta[full] = meta
+            key: BankKey = (full, None)
+        else:
+            index, n = self.stack
+            self.meta[full] = meta.with_stack(n)
+            key = (full, index)
         if self.clip is None:
             return s
         from repro_torch.core.fused import probe
 
         z = torch.zeros((), device=s.device, requires_grad=True)
-        self.zs[full] = z
-        return probe(s, a, z, full, meta, self.clip)
+        self.zs[key] = z
+        return probe(s, a, z, key, meta, self.clip)
 
     @staticmethod
     def disabled() -> "Ctx":

@@ -21,6 +21,8 @@
 // - Every thread accumulates a 4 x 4 patch of the tile in registers with
 //   fp32 FMAs; D and p edges (1152/2304/4608/512 and 256/512/10) are masked
 //   on load and on store.
+// - a and g each come as fp32 or bf16 (the book holds them in the model
+//   dtype).
 // - Simple first: no tensor cores, no split over R.  At VGG shapes the grid
 //   is 72-576 blocks, which under-fills 132 SMs for the R = 8192 taps.
 #include "common.cuh"
@@ -32,9 +34,9 @@ constexpr int kTileD = 64;
 constexpr int kTileP = 64;
 constexpr int kRows = 16;  // rows of R staged per step
 
-template <typename T>
+template <typename TA, typename TG>
 __global__ void __launch_bounds__(kThreads)
-    book_weighted_grad_kernel(const T* __restrict__ a, const T* __restrict__ g,
+    book_weighted_grad_kernel(const TA* __restrict__ a, const TG* __restrict__ g,
                               const float* __restrict__ w, float* __restrict__ out, int r, int d,
                               int p) {
   __shared__ float sa[kRows][kTileD];
@@ -104,25 +106,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename TA, typename TG>
+cudaError_t launch(const void* a, const void* g, const float* w, float* out, int m, int r, int d,
+                   int p, cudaStream_t stream) {
+  const dim3 grid((p + kTileP - 1) / kTileP, (d + kTileD - 1) / kTileD, m);
+  book_weighted_grad_kernel<TA, TG><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TA*>(a), static_cast<const TG*>(g), w, out, r, d, p);
+  return cudaGetLastError();
+}
+
+template <typename TA>
+cudaError_t launch_for_g(int g_dtype, const void* a, const void* g, const float* w, float* out,
+                         int m, int r, int d, int p, cudaStream_t stream) {
+  if (g_dtype == repro::kFloat32) return launch<TA, float>(a, g, w, out, m, r, d, p, stream);
+  if (g_dtype == repro::kBFloat16) {
+    return launch<TA, __nv_bfloat16>(a, g, w, out, m, r, d, p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// a (m, r, d), g (m, r, p) contiguous of `dtype`; w (m, r) fp32; out (m, d, p) fp32.
+// a (m, r, d) of `a_dtype`, g (m, r, p) of `g_dtype`, contiguous; w (m, r)
+// fp32; out (m, d, p) fp32.
 extern "C" int book_weighted_grad_launch(const void* a, const void* g, const void* w, void* out,
-                                         int m, int r, int d, int p, int dtype,
+                                         int m, int r, int d, int p, int a_dtype, int g_dtype,
                                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((p + kTileP - 1) / kTileP, (d + kTileD - 1) / kTileD, m);
   const float* wf = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
-  if (dtype == repro::kFloat32) {
-    book_weighted_grad_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), static_cast<const float*>(g), wf, o, r, d, p);
-  } else if (dtype == repro::kBFloat16) {
-    book_weighted_grad_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(g), wf, o, r, d,
-        p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (a_dtype == repro::kFloat32) {
+    err = launch_for_g<float>(g_dtype, a, g, wf, o, m, r, d, p, stream);
+  } else if (a_dtype == repro::kBFloat16) {
+    err = launch_for_g<__nv_bfloat16>(g_dtype, a, g, wf, o, m, r, d, p, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -34,10 +34,12 @@ COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # a, g, out, partial, n, t, d, p, dtype, tile, stream
-    "ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a, g, w, out, m, r, d, p, dtype, stream
-    "book_weighted_grad_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, g, out, partial, n, t, d, p, a_dtype, g_dtype, tile, stream
+    "ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # ids, g, out, partial, n, t, p, id_dtype, g_dtype, tile, stream
+    "embedding_ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # a, g, w, out, m, r, d, p, a_dtype, g_dtype, stream
+    "book_weighted_grad_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # psg, c, out, n, f, dtype, stream
     "psg_contract_launch": (_P, _P, _P, _I, ctypes.c_int64, _I, _P),
 }

@@ -4,11 +4,13 @@ from __future__ import annotations
 import torch
 
 # dtype codes of the C interface (csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2, torch.int64: 3}
+FLOATS = (torch.float32, torch.bfloat16)
+IDS = (torch.int32, torch.int64)
 INT32_MAX = 2**31 - 1
 
 
-def operand(name: str, x: torch.Tensor, ndim: int, dtypes=tuple(DTYPE_CODES)) -> None:
+def operand(name: str, x: torch.Tensor, ndim: int, dtypes=FLOATS) -> None:
     """A CUDA, contiguous tensor of rank ``ndim`` and one of ``dtypes``."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")

@@ -5,11 +5,12 @@ The hand-written CUDA kernels (``ghost_norm/ghost_norm.py``,
 (``*/ops.py``) compute the same values; this module is the one place that
 picks between them:
 
-    op            cuda impl                     torch impl
-    ------------  ----------------------------  ---------------------------
-    ghost_norm    ghost_norm_sq_cuda            gops.ghost_norm_sq
-    psg_contract  book_weighted_grad_cuda /     cops.book_weighted_grad /
-                  psg_contract_cuda             cops.psg_contract
+    op                    cuda impl                     torch impl
+    --------------------  ----------------------------  ---------------------------
+    ghost_norm            ghost_norm_sq_cuda            gops.ghost_norm_sq
+    embedding_ghost_norm  embedding_ghost_norm_sq_cuda  gops.embedding_ghost_norm_sq
+    psg_contract          book_weighted_grad_cuda /     cops.book_weighted_grad /
+                          psg_contract_cuda             cops.psg_contract
 
 Resolution order, per call:
 
@@ -20,8 +21,7 @@ Resolution order, per call:
 
 There is no fallback: a CUDA tensor goes to its kernel, which raises if it
 cannot build or launch, and ``cuda`` asked for a CPU tensor raises too.
-``embedding_ghost_norm`` and ``flash_attention`` join with the slices that
-use them.
+``flash_attention`` joins with the serving slice.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.kernels import launches
 from repro_torch.kernels.ghost_norm import ops as gops
 from repro_torch.kernels.psg_contract import ops as cops
 
-OPS = ("ghost_norm", "psg_contract")
+OPS = ("ghost_norm", "embedding_ghost_norm", "psg_contract")
 IMPLS = ("cuda", "torch")
 
 # force_impl() state: {op: impl}, consulted per call
@@ -93,6 +93,18 @@ def ghost_norm_sq(
         return ghost_norm_sq_cuda(a.contiguous(), g.contiguous())
     launches.record("ghost_norm_sq", "torch")
     return gops.ghost_norm_sq(a, g)
+
+
+def embedding_ghost_norm_sq(
+    ids: torch.Tensor, g: torch.Tensor, *, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Index-equality ghost norm: ids (N,T) int, g (N,T,p) -> (N,) fp32."""
+    if resolve("embedding_ghost_norm", g, impl) == "cuda":
+        from repro_torch.kernels.ghost_norm.ghost_norm import embedding_ghost_norm_sq_cuda
+
+        return embedding_ghost_norm_sq_cuda(ids.contiguous(), g.contiguous())
+    launches.record("embedding_ghost_norm_sq", "torch")
+    return gops.embedding_ghost_norm_sq(ids, g)
 
 
 def book_weighted_grad(

@@ -1,9 +1,9 @@
 """Plain PyTorch per-sample gradient norms (port of ``kernels/ghost_norm/ops.py``).
 
-``ghost_norm_sq`` is the plain version of the CUDA kernel in
-``ghost_norm.py``: the same sum over (T x T) tiles, with the tile Grams
-formed by ``torch.bmm``.  ``instantiated_norm_sq`` had no TPU kernel and
-stays plain.  Which one the training step runs is decided by
+``ghost_norm_sq`` and ``embedding_ghost_norm_sq`` are the plain versions
+of the CUDA kernels in ``ghost_norm.py``: the same sums over (T x T)
+tiles, with the tile Grams formed by ``torch.bmm``.
+``instantiated_norm_sq`` had no TPU kernel and stays plain.  Which one the training step runs is decided by
 ``repro_torch.kernels.dispatch``, not here: calling these functions always
 runs the plain path.
 """
@@ -21,6 +21,22 @@ def _pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
         return x
     widths = [0, 0] * (x.ndim - axis - 1) + [0, pad]
     return F.pad(x, widths)
+
+
+def pad_ids_pair(ids: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad the two id operands of an index-equality Gram to a block multiple.
+
+    The left and right operands get *different* sentinel ids (-1 and -2), so
+    a pad position never matches a real id (ids are non-negative), the other
+    operand's pad, or its own mirror on a diagonal tile: the equality mask
+    is exactly zero at every padded position, whatever the padding of g.
+    Returns ``(ids_i, ids_j)``; both are the input when T is a multiple of
+    ``block``.
+    """
+    pad = (-ids.shape[1]) % block
+    if pad == 0:
+        return ids, ids
+    return F.pad(ids, (0, pad), value=-1), F.pad(ids, (0, pad), value=-2)
 
 
 def _gram_dot(a_i, a_j, g_i, g_j) -> torch.Tensor:
@@ -63,4 +79,35 @@ def instantiated_norm_sq(
     for d0 in range(0, a.shape[2], block_d):
         part = torch.bmm(a[:, :, d0 : d0 + block_d].float().transpose(1, 2), gf)
         acc = acc + (part * part).sum(dim=(1, 2))
+    return acc
+
+
+def _eq_gram_dot(id_i, id_j, g_i, g_j) -> torch.Tensor:
+    eq = (id_i[:, :, None] == id_j[:, None, :]).float()
+    gram_g = torch.bmm(g_i.float(), g_j.float().transpose(1, 2))
+    return (eq * gram_g).sum(dim=(1, 2))
+
+
+def embedding_ghost_norm_sq(
+    ids: torch.Tensor, g: torch.Tensor, *, block: int = 1024
+) -> torch.Tensor:
+    """Index-equality ghost norm: sum_{t,t'} [id_t == id_t'] (g_t . g_t').
+
+    ids (N, T) int, g (N, T, p) -> (N,) fp32: the squared Frobenius norm of
+    each sample's embedding gradient (a scatter-add of g rows by id),
+    without forming it.
+    """
+    t = g.shape[1]
+    if t <= max(block, _DIRECT_T):
+        return _eq_gram_dot(ids, ids, g, g)
+    ids_i, ids_j = pad_ids_pair(ids, block)
+    g = _pad_axis(g, 1, block)
+    nb = g.shape[1] // block
+    acc = torch.zeros(g.shape[0], dtype=torch.float32, device=g.device)
+    for i in range(nb):
+        si = slice(i * block, (i + 1) * block)
+        for j in range(i + 1):
+            sj = slice(j * block, (j + 1) * block)
+            w = 1.0 if i == j else 2.0
+            acc = acc + w * _eq_gram_dot(ids_i[:, si], ids_j[:, sj], g[:, si], g[:, sj])
     return acc

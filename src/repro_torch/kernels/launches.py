@@ -7,7 +7,7 @@ driving the training step and read them after, to show which path ran.
 """
 from __future__ import annotations
 
-KERNELS = ("ghost_norm_sq", "book_weighted_grad", "psg_contract")
+KERNELS = ("ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad", "psg_contract")
 IMPLS = ("cuda", "torch")
 
 COUNTS: dict[str, dict[str, int]] = {k: {i: 0 for i in IMPLS} for k in KERNELS}

@@ -1,8 +1,10 @@
 """Plain PyTorch bank contractions (port of ``kernels/psg_contract/ops.py``).
 
 The plain versions of the two CUDA kernels in ``psg_contract.py``.  The
-book contraction is one three-operand einsum, which materializes the
-weighted cotangent ``g * w`` that the kernel keeps in shared memory.
+book contraction materializes the weighted cotangent ``g * w`` (which the
+kernel keeps in shared memory) and contracts it in one batched matmul; a
+three-operand einsum would depend on ``opt_einsum`` to avoid an
+(M, R, D, p) intermediate.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 
 def book_weighted_grad(a: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_r w[m,r] a[m,r]^T g[m,r].  a: (M,R,D), g: (M,R,p), w: (M,R) -> (M,D,p)."""
-    return torch.einsum("mrd,mrp,mr->mdp", a.float(), g.float(), w.float())
+    return torch.bmm(a.float().transpose(1, 2), g.float() * w.float()[..., None])
 
 
 def psg_contract(psg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

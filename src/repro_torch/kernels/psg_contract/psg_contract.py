@@ -30,11 +30,11 @@ _MAX_GRID_Z = 65535
 def book_weighted_grad_cuda(
     a: torch.Tensor, g: torch.Tensor, w: torch.Tensor
 ) -> torch.Tensor:
-    """a (M,R,D), g (M,R,p) same dtype (fp32 or bf16), w (M,R) fp32 -> (M,D,p) fp32."""
+    """a (M,R,D), g (M,R,p), each fp32 or bf16, w (M,R) fp32 -> (M,D,p) fp32."""
     from repro_torch.kernels.build import check, library
 
     checks.operand("a", a, 3)
-    checks.operand("g", g, 3, dtypes=(a.dtype,))
+    checks.operand("g", g, 3)
     checks.operand("w", w, 2, dtypes=(torch.float32,))
     checks.same_device(a=a, g=g, w=w)
     m, r, d = a.shape
@@ -55,7 +55,8 @@ def book_weighted_grad_cuda(
     with torch.cuda.device(a.device):
         code = library().book_weighted_grad_launch(
             a.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
-            m, r, d, p, checks.DTYPE_CODES[a.dtype], checks.stream(a.device),
+            m, r, d, p, checks.DTYPE_CODES[a.dtype], checks.DTYPE_CODES[g.dtype],
+            checks.stream(a.device),
         )
     check(code, "book_weighted_grad")
     launches.record("book_weighted_grad", "cuda")

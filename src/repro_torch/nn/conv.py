@@ -67,7 +67,7 @@ class Conv2d(Module):
     def __init__(
         self, name: str, d_in: int, d_out: int, kernel: tuple[int, int], *,
         strides: tuple[int, int] = (1, 1), padding="SAME", use_bias: bool = True,
-        dtype=torch.float32, device: torch.device, dp: bool = True,
+        dtype=torch.float32, param_dtype=torch.float32, device: torch.device,
     ):
         self.name = name
         self.d_in = d_in
@@ -77,19 +77,19 @@ class Conv2d(Module):
         self.padding = padding
         self.use_bias = use_bias
         self.dtype = dtype
+        self.param_dtype = param_dtype
         self.device = device
-        self.dp = dp
 
     def init(self, generator: torch.Generator) -> Params:
         fan_in = self.d_in * math.prod(self.kernel)
         p = {
             "w": normal_init(
                 generator, (self.d_out, self.d_in, *self.kernel),
-                1.0 / math.sqrt(fan_in), self.dtype, self.device,
+                1.0 / math.sqrt(fan_in), self.param_dtype, self.device,
             )
         }
         if self.use_bias:
-            p["b"] = torch.zeros((self.d_out,), dtype=self.dtype, device=self.device)
+            p["b"] = torch.zeros((self.d_out,), dtype=self.param_dtype, device=self.device)
         return p
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -104,7 +104,7 @@ class Conv2d(Module):
         s = s.permute(0, 2, 3, 1)  # back to (B, H_out, W_out, p)
         if self.use_bias:
             s = s + params["b"].to(self.dtype)
-        if self.dp and ctx.collect:
+        if ctx.collect:
             s = ctx.tap(
                 "out", s, kind="matmul", a=x,  # raw input; the engine unfolds lazily
                 T=int(s.shape[1] * s.shape[2]), D=self.d_in * math.prod(self.kernel),

@@ -8,6 +8,8 @@ A module is a configuration holder with
 Parameters stay plain tensors keyed by the JAX package's paths, so the
 clipping engine can map every tap to its parameter leaf by name.  The
 JAX package's ``reshard_param`` has no counterpart: one device needs none.
+A module keeps its parameters in ``param_dtype`` and computes in ``dtype``
+(fp32 parameters under bf16 compute, as the transformer configs declare).
 """
 from __future__ import annotations
 
@@ -15,8 +17,11 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
+
+NORM_EPS = 1e-5  # GroupNorm and LayerNorm, as the JAX package's defaults
 
 Params = Any
 
@@ -50,22 +55,23 @@ class Dense(Module):
 
     def __init__(
         self, name: str, d_in: int, d_out: int, *, use_bias: bool = True,
-        dtype=torch.float32, device: torch.device, init_scale: float = 1.0, dp: bool = True,
+        dtype=torch.float32, param_dtype=torch.float32, device: torch.device,
     ):
         self.name = name
         self.d_in = d_in
         self.d_out = d_out
         self.use_bias = use_bias
         self.dtype = dtype
+        self.param_dtype = param_dtype
         self.device = device
-        self.init_scale = init_scale
-        self.dp = dp
 
     def init(self, generator: torch.Generator) -> Params:
-        scale = self.init_scale / math.sqrt(self.d_in)
-        p = {"w": normal_init(generator, (self.d_in, self.d_out), scale, self.dtype, self.device)}
+        p = {"w": normal_init(
+            generator, (self.d_in, self.d_out), 1.0 / math.sqrt(self.d_in), self.param_dtype,
+            self.device,
+        )}
         if self.use_bias:
-            p["b"] = torch.zeros((self.d_out,), dtype=self.dtype, device=self.device)
+            p["b"] = torch.zeros((self.d_out,), dtype=self.param_dtype, device=self.device)
         return p
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -73,7 +79,7 @@ class Dense(Module):
         s = x @ params["w"].to(self.dtype)
         if self.use_bias:
             s = s + params["b"].to(self.dtype)
-        if self.dp and ctx.collect:
+        if ctx.collect:
             batch = x.shape[0]
             t = int(math.prod(x.shape[1:-1])) if x.ndim > 2 else 1
             s = ctx.tap(
@@ -93,18 +99,16 @@ class GroupNorm(Module):
     """
 
     def __init__(
-        self, name: str, d: int, *, groups: int = 16, eps: float = 1e-5,
-        dtype=torch.float32, device: torch.device, dp: bool = True,
+        self, name: str, d: int, *, groups: int = 16, dtype=torch.float32,
+        device: torch.device,
     ):
         if d % groups != 0:
             raise ValueError(f"GroupNorm {name}: {d} channels not divisible by {groups} groups")
         self.name = name
         self.d = d
         self.groups = groups
-        self.eps = eps
         self.dtype = dtype
         self.device = device
-        self.dp = dp
 
     def init(self, generator: torch.Generator) -> Params:
         del generator
@@ -119,10 +123,84 @@ class GroupNorm(Module):
         xf = x.float().reshape(batch, -1, self.groups, self.d // self.groups)
         mu = xf.mean(dim=(1, 3), keepdim=True)
         var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
-        x_hat = ((xf - mu) * torch.rsqrt(var + self.eps)).reshape(x.shape).to(self.dtype)
+        x_hat = ((xf - mu) * torch.rsqrt(var + NORM_EPS)).reshape(x.shape).to(self.dtype)
         s = x_hat * params["g"].to(self.dtype) + params["b"].to(self.dtype)
-        if self.dp and ctx.collect:
+        if ctx.collect:
             t = int(math.prod(x.shape[1:-1]))
+            s = ctx.tap(
+                "out", s, kind="scale", a=x_hat.reshape(batch, t, self.d),
+                T=t, D=self.d, p=self.d, param_path="g", bias_path="b",
+            )
+        return s
+
+
+class Embedding(Module):
+    """Table lookup with the index-equality ghost-norm tap (kind "embedding").
+
+    The recorded activation is the integer ids (B, T) themselves: autograd
+    saves integer tensors, so the JAX package's fp32 id channel has no
+    counterpart here.
+    """
+
+    def __init__(
+        self, name: str, vocab: int, d: int, *, dtype=torch.float32,
+        param_dtype=torch.float32, device: torch.device,
+    ):
+        self.name = name
+        self.vocab = vocab
+        self.d = d
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = device
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {"e": normal_init(
+            generator, (self.vocab, self.d), 0.02, self.param_dtype, self.device
+        )}
+
+    def __call__(self, params: Params, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        s = F.embedding(ids, params["e"].to(self.dtype))
+        if ctx.collect:
+            batch, t = ids.shape[0], int(math.prod(ids.shape[1:]))
+            s = ctx.tap(
+                "out", s, kind="embedding", a=ids.reshape(batch, t),
+                T=t, D=self.vocab, p=self.d, param_path="e",
+            )
+        return s
+
+
+class LayerNorm(Module):
+    """LayerNorm (scale and bias) with a DP "scale" tap.
+
+    Statistics in fp32; ``x_hat`` is cast to the compute dtype and recorded.
+    """
+
+    def __init__(
+        self, name: str, d: int, *, dtype=torch.float32, param_dtype=torch.float32,
+        device: torch.device,
+    ):
+        self.name = name
+        self.d = d
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = device
+
+    def init(self, generator: torch.Generator) -> Params:
+        del generator
+        return {
+            "g": torch.ones((self.d,), dtype=self.param_dtype, device=self.device),
+            "b": torch.zeros((self.d,), dtype=self.param_dtype, device=self.device),
+        }
+
+    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        x_hat = ((xf - mu) * torch.rsqrt(var + NORM_EPS)).to(self.dtype)
+        s = x_hat * params["g"].to(self.dtype) + params["b"].to(self.dtype)
+        if ctx.collect:
+            batch = x.shape[0]
+            t = int(math.prod(x.shape[1:-1])) if x.ndim > 2 else 1
             s = ctx.tap(
                 "out", s, kind="scale", a=x_hat.reshape(batch, t, self.d),
                 T=t, D=self.d, p=self.d, param_path="g", bias_path="b",

@@ -194,9 +194,11 @@ def test_vgg19_per_step_kernel_calls():
     once (the second backward computes no banks); bk_mixed ghost-banks 13
     taps and contracts 4 psg-banked convs + 16 GroupNorms, weight and bias."""
     mixed, n_mixed = _vgg19_counts("mixed_ghost")
-    assert mixed == {"ghost_norm_sq": 14, "book_weighted_grad": 0, "psg_contract": 0}
+    assert mixed == {"ghost_norm_sq": 14, "embedding_ghost_norm_sq": 0,
+                     "book_weighted_grad": 0, "psg_contract": 0}
     bk, n_bk = _vgg19_counts("bk_mixed")
-    assert bk == {"ghost_norm_sq": 13, "book_weighted_grad": 13, "psg_contract": 40}
+    assert bk == {"ghost_norm_sq": 13, "embedding_ghost_norm_sq": 0,
+                  "book_weighted_grad": 13, "psg_contract": 40}
     torch.testing.assert_close(n_bk, n_mixed, rtol=1e-5, atol=0)
 
 

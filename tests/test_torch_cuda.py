@@ -42,6 +42,36 @@ def test_ghost_norm_kernel(gen, n, t, d, p, dtype):
     assert torch.equal(got, gn.ghost_norm_sq_cuda(a, g))  # deterministic
 
 
+def test_ghost_norm_kernel_mixed_dtypes(gen):
+    """The clipping engine hands the activation over in the model dtype and
+    the cotangent in fp32; the kernel reads each in its own dtype."""
+    a, g = _rnd(gen, 4, 196, 96, dtype=torch.bfloat16), _rnd(gen, 4, 196, 48)
+    got = gn.ghost_norm_sq_cuda(a, g)
+    assert _rel(got, gn.ghost_norm_sq_plain(a, g)) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,t,vocab,p", [
+    (32, 196, 196, 64),  # the ViT's position ids: all distinct, 7 tiles of 32
+    (3, 37, 5, 33),  # repeated ids, T off the tile
+    (4, 100, 1000, 70),
+    (2, 1, 3, 10),  # T = 1
+    (5, 16, 4, 130),  # one 16-row tile
+])
+def test_embedding_ghost_norm_kernel(gen, n, t, vocab, p, dtype, id_dtype):
+    if vocab == t:
+        ids = torch.arange(t, device="cuda").expand(n, t)
+    else:
+        ids = torch.randint(0, vocab, (n, t), generator=gen, device="cuda")
+    ids = ids.to(id_dtype).contiguous()
+    g = _rnd(gen, n, t, p, dtype=dtype)
+    got = gn.embedding_ghost_norm_sq_cuda(ids, g)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert _rel(got, gn.embedding_ghost_norm_sq_plain(ids, g)) < 1e-4
+    assert torch.equal(got, gn.embedding_ghost_norm_sq_cuda(ids, g))  # deterministic
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,r,d,p", [(3, 37, 33, 130), (1, 1, 5, 3), (2, 1000, 70, 9)])
 def test_book_weighted_grad_kernel(gen, m, r, d, p, dtype):
@@ -49,6 +79,31 @@ def test_book_weighted_grad_kernel(gen, m, r, d, p, dtype):
     w = torch.rand(m, r, generator=gen, device="cuda")
     got = pc.book_weighted_grad_cuda(a, g, w)
     assert _rel(got, pc.book_weighted_grad_plain(a, g, w)) < 1e-4
+
+
+# (M, R, D, p) and dtype of every book contraction of one VGG-19 batch-128
+# fp32 step and one ViT-Base/16 batch-32 bf16 step (M = 12 on the stacked
+# layers), as the models' taps give them
+BOOK_MAIN_SHAPES = [
+    ((1, 128, 512, 10), torch.float32), ((1, 512, 4608, 512), torch.float32),
+    ((1, 2048, 2304, 512), torch.float32), ((1, 2048, 4608, 512), torch.float32),
+    ((1, 8192, 1152, 256), torch.float32), ((1, 8192, 2304, 256), torch.float32),
+    ((1, 32, 768, 10), torch.bfloat16), ((1, 6272, 768, 768), torch.bfloat16),
+    ((12, 6272, 768, 768), torch.bfloat16), ((12, 6272, 768, 3072), torch.bfloat16),
+    ((12, 6272, 3072, 768), torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", BOOK_MAIN_SHAPES)
+def test_book_plain_form_matches_einsum(gen, shape, dtype):
+    """The plain book contraction (a weighted bmm, the reference the kernel
+    is held to) against the three-operand einsum it replaced, in fp64 and
+    with ``w`` listed second so no (M, R, D, p) intermediate is formed."""
+    m, r, d, p = shape
+    a, g = _rnd(gen, m, r, d, dtype=dtype), _rnd(gen, m, r, p, dtype=dtype)
+    w = torch.rand(m, r, generator=gen, device="cuda")
+    want = torch.einsum("mrd,mr,mrp->mdp", a.double(), w.double(), g.double())
+    assert _rel(pc.book_weighted_grad_plain(a, g, w).double(), want) < 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -64,6 +119,7 @@ def test_cuda_tensors_dispatch_to_kernels(gen):
     a, g = _rnd(gen, 2, 5, 4), _rnd(gen, 2, 5, 3)
     launches.reset()
     dispatch.ghost_norm_sq(a, g)
+    dispatch.embedding_ghost_norm_sq(torch.zeros(2, 5, dtype=torch.long, device="cuda"), g)
     dispatch.book_weighted_grad(a, g, torch.ones(2, 5, device="cuda"))
     dispatch.psg_contract(_rnd(gen, 4, 6), torch.ones(4, device="cuda"))
     snap = launches.snapshot()
@@ -71,4 +127,56 @@ def test_cuda_tensors_dispatch_to_kernels(gen):
     with pytest.raises(ValueError, match="contiguous"):
         gn.ghost_norm_sq_cuda(a.transpose(0, 1), g.transpose(0, 1))
     with pytest.raises(ValueError, match="dtype"):
-        gn.ghost_norm_sq_cuda(a, g.to(torch.bfloat16))
+        gn.ghost_norm_sq_cuda(a, g.to(torch.float16))
+    with pytest.raises(ValueError, match="dtype"):
+        gn.embedding_ghost_norm_sq_cuda(torch.zeros(2, 5, device="cuda"), g)
+
+
+@pytest.mark.parametrize("mode", ["mixed_ghost", "bk_mixed"])
+def test_bf16_vit_step_on_the_card(gen, mode):
+    """A two-layer ViT in bf16 compute with fp32 parameters (ViT-Base's
+    precision) through make_train_step: every clipping op launches its
+    kernel, and the kernel path agrees with the plain path on the card.
+
+    Norms: 1e-4 relative, and clipped gradient sums 1e-4 of the largest
+    entry: the same bf16 steps, where only the kernels' fp32 summation
+    order differs.
+    """
+    import dataclasses
+
+    from repro_torch.configs.paper_native import VIT_BASE
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.data.synthetic import synthetic_vision_batch
+    from repro_torch.launch.steps import DPTrainConfig, make_train_state, make_train_step
+    from repro_torch.models.vit import ViT
+    from repro_torch.optim import constant, sgd
+    from repro_torch.utils.tree import flatten_dict
+
+    cfg = dataclasses.replace(VIT_BASE.reduced(), n_layers=2, dtype="bfloat16")
+    # T = 16 patches: every dense and conv tap takes the ghost branch
+    model = ViT(cfg, image_size=16, patch=4, n_classes=10, device="cuda")
+    batch = synthetic_vision_batch(batch=4, image=16, channels=3, n_classes=10, step=0,
+                                   device="cuda")
+    opt = sgd()
+    state = make_train_state(model, 0, opt)
+    step = make_train_step(model, opt, constant(0.1), DPTrainConfig(
+        clipping_mode=mode, noise_multiplier=0.0, logical_batch=4), device="cuda")
+    launches.reset()
+    new_state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    snap = launches.snapshot()
+    assert all(v["torch"] == 0 for v in snap.values()), snap
+    assert snap["ghost_norm_sq"]["cuda"] == 14 and snap["embedding_ghost_norm_sq"]["cuda"] == 1
+    assert bool(torch.isfinite(metrics["loss"]))
+    for path, leaf in flatten_dict(new_state["params"]).items():
+        assert leaf.dtype == torch.float32 and bool(torch.isfinite(leaf).all()), path
+
+    fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode, clip_norm=1.0))
+    _, g_cuda, aux_cuda = fn(state["params"], batch)
+    with dispatch.force_impl("torch"):
+        _, g_torch, aux_torch = fn(state["params"], batch)
+    assert _rel(aux_cuda["per_sample_norms"], aux_torch["per_sample_norms"]) < 1e-4
+    flat_c, flat_t = flatten_dict(g_cuda), flatten_dict(g_torch)
+    scale = max(float(v.abs().max()) for v in flat_t.values())
+    for path, want in flat_t.items():
+        assert float((flat_c[path] - want).abs().max()) <= 1e-4 * scale, path

@@ -8,8 +8,15 @@ import pytest
 import torch
 
 from repro.kernels.ghost_norm import ops as jgops
-from repro.kernels.ghost_norm.ghost_norm import ghost_norm_sq_pallas
-from repro.kernels.ghost_norm.ref import ghost_norm_sq_ref, instantiated_norm_sq_ref
+from repro.kernels.ghost_norm.ghost_norm import (
+    embedding_ghost_norm_sq_pallas,
+    ghost_norm_sq_pallas,
+)
+from repro.kernels.ghost_norm.ref import (
+    embedding_ghost_norm_sq_ref,
+    ghost_norm_sq_ref,
+    instantiated_norm_sq_ref,
+)
 from repro.kernels.psg_contract.psg_contract import (
     book_weighted_grad_pallas,
     psg_contract_pallas,
@@ -89,6 +96,111 @@ def test_instantiated_norm_vs_jax_ref(d_block):
     _close(got, instantiated_norm_sq_ref(jnp.asarray(a), jnp.asarray(g)))
 
 
+# ---------------------------------------------- embedding ghost norm --
+@pytest.mark.parametrize("n,t,vocab,p,block", [
+    (3, 12, 11, 5, 1024),  # direct path, repeated ids
+    (3, 300, 11, 5, 128),  # ragged T (300 = 2 * 128 + 44): the tiled path
+    (2, 25, 25, 8, 16),  # the ViT's position ids: all distinct, T off the tile
+    (4, 1, 3, 7, 16),  # T = 1
+])
+def test_embedding_ghost_norm_plain_vs_jax(n, t, vocab, p, block):
+    rng = np.random.default_rng(t + vocab)
+    if vocab == t:
+        ids = np.broadcast_to(np.arange(t, dtype=np.int32), (n, t)).copy()
+    else:
+        ids = rng.integers(0, vocab, size=(n, t)).astype(np.int32)
+    g = _np(rng, n, t, p)
+    got = tgops.embedding_ghost_norm_sq(torch.from_numpy(ids), torch.from_numpy(g), block=block)
+    assert got.dtype == torch.float32
+    jids, jg = jnp.asarray(ids), jnp.asarray(g)
+    _close(got, embedding_ghost_norm_sq_ref(jids, jg), rtol=1e-4 if t > 256 else RTOL)
+    _close(got, jgops.embedding_ghost_norm_sq(jids, jg, block=block),
+           rtol=1e-4 if t > 256 else RTOL)
+    # the dispatched op takes int64 ids as well
+    got64 = dispatch.embedding_ghost_norm_sq(torch.from_numpy(ids).long(), torch.from_numpy(g))
+    _close(got64, embedding_ghost_norm_sq_ref(jids, jg), rtol=1e-4 if t > 256 else RTOL)
+
+
+@pytest.mark.parametrize("t", [37, 41])
+def test_embedding_ghost_norm_plain_vs_pallas(t):
+    """Odd T forces the Pallas kernel's padded path, sentinels included."""
+    rng = np.random.default_rng(t)
+    ids = rng.integers(0, 7, size=(3, t)).astype(np.int32)
+    g = _np(rng, 3, t, 5)
+    got = tgn.embedding_ghost_norm_sq_plain(torch.from_numpy(ids), torch.from_numpy(g))
+    pallas = embedding_ghost_norm_sq_pallas(
+        jnp.asarray(ids), jnp.asarray(g), block_t=16, block_f=8, interpret=True
+    )
+    _close(got, pallas, rtol=2e-5)
+
+
+def test_embedding_pad_sentinels_never_match():
+    """The two id operands are padded with different sentinels (-1 / -2):
+    no padded position of either matches any position of the other, so the
+    tiled sum never depends on how g is padded (as the JAX package pins)."""
+    t, block = 37, 16
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 50, size=(2, t)))
+    ids_i, ids_j = tgops.pad_ids_pair(ids, block)
+    assert ids_i.shape == ids_j.shape == (2, 48)
+    assert not bool((ids_i[:, t:, None] == ids_j[:, None, :]).any())
+    assert not bool((ids_j[:, t:, None] == ids_i[:, None, :]).any())
+    assert torch.equal(ids_i[:, :t], ids) and torch.equal(ids_j[:, :t], ids)
+    assert set(ids_i[:, t:].unique().tolist()) == {-1}
+    assert set(ids_j[:, t:].unique().tolist()) == {-2}
+    even_i, even_j = tgops.pad_ids_pair(ids_i[:, :32], block)
+    assert even_i is even_j and even_i.shape == (2, 32)
+    jids_i, jids_j = jgops.pad_ids_pair(jnp.asarray(ids.numpy()), block)
+    np.testing.assert_array_equal(ids_i.numpy(), np.asarray(jids_i))
+    np.testing.assert_array_equal(ids_j.numpy(), np.asarray(jids_j))
+    g = torch.from_numpy(_np(rng, 2, t, 5))
+    got = tgops.embedding_ghost_norm_sq(ids, g, block=block)
+    _close(got, embedding_ghost_norm_sq_ref(jnp.asarray(ids.numpy()), jnp.asarray(g.numpy())),
+           rtol=1e-4)
+
+
+def _embedding_metas(b, t, vocab, p):
+    from repro.core.taps import TapMeta as JTapMeta
+    from repro_torch.core.taps import TapMeta
+
+    kw = dict(kind="embedding", T=t, D=vocab, p=p, s_shape=(b, t, p), param_path="emb/e",
+              batch_size=b, a_shape=(b, t))
+    return (JTapMeta(s_dtype=jnp.float32, a_dtype=jnp.int32, **kw),
+            TapMeta(s_dtype=torch.float32, a_dtype=torch.int64, **kw))
+
+
+def test_embedding_tap_with_repeated_ids_matches_jax():
+    """An LM-like embedding tap (ids repeat within a sample): the per-sample
+    norm and the book-keeping weighted gradient (a scatter-add of C_i g_i by
+    id) against the JAX package's tap_norm_sq and bank_weighted_grads."""
+    from repro.core import ghost as jghost
+    from repro_torch.core import ghost as tghost
+
+    b, t, vocab, p = 3, 10, 7, 5
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, vocab, size=(b, t)).astype(np.int32)
+    assert len(np.unique(ids[0])) < t
+    g = _np(rng, b, t, p)
+    clip = rng.uniform(size=(b,)).astype(np.float32)
+    jmeta, tmeta = _embedding_metas(b, t, vocab, p)
+    jids, jg = jnp.asarray(ids), jnp.asarray(g)
+    tids, tg = torch.from_numpy(ids).long(), torch.from_numpy(g)
+    want_n = jghost.tap_norm_sq(jmeta, jids, jg, mode="mixed_ghost")
+    _close(tghost.tap_norm_sq(tmeta, tids, tg, mode="mixed_ghost"), want_n)
+    bank = tghost.tap_bank(tmeta, tids, tg, mode="bk_mixed")
+    assert set(bank) == {"a", "g", "n"} and bank["a"].dtype == torch.int64
+    _close(bank["n"], want_n)
+    # the per-sample norm is the Frobenius norm of the scattered gradient
+    dense = np.zeros((b, vocab, p), np.float32)
+    for i in range(b):
+        np.add.at(dense[i], ids[i], g[i])
+    _close(bank["n"], (dense**2).sum(axis=(1, 2)))
+    want = jghost.bank_weighted_grads(jmeta, {"a": jids, "g": jg}, jnp.asarray(clip), (vocab, p))
+    got = tghost.bank_weighted_grads(tmeta, bank, torch.from_numpy(clip), (vocab, p))
+    assert got.keys() == want.keys() == {"emb/e"}
+    _close(got["emb/e"], want["emb/e"])
+
+
 BOOK_SHAPES = [
     (1, 64, 16, 24),
     (2, 100, 33, 7),
@@ -139,8 +251,10 @@ def test_dispatch_resolution_and_force_impl():
     cpu = torch.zeros(1)
     assert dispatch.default_impl("ghost_norm", cpu) == "torch"
     assert dispatch.resolve("psg_contract", cpu) == "torch"
+    assert dispatch.resolve("embedding_ghost_norm", cpu) == "torch"
     with dispatch.force_impl("cuda"):
         assert dispatch.resolve("ghost_norm", cpu) == "cuda"
+        assert dispatch.resolve("embedding_ghost_norm", cpu) == "cuda"
         with dispatch.force_impl(ghost_norm="torch"):
             assert dispatch.resolve("ghost_norm", cpu) == "torch"
             assert dispatch.resolve("psg_contract", cpu) == "cuda"
@@ -160,6 +274,8 @@ def test_cpu_tensor_never_reaches_a_kernel_silently():
     a, g = torch.zeros(2, 3, 4), torch.zeros(2, 3, 5)
     with dispatch.force_impl("cuda"), pytest.raises(ValueError, match="CUDA tensor"):
         dispatch.ghost_norm_sq(a, g)
+    with dispatch.force_impl("cuda"), pytest.raises(ValueError, match="CUDA tensor"):
+        dispatch.embedding_ghost_norm_sq(torch.zeros(2, 3, dtype=torch.long), g)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tpc.book_weighted_grad_cuda(a, g, torch.zeros(2, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -170,11 +286,13 @@ def test_launch_counts_per_impl():
     launches.reset()
     a, g = torch.ones(2, 3, 4), torch.ones(2, 3, 5)
     dispatch.ghost_norm_sq(a, g)
+    dispatch.embedding_ghost_norm_sq(torch.zeros(2, 3, dtype=torch.long), g)
     dispatch.book_weighted_grad(a, g, torch.ones(2, 3))
     dispatch.psg_contract(torch.ones(4, 6), torch.ones(4))
     dispatch.psg_contract(torch.ones(4, 6), torch.ones(4))
     snap = launches.snapshot()
     assert snap["ghost_norm_sq"] == {"cuda": 0, "torch": 1}
+    assert snap["embedding_ghost_norm_sq"] == {"cuda": 0, "torch": 1}
     assert snap["book_weighted_grad"] == {"cuda": 0, "torch": 1}
     assert snap["psg_contract"] == {"cuda": 0, "torch": 2}
     launches.reset()
