@@ -3,29 +3,48 @@
 
     python3 chip_smoke.py            # from the repository root; one CUDA device
 
-Two main paths: VGG-19 (CIFAR-10 widths, 32x32, 10 classes, GroupNorm,
-fp32) at batch 128, and ViT-Base/16 (12 layers, d_model 768, 224x224,
-10 classes, bf16 compute with fp32 parameters) at batch 32.  Phases, in
+Three main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
+classes, GroupNorm, fp32) at batch 128 and of ViT-Base/16 (12 layers,
+d_model 768, 224x224, 10 classes, bf16 compute with fp32 parameters) at
+batch 32, and serving Yi-6B (32 layers, d_model 4096, 32 query heads over
+4 KV heads, full width and depth, random weights from seed 0, bf16 compute
+with fp32 parameters) through the continuous-batching engine.  Phases, in
 order; any failure exits non-zero and prints no result:
 
 1. card     the name and power limit, as nvidia-smi reports them;
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-            at the shapes and dtypes both training steps give it (taken
-            from the models' own taps) and at ragged small shapes (T = 1, T
-            off the tile, D and p off the tile, repeated ids, bf16), with
+            at the shapes and dtypes its path gives it (the training steps'
+            from the models' own taps, the attention kernel's at the eight
+            Yi-6B prompt lengths) and at ragged small shapes (T = 1, T off
+            the tile, D and p off the tile, repeated ids, bf16; for the
+            attention kernel Sq and Skv off the tiles, one query row at the
+            end of the cache, a window, non-causal, MHA, hd 64, fp32), with
             CUDA-event times of the kernel, the plain version and one
             PyTorch library call that computes the same function (a
             yardstick the port never calls);
-4. slice    per path, DP-SGD steps through make_train_step in non_private,
-            mixed_ghost and bk_mixed: loss, kernel launches per step against
-            the taps' expectation, step time (median and quartiles), peak
-            memory, and one profiled step's device busy time and idle
-            share.  The launch counts are zeroed just before each path's
-            steps and read just after them;
-5. compare  per path, one clipped step's per-sample norms and gradient sum
-            on the kernels against the plain versions (force_impl("torch"))
-            on the same card, and mixed_ghost against bk_mixed.
+4. slice    per training path, DP-SGD steps through make_train_step in
+            non_private, mixed_ghost and bk_mixed: loss, kernel launches per
+            step against the taps' expectation, step time (median and
+            quartiles), peak memory, and one profiled step's device busy
+            time and idle share.  The launch counts are zeroed just before
+            each path's steps and read just after them;
+5. compare  per training path, one clipped step's per-sample norms and
+            gradient sum on the kernels against the plain versions
+            (force_impl("torch")) on the same card, and mixed_ghost against
+            bk_mixed;
+6. serve    Yi-6B through the port's Engine as launch/serve.py builds it (4
+            slots, page 16, max_len 2080, no EOS), 8 requests of prompt
+            lengths 2048 ... 131 with 32 new tokens each: tokens, tok/s,
+            TTFT and per-token percentiles, peak memory, attention-kernel
+            launches (zeroed just before the drain, read just after: one per
+            layer per prefill), one profiled prefill and one profiled 4-lane
+            decode step; then the 2048-token prefill's logits on the kernel
+            against force_impl("torch") (gated in fp32 compute on the same
+            parameters, reported in bf16), every request's first token against
+            sequential_decode's, one batched 4-lane decode step against each
+            lane's B=1 decode, and (reported, not gated) how many streams
+            equal sequential_decode's token for token.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -35,6 +54,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -57,6 +77,14 @@ PEAK_FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 MODES = ("non_private", "mixed_ghost", "bk_mixed")
 STEPS = 10  # timed steps per mode and path
 
+# the serve phase: Yi-6B, 4 slots, page 16, 8 requests of these prompt
+# lengths with 32 new tokens each, max_len = the longest prompt + 32
+SERVE_ARCH = "yi-6b"
+PROMPT_LENS = (2048, 131, 1000, 517, 1536, 250, 777, 2000)
+MAX_NEW = 32
+SLOTS = 4
+PAGE = 16
+
 # relative tolerances of a kernel against its plain version (max |kernel -
 # plain| / max |plain|): both sides sum the same fp32 products in
 # different orders
@@ -72,6 +100,23 @@ KERNEL_GRAD_TOL = 1e-4
 # backward (each weighted cotangent rounded to about 2^-9) with bk_mixed's
 # fp32 contractions of the stored activations
 MODE_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the attention kernel against its plain version.  fp32: relative to the
+# largest |plain| entry, since both sum the same fp32 products in another
+# order.  bf16: relative to each query row's own largest |plain| entry (a
+# row past a few hundred keys averages to |out| ~ sqrt(e / keys), far below
+# the largest entry, v_0 in row 0); both sides compute in fp32 and round the
+# output to bf16, which differ by at most one step, 2^-7 of the entry
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Yi-6B logits, relative to the largest |logit|.  The kernel path against
+# force_impl("torch") is gated in fp32 compute (the same fp32 parameters):
+# the two differ only in the attention's fp32 summation order, which 32
+# layers amplify from ~1e-7 but not to 1e-4.  In bf16 that comparison is
+# reported only: a one-step bf16 difference in an attention output grows
+# through 32 layers to about 2e-2 on a correct kernel.  A batched decode
+# step against each lane's B=1 step stays gated in bf16: bf16 activations
+# pass through 32 layers and round differently where a GEMM's shape differs
+SERVE_KERNEL_LOGIT_TOL = 1e-4
+SERVE_LOGIT_TOL = 2e-2
 
 KERNEL_INFO = {
     "ghost_norm_sq": ("src/repro_torch/csrc/ghost_norm.cu",
@@ -82,6 +127,8 @@ KERNEL_INFO = {
                            "src/repro/kernels/psg_contract/psg_contract.py:48"),
     "psg_contract": ("src/repro_torch/csrc/psg_contract.cu",
                      "src/repro/kernels/psg_contract/psg_contract.py:110"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:40"),
 }
 
 
@@ -330,7 +377,7 @@ def phase_kernels(paths: dict) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for kernel in KERNEL_INFO:
+    for kernel in RAGGED:
         cases = []
         for tag, path in paths.items():
             if not path["shapes"][kernel]:
@@ -348,8 +395,9 @@ def phase_kernels(paths: dict) -> dict:
     return out
 
 
-def _profiled_step(step, state, batch, median_ms: float) -> dict:
-    """One more step under torch.profiler: device busy time by kernel name.
+def _profiled(fn, median_ms: float) -> dict:
+    """One more call of ``fn`` (a step) under torch.profiler: device busy
+    time by kernel name.
 
     The profiler's host-side tracing slows the step's wall clock, so the
     device's idle share is taken against the median of the unprofiled
@@ -362,27 +410,28 @@ def _profiled_step(step, state, batch, median_ms: float) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, kernels = {}, 0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+            kernels += evt.count
     busy = sum(by_name.values())
     idle = 1 - busy / median_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"  traced step: device busy {busy:.2f} ms of a {median_ms:.2f} ms median step "
-          f"(idle share {idle:.2f}); traced wall {wall_ms:.2f} ms "
-          f"({wall_ms / median_ms:.2f}x the median, profiler overhead); "
+          f"(idle share {idle:.2f}) in {kernels} device kernels; traced wall {wall_ms:.2f} "
+          f"ms ({wall_ms / median_ms:.2f}x the median, profiler overhead); "
           "top kernels by device time:")
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {name[:100]}")
     return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": idle, "top": top}
+            "idle_share": idle, "device_kernels": kernels, "top": top}
 
 
 def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
@@ -426,7 +475,7 @@ def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
         peak = torch.cuda.max_memory_allocated()
         median = statistics.median(times)
         q1, _, q3 = statistics.quantiles(times, n=4)
-        trace = _profiled_step(step, state, batches[0], median)
+        trace = _profiled(lambda: step(state, batches[0]), median)
         per_step = {
             k: (after[k]["cuda"] - before[k]["cuda"]) / n_steps for k in KERNEL_INFO
         }
@@ -487,12 +536,271 @@ def phase_compare(tag: str, path: dict) -> dict:
         out[name] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err, "grad_tol": grad_tol}
     return out
 
+# ------------------------------------------------------- attention kernel --
+# (B, Sq, Skv, H, K, hd, causal, window, q_offset) and dtypes: Sq and Skv
+# off the 64-row and 32-key tiles, one query row at the end of the cache, a
+# window smaller than Sq, non-causal, MHA (K = H), hd 64, fp32 (at the
+# longest prompt's shape too, holding the long rows at full precision)
+FLASH_RAGGED = [
+    ((1, 2048, 2048, 32, 4, 128, True, None, 0), ("float32",)),
+    ((1, 131, 131, 32, 4, 128, True, None, 0), ("bfloat16", "float32")),
+    ((2, 100, 77, 8, 2, 64, True, None, 0), ("bfloat16", "float32")),
+    ((1, 1, 2049, 32, 4, 128, True, None, 2048), ("bfloat16", "float32")),
+    ((1, 300, 300, 8, 2, 128, True, 100, 0), ("bfloat16", "float32")),
+    ((2, 70, 45, 4, 4, 64, False, None, 0), ("bfloat16", "float32")),
+    ((1, 257, 257, 16, 16, 128, True, None, 0), ("bfloat16",)),
+]
 
-def summary_line(kernels: dict, slices: dict) -> dict:
+
+def _live_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """The (query, key) pairs the masks leave, summed over the query rows."""
+    import torch
+
+    qi = q_offset + torch.arange(sq)[:, None]
+    kj = torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= (qi - kj) < window
+    return int(mask.sum())
+
+
+def _flash_bound(spec, dtype: str) -> tuple[float, str]:
+    """Least time (ms) of one attention call: max(bytes of q, k, v at their
+    K heads and o / HBM rate, 4 * B * H * hd * live pairs / the peak rate
+    of the operands' type)."""
+    import torch
+
+    b, sq, skv, h, kh, hd, causal, window, q_offset = spec
+    size = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    flops = 4 * b * h * hd * _live_pairs(sq, skv, causal, window, q_offset)
+    nbytes = size * hd * b * (2 * sq * h + 2 * skv * kh)
+    t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _flash_case(spec, dtype: str, gen, timed: bool) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    b, sq, skv, h, kh, hd, causal, window, q_offset = spec
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rnd(b, sq, h, hd), rnd(b, skv, kh, hd), rnd(b, skv, kh, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"flash_attention {spec}: non-finite output")
+    diff, ref = (got.float() - want.float()).abs(), want.float().abs()
+    abs_err = float(diff.max())
+    max_rel = abs_err / max(float(ref.max()), 1e-30)
+    # per query row (b, i, h): its largest error over its largest |plain|
+    row_rel = float((diff.amax(-1) / ref.amax(-1).clamp_min(1e-30)).max())
+    rel_err = row_rel if dtype == "bfloat16" else max_rel
+    tol = FLASH_TOL[dtype]
+    case = {"spec": list(spec), "dtypes": [dtype], "max_abs_err": abs_err, "rel_err": rel_err,
+            "max_rel_err": max_rel, "row_rel_err": row_rel, "tol": tol,
+            "deterministic": bool(torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw)))}
+    timing = ""
+    if timed:
+        # the yardstick: PyTorch's fused attention on the (B, H, S, hd) views
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        iters = 10
+        case["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters)
+        case["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters)
+        case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+        case["bound_ms"], case["bound_by"] = _flash_bound(spec, dtype)
+        timing = (f" ms={case['ms']:.4f} plain={case['plain_ms']:.4f} "
+                  f"sdpa={case['library_ms']:.4f} bound={case['bound_ms']:.4f}")
+    status = "ok" if rel_err <= tol else "MISMATCH"
+    print(f"  flash_attention {tuple(spec)} {dtype}: rel_err={rel_err:.2e} (tol {tol:.0e}; "
+          f"of the largest entry {max_rel:.2e}, per row {row_rel:.2e}) "
+          f"deterministic={case['deterministic']}{timing} {status}")
+    require(rel_err <= tol, f"flash_attention {spec} {dtype}: rel err {rel_err:.3e}")
+    require(case["deterministic"], f"flash_attention {spec} {dtype}: repeated calls differ")
+    return case
+
+
+def phase_flash_kernel() -> list:
+    """The attention kernel at the serve phase's prefill shapes (one call per
+    layer per prompt; timed), then at the ragged ones."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(SERVE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    print(f"kernel flash_attention: {SERVE_ARCH} prefill shapes ({cfg.n_layers} calls each)")
+    for n in PROMPT_LENS:
+        spec = (1, n, n, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim, True, cfg.window, 0)
+        case = _flash_case(spec, cfg.dtype, gen, timed=True)
+        case["path"], case["calls_per_step"] = "serve", cfg.n_layers
+        cases.append(case)
+    print("kernel flash_attention: ragged shapes")
+    for spec, dtypes in FLASH_RAGGED:
+        for dtype in dtypes:
+            cases.append(_flash_case(spec, dtype, gen, timed=False))
+    return cases
+
+
+# ------------------------------------------------------------------ serve --
+def _batched(states: list) -> dict:
+    """Lane-batch B=1 serving states: dim 0 of pos, dim 1 of cache leaves."""
+    import torch
+
+    from repro_torch.utils.tree import tree_map
+
+    return {"pos": torch.cat([st["pos"] for st in states]),
+            "cache": tree_map(lambda *xs: torch.cat(xs, dim=1), *(st["cache"] for st in states))}
+
+
+def _median_ms(fn, n: int) -> float:
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_serve() -> dict:
+    import torch
+
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.kernels import dispatch, launches
+    from repro_torch.launch.serve import submit_all
+    from repro_torch.serving import Engine, aggregate_metrics, sequential_decode
+    from repro_torch.utils.tree import flatten_dict
+
+    cfg = get_arch(SERVE_ARCH)
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in flatten_dict(params).values())
+    print(f"serve {SERVE_ARCH}: {n_params} parameters ({cfg.param_dtype}) drawn on the card "
+          f"in {init_s:.1f} s; {cfg.dtype} compute")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=gen, device="cuda").tolist()
+               for n in PROMPT_LENS]
+    # warm-up outside the engine (cuBLAS handles, allocator), not counted
+    logits, warm = model.prefill(params, {"tokens": torch.ones(1, 16, dtype=torch.long,
+                                                               device="cuda")},
+                                 model.init_state(1, 32))
+    model.decode_step(params, logits[:, -1:].argmax(-1), warm)
+    del warm
+
+    engine = Engine(model, params, n_slots=SLOTS, page_size=PAGE,
+                    max_len=max(PROMPT_LENS) + MAX_NEW, eos_id=None)
+    submit_all(engine, prompts, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()  # the serve path's counts start here ...
+    t0 = time.perf_counter()
+    completions = engine.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launches.snapshot()  # ... and are read here
+    peak = torch.cuda.max_memory_allocated()
+    m = aggregate_metrics(completions)
+    tokens = [completions[i].tokens for i in range(len(prompts))]
+    print(f"serve: {int(m['tokens'])} tokens in {wall_s:.2f} s, {m['tok_per_s']:.1f} tok/s | "
+          f"TTFT p50 {m['ttft_p50_ms']:.1f} ms p95 {m['ttft_p95_ms']:.1f} ms | per-token p50 "
+          f"{m['per_token_p50_ms']:.1f} ms p95 {m['per_token_p95_ms']:.1f} ms | peak memory "
+          f"{peak / 2**20:.1f} MiB | {engine.steps} engine steps")
+    print(f"serve: kernel launches {counts}")
+    require(m["tokens"] == len(PROMPT_LENS) * MAX_NEW and m["requests"] == len(PROMPT_LENS),
+            f"serve: {m['tokens']} tokens from {m['requests']} requests")
+    require(counts["flash_attention"] == {"cuda": cfg.n_layers * len(PROMPT_LENS), "torch": 0},
+            f"serve: flash_attention launches {counts['flash_attention']}")
+    require(all(v == {"cuda": 0, "torch": 0} for k, v in counts.items()
+                if k != "flash_attention"), f"serve: other kernels ran {counts}")
+    out = {"metrics": m, "wall_s": wall_s, "peak_bytes": peak, "engine_steps": engine.steps,
+           "n_params": n_params, "init_s": init_s,
+           "launches": {k: counts[k]["cuda"] for k in KERNEL_INFO}}
+
+    # one profiled prefill (the 2048 prompt) and one profiled 4-lane decode step
+    longest = torch.tensor([prompts[0]], device="cuda")
+    view = engine.view_len
+
+    def prefill(toks):
+        return model.prefill(params, {"tokens": toks}, model.init_state(1, view))
+
+    out["prefill_median_ms"] = _median_ms(lambda: prefill(longest), 3)
+    print(f"serve: prefill of {PROMPT_LENS[0]} tokens, median {out['prefill_median_ms']:.2f} ms")
+    out["prefill_trace"] = _profiled(lambda: prefill(longest), out["prefill_median_ms"])
+    lanes = [prefill(torch.tensor([p], device="cuda")) for p in prompts[:SLOTS]]
+    batch_state = _batched([st for _, st in lanes])
+    lane_toks = torch.cat([lg[:, -1:].argmax(-1) for lg, _ in lanes])  # (4, 1)
+    out["decode_median_ms"] = _median_ms(
+        lambda: model.decode_step(params, lane_toks, batch_state), 5)
+    print(f"serve: one {SLOTS}-lane decode step, median {out['decode_median_ms']:.2f} ms")
+    out["decode_trace"] = _profiled(lambda: model.decode_step(params, lane_toks, batch_state),
+                                    out["decode_median_ms"])
+
+    # compare 1: the 2048-token prefill on the kernel against the plain path,
+    # gated in fp32 compute on the same parameters, reported in bf16
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    for tag, lm in (("float32", model32), (cfg.dtype, model)):
+        state = lm.init_state(1, view)
+        kernel_logits, _ = lm.prefill(params, {"tokens": longest}, state)
+        with dispatch.force_impl("torch"):
+            plain_logits, _ = lm.prefill(params, {"tokens": longest}, state)
+        out[f"prefill_rel_err_{tag}"] = err = _max_rel(kernel_logits.float(),
+                                                       plain_logits.float())
+        gated = tag == "float32"
+        print(f"compare serve prefill kernel vs torch ({tag} compute): logits rel err "
+              f"{err:.2e} " + (f"(tol {SERVE_KERNEL_LOGIT_TOL:.0e})" if gated
+                               else "(reported, not gated)"))
+        require(not gated or err <= SERVE_KERNEL_LOGIT_TOL,
+                f"serve {tag} prefill logits differ by {err:.3e}")
+    del model32, state
+    # compare 3: one batched 4-lane decode step against each lane's B=1 step
+    batched, _ = model.decode_step(params, lane_toks, batch_state)
+    single = torch.cat([model.decode_step(params, lane_toks[i:i + 1], st)[0]
+                        for i, (_, st) in enumerate(lanes)])
+    out["decode_rel_err"] = _max_rel(batched.float(), single.float())
+    print(f"compare serve {SLOTS}-lane decode vs B=1 decodes: logits rel err "
+          f"{out['decode_rel_err']:.2e} (tol {SERVE_LOGIT_TOL:.0e})")
+    require(out["decode_rel_err"] <= SERVE_LOGIT_TOL,
+            f"serve batched decode logits differ by {out['decode_rel_err']:.3e}")
+    del lanes, batch_state
+    # compare 2 (gated) and 4 (reported): the sequential oracle
+    t0 = time.perf_counter()
+    want = sequential_decode(model, params, prompts, max_new=MAX_NEW, view_len=view)
+    out["sequential_s"] = time.perf_counter() - t0
+    first_equal = sum(g[0] == w[0] for g, w in zip(tokens, want))
+    out["streams_equal"] = sum(g == w for g, w in zip(tokens, want))
+    out["tokens_equal"] = sum(a == b for g, w in zip(tokens, want) for a, b in zip(g, w))
+    print(f"compare serve engine vs sequential_decode ({out['sequential_s']:.1f} s): first "
+          f"tokens equal {first_equal}/{len(prompts)}; streams equal token for token "
+          f"{out['streams_equal']}/{len(prompts)} (reported, not gated); "
+          f"{out['tokens_equal']}/{len(prompts) * MAX_NEW} tokens equal")
+    require(first_equal == len(prompts), "serve: a first token differs from sequential_decode")
+    return out
+
+
+def summary_line(kernels: dict, runs: dict) -> dict:
     """Per kernel: times and bound summed over the calls at the main-path
     shapes of one training step of each path that launches it (the step of
     the mode that launches it: ghost norms mixed_ghost, the contractions
-    bk_mixed); launches summed over the paths' runs."""
+    bk_mixed), and for the attention kernel over the serve phase's eight
+    prefills (one call per layer); launches summed over the paths' runs."""
     rows = []
     for kernel, (source, replaces) in KERNEL_INFO.items():
         main = [c for c in kernels[kernel] if "calls_per_step" in c]
@@ -502,7 +810,7 @@ def summary_line(kernels: dict, slices: dict) -> dict:
                      if c["bound_by"] == "operations")
         rows.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(out["launches"][kernel] for out in slices.values()),
+            "launches": sum(out["launches"][kernel] for out in runs.values()),
             "max_abs_err": max(c["max_abs_err"] for c in main),
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "operations" if by_ops >= total["bound_ms"] / 2 else "bytes",
@@ -566,16 +874,19 @@ def run() -> dict:
     build = phase_build()
     paths = _paths()
     kernels = phase_kernels(paths)
+    kernels["flash_attention"] = phase_flash_kernel()
     slices = {tag: phase_slice(tag, path, STEPS) for tag, path in paths.items()}
     compare = {tag: phase_compare(tag, path) for tag, path in paths.items()}
-    summary = summary_line(kernels, slices)
+    serve = phase_serve()
+    summary = summary_line(kernels, {**slices, "serve": serve})
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build": build, "steps": STEPS,
         "paths": {tag: {"batch": path["batch"], "image": path["image"],
                         "dtype": path["dtype"], "expected": path["expected"]}
                   for tag, path in paths.items()},
-        "kernels": kernels, "slice": slices, "compare": compare, "summary": summary,
+        "kernels": kernels, "slice": slices, "compare": compare, "serve": serve,
+        "summary": summary,
     }, indent=1))
     return {"summary": summary, "card": card}
 

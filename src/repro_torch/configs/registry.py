@@ -1,0 +1,52 @@
+"""Architecture registry: ``--arch <id>`` resolution and model construction
+(port of ``configs/registry.py`` for the archs ported so far).
+
+``ARCHS`` holds the dense decoder LMs the serving slice covers.  The other
+archs of the JAX registry are known by name and raise
+``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.configs import codeqwen1_5_7b, yi_6b
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike
+
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in (yi_6b.CONFIG, codeqwen1_5_7b.CONFIG)}
+
+NOT_PORTED: dict[str, str] = {
+    "qwen1.5-32b": "a later dense-LM slice",
+    "qwen2-72b": "a later dense-LM slice",
+    "mixtral-8x7b": "the MoE slice",
+    "arctic-480b": "the MoE slice",
+    "jamba-1.5-large-398b": "the hybrid (Mamba) slice",
+    "xlstm-350m": "the xLSTM slice",
+    "whisper-large-v3": "the encoder-decoder slice",
+    "phi-3-vision-4.2b": "the VLM slice",
+}
+
+
+def _canonical(name: str) -> str:
+    key = name.strip()
+    alt = key.replace("_", "-").replace(".", "-")
+    for known in (*ARCHS, *NOT_PORTED):
+        if key == known or known.replace(".", "-") == alt:
+            return known
+    raise KeyError(f"unknown arch {name!r}; have {sorted((*ARCHS, *NOT_PORTED))}")
+
+
+def get_arch(name: str) -> ArchConfig:
+    key = _canonical(name)
+    if key in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {key!r} is not ported yet: it comes with {NOT_PORTED[key]}"
+        )
+    return ARCHS[key]
+
+
+def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Any:
+    """The model of ``cfg`` on ``device`` (the GPU unless asked otherwise)."""
+    from repro_torch.models.lm import DecoderLM
+
+    return DecoderLM(cfg, device=device)

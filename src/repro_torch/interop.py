@@ -2,13 +2,16 @@
 
 Both packages key parameters by the same nested-dict paths.  They differ
 only in the convolution weight layout: HWIO (kh, kw, d_in, d_out) in JAX,
-OIHW (d_out, d_in, kh, kw) here.  Dense weights keep the JAX layout
-(d_in, d_out) in both, and vectors need no change.  Everything crosses as
-numpy arrays, so neither side imports the other.
+OIHW (d_out, d_in, kh, kw) here.  Which leaves are conv weights, the
+model says: ``conv_weights`` are the paths of its ``Conv2d`` modules'
+weights, collected when it is built (``model.conv_weights``).  Every other
+leaf keeps its layout, stacked or grouped 4-D leaves such as MoE experts
+(L, E, D, F) included.  Everything crosses as numpy arrays, so neither side
+imports the other.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Collection, Mapping
 
 import numpy as np
 import torch
@@ -17,24 +20,41 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 
-def params_from_jax(tree: Mapping[str, Any], device: DeviceLike = None) -> dict:
+def _conv_leaves(flat: Mapping[str, Any], conv_weights: Collection[str]) -> set[str]:
+    """The named conv weights, each of which must be a 4-D leaf of the tree."""
+    for path in conv_weights:
+        if path not in flat:
+            raise KeyError(f"conv weight {path} is not a leaf of the tree")
+        if flat[path].ndim != 4:
+            raise ValueError(
+                f"conv weight {path} has shape {tuple(flat[path].shape)}, expected 4-D")
+    return set(conv_weights)
+
+
+def params_from_jax(
+    tree: Mapping[str, Any], conv_weights: Collection[str], device: DeviceLike = None
+) -> dict:
     """JAX-layout parameter tree (numpy arrays) -> the port's parameters."""
     dev = resolve_device(device)
+    flat = flatten_dict(tree)
+    convs = _conv_leaves(flat, conv_weights)
     out = {}
-    for path, leaf in flatten_dict(tree).items():
+    for path, leaf in flat.items():
         x = torch.as_tensor(np.array(leaf))
-        if x.ndim == 4:  # conv HWIO -> OIHW
+        if path in convs:  # HWIO -> OIHW
             x = x.permute(3, 2, 0, 1)
         out[path] = x.contiguous().to(dev)
     return unflatten_dict(out)
 
 
-def grads_to_jax_layout(tree: Mapping[str, Any]) -> dict:
+def grads_to_jax_layout(tree: Mapping[str, Any], conv_weights: Collection[str]) -> dict:
     """The port's gradient (or parameter) tree -> JAX-layout numpy arrays."""
+    flat = flatten_dict(tree)
+    convs = _conv_leaves(flat, conv_weights)
     out = {}
-    for path, leaf in flatten_dict(tree).items():
+    for path, leaf in flat.items():
         x = leaf.detach().cpu()
-        if x.ndim == 4:  # conv OIHW -> HWIO
+        if path in convs:  # OIHW -> HWIO
             x = x.permute(2, 3, 1, 0)
         out[path] = x.contiguous().numpy()
     return unflatten_dict(out)

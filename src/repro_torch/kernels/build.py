@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ghost_norm.cu", "book_weighted_grad.cu", "psg_contract.cu", "errors.cu")
+SOURCES = ("ghost_norm.cu", "book_weighted_grad.cu", "psg_contract.cu", "flash_attention.cu",
+           "errors.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "book_weighted_grad_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # psg, c, out, n, f, dtype, stream
     "psg_contract_launch": (_P, _P, _P, _I, ctypes.c_int64, _I, _P),
+    # q, k, v, out, b, sq, skv, heads, kv_heads, hd, causal, window, q_offset,
+    # scale, dtype, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _I, _P),
 }
 
 

@@ -1,9 +1,10 @@
-"""Kernel dispatch for the clipping hot ops (port of ``kernels/dispatch.py``).
+"""Kernel dispatch for the clipping and attention hot ops (port of
+``kernels/dispatch.py``).
 
 The hand-written CUDA kernels (``ghost_norm/ghost_norm.py``,
-``psg_contract/psg_contract.py``) and their plain PyTorch versions
-(``*/ops.py``) compute the same values; this module is the one place that
-picks between them:
+``psg_contract/psg_contract.py``, ``flash_attention/flash_attention.py``)
+and their plain PyTorch versions (``*/ops.py``) compute the same values;
+this module is the one place that picks between them:
 
     op                    cuda impl                     torch impl
     --------------------  ----------------------------  ---------------------------
@@ -11,6 +12,7 @@ picks between them:
     embedding_ghost_norm  embedding_ghost_norm_sq_cuda  gops.embedding_ghost_norm_sq
     psg_contract          book_weighted_grad_cuda /     cops.book_weighted_grad /
                           psg_contract_cuda             cops.psg_contract
+    flash_attention       flash_attention_cuda          fops.flash_attention
 
 Resolution order, per call:
 
@@ -21,20 +23,24 @@ Resolution order, per call:
 
 There is no fallback: a CUDA tensor goes to its kernel, which raises if it
 cannot build or launch, and ``cuda`` asked for a CPU tensor raises too.
-``flash_attention`` joins with the serving slice.
+``flash_attention``'s serving form (per-lane ``kv_positions`` or a tensor
+``q_offset``) always runs the plain version and counts no launch, as the
+JAX package sends it to XLA whatever impl is resolved: the kernel covers
+the static masks only.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Union
 
 import torch
 
 from repro_torch.kernels import launches
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.ghost_norm import ops as gops
 from repro_torch.kernels.psg_contract import ops as cops
 
-OPS = ("ghost_norm", "embedding_ghost_norm", "psg_contract")
+OPS = ("ghost_norm", "embedding_ghost_norm", "psg_contract", "flash_attention")
 IMPLS = ("cuda", "torch")
 
 # force_impl() state: {op: impl}, consulted per call
@@ -142,3 +148,31 @@ def psg_contract(
         launches.record("psg_contract", "torch")
         out = cops.psg_contract(flat, c)
     return out.reshape(out_shape)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, K, hd)
+    v: torch.Tensor,  # (B, Skv, K, hd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: Union[int, torch.Tensor] = 0,
+    kv_positions: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Serving attention forward, (B, Sq, H, hd) in q's dtype.
+
+    The static masks (an int ``q_offset``, no ``kv_positions``) go to the
+    resolved impl; the serving form always runs the plain version.
+    """
+    if kv_positions is not None or not isinstance(q_offset, int):
+        return fops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, kv_positions=kv_positions)
+    if resolve("flash_attention", q, impl) == "cuda":
+        from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=causal, window=window, q_offset=q_offset)
+    launches.record("flash_attention", "torch")
+    return fops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)

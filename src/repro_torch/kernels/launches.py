@@ -3,11 +3,15 @@
 A CUDA wrapper adds one to its ``cuda`` count where it launches its kernel;
 the dispatch layer adds one to the ``torch`` count where it runs the plain
 version instead.  ``chip_smoke.py`` and the tests zero the counts before
-driving the training step and read them after, to show which path ran.
+driving a training step or the serving engine and read them after, to show
+which path ran.
 """
 from __future__ import annotations
 
-KERNELS = ("ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad", "psg_contract")
+KERNELS = (
+    "ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad", "psg_contract",
+    "flash_attention",
+)
 IMPLS = ("cuda", "torch")
 
 COUNTS: dict[str, dict[str, int]] = {k: {i: 0 for i in IMPLS} for k in KERNELS}

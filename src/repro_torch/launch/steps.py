@@ -1,10 +1,11 @@
-"""The DP train step (port of ``launch/steps.py``).
+"""The DP train step and the greedy decode step (port of ``launch/steps.py``).
 
 ``make_train_step`` is the paper's full mechanism: per-sample clipping
 (mixed ghost or book-keeping) + Gaussian noise + optimizer update.  PyTorch
 runs it eagerly; the step enqueues device work and returns its metrics as
 device tensors, so it never waits for the device itself.  The gradient
-accumulation builders come with a later slice.
+accumulation steps come with a later slice.  ``make_decode_step`` is
+the serving engine's greedy step.
 """
 from __future__ import annotations
 
@@ -122,3 +123,17 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_decode_step(model) -> Callable:
+    """(params, tokens (B, 1), state) -> (next tokens (B, 1), logits, state).
+
+    Greedy: ``torch.argmax`` returns the first index of a tie, as
+    ``jnp.argmax`` does.
+    """
+
+    def decode_step(params, tokens: torch.Tensor, state: dict):
+        logits, state = model.decode_step(params, tokens, state)
+        return logits[:, -1:].argmax(dim=-1), logits, state
+
+    return decode_step

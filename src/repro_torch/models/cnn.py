@@ -56,6 +56,7 @@ class VGG:
                                         dtype=dtype, device=self.device))
             ch = item
         self.head = Dense("head", ch, n_classes, dtype=dtype, device=self.device)
+        self.conv_weights = tuple(c.weight_path for c in self.convs if c != "M")
 
     def init(self, generator: torch.Generator) -> dict:
         params: dict[str, Any] = {}
@@ -121,6 +122,10 @@ class ResNet:
                 ch = out
         self.final_gn = GroupNorm("final_gn", ch, groups=16, dtype=dtype, device=dev)
         self.head = Dense("head", ch, n_classes, dtype=dtype, device=dev)
+        convs = [self.stem]
+        for _, c1, _, c2, _, proj in self.units:
+            convs += [c1, c2] + ([proj] if proj is not None else [])
+        self.conv_weights = tuple(c.weight_path for c in convs)
 
     def init(self, generator: torch.Generator) -> dict:
         params: dict[str, Any] = {"stem": self.stem.init(generator)}

@@ -1,0 +1,111 @@
+"""Decoder-only language model, dense family (port of ``models/lm.py``).
+
+The serving entry points of the JAX package's ``DecoderLM``:
+
+- ``init_state(batch, max_len)``          an empty KV cache per layer
+- ``prefill(params, batch, state)``       the prompt's forward + cache fill;
+  the lm_head runs on the last position only
+- ``decode_step(params, tokens, state)``  one token per lane
+
+A state is ``{"cache": ..., "pos": (B,)}``: every cache leaf is (L, B, ...)
+and ``pos`` counts each lane's tokens, so the lanes of one batched decode
+may sit at different positions (RoPE and masks per lane).  ``prefill`` and
+``decode_step`` copy the state they are given and fill the copy, so a
+caller's state is never written.  Compute runs in ``cfg.dtype`` with
+parameters in ``cfg.param_dtype``.
+
+Training of the LMs (``loss_with_ctx``) comes with the LM training slice.
+MoE, hybrid, SSM and prefix (VLM) families are refused here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, torch_dtype
+from repro_torch.core.taps import Ctx
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.blocks import TransformerBlock
+from repro_torch.nn.module import Dense, Embedding, LayerNorm, RMSNorm
+from repro_torch.nn.stack import ScannedStack
+from repro_torch.utils.tree import tree_map
+
+
+class DecoderLM:
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
+        if (cfg.family != "dense" or cfg.moe_experts or cfg.block_pattern
+                or cfg.prefix_tokens or cfg.encoder_layers):
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): only the dense decoder LMs are ported; "
+                "MoE, hybrid, SSM, VLM and encoder-decoder families come with later slices"
+            )
+        self.cfg = cfg
+        self.device = dev = resolve_device(device)
+        self.dtype = dtype = torch_dtype(cfg.dtype)
+        common = dict(dtype=dtype, param_dtype=torch_dtype(cfg.param_dtype), device=dev)
+        d = cfg.d_model
+        self.embed = Embedding("embed", cfg.vocab, d, **common)
+        self.use_learned_pos = cfg.norm == "layernorm"
+        if self.use_learned_pos:
+            self.pos_embed = Embedding("pos_embed", max(cfg.encoder_seq, 32768), d, **common)
+        self.layers = ScannedStack("layers", TransformerBlock("b0", cfg, **common), cfg.n_layers)
+        norm_cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
+        self.norm_f = norm_cls("norm_f", d, **common)
+        self.lm_head = Dense("lm_head", d, cfg.vocab, use_bias=False, **common)
+        self.conv_weights: tuple[str, ...] = ()  # no conv layer
+
+    # -- params ------------------------------------------------------------
+    def init(self, generator: torch.Generator) -> dict:
+        p = {
+            "embed": self.embed.init(generator),
+            "layers": self.layers.init(generator),
+            "norm_f": self.norm_f.init(generator),
+            "lm_head": self.lm_head.init(generator),
+        }
+        if self.use_learned_pos:
+            p["pos_embed"] = self.pos_embed.init(generator)
+        return p
+
+    # -- shared trunk --------------------------------------------------------
+    def _trunk(self, params, tokens: torch.Tensor, ctx: Ctx, *, cache: dict,
+               positions: Optional[torch.Tensor] = None):
+        x = self.embed(params["embed"], tokens, ctx.scope("embed"))
+        b, s = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        if self.use_learned_pos:
+            x = x + self.pos_embed(params["pos_embed"], positions.expand(b, s),
+                                   ctx.scope("pos_embed"))
+        x, cache = self.layers(params["layers"], x, ctx.scope("layers"), cache=cache,
+                               positions=positions)
+        return self.norm_f(params["norm_f"], x, ctx.scope("norm_f")), cache
+
+    # -- training ------------------------------------------------------------
+    def loss_with_ctx(self, params, batch, ctx: Ctx) -> torch.Tensor:
+        raise NotImplementedError("LM training comes with the LM training slice")
+
+    # -- serving -------------------------------------------------------------
+    def init_state(self, batch: int, max_len: int) -> dict:
+        cache = self.layers.init_cache(batch, self.dtype, max_len=max_len)
+        return {"cache": cache, "pos": torch.zeros((batch,), dtype=torch.long,
+                                                   device=self.device)}
+
+    def prefill(self, params, batch: dict, state: dict) -> tuple[torch.Tensor, dict]:
+        """Prompts ``batch["tokens"]`` (B, S) into an empty state: logits of
+        the last position (B, 1, V) and the filled state."""
+        tokens = batch["tokens"]
+        state = tree_map(torch.clone, state)
+        x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"])
+        logits = self.lm_head(params["lm_head"], x[:, -1:], Ctx.disabled())
+        return logits, {"cache": cache, "pos": state["pos"] + tokens.shape[1]}
+
+    def decode_step(self, params, tokens: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
+        """``tokens`` (B, S) at each lane's next positions -> logits (B, S, V)."""
+        state = tree_map(torch.clone, state)
+        positions = state["pos"][:, None] + torch.arange(tokens.shape[1], device=tokens.device)
+        x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"],
+                               positions=positions)
+        logits = self.lm_head(params["lm_head"], x, Ctx.disabled())
+        return logits, {"cache": cache, "pos": state["pos"] + tokens.shape[1]}
+

@@ -40,11 +40,13 @@ class ViT:
                                   strides=(patch, patch), padding="VALID", **common)
         self.pos_embed = Embedding("pos_embed", self.n_patches, cfg.d_model, **common)
         block = TransformerBlock(
-            "vb", dataclasses.replace(cfg, norm="layernorm", act="gelu"), **common
+            "vb", dataclasses.replace(cfg, norm="layernorm", act="gelu"), causal=False,
+            **common,
         )
         self.layers = ScannedStack("layers", block, cfg.n_layers)
         self.norm_f = LayerNorm("norm_f", cfg.d_model, **common)
         self.head = Dense("head", cfg.d_model, n_classes, **common)
+        self.conv_weights = (self.patch_embed.weight_path,)
 
     def init(self, generator: torch.Generator) -> dict:
         return {

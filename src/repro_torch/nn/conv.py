@@ -80,6 +80,11 @@ class Conv2d(Module):
         self.param_dtype = param_dtype
         self.device = device
 
+    @property
+    def weight_path(self) -> str:
+        """The weight's path in the model's parameters (``a.b`` -> ``a/b/w``)."""
+        return self.name.replace(".", "/") + "/w"
+
     def init(self, generator: torch.Generator) -> Params:
         fan_in = self.d_in * math.prod(self.kernel)
         p = {

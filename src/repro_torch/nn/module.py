@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.core.taps import Ctx
 
 NORM_EPS = 1e-5  # GroupNorm and LayerNorm, as the JAX package's defaults
+RMS_EPS = 1e-6  # RMSNorm, as the JAX package's default
 
 Params = Any
 
@@ -204,5 +205,42 @@ class LayerNorm(Module):
             s = ctx.tap(
                 "out", s, kind="scale", a=x_hat.reshape(batch, t, self.d),
                 T=t, D=self.d, p=self.d, param_path="g", bias_path="b",
+            )
+        return s
+
+
+class RMSNorm(Module):
+    """RMSNorm with a DP "scale" tap on the gain product.
+
+    ``x_hat`` in fp32, cast to the compute dtype, *then* multiplied by the
+    gain cast to the compute dtype, in the JAX package's order (the order
+    decides the bf16 rounding).
+    """
+
+    def __init__(
+        self, name: str, d: int, *, eps: float = RMS_EPS, dtype=torch.float32,
+        param_dtype=torch.float32, device: torch.device,
+    ):
+        self.name = name
+        self.d = d
+        self.eps = eps
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = device
+
+    def init(self, generator: torch.Generator) -> Params:
+        del generator
+        return {"g": torch.ones((self.d,), dtype=self.param_dtype, device=self.device)}
+
+    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        xf = x.float()
+        x_hat = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)).to(self.dtype)
+        s = x_hat * params["g"].to(self.dtype)
+        if ctx.collect:
+            batch = x.shape[0]
+            t = int(math.prod(x.shape[1:-1])) if x.ndim > 2 else 1
+            s = ctx.tap(
+                "out", s, kind="scale", a=x_hat.reshape(batch, t, self.d),
+                T=t, D=self.d, p=self.d, param_path="g",
             )
         return s

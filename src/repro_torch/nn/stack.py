@@ -9,11 +9,17 @@ meta once per name with a leading stack dim and bank under their own
 forward, whose backward stacks the per-layer gradients into one (L, ...)
 tensor.
 
+A serving cache is stacked the same way: every cache leaf is (L, B, ...),
+and layer ``l`` reads and writes its slice ``[l]`` (a view), so a block
+that updates its cache in place updates the stacked tree.
+
 The JAX package rematerialises each layer in the backward (``cfg.remat``);
 this port keeps every layer's activations instead, so its peak memory
 differs by design.
 """
 from __future__ import annotations
+
+from typing import Any, Optional
 
 import torch
 
@@ -31,12 +37,41 @@ class ScannedStack(Module):
         self.n = n
 
     def init(self, generator: torch.Generator) -> Params:
-        layers = [flatten_dict(self.block.init(generator)) for _ in range(self.n)]
-        return unflatten_dict({k: torch.stack([p[k] for p in layers]) for k in layers[0]})
+        """Layer by layer into preallocated (L, ...) leaves: the same draws in
+        the same order as stacking a list, with one layer's transient."""
+        first = flatten_dict(self.block.init(generator))
+        out = {k: torch.empty((self.n, *v.shape), dtype=v.dtype, device=v.device)
+               for k, v in first.items()}
+        for index in range(self.n):
+            layer = first if index == 0 else flatten_dict(self.block.init(generator))
+            for k, v in layer.items():
+                out[k][index] = v
+            del layer
+        return unflatten_dict(out)
 
-    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    def init_cache(self, batch: int, dtype: torch.dtype, **kw) -> Any:
+        """The block's cache with a leading layer dim: every leaf (L, B, ...)."""
+        one = flatten_dict(self.block.init_cache(batch, dtype, **kw))
+        return unflatten_dict({
+            k: v.unsqueeze(0).repeat(self.n, *([1] * v.ndim)) for k, v in one.items()
+        })
+
+    def __call__(
+        self, params: Params, x: torch.Tensor, ctx: Ctx, *,
+        cache: Optional[dict] = None, **kw,
+    ):
+        """Without ``cache`` (training) returns x; with it, (x, cache): the
+        blocks write their new cache rows into ``cache`` in place."""
         flat = flatten_dict(params)
         per_layer = zip(*(leaf.unbind(0) for leaf in flat.values()))
+        if cache is None:
+            for index, leaves in enumerate(per_layer):
+                x = self.block(unflatten_dict(dict(zip(flat, leaves))), x,
+                               ctx.layer(index, self.n), **kw)
+            return x
+        flat_cache = flatten_dict(cache)
         for index, leaves in enumerate(per_layer):
-            x = self.block(unflatten_dict(dict(zip(flat, leaves))), x, ctx.layer(index, self.n))
-        return x
+            layer_cache = unflatten_dict({k: v[index] for k, v in flat_cache.items()})
+            x, _ = self.block(unflatten_dict(dict(zip(flat, leaves))), x,
+                              ctx.layer(index, self.n), cache=layer_cache, **kw)
+        return x, cache

@@ -55,10 +55,10 @@ def _batch(rng, b, image, mask=None):
 def _pair(jmodel, tmodel, seed):
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
-    return jparams, interop.params_from_jax(np_params, device="cpu")
+    return jparams, interop.params_from_jax(np_params, tmodel.conv_weights, device="cpu")
 
 
-def _assert_step_matches(jres, tres):
+def _assert_step_matches(jres, tres, conv_weights):
     jloss, jg, jaux = jres
     tloss, tg, taux = tres
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
@@ -66,7 +66,7 @@ def _assert_step_matches(jres, tres):
     tn = taux["per_sample_norms"].numpy()
     np.testing.assert_allclose(tn, jn, rtol=1e-5, atol=1e-6)
     jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jg))
-    tflat = flatten_dict(interop.grads_to_jax_layout(tg))
+    tflat = flatten_dict(interop.grads_to_jax_layout(tg, conv_weights))
     assert tflat.keys() == jflat.keys()
     # absolute 5e-5 for clipped gradients, as test_clipping_exactness.py
     # holds them; scaled up only by the reference gradient's own magnitude
@@ -105,7 +105,8 @@ def test_vgg_clipped_step_matches_jax(tiny_vgg_plan, mode):
     tmodel = tcnn.VGG(tiny_vgg_plan, device="cpu")
     jparams, tparams = _pair(jmodel, tmodel, 1)
     batch = _batch(np.random.default_rng(1), 4, 16, mask=[1, 0, 1, 1])
-    _assert_step_matches(*_run_both(jmodel, tmodel, jparams, tparams, batch, mode))
+    _assert_step_matches(*_run_both(jmodel, tmodel, jparams, tparams, batch, mode),
+                         tmodel.conv_weights)
 
 
 @pytest.mark.parametrize("mode", CLIP_MODES)
@@ -116,7 +117,8 @@ def test_resnet_clipped_step_matches_jax(mode):
     tmodel = tcnn.ResNet((1, 1), width=16, device="cpu")
     jparams, tparams = _pair(jmodel, tmodel, 2)
     batch = _batch(np.random.default_rng(2), 3, 8)
-    _assert_step_matches(*_run_both(jmodel, tmodel, jparams, tparams, batch, mode))
+    _assert_step_matches(*_run_both(jmodel, tmodel, jparams, tparams, batch, mode),
+                         tmodel.conv_weights)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -143,7 +145,7 @@ def test_train_step_matches_jax(tiny_vgg_plan, mode):
     assert tnew["step"] == 1
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
     jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jnew["params"]))
-    tflat = flatten_dict(interop.grads_to_jax_layout(tnew["params"]))
+    tflat = flatten_dict(interop.grads_to_jax_layout(tnew["params"], tmodel.conv_weights))
     for path, want in jflat.items():
         np.testing.assert_allclose(tflat[path], want, rtol=1e-5, atol=1e-6, err_msg=path)
 
@@ -195,10 +197,10 @@ def test_vgg19_per_step_kernel_calls():
     taps and contracts 4 psg-banked convs + 16 GroupNorms, weight and bias."""
     mixed, n_mixed = _vgg19_counts("mixed_ghost")
     assert mixed == {"ghost_norm_sq": 14, "embedding_ghost_norm_sq": 0,
-                     "book_weighted_grad": 0, "psg_contract": 0}
+                     "book_weighted_grad": 0, "psg_contract": 0, "flash_attention": 0}
     bk, n_bk = _vgg19_counts("bk_mixed")
     assert bk == {"ghost_norm_sq": 13, "embedding_ghost_norm_sq": 0,
-                  "book_weighted_grad": 13, "psg_contract": 40}
+                  "book_weighted_grad": 13, "psg_contract": 40, "flash_attention": 0}
     torch.testing.assert_close(n_bk, n_mixed, rtol=1e-5, atol=0)
 
 
@@ -237,19 +239,19 @@ def test_optimizer_updates_match_jax(name, kw):
     params = {"a": {"w": rng.standard_normal((3, 4)).astype(np.float32)},
               "b": rng.standard_normal((5,)).astype(np.float32)}
     jo, to = getattr(jopt, name)(**kw), getattr(topt, name)(**kw)
-    jp, tp = params, interop.params_from_jax(params, device="cpu")
+    jp, tp = params, interop.params_from_jax(params, (), device="cpu")
     js, ts = jo.init(jp), to.init(tp)
     for step in range(3):
         grads = jax.tree_util.tree_map(
             lambda x: rng.standard_normal(x.shape).astype(np.float32), params)
         ju, js = jo.update(grads, js, jp, jax.numpy.asarray(step), 0.01)
         jp = jopt.apply_updates(jp, ju)
-        tu, ts = to.update(interop.params_from_jax(grads, device="cpu"), ts, tp, step, 0.01)
+        tu, ts = to.update(interop.params_from_jax(grads, (), device="cpu"), ts, tp, step, 0.01)
         tp = topt.apply_updates(tp, tu)
     jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jp))
     # fp32 state; the port takes Adam's bias corrections in float64 on the
     # host, JAX in float32 on the device
-    for path, got in flatten_dict(interop.grads_to_jax_layout(tp)).items():
+    for path, got in flatten_dict(interop.grads_to_jax_layout(tp, ())).items():
         np.testing.assert_allclose(got, jflat[path], rtol=1e-5, atol=1e-6, err_msg=path)
 
 

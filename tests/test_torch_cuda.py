@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dispatch, launches
+from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.ghost_norm import ghost_norm as gn
 from repro_torch.kernels.psg_contract import psg_contract as pc
 
@@ -122,6 +123,8 @@ def test_cuda_tensors_dispatch_to_kernels(gen):
     dispatch.embedding_ghost_norm_sq(torch.zeros(2, 5, dtype=torch.long, device="cuda"), g)
     dispatch.book_weighted_grad(a, g, torch.ones(2, 5, device="cuda"))
     dispatch.psg_contract(_rnd(gen, 4, 6), torch.ones(4, device="cuda"))
+    dispatch.flash_attention(_rnd(gen, 1, 3, 2, 16), _rnd(gen, 1, 3, 1, 16),
+                             _rnd(gen, 1, 3, 1, 16))
     snap = launches.snapshot()
     assert all(v == {"cuda": 1, "torch": 0} for v in snap.values()), snap
     with pytest.raises(ValueError, match="contiguous"):
@@ -180,3 +183,94 @@ def test_bf16_vit_step_on_the_card(gen, mode):
     scale = max(float(v.abs().max()) for v in flat_t.values())
     for path, want in flat_t.items():
         assert float((flat_c[path] - want).abs().max()) <= 1e-4 * scale, path
+
+
+# (B, Sq, Skv, H, K, hd, causal, window, q_offset): Sq and Skv off the
+# 64-row and 32-key tiles, one query row at the end of the cache, a window
+# smaller than Sq, non-causal, MHA, grouped heads, every head dim, and the
+# longest Yi-6B prompt (rows of up to 2048 keys)
+FLASH_CASES = [
+    (1, 2048, 2048, 32, 4, 128, True, None, 0),
+    (1, 131, 131, 32, 4, 128, True, None, 0),
+    (2, 100, 100, 4, 2, 64, True, None, 0),
+    (1, 1, 97, 8, 2, 128, True, None, 96),
+    (1, 150, 150, 4, 1, 32, True, 40, 0),
+    (2, 70, 45, 4, 4, 64, False, None, 0),
+    (1, 33, 80, 2, 2, 16, True, None, 47),
+    (3, 64, 64, 6, 3, 128, True, 64, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kh,hd,causal,window,q_offset", FLASH_CASES)
+def test_flash_attention_kernel(gen, b, sq, skv, h, kh, hd, causal, window, q_offset, dtype):
+    """Against the plain version: fp32 within 1e-5 of the largest entry (the
+    same fp32 products summed in another order); bf16 within 1e-2 of each
+    query row's own largest entry (both sides compute in fp32 and round the
+    output to bf16, at most one step apart, 2^-7 of the entry; a long row's
+    entries lie far below the largest entry of the whole output)."""
+    q = _rnd(gen, b, sq, h, hd, dtype=dtype)
+    k, v = _rnd(gen, b, skv, kh, hd, dtype=dtype), _rnd(gen, b, skv, kh, hd, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    if dtype == torch.float32:
+        assert _rel(got, want) < 1e-5
+    else:
+        diff, ref = (got.float() - want.float()).abs(), want.float().abs()
+        assert float((diff.amax(-1) / ref.amax(-1).clamp_min(1e-30)).max()) < 1e-2
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw))  # deterministic
+
+
+def test_flash_attention_kernel_refuses(gen):
+    q, k = _rnd(gen, 1, 4, 2, 16), _rnd(gen, 1, 4, 1, 16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(_rnd(gen, 1, 4, 2, 24), _rnd(gen, 1, 4, 1, 24),
+                                _rnd(gen, 1, 4, 1, 24))
+    with pytest.raises(ValueError, match="dtypes differ"):
+        fa.flash_attention_cuda(q, k, k.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_cuda(_rnd(gen, 1, 4, 3, 16), _rnd(gen, 1, 4, 2, 16),
+                                _rnd(gen, 1, 4, 2, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2), k, k)
+
+
+def test_reduced_yi_engine_on_the_card(gen):
+    """A reduced Yi (4 layers, 4 query heads over 2 KV heads, head dim 16,
+    fp32) served by the Engine on the card: every prefill launches the
+    kernel once per layer and nothing runs the plain version; the kernel
+    path gives the plain path's tokens, and prefill logits within 1e-5 of
+    the largest (the kernel's fp32 sums in another order)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.serving import Engine
+
+    cfg = dataclasses.replace(get_arch("yi-6b").reduced(), n_kv=2)
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(1, cfg.vocab, (5, 11), generator=gen, device="cuda")
+    prompts = [row[: 3 + 2 * i].tolist() for i, row in enumerate(prompts)]
+
+    def run():
+        engine = Engine(model, params, n_slots=2, page_size=8, max_len=24)
+        for p in prompts:
+            engine.submit(p, max_new=5)
+        done = engine.drain(max_steps=200)
+        return [done[i].tokens for i in range(len(prompts))]
+
+    launches.reset()
+    got = run()
+    snap = launches.snapshot()
+    assert snap["flash_attention"] == {"cuda": len(prompts) * cfg.n_layers, "torch": 0}
+    with dispatch.force_impl("torch"):
+        want = run()
+    assert got == want
+    toks = torch.tensor([prompts[-1]], device="cuda")
+    logits, _ = model.prefill(params, {"tokens": toks}, model.init_state(1, 24))
+    with dispatch.force_impl("torch"):
+        plain, _ = model.prefill(params, {"tokens": toks}, model.init_state(1, 24))
+    assert _rel(logits, plain) < 1e-5

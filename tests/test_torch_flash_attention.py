@@ -1,0 +1,125 @@
+"""The port's plain attention forward, held against the JAX package.
+
+``repro_torch.kernels.flash_attention.ops.flash_attention`` is the plain
+version of the CUDA kernel (``csrc/flash_attention.cu``), which the card
+tests hold to it.  Here, on the CPU, it meets the JAX package's oracle
+(``ref.mha_reference``) and the Pallas kernel it replaces
+(``flash_attention_pallas`` in interpret mode) at the cases of
+``tests/test_kernels.py::test_flash_pallas_vs_ref``, plus grouped KV heads
+and a window, within the JAX tests' own tolerances (2e-5 fp32, 5e-3
+bf16).  Against the Pallas kernel a bf16 output may also differ by one bf16
+step of the output (``rtol`` 2^-7): the kernel rounds P to bf16 before P.V
+(``flash_attention.py:110``) where the plain version and the oracle keep it
+in fp32, and both outputs are rounded to bf16.  The serving form (per-lane
+``kv_positions`` and ``q_offset``) meets the JAX XLA path run once per lane.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfops
+from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
+from repro.kernels.flash_attention.ref import mha_reference
+from repro_torch.kernels import dispatch, launches
+from repro_torch.kernels.flash_attention import flash_attention as tfa
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 2e-5, "bfloat16": 5e-3}
+
+
+def _qkv(b, sq, skv, h, kh, hd, seed=17):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kh, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kh, hd)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.as_tensor(a).to(tdt) for a in arrays])
+
+
+@pytest.mark.parametrize(
+    "b,h,kh,sq,skv,hd,causal,window,qoff,dtype",
+    [
+        # the four cases of test_kernels.py::test_flash_pallas_vs_ref
+        (2, 3, 3, 64, 64, 16, True, None, 0, "float32"),
+        (1, 2, 2, 100, 100, 32, True, 24, 0, "float32"),
+        (1, 2, 2, 1, 96, 16, True, None, 95, "float32"),
+        (2, 2, 2, 48, 48, 16, False, None, 0, "bfloat16"),
+        # grouped KV heads, causal and windowed, both dtypes
+        (1, 8, 2, 40, 40, 16, True, None, 0, "float32"),
+        (2, 8, 2, 37, 37, 32, True, 9, 0, "bfloat16"),
+        (1, 8, 2, 33, 70, 16, True, 20, 37, "float32"),
+    ],
+)
+def test_plain_flash_attention_vs_jax_ref_and_pallas(
+    b, h, kh, sq, skv, hd, causal, window, qoff, dtype
+):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(b, sq, skv, h, kh, hd), dtype)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window, q_offset=qoff)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    got = got.float().numpy()
+    tol = TOL[dtype]
+    want = mha_reference(jq, jk, jv, causal=causal, window=window, q_offset=qoff)
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)), atol=tol, rtol=0)
+    # the Pallas kernel takes (B, H, S, hd) with K/V repeated to H heads,
+    # as the JAX dispatch wrapper hands them over
+    jkr, jvr = (jnp.repeat(x, h // kh, axis=2) for x in (jk, jv))
+    pallas = flash_attention_pallas(
+        jq.transpose(0, 2, 1, 3), jkr.transpose(0, 2, 1, 3), jvr.transpose(0, 2, 1, 3),
+        causal=causal, window=window, q_offset=qoff, block_q=16, block_kv=32,
+        interpret=True,
+    ).transpose(0, 2, 1, 3)
+    rtol = 0 if dtype == "float32" else 2**-7
+    np.testing.assert_allclose(got, np.asarray(pallas.astype(jnp.float32)), atol=tol, rtol=rtol)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("h,kh", [(4, 4), (8, 2)])
+def test_serving_form_vs_jax_per_lane(h, kh, window):
+    """Per-lane kv_positions (ring order, -1 empty slots) and q_offset, one
+    decode row per lane, against the JAX XLA serving path lane by lane."""
+    b, skv, hd = 3, 24, 16
+    q, k, v = _qkv(b, 1, skv, h, kh, hd, seed=5)
+    pos = np.full((b, skv), -1, np.int64)
+    pos[0] = skv + np.arange(skv)  # a full ring: slot j holds position 24 + j
+    pos[1, :7] = np.arange(7)
+    pos[2, :13] = np.arange(13)
+    offsets = [47, 6, 12]  # each lane's query sits at its last written row
+    got = flash_attention(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), causal=True,
+        window=window, q_offset=torch.as_tensor(offsets), kv_positions=torch.as_tensor(pos),
+    ).numpy()
+    for lane in range(b):
+        want = jfops.flash_attention(
+            jnp.asarray(q[lane:lane + 1]), jnp.asarray(k[lane:lane + 1]),
+            jnp.asarray(v[lane:lane + 1]), causal=True, window=window,
+            q_offset=jnp.asarray(offsets[lane]), kv_positions=jnp.asarray(pos[lane], jnp.int32),
+            block_q=1, block_kv=8,
+        )
+        np.testing.assert_allclose(got[lane:lane + 1], np.asarray(want), atol=2e-5, rtol=0)
+
+
+def test_dispatch_cpu_forcing_and_counts():
+    q, k = torch.randn(1, 5, 4, 16), torch.randn(1, 5, 2, 16)
+    assert dispatch.resolve("flash_attention", q) == "torch"
+    launches.reset()
+    out = dispatch.flash_attention(q, k, k, causal=True)
+    torch.testing.assert_close(out, flash_attention(q, k, k, causal=True), rtol=0, atol=0)
+    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1}
+    # the serving form runs the plain version whatever impl is forced, and
+    # is not a launch of the kernel's function
+    with dispatch.force_impl("cuda"):
+        dispatch.flash_attention(q[:, :1], k, k, q_offset=torch.tensor([4]),
+                                 kv_positions=torch.arange(5)[None])
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            dispatch.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dispatch.flash_attention(q, k, k, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfa.flash_attention_cuda(q, k, k)
+    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1}

@@ -252,6 +252,7 @@ def test_dispatch_resolution_and_force_impl():
     assert dispatch.default_impl("ghost_norm", cpu) == "torch"
     assert dispatch.resolve("psg_contract", cpu) == "torch"
     assert dispatch.resolve("embedding_ghost_norm", cpu) == "torch"
+    assert dispatch.resolve("flash_attention", cpu) == "torch"
     with dispatch.force_impl("cuda"):
         assert dispatch.resolve("ghost_norm", cpu) == "cuda"
         assert dispatch.resolve("embedding_ghost_norm", cpu) == "cuda"
@@ -262,7 +263,7 @@ def test_dispatch_resolution_and_force_impl():
     assert dispatch.resolve("ghost_norm", cpu) == "torch"
     assert dispatch.resolve("ghost_norm", cpu, impl="cuda") == "cuda"
     with pytest.raises(ValueError):
-        dispatch.resolve("flash_attention", cpu)
+        dispatch.resolve("paged_attention", cpu)
     with pytest.raises(ValueError):
         dispatch.resolve("ghost_norm", cpu, impl="pallas")
     with pytest.raises(ValueError), dispatch.force_impl(nope="torch"):

@@ -61,7 +61,7 @@ def _batch(rng, b, image, mask=None):
     }
 
 
-def _pair(jmodel, seed):
+def _pair(jmodel, tmodel, seed):
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     # a zero position table and zero biases give zero-sum gradients; shift
@@ -73,7 +73,7 @@ def _pair(jmodel, seed):
             flat[path] = (leaf + 0.1 * rng.standard_normal(leaf.shape)).astype(leaf.dtype)
     np_params = unflatten_dict(flat)
     jparams = jax.tree_util.tree_map(jax.numpy.asarray, np_params)
-    return jparams, interop.params_from_jax(np_params, device="cpu")
+    return jparams, interop.params_from_jax(np_params, tmodel.conv_weights, device="cpu")
 
 
 def _run_both(jmodel, tmodel, jparams, tparams, batch, mode):
@@ -87,7 +87,7 @@ def _run_both(jmodel, tmodel, jparams, tparams, batch, mode):
     return jres, tres
 
 
-def _assert_step_matches(jres, tres, *, rtol=1e-5, grad_tol=5e-5):
+def _assert_step_matches(jres, tres, conv_weights, *, rtol=1e-5, grad_tol=5e-5):
     jloss, jg, jaux = jres
     tloss, tg, taux = tres
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=rtol)
@@ -95,7 +95,7 @@ def _assert_step_matches(jres, tres, *, rtol=1e-5, grad_tol=5e-5):
     tn = taux["per_sample_norms"].numpy()
     np.testing.assert_allclose(tn, jn, rtol=rtol, atol=1e-6)
     jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jg))
-    tflat = flatten_dict(interop.grads_to_jax_layout(tg))
+    tflat = flatten_dict(interop.grads_to_jax_layout(tg, conv_weights))
     assert tflat.keys() == jflat.keys()
     scale = max([1.0] + [float(np.abs(v).max()) for v in jflat.values()])
     for path, want in jflat.items():
@@ -110,7 +110,7 @@ def test_vit_taps_and_decisions_match_jax(image, patch):
     """Same tap names, kinds, (T, D, p), param paths and stack dims; the
     layerwise decisions agree per tap and mode."""
     jmodel, tmodel = _models(image, patch)
-    jparams, tparams = _pair(jmodel, 0)
+    jparams, tparams = _pair(jmodel, tmodel, 0)
     batch = _batch(np.random.default_rng(0), 2, image)
     jmeta = jclip.discover_meta(jmodel.loss_with_ctx, jparams, batch)
     tmeta = tclip.discover_meta(
@@ -140,9 +140,10 @@ def test_vit_taps_and_decisions_match_jax(image, patch):
 @pytest.mark.parametrize("image,patch", IMAGES)
 def test_vit_clipped_step_matches_jax(image, patch, mode):
     jmodel, tmodel = _models(image, patch)
-    jparams, tparams = _pair(jmodel, 1)
+    jparams, tparams = _pair(jmodel, tmodel, 1)
     batch = _batch(np.random.default_rng(1), 3, image, mask=[1, 0, 1])
-    _assert_step_matches(*_run_both(jmodel, tmodel, jparams, tparams, batch, mode))
+    _assert_step_matches(*_run_both(jmodel, tmodel, jparams, tparams, batch, mode),
+                         tmodel.conv_weights)
 
 
 @pytest.mark.parametrize("mode", ["non_private", "mixed_ghost", "bk_mixed"])
@@ -161,7 +162,7 @@ def test_vit_bf16_step_matches_jax(mode):
     """
     jmodel, tmodel = _models(20, 4, dtype="bfloat16")
     jmodel32, _ = _models(20, 4)
-    jparams, tparams = _pair(jmodel, 2)
+    jparams, tparams = _pair(jmodel, tmodel, 2)
     for path, leaf in flatten_dict(tparams).items():
         assert leaf.dtype == torch.float32, path
     batch = _batch(np.random.default_rng(2), 3, 20)
@@ -173,7 +174,7 @@ def test_vit_bf16_step_matches_jax(mode):
     _, jg32, _ = jax.jit(jclip.dp_value_and_clipped_grad(jmodel32.loss_with_ctx, cfg))(
         jparams, batch)
     jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jg32))
-    tflat = flatten_dict(interop.grads_to_jax_layout(tg))
+    tflat = flatten_dict(interop.grads_to_jax_layout(tg, tmodel.conv_weights))
     scale = max(float(np.abs(v).max()) for v in jflat.values())
     for path, want in jflat.items():
         assert tflat[path].dtype == np.float32, path
@@ -204,7 +205,7 @@ def test_vit_per_step_kernel_calls(image, patch):
     """Every layer's probe norms its tap once (the second backward computes
     no banks); bk_mixed contracts each stacked tap's banks once."""
     jmodel, tmodel = _models(image, patch)
-    _, tparams = _pair(jmodel, 3)
+    _, tparams = _pair(jmodel, tmodel, 3)
     batch = interop.batch_from_numpy(_batch(np.random.default_rng(3), 2, image), device="cpu")
     meta = tclip.discover_meta(tmodel.loss_with_ctx, tparams, batch)
     for mode in ("mixed_ghost", "bk_mixed"):
@@ -251,16 +252,16 @@ def test_vit_base_decisions_at_full_width():
                    if m.kind == "matmul"), mode
     assert _expected_calls(meta, "mixed_ghost") == {
         "ghost_norm_sq": 74, "embedding_ghost_norm_sq": 1,
-        "book_weighted_grad": 0, "psg_contract": 0}
+        "book_weighted_grad": 0, "psg_contract": 0, "flash_attention": 0}
     assert _expected_calls(meta, "bk_mixed") == {
         "ghost_norm_sq": 74, "embedding_ghost_norm_sq": 1,
-        "book_weighted_grad": 8, "psg_contract": 6}
+        "book_weighted_grad": 8, "psg_contract": 6, "flash_attention": 0}
 
 
 def test_vit_train_step_matches_jax():
     """One noiseless make_train_step in bk_mixed (clip -> /logical batch -> SGD)."""
     jmodel, tmodel = _models(16, 4)
-    jparams, tparams = _pair(jmodel, 4)
+    jparams, tparams = _pair(jmodel, tmodel, 4)
     batch = _batch(np.random.default_rng(4), 3, 16)
     dp = dict(clipping_mode="bk_mixed", clip_norm=0.5, noise_multiplier=0.0, logical_batch=3)
     jo, to = jopt.sgd(), topt.sgd()
@@ -276,7 +277,7 @@ def test_vit_train_step_matches_jax():
     tnew, tmet = tstep(tstate, interop.batch_from_numpy(batch, device="cpu"))
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
     jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jnew["params"]))
-    tflat = flatten_dict(interop.grads_to_jax_layout(tnew["params"]))
+    tflat = flatten_dict(interop.grads_to_jax_layout(tnew["params"], tmodel.conv_weights))
     for path, want in jflat.items():
         np.testing.assert_allclose(tflat[path], want, rtol=1e-5, atol=1e-6, err_msg=path)
 
@@ -287,7 +288,7 @@ def test_vit_privacy_engine_flow():
     from repro_torch.core.accountant import compute_epsilon
 
     jmodel, tmodel = _models(16, 4)
-    _, tparams = _pair(jmodel, 5)
+    _, tparams = _pair(jmodel, tmodel, 5)
     batch = interop.batch_from_numpy(_batch(np.random.default_rng(5), 3, 16), device="cpu")
     kw = dict(loss_with_ctx=tmodel.loss_with_ctx, batch_size=3, sample_size=1000, steps=10,
               max_grad_norm=0.5, noise_multiplier=1.1, device="cpu")
