@@ -13,6 +13,10 @@ order; any failure exits non-zero and prints no result:
 
 1. card     the name and power limit, as nvidia-smi reports them;
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
+            cuobjdump -sass must show tensor-core instructions (HMMA or
+            HGMMA) in every bf16 flash_attention instance and every
+            book_weighted_grad instance, whose register and spill counts
+            (ptxas -v) are printed;
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
             at the shapes and dtypes its path gives it (the training steps'
             from the models' own taps, the attention kernel's at the eight
@@ -22,7 +26,8 @@ order; any failure exits non-zero and prints no result:
             end of the cache, a window, non-causal, MHA, hd 64, fp32), with
             CUDA-event times of the kernel, the plain version and one
             PyTorch library call that computes the same function (a
-            yardstick the port never calls);
+            yardstick the port never calls), the kernel's achieved TFLOP/s
+            and its share of the bound;
 4. slice    per training path, DP-SGD steps through make_train_step in
             non_private, mixed_ghost and bk_mixed: loss, kernel launches per
             step against the taps' expectation, step time (median and
@@ -73,6 +78,15 @@ OUT_DIR = ROOT / "chiprun_out"
 # the peak rate of their operands' type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# bf16 tensor-core products per multiply-add of the book contraction, the
+# cheapest split that meets its 1e-4 gate: w * g (fp32) is always split in
+# two bf16 terms (one bf16 product of it misses the gate), a bf16 activation
+# is exact, an fp32 one is split too and its lo * lo term dropped (bf16x3)
+BOOK_PRODUCTS = {("float32", "float32"): 3, ("float32", "bfloat16"): 3,
+                 ("bfloat16", "float32"): 2, ("bfloat16", "bfloat16"): 2}
+# kernels built for the tensor cores: cuobjdump must find HMMA / HGMMA in
+# every instance, and the build prints their registers and spills
+TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": 4, "book_weighted_grad_kernel": 8}
 
 MODES = ("non_private", "mixed_ghost", "bk_mixed")
 STEPS = 10  # timed steps per mode and path
@@ -104,8 +118,10 @@ MODE_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # largest |plain| entry, since both sum the same fp32 products in another
 # order.  bf16: relative to each query row's own largest |plain| entry (a
 # row past a few hundred keys averages to |out| ~ sqrt(e / keys), far below
-# the largest entry, v_0 in row 0); both sides compute in fp32 and round the
-# output to bf16, which differ by at most one step, 2^-7 of the entry
+# the largest entry, v_0 in row 0).  The kernel rounds P to bf16 before P.V
+# (as the Pallas kernel does; the plain version keeps it fp32), which moves
+# a row by up to ~3e-3 of its scale, less than one output step; both round
+# the output to bf16, so they differ by at most one step, 2^-7 of the entry
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # Yi-6B logits, relative to the largest |logit|.  The kernel path against
 # force_impl("torch") is gated in fp32 compute (the same fp32 parameters):
@@ -179,10 +195,64 @@ def phase_build() -> dict:
     info = build.build(force=True)
     build.library()
     print(f"build: {info.seconds:.1f} s -> {info.path.relative_to(ROOT)}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line.lower():
-            print(f"  {line.strip()}")
-    return {"seconds": info.seconds, "path": str(info.path.relative_to(ROOT))}
+    return {"seconds": info.seconds, "path": str(info.path.relative_to(ROOT)),
+            "tensor_core": _check_tensor_core_sass(info)}
+
+
+def _ptxas_usage(log: str) -> dict:
+    """{mangled kernel: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report."""
+    import re
+
+    usage, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            usage[name] = (int(m.group(1)),) + spills
+    return usage
+
+
+def _demangle(names: list) -> list:
+    import shutil
+
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return [o.replace("(anonymous namespace)::", "").split("(")[0] for o in out]
+
+
+def _check_tensor_core_sass(info) -> list:
+    """Every instance of the tensor-core kernels must hold HMMA or HGMMA in
+    the built library's SASS; print each one's count, registers and spills."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(info.path)], capture_output=True,
+                          text=True, timeout=300)
+    require(dump.returncode == 0, f"cuobjdump -sass failed: {dump.stderr.strip()[:500]}")
+    sass = {}
+    for chunk in dump.stdout.split("Function : ")[1:]:
+        name = chunk.split(maxsplit=1)[0]
+        sass[name] = sum(chunk.count(op) for op in (" HMMA", " HGMMA"))
+    usage = _ptxas_usage(info.log)
+    rows = []
+    for kernel, instances in TENSOR_CORE_KERNELS.items():
+        names = sorted(n for n in sass if kernel in n)
+        require(len(names) == instances,
+                f"{kernel}: {len(names)} instances in the SASS, expected {instances}")
+        for name, label in zip(names, _demangle(names)):
+            regs, st, ld = usage.get(name, (-1, -1, -1))
+            print(f"  {label}: {sass[name]} HMMA/HGMMA, {regs} registers, "
+                  f"spill stores {st} B, loads {ld} B")
+            require(sass[name] > 0, f"{label}: no tensor-core instruction in its SASS")
+            rows.append({"kernel": label, "mma_instructions": sass[name], "registers": regs,
+                         "spill_stores": st, "spill_loads": ld})
+    return rows
 
 
 def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
@@ -193,11 +263,18 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     A stacked tap (ViT layers) launches its norm kernel once per layer and
     its book or bank contraction once for all layers.  The norm kernels get
     the activation in the model dtype and the cotangent in fp32; the book
-    holds both in the model dtype; banked per-sample gradients are fp32.
+    holds both in the model dtype; banked per-sample gradients are fp32.  A
+    book contraction whose R is split across blocks launches a second
+    kernel that sums the splits (book_splits, from the card's SM count).
     """
+    import torch
+
     from repro_torch.core.clipping import discover_meta
     from repro_torch.core.decision import decide
     from repro_torch.core.ghost import psg_param_shape
+    from repro_torch.kernels.psg_contract.psg_contract import book_splits
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     meta = discover_meta(model.loss_with_ctx, params, batch)
     shapes = {k: {} for k in KERNEL_INFO}
@@ -220,8 +297,9 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
             expected["mixed_ghost"]["ghost_norm_sq"] += layers
         if m.kind == "matmul" and decide(m, mode="bk_mixed") == "ghost":
             expected["bk_mixed"]["ghost_norm_sq"] += layers
-            expected["bk_mixed"]["book_weighted_grad"] += 1
-            add("book_weighted_grad", (layers, b * m.T, m.D, m.p), (a_dt, s_dt))
+            shape = (layers, b * m.T, m.D, m.p)
+            expected["bk_mixed"]["book_weighted_grad"] += 1 + (book_splits(*shape, sms)[0] > 1)
+            add("book_weighted_grad", shape, (a_dt, s_dt))
         else:
             add("psg_contract", (b, layers * math.prod(psg_param_shape(m))), ("float32",))
             expected["bk_mixed"]["psg_contract"] += 1
@@ -258,10 +336,10 @@ def _bound(kernel: str, shape, dtypes, segments: int = 0) -> tuple[float, str]:
         n, t, p, _ = shape
         ops_s = ((n * t - segments) * p + 2 * segments * p) / fp32
         nbytes = n * t * (size[dtypes[0]] + p * size[dtypes[1]]) + 4 * n
-    elif kernel == "book_weighted_grad":  # a row-scaled GEMM per m
+    elif kernel == "book_weighted_grad":  # a row-scaled GEMM per m, split operands
         m, r, d, p = shape
-        kind = "bfloat16" if set(dtypes) == {"bfloat16"} else "float32"
-        ops_s = (2 * m * r * d * p) / rate[kind] + m * r * p / fp32
+        ops_s = (BOOK_PRODUCTS[tuple(dtypes)] * 2 * m * r * d * p / rate["bfloat16"]
+                 + m * r * p / fp32)
         nbytes = m * r * (d * size[dtypes[0]] + p * size[dtypes[1]] + 4) + 4 * m * d * p
     else:
         n, f = shape
@@ -269,6 +347,28 @@ def _bound(kernel: str, shape, dtypes, segments: int = 0) -> tuple[float, str]:
         nbytes = n * f * size[dtypes[0]] + 4 * (n + f)
     t_ops, t_bytes = ops_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _flops(kernel: str, shape, segments: int = 0) -> float:
+    """The function's own floating-point operations in one call (not those
+    of any split of its operands): what an achieved TFLOP/s divides."""
+    if kernel == "ghost_norm_sq":
+        n, t, d, p = shape
+        return n * t * (t + 1) * (d + p) + 2 * n * t * t
+    if kernel == "embedding_ghost_norm_sq":
+        n, t, p, _ = shape
+        return (n * t - segments) * p + 2 * segments * p
+    if kernel == "book_weighted_grad":
+        m, r, d, p = shape
+        return 2 * m * r * d * p + m * r * p
+    n, f = shape
+    return 2 * n * f
+
+
+def _timing(case: dict) -> str:
+    return (f" ms={case['ms']:.4f} plain={case['plain_ms']:.4f} "
+            f"library={case['library_ms']:.4f} bound={case['bound_ms']:.4f} "
+            f"({case['tflops']:.1f} TFLOP/s, {100 * case['bound_share']:.1f}% of the bound)")
 
 
 def _segments(ids) -> int:
@@ -343,10 +443,10 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
         case["library_ms"] = cuda_ms(lambda: library(*lib_args), iters)
         segments = _segments(args[0]) if kernel == "embedding_ghost_norm_sq" else 0
         case["bound_ms"], case["bound_by"] = _bound(kernel, shape, dtypes, segments)
+        case["tflops"] = _flops(kernel, shape, segments) / case["ms"] / 1e9
+        case["bound_share"] = case["bound_ms"] / case["ms"]
     status = "ok" if rel_err <= TOL[kernel] else "MISMATCH"
-    timing = (f" ms={case['ms']:.4f} plain={case['plain_ms']:.4f} "
-              f"library={case['library_ms']:.4f} bound={case['bound_ms']:.4f}"
-              if timed else "")
+    timing = _timing(case) if timed else ""
     print(f"  {kernel} {tuple(shape)} {'/'.join(dtypes)}: rel_err={rel_err:.2e} "
           f"(tol {TOL[kernel]:.0e}) deterministic={case['deterministic']}{timing} {status}")
     require(rel_err <= TOL[kernel], f"{kernel} {shape} {dtypes}: rel err {rel_err:.3e}")
@@ -364,8 +464,10 @@ RAGGED = {
         for shape in ((3, 37, 33, 5), (4, 100, 70, 1000), (2, 1, 10, 3),
                       (5, 16, 130, 4), (2, 300, 64, 50))
     ],
+    # R split across blocks (M = 1, R = 8192), every dtype pair, R under one k-step
     "book_weighted_grad": [((3, 37, 33, 130), FLOAT_PAIRS[:2]), ((1, 1, 5, 3), FLOAT_PAIRS[:2]),
-                           ((2, 100, 70, 9), FLOAT_PAIRS)],
+                           ((2, 100, 70, 9), FLOAT_PAIRS + [("float32", "bfloat16")]),
+                           ((1, 8192, 130, 70), FLOAT_PAIRS + [("float32", "bfloat16")])],
     "psg_contract": [(shape, [("float32",), ("bfloat16",)])
                      for shape in ((5, 33), (1, 1), (7, 1000), (130, 257))],
 }
@@ -538,9 +640,11 @@ def phase_compare(tag: str, path: dict) -> dict:
 
 # ------------------------------------------------------- attention kernel --
 # (B, Sq, Skv, H, K, hd, causal, window, q_offset) and dtypes: Sq and Skv
-# off the 64-row and 32-key tiles, one query row at the end of the cache, a
-# window smaller than Sq, non-causal, MHA (K = H), hd 64, fp32 (at the
-# longest prompt's shape too, holding the long rows at full precision)
+# off the 64-row and the 32- and 64-key tiles, one query row at the end of
+# the cache, a window smaller than Sq and one that cuts a 64-key tile,
+# non-causal, MHA (K = H), 8 query heads per KV head, B = 3, every head dim,
+# fp32 (at the longest prompt's shape too, timed: the fp32 SIMT instance,
+# holding the long rows at full precision)
 FLASH_RAGGED = [
     ((1, 2048, 2048, 32, 4, 128, True, None, 0), ("float32",)),
     ((1, 131, 131, 32, 4, 128, True, None, 0), ("bfloat16", "float32")),
@@ -549,6 +653,8 @@ FLASH_RAGGED = [
     ((1, 300, 300, 8, 2, 128, True, 100, 0), ("bfloat16", "float32")),
     ((2, 70, 45, 4, 4, 64, False, None, 0), ("bfloat16", "float32")),
     ((1, 257, 257, 16, 16, 128, True, None, 0), ("bfloat16",)),
+    ((3, 150, 150, 8, 1, 32, True, 40, 0), ("bfloat16", "float32")),
+    ((1, 33, 80, 2, 2, 16, True, None, 47), ("bfloat16", "float32")),
 ]
 
 
@@ -619,8 +725,11 @@ def _flash_case(spec, dtype: str, gen, timed: bool) -> dict:
         case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
         case["bound_ms"], case["bound_by"] = _flash_bound(spec, dtype)
-        timing = (f" ms={case['ms']:.4f} plain={case['plain_ms']:.4f} "
-                  f"sdpa={case['library_ms']:.4f} bound={case['bound_ms']:.4f}")
+        b, sq, skv, h, _, hd, causal, window, q_offset = spec
+        flops = 4 * b * h * hd * _live_pairs(sq, skv, causal, window, q_offset)
+        case["tflops"] = flops / case["ms"] / 1e9
+        case["bound_share"] = case["bound_ms"] / case["ms"]
+        timing = _timing(case).replace("library=", "sdpa=")
     status = "ok" if rel_err <= tol else "MISMATCH"
     print(f"  flash_attention {tuple(spec)} {dtype}: rel_err={rel_err:.2e} (tol {tol:.0e}; "
           f"of the largest entry {max_rel:.2e}, per row {row_rel:.2e}) "
@@ -649,7 +758,7 @@ def phase_flash_kernel() -> list:
     print("kernel flash_attention: ragged shapes")
     for spec, dtypes in FLASH_RAGGED:
         for dtype in dtypes:
-            cases.append(_flash_case(spec, dtype, gen, timed=False))
+            cases.append(_flash_case(spec, dtype, gen, timed=spec == FLASH_RAGGED[0][0]))
     return cases
 
 

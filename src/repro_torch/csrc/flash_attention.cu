@@ -11,36 +11,291 @@
 // flash_attention_pallas.  The Pallas kernel carries (m, l, acc) in VMEM
 // across a sequential KV grid axis; blocks here run in parallel in no
 // order, so one block owns a (batch, head, 64-row q tile) and loops over
-// the KV tiles itself, with m, l and its share of the (64, hd) accumulator
-// in registers.  Scores and probabilities live only in shared memory.
-// The block reads KV head h / g in place: no transposed copy and none of
-// the Pallas wrapper's jnp.repeat of K and V (8x at Yi-6B's 32/4 heads).
+// the KV tiles itself.  Both instances read KV head h / g in place (no
+// transposed copy and none of the Pallas wrapper's jnp.repeat of K and V,
+// 8x at Yi-6B's 32/4 heads), skip the KV tiles that the causal or window
+// mask leaves fully dead (half the work of a causal prefill), mask ragged
+// edges by index, start the longest causal rows first, mask with the
+// Pallas kernel's finite -1e30 and floor the denominator at 1e-30.  No
+// atomics: the output is deterministic.
 //
 // What bounds it on the H100: operations.  A causal prompt of length s
-// needs 4 * hd * s(s+1)/2 flops per head against (2 + 2/g) * s * hd
-// values moved, hundreds of flops per byte, so a tensor-core kernel would
-// be bound by the 989 TFLOP/s bf16 rate.  This first version multiplies
-// in fp32 on the CUDA cores (67 TFLOP/s at best, and below that here,
-// since every fma reads its operands from shared memory): simple and
-// exact to fp32 summation order, not fast.  What the design does about
-// the bound: it skips the KV tiles that the causal or window mask leaves
-// fully dead (half the work of a causal prefill), reads each K/V tile once
-// per block through shared memory for 64 query rows, and keeps P in fp32
-// (the Pallas kernel rounds P to the input type before P.V; this kernel
-// does not).  wgmma, TMA and warp specialisation are later work.
+// needs 4 * hd * s(s+1)/2 flops per head against (2 + 2/g) * s * hd values
+// moved, hundreds of flops per byte, so the kernel is bound by the tensor
+// cores' 989 TFLOP/s bf16 rate.  Which instance runs is set by the dtype:
+//
+// - bf16 (the serving path: Yi-6B's prefills): tensor cores.  4 warps, each
+//   owning 16 query rows; Q's fragments stay in registers for the whole KV
+//   loop.  64-key K and V tiles are double-buffered in shared memory with
+//   cp.async (tile j+1 loads while tile j computes).  S = Q K^T and
+//   O += P V are bf16 mma.sync.m16n8k16 with fp32 accumulators (ldmatrix
+//   for Q and K, ldmatrix.trans for V).  The row max and row sum live in
+//   the accumulator fragments and reduce over the four lanes of a quad; P
+//   is rounded to bf16 in registers and is the A operand of P V directly,
+//   so S and P never touch shared memory.  Precision: Q K^T of bf16 inputs
+//   is exact products summed in fp32, as the Pallas kernel's fp32 dot;
+//   P is rounded to bf16 before P V, as the Pallas kernel does
+//   (p.astype(v_ref.dtype)), and l sums the unrounded fp32 P, also as
+//   there.  Against the plain version (fp32 P) that adds about 2^-9 / 3 of
+//   a row's scale before the output's own bf16 rounding, which alone can
+//   differ by one step (2^-7 of an entry).
+// - fp32: the SIMT kernel (CUDA-core fp32 FMAs from shared memory, a 64-row
+//   q tile per block, 32-key tiles).  Tensor cores have no fp32 product, and
+//   this instance carries the fp32 gates (1e-5 of the largest entry, the
+//   prefill logits at 1e-4), so it stays exact to fp32 summation order.
+//   It serves the fp32 compute paths (the logit comparison, reduced tests),
+//   not the bf16 serving path; it is not fast.
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace {
+
+constexpr float kNegInf = -1e30f;  // the Pallas kernel's finite mask value
+
+// ---------------------------------------------------------------------------
+// bf16 instance: tensor cores
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // query rows per block
+constexpr int kBKV = 64;          // keys per tile
+constexpr int kPad = 8;           // bf16 per row: 16-byte shift, ldmatrix conflict-free
+constexpr float kLog2e = 1.4426950408889634f;
+
+// K and V tiles, two stages each; Q is staged in K's second buffer first
+template <int HD>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(bf16)) * 4 * kBKV * (HD + kPad);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// rows [row0, row0 + kBKV) of a (rows, HD) head slice with row stride
+// `stride` into a (kBKV, HD + kPad) tile; rows at or past `n_rows` are zero
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t stride, int row0,
+                                          int n_rows) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kBKV * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool in = row0 + r < n_rows;
+    repro::cp_async16(dst + r * (HD + kPad) + col,
+                      src + (in ? row0 + r : 0) * stride + col, in);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
+                                int skv, int heads, int kv_heads, int causal, int window,
+                                int q_offset, float scale) {
+  constexpr int S = HD + kPad;  // shared row stride, elements
+  constexpr int KD = HD / 16;   // k16 steps of Q K^T
+  constexpr int ND = HD / 8;    // n8 tiles of the output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [2][kBKV][S]
+  bf16* sv = sk + 2 * kBKV * S;                  // [2][kBKV][S]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  // heads vary fastest over the grid, and the last q tile (the longest
+  // causal rows) of every head is scheduled first
+  const int head = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int kv_head = head / (heads / kv_heads);
+  const int64_t q_stride = static_cast<int64_t>(heads) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(kv_heads) * HD;
+  const bf16* qb = q + (static_cast<int64_t>(b) * sq * heads + head) * HD;
+  const bf16* kb = k + (static_cast<int64_t>(b) * skv * kv_heads + kv_head) * HD;
+  const bf16* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + kv_head) * HD;
+  bf16* ob = o + (static_cast<int64_t>(b) * sq * heads + head) * HD;
+
+  // the keys any row of this tile can reach; tiles outside are dead
+  const int rows = min(kBQ, sq - q0);
+  const int qpos_lo = q_offset + q0, qpos_hi = q_offset + q0 + rows - 1;
+  const int k_hi = causal ? min(skv, qpos_hi + 1) : skv;
+  const int k_lo = window >= 0 ? max(0, qpos_lo - window + 1) : 0;
+  const int k_first = (k_lo / kBKV) * kBKV;
+  const int n_tiles = k_hi > k_first ? (k_hi - k_first + kBKV - 1) / kBKV : 0;
+
+  // Q into K's second buffer, and the first K/V tile, in one group
+  load_tile<HD>(sk + kBKV * S, qb, q_stride, q0, sq);
+  if (n_tiles > 0) {
+    load_tile<HD>(sk, kb, kv_stride, k_first, skv);
+    load_tile<HD>(sv, vb, kv_stride, k_first, skv);
+  }
+  repro::cp_async_commit();
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, for the whole KV loop
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    repro::ldmatrix_x4(qf[kk], sk + kBKV * S + (warp * 16 + (lane & 15)) * S + kk * 16 +
+                                   (lane >> 4) * 8);
+  }
+  __syncthreads();  // Q's buffer is K's second stage from here on
+
+  // rows grp and grp + 8 of the warp: running max (log2 units), sum, output
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  const int qpos_row = q_offset + q0 + warp * 16 + grp;  // and + 8
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * kBKV;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_tile<HD>(sk + (stage ^ 1) * kBKV * S, kb, kv_stride, k0 + kBKV, skv);
+      load_tile<HD>(sv + (stage ^ 1) * kBKV * S, vb, kv_stride, k0 + kBKV, skv);
+    }
+    repro::cp_async_commit();
+    const bf16* kt = sk + stage * kBKV * S;
+    const bf16* vt = sv + stage * kBKV * S;
+
+    // S = Q K^T: 8 n8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int nb2 = 0; nb2 < 4; ++nb2) {
+        uint32_t kf[4];
+        repro::ldmatrix_x4(kf, kt + (nb2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * S +
+                                   kk * 16 + ((lane >> 3) & 1) * 8);
+        repro::mma_bf16(s[2 * nb2], qf[kk], kf[0], kf[1]);
+        repro::mma_bf16(s[2 * nb2 + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // scale into log2 units and mask; a tile live for every row of the
+    // block skips the per-entry test
+    const bool full = k0 + kBKV <= skv && (!causal || k0 + kBKV - 1 <= qpos_lo) &&
+                      (window < 0 || qpos_hi - k0 < window);
+    float row_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nb][e] * scale_log2;
+        if (!full) {
+          const int kpos = k0 + nb * 8 + 2 * tig + (e & 1);
+          const int qpos = qpos_row + (e >> 1) * 8;
+          bool live = kpos < skv;
+          if (causal) live = live && kpos <= qpos;
+          if (window >= 0) live = live && qpos - kpos < window;
+          x = live ? x : kNegInf;
+        }
+        s[nb][e] = x;
+        row_max[e >> 1] = fmaxf(row_max[e >> 1], x);
+      }
+    }
+    float alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(row_max[h]));
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = exp2f(s[nb][e] - m[e >> 1]);
+        row_sum[e >> 1] += s[nb][e];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(row_sum[h]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulator fragments, rounded to bf16, are the A operand
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4];
+      pa[0] = repro::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[1] = repro::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[2] = repro::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[3] = repro::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+      for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+        uint32_t vf[4];
+        repro::ldmatrix_x4_trans(vf, vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
+                                         nd2 * 16 + (lane >> 4) * 8);
+        repro::mma_bf16(acc[2 * nd2], pa, vf[0], vf[1]);
+        repro::mma_bf16(acc[2 * nd2 + 1], pa, vf[2], vf[3]);
+      }
+    }
+    repro::cp_async_wait<0>();
+    __syncthreads();  // the next tile has landed; this one's readers are done
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + grp + 8 * h;
+    if (r >= sq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    bf16* orow = ob + r * q_stride + 2 * tig;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8) =
+          __floats2bfloat162_rn(acc[nd][2 * h] / denom, acc[nd][2 * h + 1] / denom);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
+           int heads, int kv_heads, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(heads, (sq + kBQ - 1) / kBQ, b);
+  flash_attention_bf16_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), sq, skv, heads, kv_heads, causal, window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// fp32 instance: CUDA-core SIMT
 //
 // Thread layout: 256 threads as 16 x 16; thread (ty, tx) owns query rows
 // 4ty..4ty+3, score columns tx and tx+16 of the 32-key tile, and output
 // columns tx + 16c.  The 16 threads of a row group are one half-warp, so
-// row max and row sum reduce with xor shuffles inside it.
-#include "common.cuh"
-
-namespace {
+// row max and row sum reduce with xor shuffles inside it.  Scores and
+// probabilities live in shared memory; P stays fp32.
+namespace simt {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;   // query rows per block
 constexpr int kBKV = 32;  // keys per tile
-constexpr float kNegInf = -1e30f;  // the Pallas kernel's finite mask value
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -62,15 +317,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-                           int heads, int kv_heads, int causal, int window, int q_offset,
-                           float scale) {
+    flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ o, int sq,
+                                int skv, int heads, int kv_heads, int causal, int window,
+                                int q_offset, float scale) {
   constexpr int QS = HD + 1, KS = HD + 1, PS = kBKV + 1, RC = HD / 16;
   extern __shared__ float smem[];
   float* qs = smem;             // (kBQ, QS)
@@ -85,14 +337,14 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_head = head / (heads / kv_heads);
   const int64_t q_stride = static_cast<int64_t>(heads) * HD;
   const int64_t kv_stride = static_cast<int64_t>(kv_heads) * HD;
-  const T* qb = q + (static_cast<int64_t>(b) * sq * heads + head) * HD;
-  const T* kb = k + (static_cast<int64_t>(b) * skv * kv_heads + kv_head) * HD;
-  const T* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + kv_head) * HD;
-  T* ob = o + (static_cast<int64_t>(b) * sq * heads + head) * HD;
+  const float* qb = q + (static_cast<int64_t>(b) * sq * heads + head) * HD;
+  const float* kb = k + (static_cast<int64_t>(b) * skv * kv_heads + kv_head) * HD;
+  const float* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + kv_head) * HD;
+  float* ob = o + (static_cast<int64_t>(b) * sq * heads + head) * HD;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
-    qs[r * QS + d] = q0 + r < sq ? repro::to_float(qb[(q0 + r) * q_stride + d]) : 0.f;
+    qs[r * QS + d] = q0 + r < sq ? qb[(q0 + r) * q_stride + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][RC];
@@ -116,8 +368,8 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / HD, d = i % HD;
       const bool in = k0 + r < skv;
       const int64_t at = (k0 + r) * kv_stride + d;
-      ks[r * KS + d] = in ? repro::to_float(kb[at]) : 0.f;
-      vs[r * HD + d] = in ? repro::to_float(vb[at]) : 0.f;
+      ks[r * KS + d] = in ? kb[at] : 0.f;
+      vs[r * HD + d] = in ? vb[at] : 0.f;
     }
     __syncthreads();
 
@@ -182,63 +434,66 @@ __global__ void __launch_bounds__(kThreads)
     if (r >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < RC; ++c) store(&ob[r * q_stride + tx + 16 * c], acc[i][c] / denom);
+    for (int c = 0; c < RC; ++c) ob[r * q_stride + tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
            int heads, int kv_heads, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
   constexpr int bytes = static_cast<int>(smem_bytes<HD>());
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_attention_fp32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, heads, b);
-  flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, skv, heads, kv_heads, causal, window, q_offset, scale);
+  flash_attention_fp32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sq, skv, heads, kv_heads, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int b, int sq,
-              int skv, int heads, int kv_heads, int causal, int window, int q_offset,
-              float scale, cudaStream_t stream) {
+}  // namespace simt
+
+// one instance per head dim: HD is a template parameter of both kernels
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                         int, int, int, float, cudaStream_t);
+
+template <template <int> class Pick>
+LaunchFn for_head_dim(int hd) {
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, window, q_offset,
-                           scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, window, q_offset,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, window, q_offset,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, window, q_offset,
-                            scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return Pick<16>::fn;
+    case 32: return Pick<32>::fn;
+    case 64: return Pick<64>::fn;
+    case 128: return Pick<128>::fn;
+    default: return nullptr;
   }
 }
+
+template <int HD>
+struct Bf16 {
+  static constexpr LaunchFn fn = tc::launch<HD>;
+};
+
+template <int HD>
+struct Fp32 {
+  static constexpr LaunchFn fn = simt::launch<HD>;
+};
 
 }  // namespace
 
 // q (b, sq, heads, hd), k and v (b, skv, kv_heads, hd), o (b, sq, heads, hd),
-// all contiguous of `dtype`; window < 0 means none; scale multiplies q . k.
+// all contiguous of `dtype` and 16-byte aligned; window < 0 means none;
+// scale multiplies q . k.  bf16 runs the tensor-core instance, fp32 the
+// SIMT one.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int b, int sq, int skv, int heads, int kv_heads, int hd,
                                       int causal, int window, int q_offset, float scale,
                                       int dtype, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (dtype == repro::kFloat32) {
-    return launch_hd<float>(hd, q, k, v, o, b, sq, skv, heads, kv_heads, causal, window,
-                            q_offset, scale, stream);
-  }
-  if (dtype == repro::kBFloat16) {
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, b, sq, skv, heads, kv_heads, causal,
-                                    window, q_offset, scale, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  LaunchFn fn = nullptr;
+  if (dtype == repro::kBFloat16) fn = for_head_dim<Bf16>(hd);
+  if (dtype == repro::kFloat32) fn = for_head_dim<Fp32>(hd);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, sq, skv, heads, kv_heads, causal, window, q_offset, scale,
+            static_cast<cudaStream_t>(stream_ptr));
 }

@@ -6,7 +6,9 @@ plain version.
 over the static causal / window masks with an int ``q_offset``, fully
 masked KV tiles skipped.  It takes the JAX public layout, q (B, Sq, H, hd)
 and k/v (B, Skv, K, hd), and reads KV head ``h // (H / K)`` in place where
-the Pallas wrapper repeats K and V to H heads.  It launches its kernel on
+the Pallas wrapper repeats K and V to H heads.  bf16 inputs run the
+tensor-core instance (P rounded to bf16 before P.V, as the Pallas kernel
+does), fp32 inputs the fp32 SIMT instance.  It launches its kernel on
 CUDA tensors and raises on anything else; ``flash_attention_plain`` beside
 it is the same map in plain PyTorch.
 """
@@ -48,8 +50,9 @@ def flash_attention_cuda(
         raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads are not a multiple of {kh} KV heads")
-    if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
-        raise ValueError(f"B = {b} or H = {h} exceeds the kernel's grid limit {_MAX_GRID_YZ}")
+    if max(h, b, -(-sq // 64)) > _MAX_GRID_YZ:
+        raise ValueError(f"B = {b}, H = {h} or Sq / 64 = {-(-sq // 64)} exceeds the kernel's "
+                         f"grid limit {_MAX_GRID_YZ}")
     if window is not None and window < 0:
         raise ValueError(f"window {window} must be non-negative")
     for name, size in (("B*Sq*H*hd", q.numel()), ("B*Skv*K*hd", k.numel()),
@@ -58,6 +61,8 @@ def flash_attention_cuda(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # the bf16 instance copies 16-byte chunks; a view at an odd offset is copied
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     with torch.cuda.device(q.device):
         code = library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -10,6 +10,7 @@ Ports of ``kernels/psg_contract/psg_contract.py``:
 
 Each launches its kernel on CUDA tensors and raises on anything else.  The
 ``*_plain`` functions beside them are the same maps in plain PyTorch.
+``book_splits`` is the book kernel's split of R across blocks.
 """
 from __future__ import annotations
 
@@ -20,11 +21,34 @@ from repro_torch.kernels.psg_contract.ops import book_weighted_grad as book_weig
 from repro_torch.kernels.psg_contract.ops import psg_contract as psg_contract_plain
 
 __all__ = [
-    "book_weighted_grad_cuda", "book_weighted_grad_plain",
+    "book_splits", "book_weighted_grad_cuda", "book_weighted_grad_plain",
     "psg_contract_cuda", "psg_contract_plain",
 ]
 
 _MAX_GRID_Z = 65535
+BOOK_TILE = 128  # D and p of one block's output tile (csrc/book_weighted_grad.cu)
+BOOK_STEP = 32  # rows of R per k-step
+MIN_ROWS_PER_SPLIT = 256  # a split of R runs at least 8 k-steps
+
+
+def book_splits(m: int, r: int, d: int, p: int, sm_count: int) -> tuple[int, int]:
+    """(splits, rows_per_split) of the book kernel's R loop.
+
+    Blocks own a 128 x 128 output tile of one m; where M x tiles falls short
+    of two blocks per SM, R is cut into equal chunks (multiples of the
+    32-row k-step, at least 256 rows) so the grid reaches about two per SM.
+    """
+    tiles = m * -(-d // BOOK_TILE) * -(-p // BOOK_TILE)
+    splits = 1
+    if tiles < 2 * sm_count:
+        splits = max(1, min(-(-2 * sm_count // tiles), r // MIN_ROWS_PER_SPLIT))
+    rows = -(-max(r, 1) // splits)
+    rows = -(-rows // BOOK_STEP) * BOOK_STEP
+    return -(-max(r, 1) // rows), rows
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def book_weighted_grad_cuda(
@@ -43,8 +67,6 @@ def book_weighted_grad_cuda(
         raise ValueError(
             f"a {tuple(a.shape)}, g {tuple(g.shape)}, w {tuple(w.shape)} disagree on (M, R)"
         )
-    if m > _MAX_GRID_Z:
-        raise ValueError(f"M = {m} exceeds the kernel's grid limit {_MAX_GRID_Z}")
     for name, size in (("R * D", r * d), ("R * p", r * p), ("D * p", d * p)):
         checks.fits_int32(name, size)
     out = torch.empty((m, d, p), dtype=torch.float32, device=a.device)
@@ -52,14 +74,23 @@ def book_weighted_grad_cuda(
         return out
     if r == 0:
         return out.zero_()
+    splits, rows = book_splits(m, r, d, p, _sm_count(a.device))
+    if m * splits > _MAX_GRID_Z:
+        raise ValueError(f"M * splits = {m * splits} exceeds the kernel's grid limit "
+                         f"{_MAX_GRID_Z}")
+    # the splits' partial sums, added in split order by a second kernel
+    partial = torch.empty((splits, m, d, p) if splits > 1 else (0,), dtype=torch.float32,
+                          device=a.device)
     with torch.cuda.device(a.device):
         code = library().book_weighted_grad_launch(
             a.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
-            m, r, d, p, checks.DTYPE_CODES[a.dtype], checks.DTYPE_CODES[g.dtype],
+            partial.data_ptr() if splits > 1 else None, m, r, d, p, splits, rows,
+            checks.DTYPE_CODES[a.dtype], checks.DTYPE_CODES[g.dtype],
             checks.stream(a.device),
         )
     check(code, "book_weighted_grad")
-    launches.record("book_weighted_grad", "cuda")
+    for _ in range(1 + (splits > 1)):  # the tile kernel, then the split sum
+        launches.record("book_weighted_grad", "cuda")
     return out
 
 

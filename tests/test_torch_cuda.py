@@ -73,13 +73,47 @@ def test_embedding_ghost_norm_kernel(gen, n, t, vocab, p, dtype, id_dtype):
     assert torch.equal(got, gn.embedding_ghost_norm_sq_cuda(ids, g))  # deterministic
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,r,d,p", [(3, 37, 33, 130), (1, 1, 5, 3), (2, 1000, 70, 9)])
-def test_book_weighted_grad_kernel(gen, m, r, d, p, dtype):
-    a, g = _rnd(gen, m, r, d, dtype=dtype), _rnd(gen, m, r, p, dtype=dtype)
+BOOK_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("a_dtype,g_dtype", BOOK_PAIRS)
+@pytest.mark.parametrize("m,r,d,p", [
+    (3, 37, 33, 130), (1, 1, 5, 3), (2, 1000, 70, 9),
+    (1, 8192, 130, 70),  # M = 1 at VGG-19's R: R split across blocks, D and p off the tile
+    (2, 5, 70, 9),  # R under one 32-row k-step
+    (3, 300, 129, 257),  # D and p one past the 128 tile
+])
+def test_book_weighted_grad_kernel(gen, m, r, d, p, a_dtype, g_dtype):
+    """The tensor-core book kernel (split operands, split R) against the
+    plain version within 1e-4 of the largest entry, deterministic, with one
+    launch for the tiles and one more for the split sum where R is split."""
+    a, g = _rnd(gen, m, r, d, dtype=a_dtype), _rnd(gen, m, r, p, dtype=g_dtype)
+    w = torch.rand(m, r, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, _ = pc.book_splits(m, r, d, p, sms)
+    launches.reset()
+    got = pc.book_weighted_grad_cuda(a, g, w)
+    assert launches.snapshot()["book_weighted_grad"] == {"cuda": 1 + (splits > 1), "torch": 0}
+    assert _rel(got, pc.book_weighted_grad_plain(a, g, w)) < 1e-4
+    assert torch.equal(got, pc.book_weighted_grad_cuda(a, g, w))  # deterministic
+    if (m, r) == (1, 8192):
+        assert splits > 1
+
+
+def test_book_split_count_is_reproducible(gen):
+    """The split of R is a pure function of (M, R, D, p, SM count): the same
+    on every call, and the same result bits from a fresh copy of the inputs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = (1, 8192, 1152, 256)  # VGG-19's conv taps at batch 128
+    first = pc.book_splits(*shape, sms)
+    assert all(pc.book_splits(*shape, sms) == first for _ in range(3))
+    assert first[0] > 1 and first[0] * first[1] >= shape[1]
+    m, r, d, p = shape
+    a, g = _rnd(gen, m, r, d), _rnd(gen, m, r, p)
     w = torch.rand(m, r, generator=gen, device="cuda")
     got = pc.book_weighted_grad_cuda(a, g, w)
-    assert _rel(got, pc.book_weighted_grad_plain(a, g, w)) < 1e-4
+    assert torch.equal(got, pc.book_weighted_grad_cuda(a.clone(), g.clone(), w.clone()))
 
 
 # (M, R, D, p) and dtype of every book contraction of one VGG-19 batch-128
@@ -198,6 +232,18 @@ FLASH_CASES = [
     (2, 70, 45, 4, 4, 64, False, None, 0),
     (1, 33, 80, 2, 2, 16, True, None, 47),
     (3, 64, 64, 6, 3, 128, True, 64, 0),
+    # the tensor-core instance's edges (16-row warp slices, 64-row q tiles,
+    # 64-key K/V tiles): Sq and Skv off 16, 64 and 128; one query row at the
+    # end of a 2049-key cache; hd 16 and 32; a window that cuts a 64-key
+    # tile; 8 query heads per KV head; B = 3; non-causal off the tiles
+    (1, 127, 129, 4, 2, 128, True, None, 2),
+    (2, 65, 191, 8, 1, 64, True, None, 126),
+    (1, 1, 2049, 32, 4, 128, True, None, 2048),
+    (2, 100, 100, 4, 1, 16, True, None, 0),
+    (1, 200, 200, 8, 2, 32, True, None, 0),
+    (1, 300, 300, 8, 2, 128, True, 70, 0),
+    (3, 150, 150, 16, 2, 64, True, 40, 0),
+    (1, 17, 200, 8, 8, 128, False, None, 0),
 ]
 
 
@@ -206,9 +252,10 @@ FLASH_CASES = [
 def test_flash_attention_kernel(gen, b, sq, skv, h, kh, hd, causal, window, q_offset, dtype):
     """Against the plain version: fp32 within 1e-5 of the largest entry (the
     same fp32 products summed in another order); bf16 within 1e-2 of each
-    query row's own largest entry (both sides compute in fp32 and round the
-    output to bf16, at most one step apart, 2^-7 of the entry; a long row's
-    entries lie far below the largest entry of the whole output)."""
+    query row's own largest entry (the kernel's bf16 P moves a row by less
+    than one output step; both round the output to bf16, at most one step
+    apart, 2^-7 of the entry; a long row's entries lie far below the largest
+    entry of the whole output)."""
     q = _rnd(gen, b, sq, h, hd, dtype=dtype)
     k, v = _rnd(gen, b, skv, kh, hd, dtype=dtype), _rnd(gen, b, skv, kh, hd, dtype=dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)

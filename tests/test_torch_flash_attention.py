@@ -123,3 +123,54 @@ def test_dispatch_cpu_forcing_and_counts():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_attention_cuda(q, k, k)
     assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1}
+
+
+# -------------------------------- the card's bf16 instance, emulated --
+def _emulate_bf16_kernel(q, k, v, *, round_p=True, block_kv=64):
+    """csrc/flash_attention.cu's bf16 arithmetic for one (batch, head) with
+    the causal mask, before the output's bf16 rounding: scores of the bf16
+    inputs in fp32, an online softmax over 64-key tiles, P rounded to bf16
+    before P.V (``round_p``; l sums the fp32 P, as the Pallas kernel's
+    does).  q (Sq, hd), k and v (Skv, hd) in bf16; returns fp32."""
+    sq, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((sq, 1), -1e30)
+    l = torch.zeros(sq, 1)
+    acc = torch.zeros(sq, hd)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[0], block_kv):
+        s = (qf @ kf[k0:k0 + block_kv].T) * hd**-0.5
+        s = s.masked_fill(k0 + torch.arange(s.shape[1])[None, :] > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=1, keepdim=True)
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        acc = acc * alpha + pv @ vf[k0:k0 + block_kv]
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def _row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The card's bf16 gate: per query row, the largest error over the row's
+    largest |want| entry; the worst row."""
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+
+
+def test_bf16_kernel_emulation_meets_the_row_gate_at_2048():
+    """One Yi-6B head at its longest prompt (Sq = Skv = 2048, hd 128,
+    causal).  Rounding P to bf16 moves a row by at most ~3e-3 of its
+    largest entry (each p by up to 2^-9; the worst rows have few keys),
+    under 2^-8, so an entry in the row's top binade moves by less than one
+    output step (2^-8 .. 2^-7 of the row's largest).  The emulated kernel
+    output against the plain version (fp32 P, both rounded to bf16) then
+    differs by at most one step, within the card's per-row gate of 1e-2
+    with margin: at most 8e-3, above which the design would split P into
+    two bf16 terms."""
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16)
+               for x in _qkv(1, 2048, 2048, 1, 1, 128, seed=3))
+    args = (q[0, :, 0], k[0, :, 0], v[0, :, 0])
+    kernel = _emulate_bf16_kernel(*args)
+    assert _row_rel(kernel, _emulate_bf16_kernel(*args, round_p=False)) < 2**-8
+    want = flash_attention(q, k, v, causal=True)[0, :, 0].float()
+    assert _row_rel(kernel.to(torch.bfloat16).float(), want) <= 8e-3

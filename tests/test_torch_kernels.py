@@ -303,3 +303,105 @@ def test_launch_counts_per_impl():
 def test_ghost_tile_choice_follows_t():
     assert tgn.tile_for(1) == 16 and tgn.tile_for(16) == 16
     assert tgn.tile_for(17) == 32 and tgn.tile_for(256) == 32
+
+
+# ------------------------------------ the card's book kernel, emulated --
+# csrc/book_weighted_grad.cu multiplies on the tensor cores, which take no
+# fp32 operand: each fp32 value x is split into x_hi + x_lo and a tile
+# product becomes a sum of low-precision products.  These tests emulate that
+# rounding on the CPU at the main path's reduction length (VGG-19's R =
+# 8192 taps) and predict the card's reading against the 1e-4 gate.
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round an fp32 tensor's mantissa to TF32's 10 bits (nearest, ties away)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor, kind: str) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = _bf16(x) if kind == "bf16" else _tf32(x)
+    lo = _bf16(x - hi) if kind == "bf16" else _tf32(x - hi)
+    return hi, lo
+
+
+def _emulate_book(a, g, w, *, kind="bf16", products=3):
+    """The kernel's arithmetic for one m: g scaled by w in fp32 and split,
+    a split unless it is bf16 (then exact); per 32-row k-step the chain of
+    ``products`` MMAs (small terms first) summed exactly and rounded to
+    fp32, added to an fp32 running sum; R cut as book_splits cuts it on a
+    132-SM card, the splits' sums added in split order."""
+    r, d = a.shape
+    gw = g.float() * w[:, None]
+    g_hi, g_lo = _split(gw, kind)
+    if a.dtype == torch.bfloat16:
+        a_hi, a_lo = a.float(), torch.zeros(r, d)
+    else:
+        a_hi, a_lo = _split(a, kind)
+    terms = [(a_lo, g_hi), (a_hi, g_lo), (a_hi, g_hi)][3 - products:]
+    splits, rows = tpc.book_splits(1, r, d, g.shape[1], 132)
+    total = torch.zeros(d, g.shape[1])
+    for s in range(splits):
+        acc = torch.zeros(d, g.shape[1])
+        for r0 in range(s * rows, min(r, (s + 1) * rows), tpc.BOOK_STEP):
+            sl = slice(r0, min(r, r0 + tpc.BOOK_STEP, (s + 1) * rows))
+            chain = sum(x[sl].double().T @ y[sl].double() for x, y in terms)
+            acc += chain.float()
+        total += acc
+    return total
+
+
+def _book_inputs(r, d, p, a_dtype, g_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(_np(rng, r, d)).to(a_dtype)
+    g = torch.from_numpy(_np(rng, r, p)).to(g_dtype)
+    w = torch.from_numpy(rng.uniform(size=(r,)).astype(np.float32))
+    exact = a.double().T @ (g.double() * w.double()[:, None])
+    return a, g, w, exact
+
+
+def _rel_to_largest(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+BOOK_GATE = 1e-4  # chip_smoke.py TOL["book_weighted_grad"], kernel vs plain
+
+
+@pytest.mark.parametrize("kind", ["bf16", "tf32"])
+@pytest.mark.parametrize("a_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+])
+def test_book_split_emulation_meets_the_gate_at_r8192(a_dtype, g_dtype, kind):
+    """The 3-product split (bf16x3, as the kernel does it, or 3xTF32) at
+    R = 8192 stays within a tenth of the card's 1e-4 gate."""
+    a, g, w, exact = _book_inputs(8192, 130, 70, a_dtype, g_dtype)
+    err = _rel_to_largest(_emulate_book(a, g, w, kind=kind), exact)
+    assert err <= BOOK_GATE / 10, err
+
+
+def test_book_single_bf16_product_misses_the_gate():
+    """Negative control: one bf16 product of the rounded fp32 operands (no
+    split) exceeds the 1e-4 gate at R = 8192, so the split is needed."""
+    a, g, w, exact = _book_inputs(8192, 130, 70, torch.float32, torch.float32)
+    err = _rel_to_largest(_emulate_book(a, g, w, products=1), exact)
+    assert err > BOOK_GATE, err
+
+
+def test_book_splits_are_a_pure_function_of_the_shape():
+    """The split of R depends on (M, R, D, p, SM count) alone; chunks are
+    whole k-steps, cover R and leave no split empty; the grid fills the
+    card's SMs twice over where R allows."""
+    for m, r, d, p in [(1, 8192, 1152, 256), (1, 8192, 2304, 256), (1, 2048, 4608, 512),
+                       (1, 512, 4608, 512), (1, 128, 512, 10), (12, 6272, 768, 3072),
+                       (1, 1, 5, 3), (1, 8192, 130, 70), (3, 37, 33, 130)]:
+        splits, rows = tpc.book_splits(m, r, d, p, 132)
+        assert (splits, rows) == tpc.book_splits(m, r, d, p, 132)
+        assert rows % tpc.BOOK_STEP == 0 and (splits - 1) * rows < r <= splits * rows
+        tiles = m * -(-d // 128) * -(-p // 128)
+        if splits > 1:
+            assert rows >= tpc.MIN_ROWS_PER_SPLIT and tiles < 2 * 132
+    assert tpc.book_splits(1, 8192, 1152, 256, 132) == (15, 576)
+    assert tpc.book_splits(12, 6272, 768, 3072, 132) == (1, 6272)
