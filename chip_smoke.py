@@ -14,20 +14,25 @@ order; any failure exits non-zero and prints no result:
 1. card     the name and power limit, as nvidia-smi reports them;
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
             cuobjdump -sass must show tensor-core instructions (HMMA or
-            HGMMA) in every bf16 flash_attention instance and every
-            book_weighted_grad instance, whose register and spill counts
-            (ptxas -v) are printed;
+            HGMMA) in every bf16 flash_attention instance, every
+            book_weighted_grad instance and every instance of the two
+            ghost-norm Gram kernels (not the embedding's SIMT kernel), whose
+            register and spill counts (ptxas -v) are printed;
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
             at the shapes and dtypes its path gives it (the training steps'
             from the models' own taps, the attention kernel's at the eight
             Yi-6B prompt lengths) and at ragged small shapes (T = 1, T off
-            the tile, D and p off the tile, repeated ids, bf16; for the
-            attention kernel Sq and Skv off the tiles, one query row at the
-            end of the cache, a window, non-causal, MHA, hd 64, fp32), with
-            CUDA-event times of the kernel, the plain version and one
-            PyTorch library call that computes the same function (a
-            yardstick the port never calls), the kernel's achieved TFLOP/s
-            and its share of the bound;
+            the tile, D and p off the tile, repeated ids, bf16; conv taps
+            with SAME and VALID padding, stride 2, C off the 16-byte
+            chunk, T = 1, the ViT patch; for the attention kernel Sq and
+            Skv off the tiles, one query row at the end of the cache, a
+            window, non-causal, MHA, hd 64, fp32), with CUDA-event times
+            of the kernel (and, for the clipping kernels, its profiler
+            device time), the plain version and one PyTorch library call
+            that computes the same function (a yardstick the port never
+            calls), the kernel's achieved TFLOP/s and its share of the
+            bound; per path, the ghost norms' ms per step (dense and conv
+            entries) against their yardsticks';
 4. slice    per training path, DP-SGD steps through make_train_step in
             non_private, mixed_ghost and bk_mixed: loss, kernel launches per
             step against the taps' expectation, step time (median and
@@ -84,9 +89,14 @@ PEAK_FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # is exact, an fp32 one is split too and its lo * lo term dropped (bf16x3)
 BOOK_PRODUCTS = {("float32", "float32"): 3, ("float32", "bfloat16"): 3,
                  ("bfloat16", "float32"): 2, ("bfloat16", "bfloat16"): 2}
+# bf16 tensor-core products per multiply-add of a ghost-norm Gram: a bf16
+# operand is exact, an fp32 one is split (bf16x3, lo * lo dropped)
+GRAM_PRODUCTS = {"float32": 3, "bfloat16": 1}
 # kernels built for the tensor cores: cuobjdump must find HMMA / HGMMA in
-# every instance, and the build prints their registers and spills
-TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": 4, "book_weighted_grad_kernel": 8}
+# every instance, and the build prints their registers and spills.  The
+# ghost-norm kernels: (a, g) dtypes x (dense, conv) row sources
+TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": 4, "book_weighted_grad_kernel": 8,
+                       "ghost_norm_tiles_kernel": 8, "ghost_norm_packed_kernel": 8}
 
 MODES = ("non_private", "mixed_ghost", "bk_mixed")
 STEPS = 10  # timed steps per mode and path
@@ -102,7 +112,7 @@ PAGE = 16
 # relative tolerances of a kernel against its plain version (max |kernel -
 # plain| / max |plain|): both sides sum the same fp32 products in
 # different orders
-TOL = {"ghost_norm_sq": 1e-4, "embedding_ghost_norm_sq": 1e-4,
+TOL = {"ghost_norm_sq": 1e-4, "conv_ghost_norm_sq": 1e-4, "embedding_ghost_norm_sq": 1e-4,
        "book_weighted_grad": 1e-4, "psg_contract": 1e-5}
 NORM_TOL = 1e-4  # per-sample norms, kernels vs plain and mixed_ghost vs bk_mixed
 # clipped gradient sums, relative to the largest entry.  The kernel path
@@ -155,6 +165,24 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` per call from torch.profiler (kernel time
+    only: where a call is short, cuda_ms also counts the host's enqueue);
+    None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -261,11 +289,14 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     model's own taps and the layerwise decisions.
 
     A stacked tap (ViT layers) launches its norm kernel once per layer and
-    its book or bank contraction once for all layers.  The norm kernels get
-    the activation in the model dtype and the cotangent in fp32; the book
-    holds both in the model dtype; banked per-sample gradients are fp32.  A
-    book contraction whose R is split across blocks launches a second
-    kernel that sums the splits (book_splits, from the card's SM count).
+    its book or bank contraction once for all layers.  The ghost norm gets
+    the activation and the cotangent in their stored dtypes (a conv tap's
+    raw input through the conv entry, shape (N, H, W, C, kh, kw, s_h, s_w,
+    padding, p), which launches as ghost_norm_sq); the embedding norm gets
+    the cotangent in fp32; the book holds both in the model dtype; banked
+    per-sample gradients are fp32.  A book contraction whose R is split
+    across blocks launches a second kernel that sums the splits
+    (book_splits, from the card's SM count).
     """
     import torch
 
@@ -277,7 +308,7 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     meta = discover_meta(model.loss_with_ctx, params, batch)
-    shapes = {k: {} for k in KERNEL_INFO}
+    shapes = {k: {} for k in RAGGED}
     expected = {mode: dict.fromkeys(KERNEL_INFO, 0.0) for mode in MODES}
 
     def add(kernel, shape, dtypes, calls=1):
@@ -293,7 +324,12 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
                 expected[mode]["embedding_ghost_norm_sq"] += layers
             continue
         if m.kind == "matmul" and decide(m, mode="mixed_ghost") == "ghost":
-            add("ghost_norm_sq", (b, m.T, m.D, m.p), (a_dt, "float32"), layers)
+            if m.conv is not None:
+                spec = (b,) + tuple(m.a_shape[-3:]) + tuple(m.conv.kernel) + tuple(
+                    m.conv.strides) + (m.conv.padding, m.p)
+                add("conv_ghost_norm_sq", spec, (a_dt, s_dt), layers)
+            else:
+                add("ghost_norm_sq", (b, m.T, m.D, m.p), (a_dt, s_dt), layers)
             expected["mixed_ghost"]["ghost_norm_sq"] += layers
         if m.kind == "matmul" and decide(m, mode="bk_mixed") == "ghost":
             expected["bk_mixed"]["ghost_norm_sq"] += layers
@@ -313,6 +349,24 @@ def _name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _conv_pads(spec) -> tuple:
+    """Explicit ((top, bottom), (left, right)) pads of a conv-entry spec."""
+    from repro_torch.nn.conv import conv_padding
+
+    _, h, w, _, kh, kw, sh, sw, padding, _ = spec
+    return conv_padding(padding, (h, w), (kh, kw), (sh, sw))
+
+
+def _gram_shape(kernel: str, shape) -> tuple:
+    """(N, T, D, p) of a ghost-norm call, dense or conv entry."""
+    if kernel == "ghost_norm_sq":
+        return tuple(shape)
+    n, h, w, c, kh, kw, sh, sw, _, p = shape
+    (pt, pb), (pl, pr) = _conv_pads(shape)
+    t = ((h + pt + pb - kh) // sh + 1) * ((w + pl + pr - kw) // sw + 1)
+    return n, t, kh * kw * c, p
+
+
 def _bound(kernel: str, shape, dtypes, segments: int = 0) -> tuple[float, str]:
     """Least time (ms) of one call: max(bytes / HBM rate, operations / the
     peak rate of their type), and which of the two bounds it.  ``segments``
@@ -324,11 +378,15 @@ def _bound(kernel: str, shape, dtypes, segments: int = 0) -> tuple[float, str]:
             for name in set(dtypes)}
     rate = PEAK_FLOPS_PER_S
     fp32 = rate["float32"]
-    if kernel == "ghost_norm_sq":  # two lower-triangle Grams, then their dot
-        n, t, d, p = shape
-        ops_s = (n * t * (t + 1) * d / rate[dtypes[0]] + n * t * (t + 1) * p / rate[dtypes[1]]
-                 + 2 * n * t * t / fp32)
-        nbytes = n * t * (d * size[dtypes[0]] + p * size[dtypes[1]]) + 4 * n
+    if kernel in ("ghost_norm_sq", "conv_ghost_norm_sq"):
+        # two lower-triangle Grams on the tensor cores (1 bf16 product per
+        # multiply-add of a bf16 operand, 3 of an fp32 one), then their dot;
+        # the conv entry reads the raw input, not the patches
+        n, t, d, p = _gram_shape(kernel, shape)
+        ops_s = ((GRAM_PRODUCTS[dtypes[0]] * d + GRAM_PRODUCTS[dtypes[1]] * p) * n * t * (t + 1)
+                 / rate["bfloat16"] + 2 * n * t * t / fp32)
+        a_values = math.prod(shape[:4]) if kernel == "conv_ghost_norm_sq" else n * t * d
+        nbytes = a_values * size[dtypes[0]] + n * t * p * size[dtypes[1]] + 4 * n
     elif kernel == "embedding_ghost_norm_sq":
         # least work: out[n] = sum_v |sum_{t: id_t = v} g_t|^2, a segment sum
         # of g's rows (an add per row beyond its segment's first), then a
@@ -352,8 +410,8 @@ def _bound(kernel: str, shape, dtypes, segments: int = 0) -> tuple[float, str]:
 def _flops(kernel: str, shape, segments: int = 0) -> float:
     """The function's own floating-point operations in one call (not those
     of any split of its operands): what an achieved TFLOP/s divides."""
-    if kernel == "ghost_norm_sq":
-        n, t, d, p = shape
+    if kernel in ("ghost_norm_sq", "conv_ghost_norm_sq"):
+        n, t, d, p = _gram_shape(kernel, shape)
         return n * t * (t + 1) * (d + p) + 2 * n * t * t
     if kernel == "embedding_ghost_norm_sq":
         n, t, p, _ = shape
@@ -366,7 +424,11 @@ def _flops(kernel: str, shape, segments: int = 0) -> float:
 
 
 def _timing(case: dict) -> str:
-    return (f" ms={case['ms']:.4f} plain={case['plain_ms']:.4f} "
+    device = ""
+    if "device_ms" in case:
+        dev = case["device_ms"]
+        device = f" (device {dev:.4f})" if dev is not None else " (device not measured)"
+    return (f" ms={case['ms']:.4f}{device} plain={case['plain_ms']:.4f} "
             f"library={case['library_ms']:.4f} bound={case['bound_ms']:.4f} "
             f"({case['tflops']:.1f} TFLOP/s, {100 * case['bound_share']:.1f}% of the bound)")
 
@@ -396,6 +458,26 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
 
         def library(a, g):
             return (torch.bmm(a, a.mT) * torch.bmm(g, g.mT)).sum(dim=(1, 2))
+    elif kernel == "conv_ghost_norm_sq":
+        import torch.nn.functional as F
+
+        from repro_torch.core.taps import ConvInfo
+        from repro_torch.nn.conv import pad_nchw, unfold2d
+
+        n, h, w, c, kh, kw, sh, sw, padding, p = shape
+        info = ConvInfo(kernel=(kh, kw), strides=(sh, sw), padding=padding)
+        pads = _conv_pads(shape)
+        args = (rnd(dt[0], n, h, w, c), rnd(dt[1], n, _gram_shape(kernel, shape)[1], p))
+
+        def kern(x, g):
+            return gn.conv_ghost_norm_sq_cuda(x, g, info)
+
+        def plain(x, g):
+            return gn.conv_ghost_norm_sq_plain(x, g, info)
+
+        def library(x, g):  # F.unfold, then the bmm Grams
+            u = F.unfold(pad_nchw(x.permute(0, 3, 1, 2), pads), (kh, kw), stride=(sh, sw))
+            return (torch.bmm(u.mT, u) * torch.bmm(g, g.mT)).sum(dim=(1, 2))
     elif kernel == "embedding_ghost_norm_sq":
         n, t, p, vocab = shape  # vocab == T: the position ids arange(T)
         if vocab == t:
@@ -438,9 +520,15 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
     if timed:
         iters = 20
         case["ms"] = cuda_ms(lambda: kern(*args), iters)
+        case["device_ms"] = device_ms(lambda: kern(*args), 10)
         case["plain_ms"] = cuda_ms(lambda: plain(*args), iters)
         lib_args = tuple(x.float() if x.is_floating_point() else x for x in args)
         case["library_ms"] = cuda_ms(lambda: library(*lib_args), iters)
+        if kernel == "conv_ghost_norm_sq":  # the bmm Grams alone, on patches made beforehand
+            patches = unfold2d(lib_args[0], info)
+            case["bmm_ms"] = cuda_ms(lambda: (torch.bmm(patches, patches.mT) * torch.bmm(
+                lib_args[1], lib_args[1].mT)).sum(dim=(1, 2)), iters)
+            del patches
         segments = _segments(args[0]) if kernel == "embedding_ghost_norm_sq" else 0
         case["bound_ms"], case["bound_by"] = _bound(kernel, shape, dtypes, segments)
         case["tflops"] = _flops(kernel, shape, segments) / case["ms"] / 1e9
@@ -456,8 +544,22 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
 
 FLOAT_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32")]
 RAGGED = {
+    # T off the tiles, T = 1, 3 and 4 (packed samples), several 64-row tiles
     "ghost_norm_sq": [((3, 37, 33, 7), FLOAT_PAIRS), ((2, 1, 5, 3), FLOAT_PAIRS),
-                      ((4, 100, 130, 70), FLOAT_PAIRS), ((2, 17, 1, 40), FLOAT_PAIRS)],
+                      ((4, 100, 130, 70), FLOAT_PAIRS), ((2, 17, 1, 40), FLOAT_PAIRS),
+                      ((7, 3, 70, 9), FLOAT_PAIRS), ((9, 4, 4608, 512), FLOAT_PAIRS),
+                      ((2, 200, 96, 40), FLOAT_PAIRS)],
+    # (N, H, W, C, kh, kw, s_h, s_w, padding, p): SAME with C a multiple of
+    # the 16-byte chunk, stride 2 (XLA's (0, 1) pads), C = 6 and 5 (element
+    # and odd-C loads), VALID, T = 1, explicit pads, the ViT patch (C = 3)
+    "conv_ghost_norm_sq": [
+        (spec, FLOAT_PAIRS) for spec in (
+            (3, 8, 8, 64, 3, 3, 1, 1, "SAME", 40), (3, 9, 9, 64, 3, 3, 2, 2, "SAME", 16),
+            (2, 11, 9, 6, 3, 3, 1, 1, "SAME", 24), (2, 10, 7, 5, 3, 2, 2, 1, "VALID", 7),
+            (4, 3, 3, 12, 3, 3, 1, 1, "VALID", 10), (9, 2, 2, 512, 3, 3, 1, 1, "SAME", 64),
+            (2, 12, 12, 8, 3, 3, 1, 2, ((2, 0), (1, 1)), 9),
+            (2, 64, 64, 3, 16, 16, 16, 16, "VALID", 48))
+    ],
     # (N, T, p, vocab): repeated ids, T off the tile, T = 1, several tiles
     "embedding_ghost_norm_sq": [
         (shape, [("int64", "float32"), ("int32", "bfloat16")])
@@ -494,6 +596,36 @@ def phase_kernels(paths: dict) -> dict:
             for dtypes in dtype_sets:
                 cases.append(_kernel_case(kernel, shape, dtypes, gen, timed=False))
         out[kernel] = cases
+    out["ghost_norm_per_step"] = _ghost_per_step(out)
+    return out
+
+
+def _ghost_per_step(kernels: dict) -> dict:
+    """Per path: the ghost norms' ms per mixed_ghost step (dense and conv
+    entries) beside their yardsticks' (bmm Grams; F.unfold + bmm) and the
+    bmm Grams alone (the conv taps' on patches unfolded beforehand)."""
+    out = {}
+    for entry in ("ghost_norm_sq", "conv_ghost_norm_sq"):
+        for c in kernels[entry]:
+            if "calls_per_step" not in c:
+                continue
+            row = out.setdefault(c["path"], dict.fromkeys(
+                ("ms", "device_ms", "library_ms", "bmm_ms", "plain_ms", "bound_ms", "conv_ms",
+                 "conv_library_ms"), 0.0))
+            for key in ("ms", "device_ms", "library_ms", "plain_ms", "bound_ms"):
+                if row[key] is not None:
+                    row[key] = None if c[key] is None else row[key] + c[key] * c["calls_per_step"]
+            row["bmm_ms"] += c.get("bmm_ms", c["library_ms"]) * c["calls_per_step"]
+            if entry == "conv_ghost_norm_sq":
+                row["conv_ms"] += c["ms"] * c["calls_per_step"]
+                row["conv_library_ms"] += c["library_ms"] * c["calls_per_step"]
+    for tag, row in out.items():
+        dev = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.3f}"
+        print(f"ghost norms per {tag} mixed_ghost step: kernel {row['ms']:.3f} ms (device "
+              f"{dev}; conv entry "
+              f"{row['conv_ms']:.3f}), yardstick {row['library_ms']:.3f} ms (conv: F.unfold + "
+              f"bmm {row['conv_library_ms']:.3f}), the bmm Grams alone {row['bmm_ms']:.3f}, "
+              f"plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.3f}")
     return out
 
 
@@ -515,25 +647,31 @@ def _profiled(fn, median_ms: float) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, kernels = {}, 0
+    by_name, calls, kernels = {}, {}, 0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+            calls[evt.key] = calls.get(evt.key, 0) + evt.count
             kernels += evt.count
     busy = sum(by_name.values())
     idle = 1 - busy / median_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the patch copies (im2col) are listed whatever their rank
+    im2col = {k: (by_name[k], calls[k]) for k in by_name if "im2col" in k}
     print(f"  traced step: device busy {busy:.2f} ms of a {median_ms:.2f} ms median step "
           f"(idle share {idle:.2f}) in {kernels} device kernels; traced wall {wall_ms:.2f} "
           f"ms ({wall_ms / median_ms:.2f}x the median, profiler overhead); "
           "top kernels by device time:")
     for name, ms in top:
-        print(f"    {ms:8.3f} ms  {name[:100]}")
-    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": idle, "device_kernels": kernels, "top": top}
+        print(f"    {ms:8.3f} ms  {calls[name]:4d} calls  {name[:100]}")
+    for name, (ms, n) in im2col.items():
+        print(f"  im2col: {ms:.3f} ms in {n} calls of {name[:60]}")
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
+            "device_kernels": kernels, "top": [(k, ms, calls[k]) for k, ms in top],
+            "im2col": im2col}
 
 
 def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
@@ -909,10 +1047,13 @@ def summary_line(kernels: dict, runs: dict) -> dict:
     shapes of one training step of each path that launches it (the step of
     the mode that launches it: ghost norms mixed_ghost, the contractions
     bk_mixed), and for the attention kernel over the serve phase's eight
-    prefills (one call per layer); launches summed over the paths' runs."""
+    prefills (one call per layer); launches summed over the paths' runs.
+    The ghost_norm_sq row sums its dense and conv entries."""
     rows = []
     for kernel, (source, replaces) in KERNEL_INFO.items():
-        main = [c for c in kernels[kernel] if "calls_per_step" in c]
+        entries = kernels[kernel] + (kernels["conv_ghost_norm_sq"]
+                                     if kernel == "ghost_norm_sq" else [])
+        main = [c for c in entries if "calls_per_step" in c]
         total = {key: sum(c[key] * c["calls_per_step"] for c in main)
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         by_ops = sum(c["bound_ms"] * c["calls_per_step"] for c in main

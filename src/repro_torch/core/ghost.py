@@ -22,9 +22,12 @@ Per-sample conv gradients are in the parameter's own OIHW layout
 per-sample sums, and the book and bank contractions run once per stacked
 tap.
 
-The activation reaches the kernels in the model dtype and the cotangent in
-fp32, as in the JAX package; each kernel takes its two operands in their
-own dtypes.  ``dw_conv`` and ``scale_grouped`` arrive with the LM slice.
+The activation and the cotangent reach the ghost-norm kernel in their
+stored dtypes (the JAX package upcasts the cotangent to fp32 first; bf16 ->
+fp32 is exact and the kernel accumulates in fp32, so the norm is the same);
+a conv tap's ghost norm reads its raw input and never unfolds it.  The other
+norms take the cotangent in fp32, as in the JAX package.  ``dw_conv`` and
+``scale_grouped`` arrive with the LM slice.
 Autograd saves integer ids, so the JAX package's fp32 id side channel and
 its 2^24 vocab guard have no counterpart here.
 """
@@ -82,6 +85,15 @@ def _canonical_ag(meta: TapMeta, a: torch.Tensor, g: torch.Tensor):
     return aa, gg
 
 
+def _ghost_rows(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Ghost norms (N,) of a matmul tap's rows; a conv reads its raw input."""
+    if meta.conv is None:
+        return dispatch.ghost_norm_sq(*_canonical_ag(meta, a, g))
+    rows = meta.n_stack * meta.batch_size
+    x = a.reshape((rows,) + tuple(a.shape[-3:]))
+    return dispatch.conv_ghost_norm_sq(x, g.reshape(rows, meta.T, meta.p), meta.conv)
+
+
 def tap_norm_sq(
     meta: TapMeta,
     a: torch.Tensor,
@@ -92,18 +104,17 @@ def tap_norm_sq(
 ) -> torch.Tensor:
     """Per-sample squared norm contributions: (B,) fp32 (weight + bias)."""
     b = meta.batch_size
-    g = g.float()
     if meta.kind == "matmul":
-        aa, gg = _canonical_ag(meta, a, g)
         if decide(meta, mode=mode) == "ghost":
-            rows = dispatch.ghost_norm_sq(aa, gg)
+            rows = _ghost_rows(meta, a, g)  # the cotangent in its stored dtype
         else:
+            aa, gg = _canonical_ag(meta, a, g.float())
             rows = gops.instantiated_norm_sq(aa, gg, block_d=INST_BLOCK_D)
         total = _per_sample(meta, rows)
     elif meta.kind == "embedding":
         n = meta.n_stack * b
         rows = dispatch.embedding_ghost_norm_sq(
-            a.reshape(n, meta.T), g.reshape(n, meta.T, meta.p)
+            a.reshape(n, meta.T), g.float().reshape(n, meta.T, meta.p)
         )
         total = _per_sample(meta, rows)
     elif meta.kind in ("scale", "bias"):
@@ -111,7 +122,7 @@ def tap_norm_sq(
     else:
         raise _unsupported(meta)
     if meta.bias_path is not None and include_bias:
-        bias_grad = g.reshape(meta.n_stack, b, -1, meta.p).sum(dim=2)
+        bias_grad = g.float().reshape(meta.n_stack, b, -1, meta.p).sum(dim=2)
         total = total + bias_grad.square().sum(dim=(0, 2))
     return total
 

@@ -37,6 +37,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # a, g, out, partial, n, t, d, p, a_dtype, g_dtype, tile, stream
     "ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, out, partial, n, h, w, c, kh, kw, sh, sw, pad top, bottom, left,
+    # right, p, x_dtype, g_dtype, tile, stream
+    "conv_ghost_norm_sq_launch": (_P, _P, _P, _P) + (_I,) * 16 + (_P,),
     # ids, g, out, partial, n, t, p, id_dtype, g_dtype, tile, stream
     "embedding_ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, g, w, out, partial, m, r, d, p, splits, rows_per_split, a_dtype, g_dtype, stream

@@ -8,7 +8,8 @@ this module is the one place that picks between them:
 
     op                    cuda impl                     torch impl
     --------------------  ----------------------------  ---------------------------
-    ghost_norm            ghost_norm_sq_cuda            gops.ghost_norm_sq
+    ghost_norm            ghost_norm_sq_cuda /          gops.ghost_norm_sq /
+                          conv_ghost_norm_sq_cuda       gops.conv_ghost_norm_sq
     embedding_ghost_norm  embedding_ghost_norm_sq_cuda  gops.embedding_ghost_norm_sq
     psg_contract          book_weighted_grad_cuda /     cops.book_weighted_grad /
                           psg_contract_cuda             cops.psg_contract
@@ -35,6 +36,7 @@ from typing import Iterator, Optional, Union
 
 import torch
 
+from repro_torch.core.taps import ConvInfo
 from repro_torch.kernels import launches
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.ghost_norm import ops as gops
@@ -99,6 +101,20 @@ def ghost_norm_sq(
         return ghost_norm_sq_cuda(a.contiguous(), g.contiguous())
     launches.record("ghost_norm_sq", "torch")
     return gops.ghost_norm_sq(a, g)
+
+
+def conv_ghost_norm_sq(
+    x: torch.Tensor, g: torch.Tensor, info: ConvInfo, *, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Ghost norm of a conv tap from its raw input: x (N,H,W,C), g (N,T,p)
+    -> (N,) fp32.  The kernel builds the patches on chip; the plain version
+    unfolds them.  Both count as ``ghost_norm_sq``."""
+    if resolve("ghost_norm", x, impl) == "cuda":
+        from repro_torch.kernels.ghost_norm.ghost_norm import conv_ghost_norm_sq_cuda
+
+        return conv_ghost_norm_sq_cuda(x.contiguous(), g.contiguous(), info)
+    launches.record("ghost_norm_sq", "torch")
+    return gops.conv_ghost_norm_sq(x, g, info)
 
 
 def embedding_ghost_norm_sq(

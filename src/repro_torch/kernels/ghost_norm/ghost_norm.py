@@ -4,7 +4,10 @@ Ports of ``kernels/ghost_norm/ghost_norm.py``:
 
 - ``ghost_norm_sq_cuda`` replaces ``ghost_norm_sq_pallas``: per sample,
   sum_{t,t'} (a_t . a_t') (g_t . g_t') with the (T, T) Gram tiles kept on
-  chip;
+  chip, on the tensor cores;
+- ``conv_ghost_norm_sq_cuda`` is the same kernel reading a conv tap's raw
+  NHWC input and building the patches on chip (no im2col); it counts as a
+  ``ghost_norm_sq`` launch;
 - ``embedding_ghost_norm_sq_cuda`` replaces
   ``embedding_ghost_norm_sq_pallas``: the same with the activation Gram
   replaced by the equality mask of the ids, sum_{t,t'} [id_t = id_t']
@@ -18,27 +21,40 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.taps import ConvInfo
 from repro_torch.kernels import checks, launches
+from repro_torch.kernels.ghost_norm.ops import (
+    conv_ghost_norm_sq as conv_ghost_norm_sq_plain,
+)
 from repro_torch.kernels.ghost_norm.ops import (
     embedding_ghost_norm_sq as embedding_ghost_norm_sq_plain,
 )
 from repro_torch.kernels.ghost_norm.ops import ghost_norm_sq as ghost_norm_sq_plain
+from repro_torch.nn.conv import conv_padding
 
 __all__ = [
-    "embedding_ghost_norm_sq_cuda", "embedding_ghost_norm_sq_plain",
+    "conv_ghost_norm_sq_cuda", "conv_ghost_norm_sq_plain",
+    "embedding_ghost_norm_sq_cuda", "embedding_ghost_norm_sq_plain", "embedding_tile_for",
     "ghost_norm_sq_cuda", "ghost_norm_sq_plain", "tile_for",
 ]
 
 
 def tile_for(t: int) -> int:
-    """Tile edge of the (T, T) plane: 16 for short sequences, else 32."""
+    """Tile edge of the Gram kernels' (T, T) plane: 16 for T <= 16 (the
+    packed kernel: one m16 tile holds a sample's whole Gram, floor(16 / T)
+    samples a tile for T <= 8), else 64 (the tiles kernel)."""
+    return 16 if t <= 16 else 64
+
+
+def embedding_tile_for(t: int) -> int:
+    """Tile edge of the embedding kernel: 16 for short sequences, else 32."""
     return 16 if t <= 16 else 32
 
 
-def _pairs(n: int, t: int, device: torch.device) -> tuple[int, torch.Tensor, torch.Tensor]:
-    """Tile edge, the (N,) output and the per-(sample, tile pair) partials
-    (the output itself when a sample has a single pair)."""
-    tile = tile_for(t)
+def _pairs(n: int, t: int, tile: int,
+           device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (N,) output and the per-(sample, tile pair) partials (the output
+    itself when a sample has a single pair)."""
     n_tiles = -(-t // tile)
     n_pairs = n_tiles * (n_tiles + 1) // 2
     checks.fits_int32("N * tile pairs", n * n_pairs)
@@ -46,7 +62,7 @@ def _pairs(n: int, t: int, device: torch.device) -> tuple[int, torch.Tensor, tor
     partial = out if n_pairs == 1 else torch.empty(
         (n * n_pairs,), dtype=torch.float32, device=device
     )
-    return tile, out, partial
+    return out, partial
 
 
 def ghost_norm_sq_cuda(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -64,7 +80,8 @@ def ghost_norm_sq_cuda(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return torch.zeros((n,), dtype=torch.float32, device=a.device)
     for name, size in (("T * D", t * d), ("T * p", t * p)):
         checks.fits_int32(name, size)
-    tile, out, partial = _pairs(n, t, a.device)
+    tile = tile_for(t)
+    out, partial = _pairs(n, t, tile, a.device)
     with torch.cuda.device(a.device):
         code = library().ghost_norm_sq_launch(
             a.data_ptr(), g.data_ptr(), out.data_ptr(), partial.data_ptr(),
@@ -72,6 +89,41 @@ def ghost_norm_sq_cuda(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             checks.stream(a.device),
         )
     check(code, "ghost_norm_sq")
+    launches.record("ghost_norm_sq", "cuda")
+    return out
+
+
+def conv_ghost_norm_sq_cuda(x: torch.Tensor, g: torch.Tensor, info: ConvInfo) -> torch.Tensor:
+    """x (N, H, W, C) the raw NHWC input of a 2-D conv tap, g (N, H_out *
+    W_out, p), each fp32 or bf16 -> (N,) fp32: ghost_norm_sq(unfold2d(x), g)."""
+    from repro_torch.kernels.build import check, library
+
+    checks.operand("x", x, 4)
+    checks.operand("g", g, 3)
+    checks.same_device(x=x, g=g)
+    n, h, w, c = x.shape
+    (kh, kw), (sh, sw) = info.kernel, info.strides
+    (pt, pb), (pl, pr) = conv_padding(info.padding, (h, w), info.kernel, info.strides)
+    h_out, w_out = (h + pt + pb - kh) // sh + 1, (w + pl + pr - kw) // sw + 1
+    t = h_out * w_out
+    if h_out < 1 or w_out < 1 or g.shape[:2] != (n, t):
+        raise ValueError(f"x {tuple(x.shape)} under {info} gives (N, T) = ({n}, {t}); "
+                         f"g is {tuple(g.shape)}")
+    p = g.shape[2]
+    if x.numel() == 0 or g.numel() == 0:
+        return torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for name, size in (("H * W * C", h * w * c), ("T * D", t * kh * kw * c), ("T * p", t * p)):
+        checks.fits_int32(name, size)
+    tile = tile_for(t)
+    out, partial = _pairs(n, t, tile, x.device)
+    with torch.cuda.device(x.device):
+        code = library().conv_ghost_norm_sq_launch(
+            x.data_ptr(), g.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            n, h, w, c, kh, kw, sh, sw, pt, pb, pl, pr, p,
+            checks.DTYPE_CODES[x.dtype], checks.DTYPE_CODES[g.dtype], tile,
+            checks.stream(x.device),
+        )
+    check(code, "conv_ghost_norm_sq")
     launches.record("ghost_norm_sq", "cuda")
     return out
 
@@ -90,7 +142,8 @@ def embedding_ghost_norm_sq_cuda(ids: torch.Tensor, g: torch.Tensor) -> torch.Te
     if g.numel() == 0:
         return torch.zeros((n,), dtype=torch.float32, device=g.device)
     checks.fits_int32("T * p", t * p)
-    tile, out, partial = _pairs(n, t, g.device)
+    tile = embedding_tile_for(t)
+    out, partial = _pairs(n, t, tile, g.device)
     with torch.cuda.device(g.device):
         code = library().embedding_ghost_norm_sq_launch(
             ids.data_ptr(), g.data_ptr(), out.data_ptr(), partial.data_ptr(),

@@ -1,16 +1,20 @@
 """Plain PyTorch per-sample gradient norms (port of ``kernels/ghost_norm/ops.py``).
 
-``ghost_norm_sq`` and ``embedding_ghost_norm_sq`` are the plain versions
-of the CUDA kernels in ``ghost_norm.py``: the same sums over (T x T)
-tiles, with the tile Grams formed by ``torch.bmm``.
-``instantiated_norm_sq`` had no TPU kernel and stays plain.  Which one the training step runs is decided by
-``repro_torch.kernels.dispatch``, not here: calling these functions always
-runs the plain path.
+``ghost_norm_sq``, ``conv_ghost_norm_sq`` and ``embedding_ghost_norm_sq``
+are the plain versions of the CUDA kernels in ``ghost_norm.py``: the same
+sums over (T x T) tiles, with the tile Grams formed by ``torch.bmm`` (the
+conv entry from ``unfold2d``'s patches).  ``instantiated_norm_sq`` had no
+TPU kernel and stays plain.  Which one the training step runs is decided
+by ``repro_torch.kernels.dispatch``, not here: calling these functions
+always runs the plain path.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.taps import ConvInfo
+from repro_torch.nn.conv import unfold2d
 
 _DIRECT_T = 1024  # below this, one pair of full Grams beats the tile loop
 
@@ -65,6 +69,12 @@ def ghost_norm_sq(a: torch.Tensor, g: torch.Tensor, *, block: int = 512) -> torc
             w = 1.0 if i == j else 2.0
             acc = acc + w * _gram_dot(a[:, si], a[:, sj], g[:, si], g[:, sj])
     return acc
+
+
+def conv_ghost_norm_sq(x: torch.Tensor, g: torch.Tensor, info: ConvInfo) -> torch.Tensor:
+    """Ghost norm of a conv tap from its raw NHWC input: x (N, H, W, C),
+    g (N, H_out*W_out, p) -> (N,) fp32, as ``ghost_norm_sq(unfold2d(x), g)``."""
+    return ghost_norm_sq(unfold2d(x, info), g)
 
 
 def instantiated_norm_sq(

@@ -34,18 +34,73 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,t,d,p", [(3, 37, 33, 7), (2, 1, 512, 10), (4, 100, 130, 70),
-                                     (8, 16, 300, 40), (2, 256, 64, 32)])
+@pytest.mark.parametrize("n,t,d,p", [
+    (3, 37, 33, 7), (2, 1, 512, 10), (4, 100, 130, 70), (8, 16, 300, 40), (2, 256, 64, 32),
+    (9, 4, 4608, 512),  # T = 4: 4 samples a packed tile, the last tile 1 of 4
+    (7, 3, 70, 9),  # T = 3: 5 samples a tile, D and p odd (no pair loads)
+    (4, 16, 4608, 512),  # T = 16 with VGG-19's widest fan-in
+    (2, 196, 3072, 768),  # ViT-Base's MLP tap: 4 x 4 tiles of 64, 10 pairs
+    (3, 65, 40, 24),  # T one past the 64 tile
+    (2, 9, 17, 5),  # T = 9: one sample a tile
+])
 def test_ghost_norm_kernel(gen, n, t, d, p, dtype):
     a, g = _rnd(gen, n, t, d, dtype=dtype), _rnd(gen, n, t, p, dtype=dtype)
+    launches.reset()
     got = gn.ghost_norm_sq_cuda(a, g)
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert got.dtype == torch.float32 and got.shape == (n,)
     assert _rel(got, gn.ghost_norm_sq_plain(a, g)) < 1e-4
     assert torch.equal(got, gn.ghost_norm_sq_cuda(a, g))  # deterministic
 
 
+# (N, H, W, C), kernel, strides, padding: VGG-19's conv taps at T = 64, 16
+# and 4 (3x3 SAME, C a multiple of the k-step: 16-byte chunks), stride 2
+# (XLA's (0, 1) padding), C not a multiple of 4 or 8 (element loads), odd C
+# (no pair loads), T = 1, explicit pads, a 1x1 kernel, and the ViT's 16x16 /
+# 16 patch embedding (C = 3, VALID: 16-byte chunks along a patch row)
+CONV_CASES = [
+    ((3, 8, 8, 256), (3, 3), (1, 1), "SAME"),
+    ((5, 4, 4, 512), (3, 3), (1, 1), "SAME"),
+    ((9, 2, 2, 512), (3, 3), (1, 1), "SAME"),
+    ((3, 16, 16, 128), (3, 3), (1, 1), "SAME"),
+    ((3, 9, 9, 64), (3, 3), (2, 2), "SAME"),
+    ((2, 11, 9, 6), (3, 3), (1, 1), "SAME"),
+    ((2, 10, 7, 5), (3, 2), (2, 1), "VALID"),
+    ((4, 3, 3, 12), (3, 3), (1, 1), "VALID"),
+    ((2, 12, 12, 8), (3, 3), (1, 2), ((2, 0), (1, 1))),
+    ((3, 5, 5, 33), (1, 1), (1, 1), "SAME"),
+    ((2, 224, 224, 3), (16, 16), (16, 16), "VALID"),
+]
+
+
+@pytest.mark.parametrize("x_dtype,g_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("shape,kernel,strides,padding", CONV_CASES)
+def test_conv_ghost_norm_kernel(gen, shape, kernel, strides, padding, x_dtype, g_dtype):
+    """The conv entry (patches built on chip from the raw NHWC input) against
+    ghost_norm_sq(unfold2d(x), g) within 1e-4, deterministic, one
+    ghost_norm_sq launch."""
+    from repro_torch.core.taps import ConvInfo
+    from repro_torch.nn.conv import conv_padding
+
+    info = ConvInfo(kernel=kernel, strides=strides, padding=padding)
+    n, h, w, _ = shape
+    (pt, pb), (pl, pr) = conv_padding(padding, (h, w), kernel, strides)
+    t = (((h + pt + pb - kernel[0]) // strides[0] + 1)
+         * ((w + pl + pr - kernel[1]) // strides[1] + 1))
+    x, g = _rnd(gen, *shape, dtype=x_dtype), _rnd(gen, n, t, 24, dtype=g_dtype)
+    launches.reset()
+    got = gn.conv_ghost_norm_sq_cuda(x, g, info)
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert _rel(got, gn.conv_ghost_norm_sq_plain(x, g, info)) < 1e-4
+    assert torch.equal(got, gn.conv_ghost_norm_sq_cuda(x, g, info))  # deterministic
+
+
 def test_ghost_norm_kernel_mixed_dtypes(gen):
-    """The clipping engine hands the activation over in the model dtype and
-    the cotangent in fp32; the kernel reads each in its own dtype."""
+    """The activation and the cotangent may differ in dtype (a bf16 model's
+    activation with an fp32 cotangent); the kernel reads each in its own."""
     a, g = _rnd(gen, 4, 196, 96, dtype=torch.bfloat16), _rnd(gen, 4, 196, 48)
     got = gn.ghost_norm_sq_cuda(a, g)
     assert _rel(got, gn.ghost_norm_sq_plain(a, g)) < 1e-4

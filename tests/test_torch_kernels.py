@@ -301,8 +301,11 @@ def test_launch_counts_per_impl():
 
 
 def test_ghost_tile_choice_follows_t():
+    """The Gram kernels: T <= 16 in one packed m16 tile, else 64-row tiles;
+    the embedding kernel keeps its 16- or 32-row tiles."""
     assert tgn.tile_for(1) == 16 and tgn.tile_for(16) == 16
-    assert tgn.tile_for(17) == 32 and tgn.tile_for(256) == 32
+    assert tgn.tile_for(17) == 64 and tgn.tile_for(256) == 64
+    assert tgn.embedding_tile_for(16) == 16 and tgn.embedding_tile_for(17) == 32
 
 
 # ------------------------------------ the card's book kernel, emulated --
@@ -405,3 +408,236 @@ def test_book_splits_are_a_pure_function_of_the_shape():
             assert rows >= tpc.MIN_ROWS_PER_SPLIT and tiles < 2 * 132
     assert tpc.book_splits(1, 8192, 1152, 256, 132) == (15, 576)
     assert tpc.book_splits(12, 6272, 768, 3072, 132) == (1, 6272)
+
+
+# ------------------------------ the card's ghost-norm kernels, emulated --
+# csrc/ghost_norm.cu forms both Grams on the tensor cores: a bf16 operand
+# is exact (one product), an fp32 one is split into bf16 hi + lo and its
+# Gram is lo.hi + hi.lo + hi.hi.  Each k-step's MMA chain (32 features in
+# the tiles kernel, T >= 17; 16 in the packed kernel, T <= 16, whose 8 warps
+# take every 8th chunk and are summed in warp order) is rounded to fp32 and
+# added to an fp32 running sum.  These tests emulate that arithmetic at the
+# main paths' shapes and predict the card's reading against its 1e-4 gate.
+GHOST_GATE = 1e-4  # chip_smoke.py TOL["ghost_norm_sq"], kernel vs plain
+
+
+def _emulate_gram(x: torch.Tensor, products: int) -> torch.Tensor:
+    """The kernel's Gram of one sample's (T, D) operand, fp32."""
+    t, d = x.shape
+    if x.dtype == torch.bfloat16:
+        hi, lo = x.float(), torch.zeros(t, d)
+    else:
+        hi, lo = _split(x, "bf16")
+    step, warps = (32, 1) if t > 16 else (16, 8)
+    pad = (-d) % step
+    hi, lo = _pad_features(hi, pad), _pad_features(lo, pad)
+    terms = [(lo, hi), (hi, lo), (hi, hi)][3 - products:]
+    n_steps = hi.shape[1] // step
+    chains = sum(  # (steps, T, T): each k-step's chain, exact, then rounded
+        torch.einsum("tsk,usk->stu", u.double().reshape(t, n_steps, step),
+                     v.double().reshape(t, n_steps, step)) for u, v in terms
+    ).float()
+    per_warp = [torch.zeros(t, t) for _ in range(warps)]
+    for s in range(n_steps):
+        per_warp[s % warps] += chains[s]
+    total = torch.zeros(t, t)
+    for w in per_warp:
+        total += w
+    return total
+
+
+def _pad_features(x: torch.Tensor, pad: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def _emulate_ghost_norm(a, g, products_fp32=3):
+    """Per sample: both emulated Grams, their elementwise product summed in
+    fp32 over 64-row tile pairs (off-diagonal pairs twice), pairs in order."""
+    out = []
+    for ai, gi in zip(a, g):
+        ga = _emulate_gram(ai, 1 if ai.dtype == torch.bfloat16 else products_fp32)
+        gg = _emulate_gram(gi, 1 if gi.dtype == torch.bfloat16 else products_fp32)
+        prod, t = ga * gg, ai.shape[0]
+        tile = tgn.tile_for(t)
+        total = torch.zeros((), dtype=torch.float32)
+        for i in range(0, t, tile):
+            for j in range(0, i + 1, tile):
+                w = 1.0 if i == j else 2.0
+                total += w * prod[i:i + tile, j:j + tile].sum()
+        out.append(total)
+    return torch.stack(out)
+
+
+def _ghost_inputs(n, t, d, p, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(_np(rng, n, t, d)).to(dtype)
+    g = torch.from_numpy(_np(rng, n, t, p)).to(dtype)
+    ad, gd = a.double(), g.double()
+    exact = ((ad @ ad.mT) * (gd @ gd.mT)).sum(dim=(1, 2))
+    return a, g, exact
+
+
+# (N, T, D, p) and dtype of the main paths: VGG-19's conv taps at T = 64
+# (the tiles kernel, one pair) and T = 4 (the packed kernel, 4 samples a
+# tile), ViT-Base's MLP tap at T = 196 (4 x 4 tiles, 10 pairs) in bf16
+GHOST_EMULATED = [((2, 64, 2304, 256), torch.float32), ((4, 4, 4608, 512), torch.float32),
+                  ((2, 196, 3072, 768), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", GHOST_EMULATED)
+def test_ghost_split_emulation_meets_the_gate(shape, dtype):
+    """The kernel's arithmetic (bf16x3 for fp32, one exact product for bf16)
+    at the main paths' shapes stays within a tenth of the 1e-4 gate."""
+    a, g, exact = _ghost_inputs(*shape, dtype)
+    err = _rel_to_largest(_emulate_ghost_norm(a, g), exact)
+    print(f"ghost norm {shape} {dtype}: emulated reading {err:.2e} (gate {GHOST_GATE:.0e})")
+    assert err <= GHOST_GATE / 10, err
+
+
+# What one bf16 product of the rounded fp32 operands (hi.hi only) reads in
+# this emulation: 4.85e-5 at T = 64 (under the gate, with half its margin
+# gone) and 3.05e-4 at T = 4 (over it); bf16x3 reads 5.5e-6 at both.
+GHOST_ONE_PRODUCT_MISSES = {(2, 64, 2304, 256): False, (4, 4, 4608, 512): True}
+
+
+@pytest.mark.parametrize("shape", list(GHOST_ONE_PRODUCT_MISSES))
+def test_ghost_single_bf16_product_reading(shape):
+    """Negative control: one bf16 product of rounded fp32 operands.  Its
+    reading is recorded; it is asserted to miss the gate only where it does."""
+    a, g, exact = _ghost_inputs(*shape, torch.float32)
+    one = _rel_to_largest(_emulate_ghost_norm(a, g, products_fp32=1), exact)
+    split = _rel_to_largest(_emulate_ghost_norm(a, g), exact)
+    print(f"ghost norm {shape}: one bf16 product reads {one:.2e}, bf16x3 {split:.2e}")
+    assert (one > GHOST_GATE) == GHOST_ONE_PRODUCT_MISSES[shape], one
+    assert one > split
+
+
+# ------------------------------------------ the conv entry's patches --
+def _conv_infos():
+    from repro.core.taps import ConvInfo as JConvInfo
+    from repro_torch.core.taps import ConvInfo
+
+    def both(kernel, strides, padding):
+        return (ConvInfo(kernel=kernel, strides=strides, padding=padding),
+                JConvInfo(kernel=kernel, strides=strides, padding=padding))
+    return both
+
+
+# (N, H, W, C), kernel, strides, padding: SAME and VALID, stride 2 (XLA's
+# (0, 1) padding), C not a multiple of 8, T = 1, a 1x1 kernel, explicit
+# pads, and the ViT's 16x16 / 16 patch embedding on a 2x2 patch grid
+CONV_CASES = [
+    ((2, 6, 6, 16), (3, 3), (1, 1), "SAME"),
+    ((2, 7, 5, 8), (3, 3), (1, 1), "VALID"),
+    ((3, 8, 8, 5), (3, 3), (2, 2), "SAME"),
+    ((2, 7, 7, 3), (3, 2), (2, 1), "SAME"),
+    ((4, 3, 3, 12), (3, 3), (1, 1), "VALID"),  # T = 1
+    ((2, 4, 4, 7), (1, 1), (1, 1), "SAME"),
+    ((2, 5, 6, 4), (3, 3), (1, 2), ((2, 0), (1, 1))),
+    ((2, 32, 32, 3), (16, 16), (16, 16), "VALID"),  # the ViT patch embedding
+]
+
+
+def _conv_patches_hwc(x: torch.Tensor, info) -> torch.Tensor:
+    """The conv kernel's patches: (N, H, W, C) -> (N, H_out*W_out, kh*kw*C).
+
+    Row t is output position (y, x) = (t // W_out, t % W_out) and feature k
+    walks (i, j, c) with c fastest, element x[n, y*s_h + i - pad_top,
+    x*s_w + j - pad_left, c], zero where that falls outside the image: the
+    kernel's index arithmetic and masks, gathered in plain PyTorch.  The
+    features are ``unfold2d``'s in another order, so the Gram is the same.
+    """
+    from repro_torch.nn.conv import conv_padding
+
+    n, h, w, c = x.shape
+    (kh, kw), (sh, sw) = info.kernel, info.strides
+    (pt, pb), (pl, pr) = conv_padding(info.padding, (h, w), info.kernel, info.strides)
+    h_out, w_out = (h + pt + pb - kh) // sh + 1, (w + pl + pr - kw) // sw + 1
+    t = torch.arange(h_out * w_out, device=x.device)
+    k = torch.arange(kh * kw * c, device=x.device)
+    y, xo = t // w_out, t % w_out
+    i, j, ch = k // (kw * c), (k % (kw * c)) // c, k % c
+    yy = y[:, None] * sh + i[None, :] - pt  # (T, D)
+    xx = xo[:, None] * sw + j[None, :] - pl
+    inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    flat = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)) * c + ch[None, :]
+    vals = x.reshape(n, h * w * c)[:, flat.reshape(-1)].reshape(n, h_out * w_out, kh * kw * c)
+    return vals * inside.to(x.dtype)
+
+
+@pytest.mark.parametrize("shape,kernel,strides,padding", CONV_CASES)
+def test_conv_patch_order_matches_unfold2d(shape, kernel, strides, padding):
+    """The kernel's (i, j, c) patches with their padding masks hold
+    unfold2d's channel-major patches in another feature order (exactly),
+    so their Grams agree."""
+    from repro_torch.core.taps import ConvInfo
+    from repro_torch.nn.conv import unfold2d
+
+    info = ConvInfo(kernel=kernel, strides=strides, padding=padding)
+    x = torch.from_numpy(_np(np.random.default_rng(sum(shape)), *shape))
+    hwc = _conv_patches_hwc(x, info)
+    ref = unfold2d(x, info)
+    assert hwc.shape == ref.shape
+    c, (kh, kw) = shape[3], kernel
+    # channel-major index c * kh * kw + i * kw + j -> (i * kw + j) * C + c
+    perm = torch.arange(kh * kw * c).reshape(c, kh * kw).T.reshape(-1)
+    assert torch.equal(hwc, ref[:, :, perm])
+    torch.testing.assert_close(hwc @ hwc.mT, ref @ ref.mT, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,kernel,strides,padding", CONV_CASES)
+def test_conv_ghost_norm_plain_vs_jax(shape, kernel, strides, padding):
+    """conv_ghost_norm_sq's plain path (and the dispatched op on the CPU)
+    against the JAX package's ghost norm of conv_general_dilated_patches."""
+    from repro.nn.conv import unfold2d as junfold2d
+
+    info, jinfo = _conv_infos()(kernel, strides, padding)
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = _np(rng, *shape)
+    t = _conv_patches_hwc(torch.from_numpy(x), info).shape[1]
+    g = _np(rng, shape[0], t, 6)
+    want = jgops.ghost_norm_sq(junfold2d(jnp.asarray(x), jinfo), jnp.asarray(g))
+    got = tgops.conv_ghost_norm_sq(torch.from_numpy(x), torch.from_numpy(g), info)
+    assert got.shape == (shape[0],) and got.dtype == torch.float32
+    _close(got, want)
+    launches.reset()
+    _close(dispatch.conv_ghost_norm_sq(torch.from_numpy(x), torch.from_numpy(g), info), want)
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 0, "torch": 1}
+
+
+def test_conv_entry_refuses_a_cpu_tensor():
+    """Forcing the kernel on CPU tensors raises; it never falls back."""
+    from repro_torch.core.taps import ConvInfo
+
+    info = ConvInfo(kernel=(3, 3), strides=(1, 1), padding="SAME")
+    x, g = torch.zeros(2, 4, 4, 3), torch.zeros(2, 16, 5)
+    with dispatch.force_impl("cuda"), pytest.raises(ValueError, match="CUDA tensor"):
+        dispatch.conv_ghost_norm_sq(x, g, info)
+
+
+@pytest.mark.parametrize("conv", [False, True])
+def test_tap_norm_takes_the_cotangent_in_its_dtype(conv):
+    """tap_norm_sq hands a ghost tap's cotangent over in its stored dtype:
+    a bf16 cotangent gives bit for bit the norm of its fp32 upcast (the
+    JAX package's order: upcast first), the conv tap without unfolding."""
+    from repro_torch.core import ghost as tghost
+    from repro_torch.core.taps import ConvInfo, TapMeta
+
+    rng = np.random.default_rng(7)
+    b, p = 3, 6
+    if conv:
+        info = ConvInfo(kernel=(3, 3), strides=(1, 1), padding="SAME")
+        a = torch.from_numpy(_np(rng, b, 2, 2, 8)).to(torch.bfloat16)
+        t, d = 4, 72
+    else:
+        info = None
+        a = torch.from_numpy(_np(rng, b, 4, 64)).to(torch.bfloat16)
+        t, d = 4, 64
+    g = torch.from_numpy(_np(rng, b, t, p)).to(torch.bfloat16)
+    meta = TapMeta(kind="matmul", T=t, D=d, p=p, s_shape=(b, t, p), s_dtype=torch.bfloat16,
+                   param_path="w", bias_path="b", conv=info, batch_size=b,
+                   a_shape=tuple(a.shape), a_dtype=torch.bfloat16)
+    assert tghost.decide(meta, mode="mixed_ghost") == "ghost"
+    got = tghost.tap_norm_sq(meta, a, g, mode="mixed_ghost")
+    assert got.dtype == torch.float32
+    assert torch.equal(got, tghost.tap_norm_sq(meta, a, g.float(), mode="mixed_ghost"))
