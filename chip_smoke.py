@@ -13,11 +13,13 @@ order; any failure exits non-zero and prints no result:
 
 1. card     the name and power limit, as nvidia-smi reports them;
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
-            cuobjdump -sass must show tensor-core instructions (HMMA or
-            HGMMA) in every bf16 flash_attention instance, every
-            book_weighted_grad instance and every instance of the two
-            ghost-norm Gram kernels (not the embedding's SIMT kernel), whose
-            register and spill counts (ptxas -v) are printed;
+            cuobjdump -sass must show warpgroup MMAs (HGMMA) in the two
+            wgmma flash_attention instances (bf16, head dims 64 and 128)
+            and tensor-core instructions (HMMA or HGMMA) in the two
+            mma.sync ones (head dims 16 and 32), every book_weighted_grad
+            instance and every instance of the two ghost-norm Gram kernels
+            (not the embedding's SIMT kernel), whose register and spill
+            counts (ptxas -v) are printed;
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
             at the shapes and dtypes its path gives it (the training steps'
             from the models' own taps, the attention kernel's at the eight
@@ -51,10 +53,16 @@ order; any failure exits non-zero and prints no result:
             layer per prefill), one profiled prefill and one profiled 4-lane
             decode step; then the 2048-token prefill's logits on the kernel
             against force_impl("torch") (gated in fp32 compute on the same
-            parameters, reported in bf16), every request's first token against
-            sequential_decode's, one batched 4-lane decode step against each
-            lane's B=1 decode, and (reported, not gated) how many streams
-            equal sequential_decode's token for token.
+            parameters, reported in bf16), one batched 4-lane decode step
+            against each lane's B=1 decode, every request's first token
+            against sequential_decode's, the streams token for token
+            (reported in bf16 compute, with the first diverging token
+            diagnosed: the lane's state against a replay of the request,
+            step by step, the logits' top-2 gaps), every batched decode
+            step of a drain against B=1 decodes from each lane's own state
+            (the first difference located layer by layer), and the same
+            drain and oracle in fp32 compute, whose streams must all be
+            equal.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -92,11 +100,16 @@ BOOK_PRODUCTS = {("float32", "float32"): 3, ("float32", "bfloat16"): 3,
 # bf16 tensor-core products per multiply-add of a ghost-norm Gram: a bf16
 # operand is exact, an fp32 one is split (bf16x3, lo * lo dropped)
 GRAM_PRODUCTS = {"float32": 3, "bfloat16": 1}
-# kernels built for the tensor cores: cuobjdump must find HMMA / HGMMA in
-# every instance, and the build prints their registers and spills.  The
-# ghost-norm kernels: (a, g) dtypes x (dense, conv) row sources
-TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": 4, "book_weighted_grad_kernel": 8,
-                       "ghost_norm_tiles_kernel": 8, "ghost_norm_packed_kernel": 8}
+# kernels built for the tensor cores: (instances, the SASS instructions one
+# of which each instance must hold); the build prints their registers and
+# spills.  The bf16 attention: wgmma (HGMMA) for head dims 64 and 128,
+# mma.sync for 16 and 32; the ghost-norm kernels: (a, g) dtypes x (dense,
+# conv) row sources
+MMA = ("HMMA", "HGMMA")
+TENSOR_CORE_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
+                       "flash_attention_bf16_kernel": (2, MMA),
+                       "book_weighted_grad_kernel": (8, MMA),
+                       "ghost_norm_tiles_kernel": (8, MMA), "ghost_norm_packed_kernel": (8, MMA)}
 
 MODES = ("non_private", "mixed_ghost", "bk_mixed")
 STEPS = 10  # timed steps per mode and path
@@ -255,8 +268,10 @@ def _demangle(names: list) -> list:
 
 
 def _check_tensor_core_sass(info) -> list:
-    """Every instance of the tensor-core kernels must hold HMMA or HGMMA in
-    the built library's SASS; print each one's count, registers and spills."""
+    """Every instance of the tensor-core kernels must hold its tensor-core
+    instructions (HGMMA for the wgmma kernels, HMMA or HGMMA for the others)
+    in the built library's SASS; print each one's counts, registers and
+    spills."""
     from repro_torch.kernels import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -266,20 +281,22 @@ def _check_tensor_core_sass(info) -> list:
     sass = {}
     for chunk in dump.stdout.split("Function : ")[1:]:
         name = chunk.split(maxsplit=1)[0]
-        sass[name] = sum(chunk.count(op) for op in (" HMMA", " HGMMA"))
+        sass[name] = {op: chunk.count(f" {op}") for op in MMA}
     usage = _ptxas_usage(info.log)
     rows = []
-    for kernel, instances in TENSOR_CORE_KERNELS.items():
+    for kernel, (instances, ops) in TENSOR_CORE_KERNELS.items():
         names = sorted(n for n in sass if kernel in n)
         require(len(names) == instances,
                 f"{kernel}: {len(names)} instances in the SASS, expected {instances}")
         for name, label in zip(names, _demangle(names)):
             regs, st, ld = usage.get(name, (-1, -1, -1))
-            print(f"  {label}: {sass[name]} HMMA/HGMMA, {regs} registers, "
-                  f"spill stores {st} B, loads {ld} B")
-            require(sass[name] > 0, f"{label}: no tensor-core instruction in its SASS")
-            rows.append({"kernel": label, "mma_instructions": sass[name], "registers": regs,
-                         "spill_stores": st, "spill_loads": ld})
+            counts = sass[name]
+            print(f"  {label}: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA, {regs} "
+                  f"registers, spill stores {st} B, loads {ld} B")
+            require(sum(counts[op] for op in ops) > 0,
+                    f"{label}: no {' or '.join(ops)} instruction in its SASS")
+            rows.append({"kernel": label, "hmma": counts["HMMA"], "hgmma": counts["HGMMA"],
+                         "registers": regs, "spill_stores": st, "spill_loads": ld})
     return rows
 
 
@@ -289,7 +306,10 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     model's own taps and the layerwise decisions.
 
     A stacked tap (ViT layers) launches its norm kernel once per layer and
-    its book or bank contraction once for all layers.  The ghost norm gets
+    its book contraction once for all layers; every per-sample gradient
+    bank of a step (each layer of a stacked tap its own segment, weights
+    and biases) contracts in one grouped psg_contract launch, recorded as
+    (N, ((F, element offset), ...)) with one dtype per segment.  The ghost norm gets
     the activation and the cotangent in their stored dtypes (a conv tap's
     raw input through the conv entry, shape (N, H, W, C, kh, kw, s_h, s_w,
     padding, p), which launches as ghost_norm_sq); the embedding norm gets
@@ -302,7 +322,7 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
 
     from repro_torch.core.clipping import discover_meta
     from repro_torch.core.decision import decide
-    from repro_torch.core.ghost import psg_param_shape
+    from repro_torch.core.ghost import psg_segment_sizes
     from repro_torch.kernels.psg_contract.psg_contract import book_splits
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -310,6 +330,7 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     meta = discover_meta(model.loss_with_ctx, params, batch)
     shapes = {k: {} for k in RAGGED}
     expected = {mode: dict.fromkeys(KERNEL_INFO, 0.0) for mode in MODES}
+    segments, n_psg = [], 0
 
     def add(kernel, shape, dtypes, calls=1):
         key = (shape, dtypes)
@@ -337,11 +358,11 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
             expected["bk_mixed"]["book_weighted_grad"] += 1 + (book_splits(*shape, sms)[0] > 1)
             add("book_weighted_grad", shape, (a_dt, s_dt))
         else:
-            add("psg_contract", (b, layers * math.prod(psg_param_shape(m))), ("float32",))
-            expected["bk_mixed"]["psg_contract"] += 1
-            if m.bias_path is not None:
-                add("psg_contract", (b, layers * m.p), ("float32",))
-                expected["bk_mixed"]["psg_contract"] += 1
+            segments += [(f, 0) for f in psg_segment_sizes(m)]
+            n_psg = b
+    if segments:  # every psg bank of a bk_mixed step: one grouped launch
+        add("psg_contract", (n_psg, tuple(segments)), ("float32",) * len(segments))
+        expected["bk_mixed"]["psg_contract"] = 1
     return shapes, expected
 
 
@@ -399,10 +420,11 @@ def _bound(kernel: str, shape, dtypes, segments: int = 0) -> tuple[float, str]:
         ops_s = (BOOK_PRODUCTS[tuple(dtypes)] * 2 * m * r * d * p / rate["bfloat16"]
                  + m * r * p / fp32)
         nbytes = m * r * (d * size[dtypes[0]] + p * size[dtypes[1]] + 4) + 4 * m * d * p
-    else:
-        n, f = shape
-        ops_s = 2 * n * f / fp32
-        nbytes = n * f * size[dtypes[0]] + 4 * (n + f)
+    else:  # the grouped bank sums: each bank read once, c once, the sums written
+        n, segs = shape
+        fs = [f for f, _ in segs]
+        ops_s = 2 * n * sum(fs) / fp32
+        nbytes = sum(n * f * size[d] for f, d in zip(fs, dtypes)) + 4 * (n + sum(fs))
     t_ops, t_bytes = ops_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -419,8 +441,8 @@ def _flops(kernel: str, shape, segments: int = 0) -> float:
     if kernel == "book_weighted_grad":
         m, r, d, p = shape
         return 2 * m * r * d * p + m * r * p
-    n, f = shape
-    return 2 * n * f
+    n, segs = shape
+    return 2 * n * sum(f for f, _ in segs)
 
 
 def _timing(case: dict) -> str:
@@ -431,6 +453,24 @@ def _timing(case: dict) -> str:
     return (f" ms={case['ms']:.4f}{device} plain={case['plain_ms']:.4f} "
             f"library={case['library_ms']:.4f} bound={case['bound_ms']:.4f} "
             f"({case['tflops']:.1f} TFLOP/s, {100 * case['bound_share']:.1f}% of the bound)")
+
+
+def _fp32(x):
+    """A floating tensor (or a list of them) in fp32, for the yardsticks."""
+    if isinstance(x, list):
+        return [_fp32(y) for y in x]
+    return x.float() if x.is_floating_point() else x
+
+
+def _label(kernel: str, shape, dtypes) -> str:
+    """A call's shape and dtypes for the log; a grouped bank call in short."""
+    if kernel != "psg_contract":
+        return f"{tuple(shape)} {'/'.join(dtypes)}"
+    n, segs = shape
+    fs = [f for f, _ in segs]
+    unaligned = sum(off != 0 for _, off in segs)
+    return (f"N={n}, {len(segs)} segments, F {min(fs)}..{max(fs)} (sum {sum(fs)}), "
+            f"{unaligned} unaligned, {'/'.join(sorted(set(dtypes)))}")
 
 
 def _segments(ids) -> int:
@@ -497,13 +537,18 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
 
         def library(a, g, w):
             return torch.einsum("mrd,mr,mrp->mdp", a, w, g)
-    else:
-        n, f = shape
-        args = (rnd(dt[0], n, f), torch.rand(n, generator=gen, device=dev))
-        kern, plain = pc.psg_contract_cuda, pc.psg_contract_plain
+    else:  # one grouped call; a segment's bank starts `off` elements into its buffer
+        n, segs = shape
 
-        def library(psg, c):
-            return c @ psg
+        def bank(f, off, dtype):
+            return rnd(dtype, n * f + off)[off:].view(n, f)
+
+        args = ([bank(f, off, d) for (f, off), d in zip(segs, dt)],
+                torch.rand(n, generator=gen, device=dev))
+        kern, plain = pc.psg_contract_grouped_cuda, pc.psg_contract_grouped_plain
+
+        def library(psgs, c):  # one `c @ psg` per segment
+            return [c @ x for x in psgs]
 
     got = kern(*args)
     want = plain(*args)
@@ -522,7 +567,7 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
         case["ms"] = cuda_ms(lambda: kern(*args), iters)
         case["device_ms"] = device_ms(lambda: kern(*args), 10)
         case["plain_ms"] = cuda_ms(lambda: plain(*args), iters)
-        lib_args = tuple(x.float() if x.is_floating_point() else x for x in args)
+        lib_args = tuple(_fp32(x) for x in args)
         case["library_ms"] = cuda_ms(lambda: library(*lib_args), iters)
         if kernel == "conv_ghost_norm_sq":  # the bmm Grams alone, on patches made beforehand
             patches = unfold2d(lib_args[0], info)
@@ -535,7 +580,7 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
         case["bound_share"] = case["bound_ms"] / case["ms"]
     status = "ok" if rel_err <= TOL[kernel] else "MISMATCH"
     timing = _timing(case) if timed else ""
-    print(f"  {kernel} {tuple(shape)} {'/'.join(dtypes)}: rel_err={rel_err:.2e} "
+    print(f"  {kernel} {_label(kernel, shape, dtypes)}: rel_err={rel_err:.2e} "
           f"(tol {TOL[kernel]:.0e}) deterministic={case['deterministic']}{timing} {status}")
     require(rel_err <= TOL[kernel], f"{kernel} {shape} {dtypes}: rel err {rel_err:.3e}")
     require(case["deterministic"], f"{kernel} {shape} {dtypes}: repeated calls differ")
@@ -570,8 +615,18 @@ RAGGED = {
     "book_weighted_grad": [((3, 37, 33, 130), FLOAT_PAIRS[:2]), ((1, 1, 5, 3), FLOAT_PAIRS[:2]),
                            ((2, 100, 70, 9), FLOAT_PAIRS + [("float32", "bfloat16")]),
                            ((1, 8192, 130, 70), FLOAT_PAIRS + [("float32", "bfloat16")])],
-    "psg_contract": [(shape, [("float32",), ("bfloat16",)])
-                     for shape in ((5, 33), (1, 1), (7, 1000), (130, 257))],
+    # then grouped lists: F = 1, odd F, F a multiple of 4, N = 1 and 130, banks
+    # that start off the 16-byte line (element offsets 1 and 3), fp32, bf16
+    # and mixed; 300 segments, more than one launch's parameter block holds
+    "psg_contract": [
+        ((128, ((147456, 0),)), [("float32",)]),  # VGG-19's largest bank alone (timed)
+        ((5, ((33, 0), (1, 0), (7, 0), (1000, 0), (256, 0))),
+         [("float32",) * 5, ("bfloat16",) * 5]),
+        ((1, ((1, 0), (4, 0), (129, 0))), [("float32",) * 3, ("bfloat16",) * 3]),
+        ((130, ((2049, 0), (64, 1), (1, 0), (512, 3), (4096, 0))),
+         [("float32",) * 5, ("float32", "bfloat16", "float32", "bfloat16", "bfloat16")]),
+        ((3, tuple((1 + (7 * i) % 50, 0) for i in range(300))), [("float32",) * 300]),
+    ],
 }
 
 
@@ -593,8 +648,9 @@ def phase_kernels(paths: dict) -> dict:
                 cases.append(case)
         print(f"kernel {kernel}: ragged shapes")
         for shape, dtype_sets in RAGGED[kernel]:
+            timed = kernel == "psg_contract" and shape == RAGGED[kernel][0][0]
             for dtypes in dtype_sets:
-                cases.append(_kernel_case(kernel, shape, dtypes, gen, timed=False))
+                cases.append(_kernel_case(kernel, shape, dtypes, gen, timed=timed))
         out[kernel] = cases
     out["ghost_norm_per_step"] = _ghost_per_step(out)
     return out
@@ -778,11 +834,11 @@ def phase_compare(tag: str, path: dict) -> dict:
 
 # ------------------------------------------------------- attention kernel --
 # (B, Sq, Skv, H, K, hd, causal, window, q_offset) and dtypes: Sq and Skv
-# off the 64-row and the 32- and 64-key tiles, one query row at the end of
-# the cache, a window smaller than Sq and one that cuts a 64-key tile,
-# non-causal, MHA (K = H), 8 query heads per KV head, B = 3, every head dim,
-# fp32 (at the longest prompt's shape too, timed: the fp32 SIMT instance,
-# holding the long rows at full precision)
+# off the 64- and 128-row and the 32-, 64- and 128-key tiles, one query row
+# at the end of the cache, a window smaller than Sq and one that cuts a
+# key tile, non-causal, MHA (K = H), 1, 4 and 8 query heads per KV head,
+# B = 3, every head dim, fp32 (at the longest prompt's shape too, timed:
+# the fp32 SIMT instance, holding the long rows at full precision)
 FLASH_RAGGED = [
     ((1, 2048, 2048, 32, 4, 128, True, None, 0), ("float32",)),
     ((1, 131, 131, 32, 4, 128, True, None, 0), ("bfloat16", "float32")),
@@ -793,6 +849,15 @@ FLASH_RAGGED = [
     ((1, 257, 257, 16, 16, 128, True, None, 0), ("bfloat16",)),
     ((3, 150, 150, 8, 1, 32, True, 40, 0), ("bfloat16", "float32")),
     ((1, 33, 80, 2, 2, 16, True, None, 47), ("bfloat16", "float32")),
+    # the wgmma instance's edges: g = 8, 4 and 1 (a 128-row block holds 16,
+    # 32 or 128 positions of 8, 4 or 1 heads), Sq off the block (a consumer
+    # warpgroup idle or partly live), a window across the 128-key tiles, hd
+    # 64, q_offset into a longer cache
+    ((1, 200, 200, 8, 8, 128, True, None, 0), ("bfloat16",)),
+    ((2, 129, 129, 16, 4, 128, True, None, 0), ("bfloat16",)),
+    ((1, 64, 64, 8, 1, 128, True, None, 0), ("bfloat16",)),
+    ((1, 777, 777, 32, 4, 64, True, 300, 0), ("bfloat16", "float32")),
+    ((1, 90, 400, 8, 2, 128, True, None, 310), ("bfloat16",)),
 ]
 
 
@@ -859,6 +924,7 @@ def _flash_case(spec, dtype: str, gen, timed: bool) -> dict:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         iters = 10
         case["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters)
+        case["device_ms"] = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters)
         case["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters)
         case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
@@ -893,6 +959,12 @@ def phase_flash_kernel() -> list:
         case = _flash_case(spec, cfg.dtype, gen, timed=True)
         case["path"], case["calls_per_step"] = "serve", cfg.n_layers
         cases.append(case)
+    total = {key: None if any(c[key] is None for c in cases)
+             else sum(c[key] for c in cases) * cfg.n_layers
+             for key in ("ms", "device_ms", "library_ms", "bound_ms")}
+    dev = "not measured" if total["device_ms"] is None else f"{total['device_ms']:.3f}"
+    print(f"flash_attention over the {len(PROMPT_LENS)} prefills: kernel {total['ms']:.3f} ms "
+          f"(device {dev}), sdpa {total['library_ms']:.3f}, bound {total['bound_ms']:.3f}")
     print("kernel flash_attention: ragged shapes")
     for spec, dtypes in FLASH_RAGGED:
         for dtype in dtypes:
@@ -1027,19 +1099,257 @@ def phase_serve() -> dict:
     require(out["decode_rel_err"] <= SERVE_LOGIT_TOL,
             f"serve batched decode logits differ by {out['decode_rel_err']:.3e}")
     del lanes, batch_state
-    # compare 2 (gated) and 4 (reported): the sequential oracle
+    # compare 2: the sequential oracle, first tokens and whole streams; where
+    # a stream leaves it, what differs at the first diverging token
     t0 = time.perf_counter()
     want = sequential_decode(model, params, prompts, max_new=MAX_NEW, view_len=view)
     out["sequential_s"] = time.perf_counter() - t0
+    out["engine_streams"], out["sequential_streams"] = tokens, want
     first_equal = sum(g[0] == w[0] for g, w in zip(tokens, want))
     out["streams_equal"] = sum(g == w for g, w in zip(tokens, want))
     out["tokens_equal"] = sum(a == b for g, w in zip(tokens, want) for a, b in zip(g, w))
-    print(f"compare serve engine vs sequential_decode ({out['sequential_s']:.1f} s): first "
-          f"tokens equal {first_equal}/{len(prompts)}; streams equal token for token "
-          f"{out['streams_equal']}/{len(prompts)} (reported, not gated); "
+    print(f"compare serve engine vs sequential_decode ({cfg.dtype} compute, "
+          f"{out['sequential_s']:.1f} s): first tokens equal {first_equal}/{len(prompts)}; "
+          f"streams equal token for token {out['streams_equal']}/{len(prompts)}; "
           f"{out['tokens_equal']}/{len(prompts) * MAX_NEW} tokens equal")
     require(first_equal == len(prompts), "serve: a first token differs from sequential_decode")
+    if out["streams_equal"] < len(prompts):
+        out["divergence"] = _serve_divergence(model, params, prompts, tokens, want, view)
+    out["batched_vs_b1"] = _batch_scan(model, params, prompts)
+    del model
+    # compare 4 (gated): the same drain and oracle in fp32 compute
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    got32 = _drain_tokens(model32, params, prompts)
+    want32 = sequential_decode(model32, params, prompts, max_new=MAX_NEW, view_len=view)
+    out["streams_equal_float32"] = sum(g == w for g, w in zip(got32, want32))
+    print(f"compare serve engine vs sequential_decode (float32 compute): streams equal token "
+          f"for token {out['streams_equal_float32']}/{len(prompts)}")
+    require(out["streams_equal_float32"] == len(prompts),
+            "serve: an fp32 engine stream differs from sequential_decode")
     return out
+
+
+def _drain_tokens(model, params, prompts, spy=None) -> list:
+    """Every request's tokens from a fresh Engine as the serve phase builds
+    it; ``spy(engine, tokens, state, logits, new_state)`` sees each
+    decode."""
+    from repro_torch.launch.serve import submit_all
+    from repro_torch.serving import Engine
+
+    engine = Engine(model, params, n_slots=SLOTS, page_size=PAGE,
+                    max_len=max(PROMPT_LENS) + MAX_NEW, eos_id=None)
+    if spy is not None:
+        real = model.decode_step
+
+        def decode_step(params_, tokens, state):
+            logits, new = real(params_, tokens, state)
+            spy(engine, tokens, state, logits, new)
+            return logits, new
+
+        model.decode_step = decode_step  # the engine's decode looks it up per call
+    try:
+        submit_all(engine, prompts, max_new=MAX_NEW)
+        done = engine.drain()
+    finally:
+        if spy is not None:
+            del model.decode_step
+    return [done[i].tokens for i in range(len(prompts))]
+
+
+def _batch_scan(model, params, prompts) -> dict:
+    """Every decode of a drain, lane by lane: the batched step's logits row
+    and the K/V rows it writes against a B=1 decode from the lane's own
+    input state.  Counts the (lane, step) pairs where either differs, and
+    the first one where the K/V rows do (request, token, first layer)."""
+    from repro_torch.utils.tree import flatten_dict
+
+    decode = type(model).decode_step  # the unwatched step
+    scan = {"lane_steps": 0, "logits_differ": 0, "kv_rows_differ": 0, "first_kv": None}
+
+    def spy(engine, tokens, state, logits, new):
+        new_flat = flatten_dict(new["cache"])
+        for slot in engine.scheduler.active_slots():
+            lane = slot.index
+            one_logits, one = decode(model, params, tokens[lane:lane + 1], _lane_state(state, lane))
+            row = int(state["pos"][lane])  # the cache row this decode writes
+            layers = set()  # the layers whose written K or V row differs
+            for path, leaf in flatten_dict(one["cache"]).items():
+                if path.endswith("/k") or path.endswith("/v"):
+                    differ = (leaf[:, 0, row] != new_flat[path][:, lane, row]).flatten(1).any(1)
+                    layers.update(differ.nonzero().flatten().tolist())
+            scan["lane_steps"] += 1
+            scan["logits_differ"] += not _equal(one_logits[0], logits[lane])
+            if layers:
+                scan["kv_rows_differ"] += 1
+                if scan["first_kv"] is None:
+                    scan["first_kv"] = {"request": slot.request.rid, "token": slot.generated,
+                                        "first_layer": min(layers),
+                                        **_batch_variance(model, params, tokens, state, lane)}
+
+    _drain_tokens(model, params, prompts, spy)
+    print(f"serve batched vs B=1 decode, every lane and step of a drain: "
+          f"{scan['logits_differ']} of {scan['lane_steps']} logits rows differ, "
+          f"{scan['kv_rows_differ']} written K/V rows differ (first {scan['first_kv']})")
+    return scan
+
+
+def _top2_gap(logits) -> float:
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def _lane_state(state: dict, lane) -> dict:
+    """One lane (an int) or every lane (slice(None)) of a lane-batched
+    serving state, copied out."""
+    from repro_torch.utils.tree import tree_map
+
+    rows = slice(lane, lane + 1) if isinstance(lane, int) else lane
+    return {"pos": state["pos"][rows].clone(),
+            "cache": tree_map(lambda x: x[:, rows].clone(), state["cache"])}
+
+
+def _state_diff(got: dict, want: dict, prompt_len: int) -> dict:
+    """Two B=1 serving states: positions and fill levels equal or not, and
+    the largest |K/V| difference on the cache rows the lane attends (cache
+    position >= 0), split into prompt rows and decode rows, with the first
+    layer where those rows differ; rows it does not attend, apart."""
+    from repro_torch.utils.tree import flatten_dict
+
+    g_flat, w_flat = flatten_dict(got["cache"]), flatten_dict(want["cache"])
+    out = {"top_pos_equal": bool(_equal(got["pos"], want["pos"])),
+           "cache_pos_equal": all(_equal(g_flat[k], v) for k, v in w_flat.items()
+                                  if k.endswith("pos")),
+           "cache_idx_equal": all(_equal(g_flat[k], v) for k, v in w_flat.items()
+                                  if k.endswith("idx")),
+           "kv_prompt_rows": 0.0, "kv_decode_rows": 0.0, "kv_masked_rows": 0.0,
+           "first_layer": None}
+    for path, leaf in w_flat.items():
+        if not (path.endswith("/k") or path.endswith("/v")):
+            continue
+        pos = w_flat[path[:-1] + "pos"]  # (L, 1, rows)
+        diff = (leaf.float() - g_flat[path].float()).abs().amax(dim=(-2, -1))
+        for key, rows in (("kv_prompt_rows", (pos >= 0) & (pos < prompt_len)),
+                          ("kv_decode_rows", pos >= prompt_len), ("kv_masked_rows", pos < 0)):
+            if rows.any():
+                out[key] = max(out[key], float(diff[rows].max()))
+        live = (diff * (pos >= 0)).amax(dim=(1, 2))  # per layer
+        if live.any():
+            first = int(live.nonzero()[0, 0])
+            out["first_layer"] = first if out["first_layer"] is None else min(
+                out["first_layer"], first)
+    return out
+
+
+def _batch_variance(model, params, tokens, state, lane: int) -> dict:
+    """One decode as the engine ran it (every lane in one batch: ``tokens``,
+    ``state``) and for ``lane`` alone from the same lane state: per layer,
+    whether the attention's input (q) and output rows for the lane are
+    equal, and the first layer where they differ."""
+    from repro_torch.kernels import dispatch
+
+    decode = type(model).decode_step  # the unwatched step
+    real = dispatch.flash_attention
+
+    def run(toks, st):
+        calls = []
+
+        def record(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            calls.append((q.clone(), out.clone()))
+            return out
+
+        dispatch.flash_attention = record
+        try:
+            logits = decode(model, params, toks, st)[0]
+        finally:
+            dispatch.flash_attention = real
+        return logits, calls
+
+    many, many_calls = run(tokens, state)
+    one, one_calls = run(tokens[lane:lane + 1], _lane_state(state, lane))
+    q_equal = [_equal(a[0][lane:lane + 1], b[0]) for a, b in zip(many_calls, one_calls)]
+    out_equal = [_equal(a[1][lane:lane + 1], b[1]) for a, b in zip(many_calls, one_calls)]
+    return {"lane": lane, "logits_equal": _equal(many[lane:lane + 1], one),
+            "first_layer_attention_input_differs":
+                q_equal.index(False) if False in q_equal else None,
+            "first_layer_attention_output_differs":
+                out_equal.index(False) if False in out_equal else None,
+            "attention_differs_on_equal_inputs": [
+                i for i, (qe, oe) in enumerate(zip(q_equal, out_equal)) if qe and not oe]}
+
+
+def _equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x, y))
+
+
+def _serve_divergence(model, params, prompts, got, want, view) -> dict:
+    """The first token (lowest index, then lowest request) where an engine
+    stream leaves sequential_decode's, and what differs there.
+
+    The engine is drained again with the decodes of that request watched:
+    the lane's input state and logits row are kept at every step up to the
+    diverging token.  sequential_decode's steps for the request are
+    replayed beside them (a B=1 prefill, then B=1 decodes of its tokens),
+    and the two states are compared at each step: the first step where
+    they differ, and where (prompt or decode rows, which layer).  At the
+    diverging token: the engine's logits against a B=1 decode from the
+    replayed state and from the engine's own lane state, each row's top-2
+    gap, the replayed decode against itself; and the rerun's streams
+    against the first drain's, two B=1 prefills of the prompt against each
+    other."""
+    import torch
+
+    j, r = min((next(t for t, (a, b) in enumerate(zip(g, w)) if a != b), i)
+               for i, (g, w) in enumerate(zip(got, want)) if g != w)
+    seen = {}
+
+    def spy(engine, tokens, state, logits, new):
+        for slot in engine.scheduler.slots:
+            if slot.active and slot.request.rid == r and 1 <= slot.generated <= j:
+                lane = slot.index
+                seen[slot.generated] = (_lane_state(state, lane),
+                                        logits[lane, -1].float().clone(),
+                                        tokens[lane:lane + 1].clone(), lane)
+
+    rerun = _drain_tokens(model, params, prompts, spy)
+    dev = model.device
+    toks = {"tokens": torch.tensor([prompts[r]], device=dev)}
+    logits0, state = model.prefill(params, toks, model.init_state(1, view))
+    logits1, again = model.prefill(params, toks, model.init_state(1, view))
+    prefill_repeat = _equal(logits0, logits1) and _state_diff(
+        again, state, len(prompts[r]))["first_layer"] is None
+    del again
+    first = None
+    for t in range(1, j + 1):  # state: the replay's input to the decode emitting token t
+        diff = _state_diff(seen[t][0], state, len(prompts[r]))
+        if first is None and (diff["first_layer"] is not None or not diff["cache_pos_equal"]):
+            first = {"step": t, **diff}
+        if t < j:
+            _, state = model.decode_step(params, torch.tensor([[want[r][t - 1]]], device=dev),
+                                         state)
+    lane_state, eng, tok, lane = seen[j]
+    tok_in = torch.tensor([[want[r][j - 1]]], device=dev)
+    seq = model.decode_step(params, tok_in, state)[0][0, -1].float()
+    seq_again = model.decode_step(params, tok_in, state)[0][0, -1].float()
+    own = model.decode_step(params, tok, lane_state)[0][0, -1].float()
+    res = {
+        "request": r, "token": j, "prompt_len": len(prompts[r]), "lane": lane,
+        "engine_token": got[r][j], "sequential_token": want[r][j],
+        "rerun_streams_equal_first_drain": rerun == got,
+        "prefill_repeat_equal": prefill_repeat,
+        "first_state_difference": first,
+        "state_at_token": _state_diff(lane_state, state, len(prompts[r])),
+        "engine_vs_b1_replayed_max_abs_diff": float((eng - seq).abs().max()),
+        "engine_vs_b1_own_state_max_abs_diff": float((eng - own).abs().max()),
+        "b1_replayed_repeat_equal": _equal(seq, seq_again),
+        "engine_argmax": int(eng.argmax()), "b1_replayed_argmax": int(seq.argmax()),
+        "engine_top2_gap": _top2_gap(eng), "b1_replayed_top2_gap": _top2_gap(seq),
+        "logit_scale": float(seq.abs().max()),
+    }
+    print("serve divergence: " + json.dumps(res))
+    return res
 
 
 def summary_line(kernels: dict, runs: dict) -> dict:

@@ -33,12 +33,14 @@ Flow of the fused family (``FusedExecutor``)::
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import ghost
 from repro_torch.core.taps import ClipRuntime, Ctx, TapMeta, bank_keys
+from repro_torch.kernels import dispatch
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 LossFn = Callable[..., torch.Tensor]  # (params, batch, ctx) -> (B,) losses
@@ -228,14 +230,33 @@ class FusedExecutor(ClipExecutor):
     def _weighted_grads(self, st, c, params):
         if not self.is_bk:
             return _param_grads(st.losses, st.leaves, c)  # second backward
-        # book-keeping: contractions of the banks; nothing re-propagates
+        # book-keeping: contractions of the banks; nothing re-propagates.
+        # A book contracts per tap; every psg bank of the step contracts in
+        # one grouped call, its sums written to the parameter paths after
         flat_params = flatten_dict(params)
         flat_grads: dict[str, torch.Tensor] = {}
+
+        def add(path, val):
+            flat_grads[path] = flat_grads[path] + val if path in flat_grads else val
+
+        segments = []
         for name, m in st.meta.items():
-            bank = _stack_banks([st.runtime.banks.pop(k) for k in bank_keys(name, m)])
-            ws = ghost.bank_weighted_grads(m, bank, c, tuple(flat_params[m.param_path].shape))
-            for path, val in ws.items():
-                flat_grads[path] = flat_grads[path] + val if path in flat_grads else val
+            banks = [st.runtime.banks.pop(k) for k in bank_keys(name, m)]
+            shape = tuple(flat_params[m.param_path].shape)
+            if "g" in banks[0]:
+                book = _stack_banks(banks)
+                for path, val in ghost.tap_weighted_grads(m, book["a"], book["g"], c,
+                                                          shape).items():
+                    add(path, val)
+            else:
+                segments.extend(ghost.psg_segments(m, banks, shape))
+        if segments:
+            sums = dispatch.psg_contract_grouped([x for _, _, xs in segments for x in xs], c)
+            at = 0
+            for path, shape, _ in segments:
+                size = math.prod(shape)
+                add(path, sums[at:at + size].reshape(shape))
+                at += size
         for path, leaf in flat_params.items():
             if path not in flat_grads:
                 flat_grads[path] = torch.zeros_like(leaf)
@@ -245,8 +266,8 @@ class FusedExecutor(ClipExecutor):
 
 
 def _stack_banks(banks: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
-    """One tap's per-layer banks, stacked in layer order (the norm ``n`` is
-    already summed by the norms stage)."""
+    """One tap's per-layer (a, g) books, stacked in layer order (the norm
+    ``n`` is already summed by the norms stage)."""
     if len(banks) == 1:
         return banks[0]
     return {k: torch.stack([bk[k] for bk in banks]) for k in banks[0] if k != "n"}

@@ -10,8 +10,10 @@ directly from the banked residuals, skipping the second backward.
 - ``tap_norm_sq``          per-sample norm^2 from (a, g);
 - ``tap_bank``             the fused probe's backward payload for one tap
                            (one layer of a stack);
-- ``bank_weighted_grads``  ``sum_i C_i g_i`` from a tap's bank;
-- ``tap_weighted_grads``   the same from an (a, g) book.
+- ``tap_weighted_grads``   ``sum_i C_i g_i`` from an (a, g) book;
+- ``psg_segments``         a psg-banked tap's per-sample gradients as
+                           the segments of the step's one grouped
+                           contraction (``dispatch.psg_contract_grouped``).
 
 Canonical layouts (stack dims folded into the row dim N = L * B * G):
 matmul a (N, T, D), g (N, T, p); embedding ids (N, T), g (N, T, p); scale
@@ -19,8 +21,9 @@ a, g (N, T, p) with grad = sum_T g*a; bias g (N, T, p) with grad = sum_T g.
 Per-sample conv gradients are in the parameter's own OIHW layout
 (p, d, kh, kw).  The norm, bank and gradient functions take a stacked meta
 (``stack_dims = (L,)``) as the JAX package's do: the stack folds into the
-per-sample sums, and the book and bank contractions run once per stacked
-tap.
+per-sample sums, and the book contraction runs once per stacked tap; the
+per-sample gradient banks of every psg-banked tap of a step contract in one
+grouped call, a stacked tap's layers as separate segments.
 
 The activation and the cotangent reach the ghost-norm kernel in their
 stored dtypes (the JAX package upcasts the cotangent to fp32 first; bf16 ->
@@ -33,6 +36,7 @@ its 2^24 vocab guard have no counterpart here.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -298,29 +302,30 @@ def tap_weighted_grads(
     return out
 
 
-def bank_weighted_grads(
-    meta: TapMeta,
-    bank: dict[str, torch.Tensor],
-    clip: torch.Tensor,  # (B,) clip factors C_i
-    param_shape: tuple[int, ...],
-) -> dict[str, torch.Tensor]:
-    """Book-keeping gradient stage of one tap: sum_i C_i g_i from its bank
-    (a stacked tap's bank holds its layers' banks stacked, in layer order).
+def psg_segment_sizes(meta: TapMeta) -> list[int]:
+    """Columns of a psg-banked tap's contraction segments, in the order
+    ``psg_segments`` gives them: one per layer for the weight, then one per
+    layer for a bias."""
+    sizes = [math.prod(psg_param_shape(meta))] * meta.n_stack
+    if meta.bias_path is not None:
+        sizes += [meta.p] * meta.n_stack
+    return sizes
 
-    Ghost-banked taps replay the weighted book contraction; psg-banked taps
-    contract their per-sample gradients with the clip factors along the
-    sample axis (``dispatch.psg_contract``, once for the weight and once
-    for a bias).
-    """
-    if "g" in bank:
-        return tap_weighted_grads(meta, bank["a"], bank["g"], clip, param_shape)
-    cw = clip.float()
-    lead = meta.n_stack
-    psg = bank["psg"].reshape((lead, meta.batch_size) + psg_param_shape(meta))
-    out = {meta.param_path: dispatch.psg_contract(psg, cw, axis=1).reshape(param_shape)}
-    if "psg_b" in bank:
-        psg_b = bank["psg_b"].reshape(lead, meta.batch_size, meta.p)
-        out[meta.bias_path] = dispatch.psg_contract(psg_b, cw, axis=1).reshape(
-            meta.stack_dims + (meta.p,)
-        )
+
+def psg_segments(
+    meta: TapMeta,
+    banks: list[dict[str, torch.Tensor]],  # one per layer, in layer order
+    param_shape: tuple[int, ...],
+) -> list[tuple[str, tuple[int, ...], list[torch.Tensor]]]:
+    """A psg-banked tap's part of the book-keeping gradient stage:
+    (path, gradient shape, per-layer (B, F) banks) for the weight and for a
+    bias.  Contracting each bank with the clip factors along its sample
+    axis, layers back to back, gives the gradient in the parameter's own
+    layout (the banks are in it already); the banks are reshaped, never
+    stacked or copied."""
+    b = meta.batch_size
+    out = [(meta.param_path, param_shape, [bk["psg"].reshape(b, -1) for bk in banks])]
+    if "psg_b" in banks[0]:
+        out.append((meta.bias_path, meta.stack_dims + (meta.p,),
+                    [bk["psg_b"].reshape(b, -1) for bk in banks]))
     return out

@@ -1,4 +1,4 @@
-// Attention forward with an online softmax (FlashAttention-2 style):
+// Attention forward with an online softmax (FlashAttention style):
 //
 //     o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / g]) v[b, j, h / g]
 //
@@ -10,32 +10,55 @@
 // Replaces src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_pallas.  The Pallas kernel carries (m, l, acc) in VMEM
 // across a sequential KV grid axis; blocks here run in parallel in no
-// order, so one block owns a (batch, head, 64-row q tile) and loops over
-// the KV tiles itself.  Both instances read KV head h / g in place (no
+// order, so one block owns a (batch, head, q tile) and loops over the KV
+// tiles itself.  Every instance reads KV head h / g in place (no
 // transposed copy and none of the Pallas wrapper's jnp.repeat of K and V,
-// 8x at Yi-6B's 32/4 heads), skip the KV tiles that the causal or window
-// mask leaves fully dead (half the work of a causal prefill), mask ragged
-// edges by index, start the longest causal rows first, mask with the
-// Pallas kernel's finite -1e30 and floor the denominator at 1e-30.  No
+// 8x at Yi-6B's 32/4 heads), skips the KV tiles that the causal or window
+// mask leaves fully dead (half the work of a causal prefill), masks ragged
+// edges by index, starts the longest causal rows first, masks with the
+// Pallas kernel's finite -1e30 and floors the denominator at 1e-30.  No
 // atomics: the output is deterministic.
 //
 // What bounds it on the H100: operations.  A causal prompt of length s
 // needs 4 * hd * s(s+1)/2 flops per head against (2 + 2/g) * s * hd values
 // moved, hundreds of flops per byte, so the kernel is bound by the tensor
-// cores' 989 TFLOP/s bf16 rate.  Which instance runs is set by the dtype:
+// cores' 989 TFLOP/s bf16 rate.  Which instance runs is set by the dtype
+// and the head dim:
 //
-// - bf16 (the serving path: Yi-6B's prefills): tensor cores.  4 warps, each
-//   owning 16 query rows; Q's fragments stay in registers for the whole KV
-//   loop.  64-key K and V tiles are double-buffered in shared memory with
-//   cp.async (tile j+1 loads while tile j computes).  S = Q K^T and
-//   O += P V are bf16 mma.sync.m16n8k16 with fp32 accumulators (ldmatrix
-//   for Q and K, ldmatrix.trans for V).  The row max and row sum live in
-//   the accumulator fragments and reduce over the four lanes of a quad; P
-//   is rounded to bf16 in registers and is the A operand of P V directly,
-//   so S and P never touch shared memory.  Precision: Q K^T of bf16 inputs
-//   is exact products summed in fp32, as the Pallas kernel's fp32 dot;
-//   P is rounded to bf16 before P V, as the Pallas kernel does
-//   (p.astype(v_ref.dtype)), and l sums the unrounded fp32 P, also as
+// - bf16, head dims 64 and 128 (the serving path: Yi-6B's prefills, hd
+//   128): warpgroup MMA fed by TMA (namespace wg), FlashAttention-3's
+//   shape.  A block owns 128 query rows and has three warpgroups: one
+//   producer, whose single thread loads Q once and keeps 128-key K and V
+//   tiles in flight into a 2-stage (hd 128) or 3-stage (hd 64) ring of
+//   128-byte-swizzled shared-memory tiles, guarded by full/empty mbarriers
+//   (TMA zero-fills rows past the end); and two consumer warpgroups of 64
+//   rows each.  A consumer runs S = Q K^T as wgmma.m64n128k16 with both
+//   operands read from shared memory (one K tile serves all 64 rows, where
+//   mma.sync re-read it per 16-row warp), masks and exponentiates S in its
+//   accumulator registers, rounds P to bf16 in registers and runs
+//   O += P V as wgmma.m64n{hd}k16 with P as the register A operand and V
+//   as the transposed shared-memory B operand.  The two consumers take
+//   turns issuing their MMAs (ping-pong on two named barriers), so one's
+//   softmax overlaps the other's MMAs.  The block's rows are the query
+//   heads that share a KV head (up to 8, Yi-6B's g) times 128 / 8 = 16
+//   positions, so the causal blocks are 16 positions fine.  setmaxnreg
+//   moves registers from the producer (24) to the consumers (240).  A tile
+//   dead for one consumer's rows is skipped by it alone.  The tensor maps
+//   are encoded on the host per call (the driver's encoder through
+//   cudaGetDriverEntryPoint, no -lcuda).  Measured on the card and not
+//   kept: issuing the next tile's S with the previous P V inside one
+//   consumer (slower), and a third ring stage at hd 128 (no gain).
+// - bf16, head dims 16 and 32: mma.sync (namespace tc).  4 warps, each
+//   owning 16 query rows of a 64-row tile; Q's fragments stay in registers
+//   for the whole KV loop.  64-key K and V tiles are double-buffered in
+//   shared memory with cp.async.  S = Q K^T and O += P V are bf16
+//   mma.sync.m16n8k16 with fp32 accumulators (ldmatrix for Q and K,
+//   ldmatrix.trans for V); P is the A operand of P V directly.
+// - Precision of both bf16 instances: Q K^T of bf16 inputs is exact
+//   products summed in fp32, as the Pallas kernel's fp32 dot; the row max
+//   and row sum live in the accumulator fragments and reduce over the four
+//   lanes of a quad; P is rounded to bf16 before P V, as the Pallas kernel
+//   does (p.astype(v_ref.dtype)), and l sums the unrounded fp32 P, also as
 //   there.  Against the plain version (fp32 P) that adds about 2^-9 / 3 of
 //   a row's scale before the output's own bf16 rounding, which alone can
 //   differ by one step (2^-7 of an entry).
@@ -46,6 +69,7 @@
 //   It serves the fp32 compute paths (the logit comparison, reduced tests),
 //   not the bf16 serving path; it is not fast.
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -53,7 +77,7 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's finite mask value
 
 // ---------------------------------------------------------------------------
-// bf16 instance: tensor cores
+// bf16 instance for head dims 16 and 32: mma.sync
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -271,9 +295,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
            int heads, int kv_heads, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
-  const cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(heads, (sq + kBQ - 1) / kBQ, b);
   flash_attention_bf16_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -282,6 +306,321 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// bf16 instance for head dims 64 and 128: warpgroup MMA (wgmma) fed by TMA
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+namespace h = repro::sm90;
+
+constexpr int kBQ = 128;        // query rows per block: two consumer warpgroups of 64
+constexpr int kBKV = 128;       // keys per K/V tile
+constexpr int kConsumers = 2;   // consumer warpgroups; warpgroup 0 loads
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kRowBytes = 128;  // one swizzled tile row: 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory: Q (two 64-row halves, one per consumer), the K and V
+// rings, then the barriers; every tile 1024-byte aligned
+template <int HD>
+struct Layout {
+  static constexpr int kRegions = HD / 64;  // 64-column swizzled regions of a row
+  static constexpr int kStages = HD == 128 ? 2 : 3;
+  static constexpr int kQBytes = kBQ * HD * 2;
+  static constexpr int kTileBytes = kBKV * HD * 2;  // one K or V tile
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;  // full[S], empty[S], q
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;  // + alignment slack
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 bf16* __restrict__ o, int sq, int skv, int heads,
+                                 int kv_heads, int causal, int window, int q_offset,
+                                 float scale, int pack_log2) {
+  using L = Layout<HD>;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (h::smem_u32(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_bar = empty + L::kStages;
+
+  // a block's 128 rows are npos query positions of 2^pack_log2 heads that
+  // share a KV head, row = position * 2^pack_log2 + head (one K/V tile
+  // serves them all).  Head groups vary fastest over the grid; the last
+  // positions (the longest causal rows) of every group are scheduled first
+  const int npos = kBQ >> pack_log2;
+  const int head0 = blockIdx.x << pack_log2, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * npos;
+  const int kv_head = head0 / (heads / kv_heads);
+
+  // the keys any row of this block can reach; tiles outside are dead
+  const int rows = min(npos, sq - q0);  // positions
+  const int k_hi = causal ? min(skv, q_offset + q0 + rows) : skv;
+  const int k_lo = window >= 0 ? max(0, q_offset + q0 - window + 1) : 0;
+  const int k_first = (k_lo / kBKV) * kBKV;
+  const int n_tiles = k_hi > k_first ? (k_hi - k_first + kBKV - 1) / kBKV : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&empty[s], 128 * kConsumers);
+    }
+    h::mbar_init(q_bar, 1);
+    h::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int group = threadIdx.x / 128;  // warpgroup
+  if (group == 0) {
+    // producer: one thread keeps the K/V ring full; the warpgroup gives its
+    // registers to the consumers
+    h::regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      h::mbar_arrive_expect_tx(q_bar, L::kQBytes);
+#pragma unroll
+      for (int r = 0; r < L::kRegions; ++r) {
+        h::tma_load_4d(smem + r * kBQ * kRowBytes, &q_map, q_bar, 64 * r, head0, q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % L::kStages;
+        if (it >= L::kStages) h::mbar_wait(&empty[s], (it / L::kStages - 1) & 1);
+        h::mbar_arrive_expect_tx(&full[s], 2 * L::kTileBytes);
+        const int k0 = k_first + it * kBKV;
+#pragma unroll
+        for (int r = 0; r < L::kRegions; ++r) {
+          h::tma_load_4d(smem + L::kK + s * L::kTileBytes + r * kBKV * kRowBytes, &k_map,
+                         &full[s], 64 * r, kv_head, k0, b);
+          h::tma_load_4d(smem + L::kV + s * L::kTileBytes + r * kBKV * kRowBytes, &v_map,
+                         &full[s], 64 * r, kv_head, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of the block
+  h::regs_alloc<240>();
+  const int cw = group - 1;
+  const int tid = threadIdx.x - 128 * group;
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int pos_lo = q0 + ((64 * cw) >> pack_log2);  // this warpgroup's positions
+  const int pos_hi = min(q0 + ((64 * cw + 63) >> pack_log2), sq - 1);
+  const bool idle = pos_lo >= sq;  // the block's ragged edge
+  const int qpos_lo = q_offset + pos_lo, qpos_hi = q_offset + pos_hi;
+  const int my_k_hi = causal ? min(skv, qpos_hi + 1) : skv;
+  const int my_k_lo = window >= 0 ? max(0, qpos_lo - window + 1) : 0;
+  int qpos_r[2];  // this thread's two rows: 64 cw + 16 warp + grp (+ 8)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qpos_r[hh] = q_offset + q0 + ((64 * cw + 16 * warp + grp + 8 * hh) >> pack_log2);
+  }
+  const float scale_log2 = scale * kLog2e;
+  const unsigned char* q_tile = smem + cw * 64 * kRowBytes;
+
+  constexpr int SN = kBKV / 2;  // S accumulator floats per thread
+  constexpr int ON = HD / 2;    // O accumulator floats per thread
+  float acc[ON];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // ping-pong: the two consumers take turns issuing their MMAs (named
+  // barrier 1 + cw is this one's turn), so one's softmax runs while the
+  // other's MMAs do; every tile passes the turn twice, live or not
+  const int my_turn = 1 + cw, other_turn = 2 - cw;
+  if (cw == 1) h::bar_arrive(other_turn, 256);  // consumer 0 goes first
+  h::mbar_wait(q_bar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % L::kStages;
+    const int k0 = k_first + it * kBKV;
+    h::mbar_wait(&full[s], (it / L::kStages) & 1);
+    if (idle || k0 >= my_k_hi || k0 + kBKV <= my_k_lo) {  // dead for these rows
+      for (int turn = 0; turn < 2; ++turn) {
+        h::bar_sync(my_turn, 256);
+        h::bar_arrive(other_turn, 256);
+      }
+      h::mbar_arrive(&empty[s]);
+      continue;
+    }
+    const unsigned char* k_tile = smem + L::kK + s * L::kTileBytes;
+    const unsigned char* v_tile = smem + L::kV + s * L::kTileBytes;
+
+    // S = Q K^T: HD / 16 k-steps of m64n128k16, both operands K-major
+    float sc[SN];
+#pragma unroll
+    for (int i = 0; i < SN; ++i) sc[i] = 0.f;
+    h::fence_regs(sc);
+    h::bar_sync(my_turn, 256);
+    h::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {  // 64-column region kk / 4, 32 B per k16 within
+      h::wgmma_ss<kBKV>(
+          sc, h::desc_sw128(q_tile + (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32, 16, 1024),
+          h::desc_sw128(k_tile + (kk / 4) * kBKV * kRowBytes + (kk % 4) * 32, 16, 1024), kk > 0);
+    }
+    h::wgmma_commit();
+    h::bar_arrive(other_turn, 256);
+    h::wgmma_wait<0>();
+    h::fence_regs(sc);
+
+    // scale into log2 units and mask; a tile live for every row of the
+    // warpgroup skips the per-entry test
+    const bool full_tile = k0 + kBKV <= skv && (!causal || k0 + kBKV - 1 <= qpos_lo) &&
+                           (window < 0 || qpos_hi - k0 < window);
+    float row_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kBKV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * scale_log2;
+        if (!full_tile) {
+          const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
+          const int qpos = qpos_r[e >> 1];
+          bool live = kpos < skv;
+          if (causal) live = live && kpos <= qpos;
+          if (window >= 0) live = live && qpos - kpos < window;
+          x = live ? x : kNegInf;
+        }
+        sc[4 * j + e] = x;
+        row_max[e >> 1] = fmaxf(row_max[e >> 1], x);
+      }
+    }
+    float alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m[hh], tc::quad_max(row_max[hh]));
+      alpha[hh] = exp2f(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < SN; ++i) {
+      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      row_sum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + tc::quad_sum(row_sum[hh]);
+#pragma unroll
+    for (int i = 0; i < ON; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: P rounded to bf16 in registers is the A operand (n8 chunks
+    // 2kc, 2kc+1 of S are k16 chunk kc); V is the transposed B operand
+    uint32_t pa[kBKV / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kBKV / 16; ++kc) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kc][r] = repro::pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+      }
+    }
+    h::fence_regs(acc);
+    h::bar_sync(my_turn, 256);
+    h::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kBKV / 16; ++kc) {
+      h::wgmma_rs<HD>(acc, pa[kc],
+                      h::desc_sw128(v_tile + kc * 16 * kRowBytes, kBKV * kRowBytes, 1024), 1);
+    }
+    h::wgmma_commit();
+    h::bar_arrive(other_turn, 256);
+    h::wgmma_wait<0>();
+    h::fence_regs(acc);
+    h::mbar_arrive(&empty[s]);  // this warpgroup is done with the stage
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = 64 * cw + 16 * warp + grp + 8 * hh;
+    const int pos = q0 + (row >> pack_log2);
+    if (pos >= sq) continue;
+    const float denom = fmaxf(l[hh], 1e-30f);
+    bf16* orow = o + ((static_cast<int64_t>(b) * sq + pos) * heads + head0 +
+                      (row & ((1 << pack_log2) - 1))) * HD + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh] / denom, acc[4 * j + 2 * hh + 1] / denom);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's tensor-map encoder, reached through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (batch, rows, heads, HD) bf16 tensor as a 4-d map (HD innermost) with
+// boxes of 64 columns x box_heads heads x box_rows rows, 128-byte swizzled
+// (box row = row * box_heads + head); rows past the end load as zeros
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int n_rows, int n_heads,
+                int box_heads, int box_rows) {
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(n_heads),
+                              static_cast<cuuint64_t>(n_rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {HD * 2ull, HD * 2ull * n_heads, HD * 2ull * n_heads * n_rows};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                   strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
+           int heads, int kv_heads, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
+  constexpr int bytes = Layout<HD>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // pack the query heads that share a KV head: the largest power of two
+  // that divides H / K, at most 8 (16 positions a block)
+  const int group = heads / kv_heads;
+  int pack_log2 = 0;
+  while (pack_log2 < 3 && group % (2 << pack_log2) == 0) ++pack_log2;
+  const int npos = kBQ >> pack_log2;
+  CUtensorMap qm, km, vm;
+  if (!tensor_map<HD>(&qm, q, b, sq, heads, 1 << pack_log2, npos) ||
+      !tensor_map<HD>(&km, k, b, skv, kv_heads, 1, kBKV) ||
+      !tensor_map<HD>(&vm, v, b, skv, kv_heads, 1, kBKV)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(heads >> pack_log2, (sq + npos - 1) / npos, b);
+  flash_attention_wgmma_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), sq, skv, heads, kv_heads, causal, window, q_offset,
+      scale, pack_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // fp32 instance: CUDA-core SIMT
@@ -470,9 +809,19 @@ LaunchFn for_head_dim(int hd) {
   }
 }
 
+// bf16: wgmma for head dims 64 and 128, mma.sync for 16 and 32
+template <int HD>
+constexpr LaunchFn bf16_launch() {
+  if constexpr (HD >= 64) {
+    return wg::launch<HD>;
+  } else {
+    return tc::launch<HD>;
+  }
+}
+
 template <int HD>
 struct Bf16 {
-  static constexpr LaunchFn fn = tc::launch<HD>;
+  static constexpr LaunchFn fn = bf16_launch<HD>();
 };
 
 template <int HD>

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("ghost_norm.cu", "book_weighted_grad.cu", "psg_contract.cu", "flash_attention.cu",
            "errors.cu")
-HEADERS = ("common.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "mma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,8 +44,8 @@ _SIGNATURES = {
     "embedding_ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, g, w, out, partial, m, r, d, p, splits, rows_per_split, a_dtype, g_dtype, stream
     "book_weighted_grad_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # psg, c, out, n, f, dtype, stream
-    "psg_contract_launch": (_P, _P, _P, _I, ctypes.c_int64, _I, _P),
+    # segment table (4 int64 each: psg, out, f, dtype), segments, c, n, stream
+    "psg_contract_grouped_launch": (_P, _I, _P, _I, _P),
     # q, k, v, out, b, sq, skv, heads, kv_heads, hd, causal, window, q_offset,
     # scale, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -12,7 +12,7 @@ this module is the one place that picks between them:
                           conv_ghost_norm_sq_cuda       gops.conv_ghost_norm_sq
     embedding_ghost_norm  embedding_ghost_norm_sq_cuda  gops.embedding_ghost_norm_sq
     psg_contract          book_weighted_grad_cuda /     cops.book_weighted_grad /
-                          psg_contract_cuda             cops.psg_contract
+                          psg_contract_grouped_cuda     cops.psg_contract_grouped
     flash_attention       flash_attention_cuda          fops.flash_attention
 
 Resolution order, per call:
@@ -32,7 +32,7 @@ the static masks only.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Union
+from typing import Iterator, Optional, Sequence, Union
 
 import torch
 
@@ -146,24 +146,32 @@ def book_weighted_grad(
     return cops.book_weighted_grad(a, g, w)
 
 
+def psg_contract_grouped(
+    psgs: Sequence[torch.Tensor], c: torch.Tensor, *, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Weighted bank sums of several banks that share the clip factors:
+    each psg (N, ...) has the sample axis first; returns one fp32 vector
+    holding every bank's sum_n c[n] * psg[n], flattened, back to back in
+    list order.  One kernel launch on the card (a ``psg_contract`` launch),
+    one count on the plain path."""
+    flats = [psg if psg.dim() == 2 else psg.reshape(psg.shape[0], -1) for psg in psgs]
+    if resolve("psg_contract", c, impl) == "cuda":
+        from repro_torch.kernels.psg_contract.psg_contract import psg_contract_grouped_cuda
+
+        return psg_contract_grouped_cuda([x.contiguous() for x in flats],
+                                         c.float().contiguous())
+    launches.record("psg_contract", "torch")
+    return cops.psg_contract_grouped(flats, c)
+
+
 def psg_contract(
     psg: torch.Tensor, c: torch.Tensor, *, axis: int = 0, impl: Optional[str] = None
 ) -> torch.Tensor:
-    """Weighted bank sum over the sample axis: sum_n c[n] * psg[..n..].
-
-    The result drops ``axis`` and keeps the remaining dims in order, fp32.
-    """
+    """Weighted bank sum over the sample axis: sum_n c[n] * psg[..n..], a
+    group of one bank.  The result drops ``axis`` and keeps the remaining
+    dims in order, fp32."""
     moved = torch.movedim(psg, axis, 0)
-    out_shape = moved.shape[1:]
-    flat = moved.reshape(moved.shape[0], -1)
-    if resolve("psg_contract", psg, impl) == "cuda":
-        from repro_torch.kernels.psg_contract.psg_contract import psg_contract_cuda
-
-        out = psg_contract_cuda(flat.contiguous(), c.float().contiguous())
-    else:
-        launches.record("psg_contract", "torch")
-        out = cops.psg_contract(flat, c)
-    return out.reshape(out_shape)
+    return psg_contract_grouped([moved], c, impl=impl).reshape(moved.shape[1:])
 
 
 def flash_attention(

@@ -6,9 +6,12 @@ plain version.
 over the static causal / window masks with an int ``q_offset``, fully
 masked KV tiles skipped.  It takes the JAX public layout, q (B, Sq, H, hd)
 and k/v (B, Skv, K, hd), and reads KV head ``h // (H / K)`` in place where
-the Pallas wrapper repeats K and V to H heads.  bf16 inputs run the
-tensor-core instance (P rounded to bf16 before P.V, as the Pallas kernel
-does), fp32 inputs the fp32 SIMT instance.  It launches its kernel on
+the Pallas wrapper repeats K and V to H heads.  bf16 inputs run on the
+tensor cores (P rounded to bf16 before P.V, as the Pallas kernel does):
+head dims 64 and 128 through the warpgroup-MMA instance fed by TMA, 16 and
+32 through the mma.sync one; fp32 inputs run the fp32 SIMT instance.  The
+TMA tensor maps need 16-byte-aligned rows, so a view at an odd offset is
+copied first.  It launches its kernel on
 CUDA tensors and raises on anything else; ``flash_attention_plain`` beside
 it is the same map in plain PyTorch.
 """
@@ -61,7 +64,7 @@ def flash_attention_cuda(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    # the bf16 instance copies 16-byte chunks; a view at an odd offset is copied
+    # the bf16 instances copy 16-byte chunks; a view at an odd offset is copied
     q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     with torch.cuda.device(q.device):
         code = library().flash_attention_launch(

@@ -4,9 +4,12 @@ The plain versions of the two CUDA kernels in ``psg_contract.py``.  The
 book contraction materializes the weighted cotangent ``g * w`` (which the
 kernel keeps in shared memory) and contracts it in one batched matmul; a
 three-operand einsum would depend on ``opt_einsum`` to avoid an
-(M, R, D, p) intermediate.
+(M, R, D, p) intermediate.  ``psg_contract_grouped`` is the grouped bank
+kernel's plain version: one einsum per bank, the sums concatenated.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -19,3 +22,11 @@ def book_weighted_grad(a: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> tor
 def psg_contract(psg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """sum_n c[n] * psg[n].  psg: (N, F), c: (N,) -> (F,) float32."""
     return torch.einsum("nf,n->f", psg.float(), c.float())
+
+
+def psg_contract_grouped(psgs: Sequence[torch.Tensor], c: torch.Tensor) -> torch.Tensor:
+    """sum_n c[n] * psg[n] of every bank in ``psgs`` (each (N, F_s)), one
+    einsum per bank; the (F_s,) float32 sums back to back, (sum F_s,)."""
+    if not psgs:
+        return torch.zeros((0,), dtype=torch.float32, device=c.device)
+    return torch.cat([psg_contract(psg, c) for psg in psgs])

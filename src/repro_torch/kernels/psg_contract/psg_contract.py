@@ -5,8 +5,9 @@ Ports of ``kernels/psg_contract/psg_contract.py``:
 - ``book_weighted_grad_cuda`` (``csrc/book_weighted_grad.cu``) replaces
   ``book_weighted_grad_pallas``: out[m] = sum_r w[m,r] a[m,r]^T g[m,r],
   with the weighted cotangent kept in shared memory;
-- ``psg_contract_cuda`` (``csrc/psg_contract.cu``) replaces
-  ``psg_contract_pallas``: out = sum_n c[n] psg[n].
+- ``psg_contract_grouped_cuda`` (``csrc/psg_contract.cu``) replaces
+  ``psg_contract_pallas``: out_s = sum_n c[n] psg_s[n] for a group of banks
+  that share c, in one launch (``psg_contract_cuda`` is a group of one).
 
 Each launches its kernel on CUDA tensors and raises on anything else.  The
 ``*_plain`` functions beside them are the same maps in plain PyTorch.
@@ -14,21 +15,30 @@ Each launches its kernel on CUDA tensors and raises on anything else.  The
 """
 from __future__ import annotations
 
+import array
+import ctypes
+from typing import Sequence
+
 import torch
 
 from repro_torch.kernels import checks, launches
 from repro_torch.kernels.psg_contract.ops import book_weighted_grad as book_weighted_grad_plain
 from repro_torch.kernels.psg_contract.ops import psg_contract as psg_contract_plain
+from repro_torch.kernels.psg_contract.ops import (
+    psg_contract_grouped as psg_contract_grouped_plain,
+)
 
 __all__ = [
     "book_splits", "book_weighted_grad_cuda", "book_weighted_grad_plain",
-    "psg_contract_cuda", "psg_contract_plain",
+    "psg_contract_cuda", "psg_contract_grouped_cuda", "psg_contract_grouped_plain",
+    "psg_contract_plain",
 ]
 
 _MAX_GRID_Z = 65535
 BOOK_TILE = 128  # D and p of one block's output tile (csrc/book_weighted_grad.cu)
 BOOK_STEP = 32  # rows of R per k-step
 MIN_ROWS_PER_SPLIT = 256  # a split of R runs at least 8 k-steps
+MAX_SEGMENTS = 256  # bank descriptors one grouped launch takes (csrc/psg_contract.cu)
 
 
 def book_splits(m: int, r: int, d: int, p: int, sm_count: int) -> tuple[int, int]:
@@ -94,27 +104,57 @@ def book_weighted_grad_cuda(
     return out
 
 
-def psg_contract_cuda(psg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """psg (N, F) fp32 or bf16, c (N,) fp32 -> (F,) fp32."""
+def psg_contract_grouped_cuda(psgs: Sequence[torch.Tensor], c: torch.Tensor) -> torch.Tensor:
+    """psgs: banks (N, F_s), each fp32 or bf16, c (N,) fp32 -> (sum F_s,) fp32,
+    every bank's sum_n c[n] psg[n] back to back in list order.
+
+    One launch per ``MAX_SEGMENTS`` banks (one for every list a training
+    step gives); the descriptors go to the kernel by value.  The per-bank
+    host work is kept to a few attribute reads: a step's call is short
+    enough on the card that the host sets its time.
+    """
     from repro_torch.kernels.build import check, library
 
-    checks.operand("psg", psg, 2)
     checks.operand("c", c, 1, dtypes=(torch.float32,))
-    checks.same_device(psg=psg, c=c)
-    n, f = psg.shape
-    if c.shape[0] != n:
-        raise ValueError(f"psg {tuple(psg.shape)} and c {tuple(c.shape)} disagree on N")
+    n, device = c.shape[0], c.get_device()
     checks.fits_int32("N", n)
-    out = torch.empty((f,), dtype=torch.float32, device=psg.device)
-    if f == 0:
+    rows, total = array.array("q"), 0  # 4 int64 a bank: psg, out offset, F, dtype
+    for i, psg in enumerate(psgs):
+        if not (psg.is_cuda and psg.dim() == 2 and psg.dtype in checks.FLOATS
+                and psg.is_contiguous() and psg.get_device() == device):
+            _refuse(f"psgs[{i}]", psg, c)
+        n_i, f = psg.shape
+        if n_i != n:
+            _refuse(f"psgs[{i}]", psg, c)
+        if f:
+            rows.extend((psg.data_ptr(), total, f, checks.DTYPE_CODES[psg.dtype]))
+        total += f
+    out = torch.empty((total,), dtype=torch.float32, device=c.device)
+    if not rows:
         return out
     if n == 0:
         return out.zero_()
-    with torch.cuda.device(psg.device):
-        code = library().psg_contract_launch(
-            psg.data_ptr(), c.data_ptr(), out.data_ptr(), n, f,
-            checks.DTYPE_CODES[psg.dtype], checks.stream(psg.device),
-        )
-    check(code, "psg_contract")
-    launches.record("psg_contract", "cuda")
+    base = out.data_ptr()
+    for j in range(1, len(rows), 4):
+        rows[j] = base + 4 * rows[j]
+    with torch.cuda.device(c.device):
+        for first in range(0, len(rows), 4 * MAX_SEGMENTS):
+            chunk = rows[first:first + 4 * MAX_SEGMENTS]
+            table = (ctypes.c_int64 * len(chunk)).from_buffer(chunk)
+            code = library().psg_contract_grouped_launch(
+                table, len(chunk) // 4, c.data_ptr(), n, checks.stream(c.device))
+            check(code, "psg_contract")
+            launches.record("psg_contract", "cuda")
     return out
+
+
+def _refuse(name: str, psg: torch.Tensor, c: torch.Tensor) -> None:
+    """Raise the reason a bank cannot go to the grouped kernel."""
+    checks.operand(name, psg, 2)
+    checks.same_device(psg=psg, c=c)
+    raise ValueError(f"{name} {tuple(psg.shape)} and c {tuple(c.shape)} disagree on N")
+
+
+def psg_contract_cuda(psg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """psg (N, F) fp32 or bf16, c (N,) fp32 -> (F,) fp32: a group of one."""
+    return psg_contract_grouped_cuda([psg], c)

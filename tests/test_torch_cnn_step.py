@@ -194,13 +194,14 @@ def _vgg19_counts(mode):
 def test_vgg19_per_step_kernel_calls():
     """VGG-19 (CIFAR-10 widths): 14 ghost taps in mixed_ghost, each normed
     once (the second backward computes no banks); bk_mixed ghost-banks 13
-    taps and contracts 4 psg-banked convs + 16 GroupNorms, weight and bias."""
+    taps and contracts the 40 per-sample gradient banks of 4 psg-banked
+    convs + 16 GroupNorms, weight and bias, in one grouped call."""
     mixed, n_mixed = _vgg19_counts("mixed_ghost")
     assert mixed == {"ghost_norm_sq": 14, "embedding_ghost_norm_sq": 0,
                      "book_weighted_grad": 0, "psg_contract": 0, "flash_attention": 0}
     bk, n_bk = _vgg19_counts("bk_mixed")
     assert bk == {"ghost_norm_sq": 13, "embedding_ghost_norm_sq": 0,
-                  "book_weighted_grad": 13, "psg_contract": 40, "flash_attention": 0}
+                  "book_weighted_grad": 13, "psg_contract": 1, "flash_attention": 0}
     torch.testing.assert_close(n_bk, n_mixed, rtol=1e-5, atol=0)
 
 

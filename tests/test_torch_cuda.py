@@ -205,6 +205,91 @@ def test_psg_contract_kernel(gen, n, f, dtype):
     assert _rel(got, pc.psg_contract_plain(psg, c)) < 1e-5
 
 
+def _bank(gen, n, f, off=0, dtype=torch.float32):
+    """A contiguous (n, f) bank that starts ``off`` elements into its buffer."""
+    return _rnd(gen, n * f + off, dtype=dtype)[off:].view(n, f)
+
+
+BF = torch.bfloat16
+# (N, [(F, element offset, dtype), ...]): F = 1, odd F, F a multiple of 4,
+# banks off the 16-byte line, bf16 and mixed lists, N = 1 and 130
+GROUPED_CASES = {
+    "ragged": (5, [(33, 0, None), (1, 0, None), (7, 0, None), (1000, 0, None), (256, 0, None)]),
+    "ragged_bf16": (5, [(33, 0, BF), (1, 0, BF), (7, 0, BF), (1000, 0, BF), (256, 0, BF)]),
+    "n1": (1, [(1, 0, None), (4, 0, BF), (129, 0, None)]),
+    "unaligned_mixed": (130, [(2049, 0, None), (64, 1, BF), (1, 0, None), (512, 3, None),
+                              (4096, 0, BF), (8, 2, BF)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_psg_contract_grouped_kernel(gen, case):
+    """One launch for the list, every segment within 1e-5 of the plain
+    version's (relative to the largest entry), deterministic."""
+    n, segs = GROUPED_CASES[case]
+    psgs = [_bank(gen, n, f, off, dtype or torch.float32) for f, off, dtype in segs]
+    c = torch.rand(n, generator=gen, device="cuda")
+    launches.reset()
+    got = pc.psg_contract_grouped_cuda(psgs, c)
+    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0}
+    assert got.shape == (sum(f for f, _, _ in segs),)
+    assert _rel(got, pc.psg_contract_grouped_plain(psgs, c)) < 1e-5
+    assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c))
+
+
+def test_psg_contract_grouped_kernel_chunks_a_long_list(gen):
+    """300 segments: more than one launch's parameter block holds
+    (pc.MAX_SEGMENTS), so two launches; the sums as from the plain version."""
+    sizes = [1 + (7 * i) % 50 for i in range(300)]
+    psgs = [_bank(gen, 3, f) for f in sizes]
+    c = torch.rand(3, generator=gen, device="cuda")
+    launches.reset()
+    got = pc.psg_contract_grouped_cuda(psgs, c)
+    assert launches.snapshot()["psg_contract"]["cuda"] == -(-len(sizes) // pc.MAX_SEGMENTS) == 2
+    assert _rel(got, pc.psg_contract_grouped_plain(psgs, c)) < 1e-5
+    assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c))
+
+
+def _step_segments(model, image, batch):
+    """The grouped call's segment sizes of one bk_mixed step, from the taps."""
+    from repro_torch.core import ghost
+    from repro_torch.core.clipping import discover_meta
+    from repro_torch.core.decision import decide
+    from repro_torch.data.synthetic import synthetic_vision_batch
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    data = synthetic_vision_batch(batch=2, image=image, channels=3, n_classes=10, step=0,
+                                  device="cuda")
+    meta = discover_meta(model.loss_with_ctx, params, data)
+    return batch, [f for m in meta.values()
+                   if m.kind in ("scale", "bias")
+                   or (m.kind == "matmul" and decide(m, mode="bk_mixed") == "instantiate")
+                   for f in ghost.psg_segment_sizes(m)]
+
+
+@pytest.mark.parametrize("path", ["vgg19", "vit_base"])
+def test_psg_contract_grouped_kernel_on_step_lists(gen, path):
+    """The VGG-19 (batch 128: 40 banks) and ViT-Base (batch 32: 50 banks)
+    bk_mixed steps' own segment lists, in one launch each."""
+    from repro_torch.configs.paper_native import VIT_BASE
+    from repro_torch.models.cnn import VGG
+    from repro_torch.models.vit import ViT
+
+    if path == "vgg19":
+        n, sizes = _step_segments(VGG("vgg19", device="cuda"), 32, 128)
+    else:
+        n, sizes = _step_segments(ViT(VIT_BASE, image_size=224, patch=16, n_classes=10,
+                                      device="cuda"), 224, 32)
+    assert len(sizes) == {"vgg19": 40, "vit_base": 50}[path]
+    psgs = [_bank(gen, n, f) for f in sizes]
+    c = torch.rand(n, generator=gen, device="cuda")
+    launches.reset()
+    got = pc.psg_contract_grouped_cuda(psgs, c)
+    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0}
+    assert _rel(got, pc.psg_contract_grouped_plain(psgs, c)) < 1e-5
+    assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c))
+
+
 def test_cuda_tensors_dispatch_to_kernels(gen):
     a, g = _rnd(gen, 2, 5, 4), _rnd(gen, 2, 5, 3)
     launches.reset()
@@ -299,6 +384,19 @@ FLASH_CASES = [
     (1, 300, 300, 8, 2, 128, True, 70, 0),
     (3, 150, 150, 16, 2, 64, True, 40, 0),
     (1, 17, 200, 8, 8, 128, False, None, 0),
+    # the wgmma instance's edges (hd 64 and 128: 128-row blocks of two
+    # 64-row consumer warpgroups, 16, 32 or 128 positions of the 8, 4 or 1
+    # query heads that share a KV head; 128-key K/V tiles): g = 8, 4, 2 and
+    # 1, Sq off the block (a consumer idle or partly live), a window across
+    # the 128-key tiles, q_offset into a longer cache, B = 2, non-causal
+    (1, 200, 200, 8, 8, 128, True, None, 0),
+    (2, 129, 129, 16, 4, 128, True, None, 0),
+    (1, 64, 64, 8, 1, 128, True, None, 0),
+    (1, 300, 300, 4, 4, 64, True, None, 0),
+    (1, 257, 257, 8, 1, 64, True, None, 0),
+    (1, 777, 777, 8, 2, 64, True, 300, 0),
+    (1, 90, 400, 8, 2, 128, True, None, 310),
+    (2, 130, 250, 4, 2, 128, False, None, 0),
 ]
 
 

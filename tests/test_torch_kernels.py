@@ -172,7 +172,8 @@ def _embedding_metas(b, t, vocab, p):
 def test_embedding_tap_with_repeated_ids_matches_jax():
     """An LM-like embedding tap (ids repeat within a sample): the per-sample
     norm and the book-keeping weighted gradient (a scatter-add of C_i g_i by
-    id) against the JAX package's tap_norm_sq and bank_weighted_grads."""
+    id, the port's tap_weighted_grads of the book) against the JAX
+    package's tap_norm_sq and bank_weighted_grads."""
     from repro.core import ghost as jghost
     from repro_torch.core import ghost as tghost
 
@@ -196,7 +197,8 @@ def test_embedding_tap_with_repeated_ids_matches_jax():
         np.add.at(dense[i], ids[i], g[i])
     _close(bank["n"], (dense**2).sum(axis=(1, 2)))
     want = jghost.bank_weighted_grads(jmeta, {"a": jids, "g": jg}, jnp.asarray(clip), (vocab, p))
-    got = tghost.bank_weighted_grads(tmeta, bank, torch.from_numpy(clip), (vocab, p))
+    got = tghost.tap_weighted_grads(tmeta, bank["a"], bank["g"], torch.from_numpy(clip),
+                                    (vocab, p))
     assert got.keys() == want.keys() == {"emb/e"}
     _close(got["emb/e"], want["emb/e"])
 
@@ -235,6 +237,51 @@ def test_psg_contract_plain_vs_jax_ref_and_pallas(n, f):
         jnp.asarray(psg), jnp.asarray(c), block_n=16, block_f=16, interpret=True
     )
     _close(got, pallas)
+
+
+# the segment lists of one grouped call, built as a bk_mixed step builds
+# them: a reduced VGG's (a psg-banked conv's weight and bias, GroupNorm
+# scales and biases) and a stacked 2-layer ViT's (each norm's scale and bias
+# one segment per layer, then the final norm's); F = 1, 33 and 1000
+GROUPED_LISTS = {
+    "vgg_reduced": [1000, 33, 33, 33, 1, 1],
+    "vit_2_layers": [33, 33, 33, 33, 1000, 1000, 1000, 1000, 33, 33],
+}
+
+
+@pytest.mark.parametrize("n", [1, 5, 130])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", sorted(GROUPED_LISTS))
+def test_psg_contract_grouped_plain_vs_jax_ref_and_pallas(kind, dtype, n):
+    """The grouped plain version, segment by segment, against the JAX
+    oracle and the interpreted Pallas kernel (one bank per call there)."""
+    sizes = GROUPED_LISTS[kind]
+    rng = np.random.default_rng(n + len(sizes))
+    tdt = getattr(torch, dtype)
+    psgs = [torch.from_numpy(_np(rng, n, f)).to(tdt) for f in sizes]
+    c = rng.uniform(size=(n,)).astype(np.float32)
+    got = tpc.psg_contract_grouped_plain(psgs, torch.from_numpy(c))
+    assert got.dtype == torch.float32 and got.shape == (sum(sizes),)
+    jc = jnp.asarray(c)
+    for psg, part in zip(psgs, torch.split(got, sizes)):
+        jpsg = jnp.asarray(psg.float().numpy()).astype(getattr(jnp, dtype))  # exact
+        _close(part, psg_contract_ref(jpsg, jc))
+        _close(part, psg_contract_pallas(jpsg, jc, block_n=16, block_f=128, interpret=True))
+
+
+def test_dispatch_psg_contract_grouped_is_one_call():
+    """One dispatched group is one count, and a one-bank group is
+    dispatch.psg_contract; an empty group contracts nothing."""
+    rng = np.random.default_rng(1)
+    c = torch.from_numpy(rng.uniform(size=(4,)).astype(np.float32))
+    psgs = [torch.from_numpy(_np(rng, 4, *shape)) for shape in ((3, 2), (1,), (5,))]
+    launches.reset()
+    got = dispatch.psg_contract_grouped(psgs, c)
+    assert launches.snapshot()["psg_contract"] == {"cuda": 0, "torch": 1}
+    want = torch.cat([torch.einsum("n...,n->...", x, c).reshape(-1) for x in psgs])
+    torch.testing.assert_close(got, want)
+    torch.testing.assert_close(dispatch.psg_contract(psgs[0], c), want[:6].reshape(3, 2))
+    assert tpc.psg_contract_grouped_plain([], c).shape == (0,)
 
 
 def test_dispatch_psg_contract_axis():

@@ -185,8 +185,8 @@ def test_vit_bf16_step_matches_jax(mode):
 def _expected_calls(meta, mode):
     """Kernel calls of one clipped step, from the taps and their decisions:
     a norm per layer of every ghost-branch tap, one book contraction per
-    ghost-banked (stacked) tap, one bank contraction per psg-banked weight
-    and bias."""
+    ghost-banked (stacked) tap, and one grouped contraction of every
+    psg-banked weight and bias of the step."""
     calls = dict.fromkeys(launches.KERNELS, 0)
     for m in meta.values():
         ghost = tdecide(m, mode=mode) == "ghost"
@@ -196,7 +196,7 @@ def _expected_calls(meta, mode):
             calls["ghost_norm_sq"] += m.n_stack
             calls["book_weighted_grad"] += mode == "bk_mixed"
         elif mode == "bk_mixed":
-            calls["psg_contract"] += 1 + (m.bias_path is not None)
+            calls["psg_contract"] = 1
     return calls
 
 
@@ -221,12 +221,45 @@ def test_vit_per_step_kernel_calls(image, patch):
     assert bk == ({"ghost"} if image == 16 else {"ghost", "instantiate"})
 
 
+def test_vit_bk_mixed_contracts_every_psg_bank_in_one_call(monkeypatch):
+    """At T = 25 the attention projections and the patch embedding bank
+    per-sample gradients: one bk_mixed step hands every such bank of both
+    layers to one grouped contraction, a stacked tap's layers as separate
+    (B, F) segments in the order ghost.psg_segment_sizes gives, each a
+    contiguous view of the probe's own bank (nothing stacks or moves it)."""
+    from repro_torch.core import ghost as tghost
+    from repro_torch.kernels import dispatch
+
+    jmodel, tmodel = _models(20, 4)
+    _, tparams = _pair(jmodel, tmodel, 5)
+    batch = interop.batch_from_numpy(_batch(np.random.default_rng(5), 3, 20), device="cpu")
+    meta = tclip.discover_meta(tmodel.loss_with_ctx, tparams, batch)
+    calls = []
+    real = dispatch.psg_contract_grouped
+
+    def spy(psgs, c, **kw):
+        calls.append([(tuple(x.shape), x.is_contiguous()) for x in psgs])
+        return real(psgs, c, **kw)
+
+    monkeypatch.setattr(dispatch, "psg_contract_grouped", spy)
+    fn = tclip.dp_value_and_clipped_grad(tmodel.loss_with_ctx, tclip.ClipConfig(mode="bk_mixed"))
+    fn(tparams, batch)
+    sizes = [f for m in meta.values()
+             if m.kind in ("scale", "bias")
+             or (m.kind == "matmul" and tdecide(m, mode="bk_mixed") == "instantiate")
+             for f in tghost.psg_segment_sizes(m)]
+    assert len(calls) == 1 and len(calls[0]) == len(sizes) > 2
+    assert calls[0] == [((3, f), True) for f in sizes]
+
+
 def test_vit_base_decisions_at_full_width():
     """ViT-Base/16 at 224x224, batch 32 (T = 196): every matmul tap takes
     the ghost norm in mixed_ghost and banks its (a, g) book in bk_mixed, so
     a step runs 1 + 6 x 12 + 1 ghost norms, 1 embedding norm and, in
-    bk_mixed, 8 book and 6 bank contractions (from the tap dims alone; the
-    full-width forward runs on the card, in chip_smoke.py)."""
+    bk_mixed, 8 book contractions and one grouped contraction of the 50
+    per-sample gradient banks of the norms' scales and biases (from the tap
+    dims alone; the full-width forward runs on the card, in
+    chip_smoke.py)."""
     from repro_torch.core.taps import TapMeta
 
     b, t, d, ff = 32, 196, 768, 3072
@@ -255,7 +288,7 @@ def test_vit_base_decisions_at_full_width():
         "book_weighted_grad": 0, "psg_contract": 0, "flash_attention": 0}
     assert _expected_calls(meta, "bk_mixed") == {
         "ghost_norm_sq": 74, "embedding_ghost_norm_sq": 1,
-        "book_weighted_grad": 8, "psg_contract": 6, "flash_attention": 0}
+        "book_weighted_grad": 8, "psg_contract": 1, "flash_attention": 0}
 
 
 def test_vit_train_step_matches_jax():
