@@ -14,27 +14,33 @@ order; any failure exits non-zero and prints no result:
 1. card     the name and power limit, as nvidia-smi reports them;
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
             cuobjdump -sass must show warpgroup MMAs (HGMMA) in the two
-            wgmma flash_attention instances (bf16, head dims 64 and 128)
-            and tensor-core instructions (HMMA or HGMMA) in the two
-            mma.sync ones (head dims 16 and 32), every book_weighted_grad
-            instance and every instance of the two ghost-norm Gram kernels
-            (not the embedding's SIMT kernel), whose register and spill
-            counts (ptxas -v) are printed;
+            wgmma flash_attention instances (bf16, head dims 64 and 128),
+            tensor-core instructions (HMMA or HGMMA) in the two mma.sync
+            ones (head dims 16 and 32), every book_weighted_grad instance
+            and every instance of the two ghost-norm Gram kernels, and
+            asynchronous copies (LDGSTS for cp.async, or UBLKCP) in both
+            instances of the embedding norm's segment kernel; their
+            register and spill counts (ptxas -v) are printed;
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
             at the shapes and dtypes its path gives it (the training steps'
             from the models' own taps, the attention kernel's at the eight
             Yi-6B prompt lengths) and at ragged small shapes (T = 1, T off
             the tile, D and p off the tile, repeated ids, bf16; conv taps
             with SAME and VALID padding, stride 2, C off the 16-byte
-            chunk, T = 1, the ViT patch; for the attention kernel Sq and
+            chunk, T = 1, the ViT patch; the embedding norm at T above its
+            shared-memory sort; for the attention kernel Sq and
             Skv off the tiles, one query row at the end of the cache, a
             window, non-causal, MHA, hd 64, fp32), with CUDA-event times
             of the kernel (and, for the clipping kernels, its profiler
             device time), the plain version and one PyTorch library call
             that computes the same function (a yardstick the port never
             calls), the kernel's achieved TFLOP/s and its share of the
-            bound; per path, the ghost norms' ms per step (dense and conv
-            entries) against their yardsticks';
+            bound; the embedding norm also at three LM shapes (Yi-6B's
+            embedding at 4 x 2048 tokens with uniform and Zipf-skewed ids,
+            one 8192-token sample) and against a second yardstick, the
+            O(T p) unique + index_add_ segment sum; per path, the ghost
+            norms' ms per step (dense and conv entries) against their
+            yardsticks';
 4. slice    per training path, DP-SGD steps through make_train_step in
             non_private, mixed_ghost and bk_mixed: loss, kernel launches per
             step against the taps' expectation, step time (median and
@@ -100,16 +106,20 @@ BOOK_PRODUCTS = {("float32", "float32"): 3, ("float32", "bfloat16"): 3,
 # bf16 tensor-core products per multiply-add of a ghost-norm Gram: a bf16
 # operand is exact, an fp32 one is split (bf16x3, lo * lo dropped)
 GRAM_PRODUCTS = {"float32": 3, "bfloat16": 1}
-# kernels built for the tensor cores: (instances, the SASS instructions one
-# of which each instance must hold); the build prints their registers and
-# spills.  The bf16 attention: wgmma (HGMMA) for head dims 64 and 128,
-# mma.sync for 16 and 32; the ghost-norm kernels: (a, g) dtypes x (dense,
-# conv) row sources
+# kernels whose design rests on an instruction: (instances, the SASS
+# instructions one of which each instance must hold); the build prints their
+# registers and spills.  The bf16 attention: wgmma (HGMMA) for head dims 64
+# and 128, mma.sync for 16 and 32; the ghost-norm kernels: (a, g) dtypes x
+# (dense, conv) row sources, on the tensor cores; the embedding norm's
+# segment kernel (fp32 and bf16 g) gathers rows by asynchronous copies
 MMA = ("HMMA", "HGMMA")
-TENSOR_CORE_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
-                       "flash_attention_bf16_kernel": (2, MMA),
-                       "book_weighted_grad_kernel": (8, MMA),
-                       "ghost_norm_tiles_kernel": (8, MMA), "ghost_norm_packed_kernel": (8, MMA)}
+ASYNC_COPY = ("LDGSTS", "UBLKCP")
+SASS_OPS = MMA + ASYNC_COPY
+SASS_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
+                "flash_attention_bf16_kernel": (2, MMA),
+                "book_weighted_grad_kernel": (8, MMA),
+                "ghost_norm_tiles_kernel": (8, MMA), "ghost_norm_packed_kernel": (8, MMA),
+                "embedding_segment_kernel": (2, ASYNC_COPY)}
 
 MODES = ("non_private", "mixed_ghost", "bk_mixed")
 STEPS = 10  # timed steps per mode and path
@@ -160,7 +170,7 @@ SERVE_LOGIT_TOL = 2e-2
 KERNEL_INFO = {
     "ghost_norm_sq": ("src/repro_torch/csrc/ghost_norm.cu",
                       "src/repro/kernels/ghost_norm/ghost_norm.py:48"),
-    "embedding_ghost_norm_sq": ("src/repro_torch/csrc/ghost_norm.cu",
+    "embedding_ghost_norm_sq": ("src/repro_torch/csrc/embedding_norm.cu",
                                 "src/repro/kernels/ghost_norm/ghost_norm.py:135"),
     "book_weighted_grad": ("src/repro_torch/csrc/book_weighted_grad.cu",
                            "src/repro/kernels/psg_contract/psg_contract.py:48"),
@@ -237,7 +247,7 @@ def phase_build() -> dict:
     build.library()
     print(f"build: {info.seconds:.1f} s -> {info.path.relative_to(ROOT)}")
     return {"seconds": info.seconds, "path": str(info.path.relative_to(ROOT)),
-            "tensor_core": _check_tensor_core_sass(info)}
+            "sass": _check_sass(info)}
 
 
 def _ptxas_usage(log: str) -> dict:
@@ -267,11 +277,11 @@ def _demangle(names: list) -> list:
     return [o.replace("(anonymous namespace)::", "").split("(")[0] for o in out]
 
 
-def _check_tensor_core_sass(info) -> list:
-    """Every instance of the tensor-core kernels must hold its tensor-core
-    instructions (HGMMA for the wgmma kernels, HMMA or HGMMA for the others)
-    in the built library's SASS; print each one's counts, registers and
-    spills."""
+def _check_sass(info) -> list:
+    """Every instance of SASS_KERNELS must hold one of its instructions in
+    the built library's SASS (HGMMA for the wgmma kernels, HMMA or HGMMA for
+    the other tensor-core kernels, LDGSTS or UBLKCP for the embedding's
+    segment kernel); print each one's counts, registers and spills."""
     from repro_torch.kernels import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -281,21 +291,21 @@ def _check_tensor_core_sass(info) -> list:
     sass = {}
     for chunk in dump.stdout.split("Function : ")[1:]:
         name = chunk.split(maxsplit=1)[0]
-        sass[name] = {op: chunk.count(f" {op}") for op in MMA}
+        sass[name] = {op: chunk.count(f" {op}") for op in SASS_OPS}
     usage = _ptxas_usage(info.log)
     rows = []
-    for kernel, (instances, ops) in TENSOR_CORE_KERNELS.items():
+    for kernel, (instances, ops) in SASS_KERNELS.items():
         names = sorted(n for n in sass if kernel in n)
         require(len(names) == instances,
                 f"{kernel}: {len(names)} instances in the SASS, expected {instances}")
         for name, label in zip(names, _demangle(names)):
             regs, st, ld = usage.get(name, (-1, -1, -1))
             counts = sass[name]
-            print(f"  {label}: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA, {regs} "
-                  f"registers, spill stores {st} B, loads {ld} B")
+            shown = ", ".join(f"{counts[op]} {op}" for op in SASS_OPS if counts[op] or op in ops)
+            print(f"  {label}: {shown}, {regs} registers, spill stores {st} B, loads {ld} B")
             require(sum(counts[op] for op in ops) > 0,
                     f"{label}: no {' or '.join(ops)} instruction in its SASS")
-            rows.append({"kernel": label, "hmma": counts["HMMA"], "hgmma": counts["HGMMA"],
+            rows.append({"kernel": label, **{op.lower(): counts[op] for op in SASS_OPS},
                          "registers": regs, "spill_stores": st, "spill_loads": ld})
     return rows
 
@@ -312,8 +322,8 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     (N, ((F, element offset), ...)) with one dtype per segment.  The ghost norm gets
     the activation and the cotangent in their stored dtypes (a conv tap's
     raw input through the conv entry, shape (N, H, W, C, kh, kw, s_h, s_w,
-    padding, p), which launches as ghost_norm_sq); the embedding norm gets
-    the cotangent in fp32; the book holds both in the model dtype; banked
+    padding, p), which launches as ghost_norm_sq); so does the embedding
+    norm, ids and cotangent; the book holds both in the model dtype; banked
     per-sample gradients are fp32.  A book contraction whose R is split
     across blocks launches a second kernel that sums the splits
     (book_splits, from the card's SM count).
@@ -340,7 +350,7 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
         b, layers = m.batch_size, m.n_stack
         a_dt, s_dt = _name(m.a_dtype), _name(m.s_dtype)
         if m.kind == "embedding":
-            add("embedding_ghost_norm_sq", (b * layers, m.T, m.p, m.D), (a_dt, "float32"))
+            add("embedding_ghost_norm_sq", (b * layers, m.T, m.p, m.D), (a_dt, s_dt))
             for mode in ("mixed_ghost", "bk_mixed"):
                 expected[mode]["embedding_ghost_norm_sq"] += layers
             continue
@@ -446,13 +456,17 @@ def _flops(kernel: str, shape, segments: int = 0) -> float:
 
 
 def _timing(case: dict) -> str:
-    device = ""
+    device = device_share = ""
     if "device_ms" in case:
         dev = case["device_ms"]
         device = f" (device {dev:.4f})" if dev is not None else " (device not measured)"
+        if dev is not None:
+            device_share = f"; device {100 * case['bound_ms'] / dev:.1f}%"
+    segment = f" segment_sum={case['segment_ms']:.4f}" if "segment_ms" in case else ""
     return (f" ms={case['ms']:.4f}{device} plain={case['plain_ms']:.4f} "
-            f"library={case['library_ms']:.4f} bound={case['bound_ms']:.4f} "
-            f"({case['tflops']:.1f} TFLOP/s, {100 * case['bound_share']:.1f}% of the bound)")
+            f"library={case['library_ms']:.4f}{segment} bound={case['bound_ms']:.4f} "
+            f"({case['tflops']:.1f} TFLOP/s, {100 * case['bound_share']:.1f}% of the bound"
+            f"{device_share})")
 
 
 def _fp32(x):
@@ -479,7 +493,21 @@ def _segments(ids) -> int:
     return int(s.shape[0] + (s[:, 1:] != s[:, :-1]).sum())
 
 
-def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
+def _embedding_ids(n: int, t: int, vocab: int, kind: str, gen):
+    """(N, T) int64 ids on the card: the position ids arange(T) when vocab
+    == T; else uniform over the vocabulary, or Zipf-skewed (P(id k) ~ (k +
+    1)^-ZIPF_EXPONENT: a few ids fill long segments)."""
+    import torch
+
+    if vocab == t:
+        return torch.arange(t, device="cuda").expand(n, t)
+    if kind == "zipf":
+        w = torch.arange(1, vocab + 1, device="cuda", dtype=torch.float64).pow(-ZIPF_EXPONENT)
+        return torch.multinomial(w, n * t, replacement=True, generator=gen).view(n, t)
+    return torch.randint(0, vocab, (n, t), generator=gen, device="cuda")
+
+
+def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool, ids_kind: str = "uniform") -> dict:
     import torch
 
     from repro_torch.kernels.ghost_norm import ghost_norm as gn
@@ -520,15 +548,20 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
             return (torch.bmm(u.mT, u) * torch.bmm(g, g.mT)).sum(dim=(1, 2))
     elif kernel == "embedding_ghost_norm_sq":
         n, t, p, vocab = shape  # vocab == T: the position ids arange(T)
-        if vocab == t:
-            ids = torch.arange(t, device=dev).expand(n, t)
-        else:
-            ids = torch.randint(0, vocab, (n, t), generator=gen, device=dev)
+        ids = _embedding_ids(n, t, vocab, ids_kind, gen)
         args = (ids.to(dt[0]).contiguous(), rnd(dt[1], n, t, p))
         kern, plain = gn.embedding_ghost_norm_sq_cuda, gn.embedding_ghost_norm_sq_plain
 
         def library(ids, g):
             return (torch.bmm(g, g.mT) * (ids[:, :, None] == ids[:, None, :])).sum(dim=(1, 2))
+
+        span = int(ids.max()) + 1
+
+        def segment_sum(ids, g):  # the O(T p) form: distinct (sample, id), index_add_, squares
+            key = ids + torch.arange(n, device=dev)[:, None] * span
+            uniq, inv = torch.unique(key.reshape(-1), return_inverse=True)
+            sums = torch.zeros((uniq.numel(), p), device=dev).index_add_(0, inv, g.reshape(-1, p))
+            return torch.zeros(n, device=dev).index_add_(0, uniq // span, sums.square().sum(1))
     elif kernel == "book_weighted_grad":
         m, r, d, p = shape
         args = (rnd(dt[0], m, r, d), rnd(dt[1], m, r, p),
@@ -559,6 +592,7 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
     again = kern(*args)
     case = {
         "shape": list(shape), "dtypes": list(dtypes),
+        **({"ids": ids_kind} if kernel == "embedding_ghost_norm_sq" else {}),
         "max_abs_err": abs_err, "rel_err": rel_err, "tol": TOL[kernel],
         "deterministic": bool(torch.equal(got, again)),
     }
@@ -574,13 +608,20 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
             case["bmm_ms"] = cuda_ms(lambda: (torch.bmm(patches, patches.mT) * torch.bmm(
                 lib_args[1], lib_args[1].mT)).sum(dim=(1, 2)), iters)
             del patches
+        if kernel == "embedding_ghost_norm_sq":  # the second yardstick
+            case["segment_ms"] = cuda_ms(lambda: segment_sum(*lib_args), iters)
+            got_segment = segment_sum(*lib_args)
+            case["segment_rel_err"] = float((got_segment - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
         segments = _segments(args[0]) if kernel == "embedding_ghost_norm_sq" else 0
         case["bound_ms"], case["bound_by"] = _bound(kernel, shape, dtypes, segments)
         case["tflops"] = _flops(kernel, shape, segments) / case["ms"] / 1e9
         case["bound_share"] = case["bound_ms"] / case["ms"]
     status = "ok" if rel_err <= TOL[kernel] else "MISMATCH"
     timing = _timing(case) if timed else ""
-    print(f"  {kernel} {_label(kernel, shape, dtypes)}: rel_err={rel_err:.2e} "
+    ids_note = (f" {ids_kind} ids" if kernel == "embedding_ghost_norm_sq" and shape[3] != shape[1]
+                else "")
+    print(f"  {kernel} {_label(kernel, shape, dtypes)}{ids_note}: rel_err={rel_err:.2e} "
           f"(tol {TOL[kernel]:.0e}) deterministic={case['deterministic']}{timing} {status}")
     require(rel_err <= TOL[kernel], f"{kernel} {shape} {dtypes}: rel err {rel_err:.3e}")
     require(case["deterministic"], f"{kernel} {shape} {dtypes}: repeated calls differ")
@@ -588,6 +629,15 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool) -> dict:
 
 
 FLOAT_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32")]
+# the embedding norm at LM shapes, timed (no path of the port runs them
+# yet): Yi-6B's token embedding (vocab 64000, d_model 4096) at a 2048-token
+# sequence and batch 4, with uniform and with Zipf-skewed ids (segments run
+# long), and one sample of 8192 tokens (the split fills the SMs at N = 1);
+# int64 ids, bf16 g (64 MB)
+ZIPF_EXPONENT = 1.1
+EMBED_LM = [((4, 2048, 4096, 64000), "uniform"), ((4, 2048, 4096, 64000), "zipf"),
+            ((1, 8192, 4096, 64000), "uniform")]
+EMBED_ABOVE_SORT = (2, 40000, 8, 300)
 RAGGED = {
     # T off the tiles, T = 1, 3 and 4 (packed samples), several 64-row tiles
     "ghost_norm_sq": [((3, 37, 33, 7), FLOAT_PAIRS), ((2, 1, 5, 3), FLOAT_PAIRS),
@@ -605,11 +655,14 @@ RAGGED = {
             (2, 12, 12, 8, 3, 3, 1, 2, ((2, 0), (1, 1)), 9),
             (2, 64, 64, 3, 16, 16, 16, 16, "VALID", 48))
     ],
-    # (N, T, p, vocab): repeated ids, T off the tile, T = 1, several tiles
+    # (N, T, p, vocab): repeated ids, p off the 16-byte row, T = 1, one id
+    # over every position (vocab 1), T above what the sort holds in shared
+    # memory (40000 > ~20k: the device-memory workspace)
     "embedding_ghost_norm_sq": [
         (shape, [("int64", "float32"), ("int32", "bfloat16")])
         for shape in ((3, 37, 33, 5), (4, 100, 70, 1000), (2, 1, 10, 3),
-                      (5, 16, 130, 4), (2, 300, 64, 50))
+                      (5, 16, 130, 4), (2, 300, 64, 50), (2, 3000, 40, 1),
+                      EMBED_ABOVE_SORT)
     ],
     # R split across blocks (M = 1, R = 8192), every dtype pair, R under one k-step
     "book_weighted_grad": [((3, 37, 33, 130), FLOAT_PAIRS[:2]), ((1, 1, 5, 3), FLOAT_PAIRS[:2]),
@@ -646,6 +699,17 @@ def phase_kernels(paths: dict) -> dict:
                 case = _kernel_case(kernel, shape, dtypes, gen, timed=True)
                 case["path"], case["calls_per_step"] = tag, calls
                 cases.append(case)
+        if kernel == "embedding_ghost_norm_sq":
+            from repro_torch.kernels.ghost_norm import ghost_norm as gn
+
+            print(f"kernel {kernel}: LM shapes")
+            t_above = EMBED_ABOVE_SORT[1]
+            capacity = gn.embedding_sort_capacity(0, gn.embedding_sort_cluster(t_above))
+            require(t_above > capacity, f"T = {t_above} fits the sort's shared memory "
+                    f"({capacity} positions): the workspace goes untested")
+            for shape, ids_kind in EMBED_LM:
+                cases.append(_kernel_case(kernel, shape, ("int64", "bfloat16"), gen, timed=True,
+                                          ids_kind=ids_kind))
         print(f"kernel {kernel}: ragged shapes")
         for shape, dtype_sets in RAGGED[kernel]:
             timed = kernel == "psg_contract" and shape == RAGGED[kernel][0][0]

@@ -26,11 +26,12 @@ per-sample gradient banks of every psg-banked tap of a step contract in one
 grouped call, a stacked tap's layers as separate segments.
 
 The activation and the cotangent reach the ghost-norm kernel in their
-stored dtypes (the JAX package upcasts the cotangent to fp32 first; bf16 ->
-fp32 is exact and the kernel accumulates in fp32, so the norm is the same);
-a conv tap's ghost norm reads its raw input and never unfolds it.  The other
-norms take the cotangent in fp32, as in the JAX package.  ``dw_conv`` and
-``scale_grouped`` arrive with the LM slice.
+stored dtypes (the JAX package upcasts a matmul tap's cotangent to fp32
+first; bf16 -> fp32 is exact and the kernel accumulates in fp32, so the norm
+is the same); a conv tap's ghost norm reads its raw input and never unfolds
+it.  The embedding norm takes the cotangent in its stored dtype too, as the
+JAX package does.  The other norms take it in fp32, as in the JAX package.
+``dw_conv`` and ``scale_grouped`` arrive with the LM slice.
 Autograd saves integer ids, so the JAX package's fp32 id side channel and
 its 2^24 vocab guard have no counterpart here.
 """
@@ -117,8 +118,8 @@ def tap_norm_sq(
         total = _per_sample(meta, rows)
     elif meta.kind == "embedding":
         n = meta.n_stack * b
-        rows = dispatch.embedding_ghost_norm_sq(
-            a.reshape(n, meta.T), g.float().reshape(n, meta.T, meta.p)
+        rows = dispatch.embedding_ghost_norm_sq(  # the cotangent in its stored dtype
+            a.reshape(n, meta.T), g.reshape(n, meta.T, meta.p)
         )
         total = _per_sample(meta, rows)
     elif meta.kind in ("scale", "bias"):

@@ -3,15 +3,12 @@
 //     ghost_norm_sq:           out[n] = sum_{t,t'} (a_t . a_t')   (g_t . g_t')
 //     conv_ghost_norm_sq:      the same with a = unfold2d(x) read from the raw
 //                              NHWC conv input x, never built
-//     embedding_ghost_norm_sq: out[n] = sum_{t,t'} [id_t == id_t'] (g_t . g_t')
 //
-//     a (N,T,D) or x (N,H,W,C) or ids (N,T), g (N,T,p) -> (N,) fp32
+//     a (N,T,D) or x (N,H,W,C), g (N,T,p) -> (N,) fp32
 //
-// Replace src/repro/kernels/ghost_norm/ghost_norm.py::ghost_norm_sq_pallas
-// and ::embedding_ghost_norm_sq_pallas.  The embedding kernel is the Gram
-// kernel with the activation Gram replaced by the equality mask of the ids:
-// the squared norm of a sample's embedding gradient (a scatter-add of g rows
-// by id) without forming the (V, p) gradient.
+// Replace src/repro/kernels/ghost_norm/ghost_norm.py::ghost_norm_sq_pallas.
+// The same module's embedding_ghost_norm_sq_pallas is embedding_norm.cu, a
+// segment sum rather than a Gram.
 //
 // What bounds the Gram kernels on the H100: operations on the tensor cores.
 // Per sample the two Grams cost T^2 (D + p) multiply-adds on T (D + p)
@@ -61,10 +58,6 @@
 // sample's partials in pair order; with one pair (T <= 64), and in the
 // packed kernel, the block writes the norm itself.  No atomics: repeated
 // runs give bit-identical norms.
-//
-// The embedding instance keeps the register-tile SIMT template of the
-// first port (fp32 FMAs; 16- or 32-row tiles; ids int32 or int64, pad rows
-// dropped by index).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -500,116 +493,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------ the embedding kernel --
-constexpr int kChunk = 32;  // features staged in shared memory per step
-
-// Stage rows [row0, row0 + BT) x features [k0, k0 + kChunk) of one sample's
-// (rows, width) matrix into shared memory; zeros outside the matrix.
-template <typename T, int BT>
-__device__ __forceinline__ void stage(float (*dst)[kChunk + 1], const T* __restrict__ x,
-                                      int rows, int width, int row0, int k0) {
-  for (int idx = threadIdx.x; idx < BT * kChunk; idx += kThreads) {
-    const int r = idx / kChunk;
-    const int k = idx % kChunk;
-    const int gr = row0 + r;
-    const int gk = k0 + k;
-    dst[r][k] = (gr < rows && gk < width)
-                    ? repro::to_float(x[static_cast<int64_t>(gr) * width + gk])
-                    : 0.f;
-  }
-}
-
-// acc += X[i0:i0+BT] X[j0:j0+BT]^T over the full width of X (one sample).
-template <typename T, int BT>
-__device__ __forceinline__ void simt_gram_tile(float (&acc)[BT / 16][BT / 16],
-                                               const T* __restrict__ x, int rows, int width,
-                                               int i0, int j0, float (*si)[kChunk + 1],
-                                               float (*sj)[kChunk + 1]) {
-  constexpr int R = BT / 16;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  for (int k0 = 0; k0 < width; k0 += kChunk) {
-    stage<T, BT>(si, x, rows, width, i0, k0);
-    stage<T, BT>(sj, x, rows, width, j0, k0);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      float vi[R];
-      float vj[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        vi[r] = si[ty + 16 * r][k];
-        vj[r] = sj[tx + 16 * r][k];
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < R; ++c) acc[r][c] = fmaf(vi[r], vj[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-}
-
-// ids (N, T) of integer type TI, g (N, T, p) of float type TG: the left
-// factor of each (BT x BT) tile pair is the equality mask of two id tiles
-template <typename TI, typename TG, int BT>
-__global__ void __launch_bounds__(kThreads)
-    embedding_ghost_norm_pairs(const TI* __restrict__ ids_all, const TG* __restrict__ g,
-                               float* __restrict__ partial, int t, int p, int n_pairs) {
-  constexpr int R = BT / 16;
-  __shared__ float si[BT][kChunk + 1];
-  __shared__ float sj[BT][kChunk + 1];
-  __shared__ float warp_sums[kThreads / 32];
-  __shared__ long long id_i[BT];
-  __shared__ long long id_j[BT];
-
-  const int64_t block = blockIdx.x;
-  const int64_t n = block / n_pairs;
-  const int pair = static_cast<int>(block % n_pairs);
-  int i = static_cast<int>((sqrtf(8.f * pair + 1.f) - 1.f) * 0.5f);
-  while ((i + 1) * (i + 2) / 2 <= pair) ++i;
-  while (i * (i + 1) / 2 > pair) --i;
-  const int j = pair - i * (i + 1) / 2;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-
-  float gg[R][R];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < R; ++c) gg[r][c] = 0.f;
-  simt_gram_tile<TG, BT>(gg, g + n * t * static_cast<int64_t>(p), t, p, i * BT, j * BT, si,
-                         sj);
-  // pad rows get the -1 / -2 sentinels of the plain version's pad_ids_pair
-  const TI* ids = ids_all + n * t;
-  for (int r = threadIdx.x; r < BT; r += kThreads) {
-    const int gi = i * BT + r;
-    const int gj = j * BT + r;
-    id_i[r] = gi < t ? static_cast<long long>(ids[gi]) : -1;
-    id_j[r] = gj < t ? static_cast<long long>(ids[gj]) : -2;
-  }
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const int row = i * BT + ty + 16 * r;
-      const int col = j * BT + tx + 16 * c;
-      const bool eq = row < t && col < t && id_i[ty + 16 * r] == id_j[tx + 16 * c];
-      s = fmaf(eq ? 1.f : 0.f, gg[r][c], s);
-    }
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    partial[block] = (i == j ? 1.f : 2.f) * total;
-  }
-}
-
 // ------------------------------------------------------------ launch --
 // out[n] = sum of sample n's pair partials, in pair order (deterministic).
 __global__ void sum_pairs(const float* __restrict__ partial, float* __restrict__ out, int n,
@@ -704,33 +587,6 @@ cudaError_t launch_for_g(const Launch& x, const SrcA& sa, Access acc_a, const De
   return cudaErrorInvalidValue;
 }
 
-template <typename TI, typename TG>
-cudaError_t launch_embedding(const void* ids, const void* g, float* dst, int n, int t, int p,
-                             int tile, int n_pairs, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>(static_cast<int64_t>(n) * n_pairs);
-  const TI* i = static_cast<const TI*>(ids);
-  const TG* gg = static_cast<const TG*>(g);
-  if (tile == 16) {
-    embedding_ghost_norm_pairs<TI, TG, 16><<<blocks, kThreads, 0, stream>>>(i, gg, dst, t, p,
-                                                                            n_pairs);
-  } else {
-    embedding_ghost_norm_pairs<TI, TG, 32><<<blocks, kThreads, 0, stream>>>(i, gg, dst, t, p,
-                                                                            n_pairs);
-  }
-  return cudaGetLastError();
-}
-
-template <typename TI>
-cudaError_t launch_embedding_for_g(int g_dtype, const void* ids, const void* g, float* dst,
-                                   int n, int t, int p, int tile, int n_pairs,
-                                   cudaStream_t stream) {
-  if (g_dtype == repro::kFloat32)
-    return launch_embedding<TI, float>(ids, g, dst, n, t, p, tile, n_pairs, stream);
-  if (g_dtype == repro::kBFloat16)
-    return launch_embedding<TI, bf16>(ids, g, dst, n, t, p, tile, n_pairs, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // a (n, t, d) of `a_dtype`, g (n, t, p) of `g_dtype`, contiguous; out (n,)
@@ -783,22 +639,4 @@ extern "C" int conv_ghost_norm_sq_launch(const void* xin, const void* g, void* o
     err = launch_for_g<Conv, bf16>(x, sa, conv_access<bf16>(xin, sa, kw, pad_right), sg,
                                    g_dtype);
   return static_cast<int>(err);
-}
-
-// ids (n, t) of `id_dtype` (int32 or int64), g (n, t, p) of `g_dtype`,
-// contiguous; out (n,) fp32; `tile` 16 or 32, `partial` as above.
-extern "C" int embedding_ghost_norm_sq_launch(const void* ids, const void* g, void* out,
-                                              void* partial, int n, int t, int p, int id_dtype,
-                                              int g_dtype, int tile, void* stream_ptr) {
-  if (tile != 16 && tile != 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_pairs = n_pairs_for(t, tile);
-  float* o = static_cast<float*>(out);
-  float* dst = n_pairs == 1 ? o : static_cast<float*>(partial);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (id_dtype == repro::kInt32)
-    err = launch_embedding_for_g<int32_t>(g_dtype, ids, g, dst, n, t, p, tile, n_pairs, stream);
-  else if (id_dtype == repro::kInt64)
-    err = launch_embedding_for_g<int64_t>(g_dtype, ids, g, dst, n, t, p, tile, n_pairs, stream);
-  return static_cast<int>(finish(err, dst, o, n, n_pairs, stream));
 }

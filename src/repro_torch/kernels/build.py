@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ghost_norm.cu", "book_weighted_grad.cu", "psg_contract.cu", "flash_attention.cu",
-           "errors.cu")
+SOURCES = ("ghost_norm.cu", "embedding_norm.cu", "book_weighted_grad.cu", "psg_contract.cu",
+           "flash_attention.cu", "errors.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "mma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,8 +40,11 @@ _SIGNATURES = {
     # x, g, out, partial, n, h, w, c, kh, kw, sh, sw, pad top, bottom, left,
     # right, p, x_dtype, g_dtype, tile, stream
     "conv_ghost_norm_sq_launch": (_P, _P, _P, _P) + (_I,) * 16 + (_P,),
-    # ids, g, out, partial, n, t, p, id_dtype, g_dtype, tile, stream
-    "embedding_ghost_norm_sq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ids, g, out, order, units, sort workspace, n, t, p, id_dtype, g_dtype,
+    # sort cluster size, slices, blocks, stream
+    "embedding_ghost_norm_sq_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "embedding_sort_capacity": (_I,),
+    "embedding_segment_blocks_per_sm": (_I,),
     # a, g, w, out, partial, m, r, d, p, splits, rows_per_split, a_dtype, g_dtype, stream
     "book_weighted_grad_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # segment table (4 int64 each: psg, out, f, dtype), segments, c, n, stream

@@ -1,4 +1,5 @@
-"""The ghost-norm CUDA kernels (``csrc/ghost_norm.cu``) and their plain versions.
+"""The ghost-norm CUDA kernels (``csrc/ghost_norm.cu``, ``csrc/embedding_norm.cu``)
+and their plain versions.
 
 Ports of ``kernels/ghost_norm/ghost_norm.py``:
 
@@ -9,15 +10,18 @@ Ports of ``kernels/ghost_norm/ghost_norm.py``:
   NHWC input and building the patches on chip (no im2col); it counts as a
   ``ghost_norm_sq`` launch;
 - ``embedding_ghost_norm_sq_cuda`` replaces
-  ``embedding_ghost_norm_sq_pallas``: the same with the activation Gram
-  replaced by the equality mask of the ids, sum_{t,t'} [id_t = id_t']
-  (g_t . g_t').
+  ``embedding_ghost_norm_sq_pallas``: sum_{t,t'} [id_t = id_t'] (g_t . g_t'),
+  computed as the sum over distinct ids of |sum of g_t with that id|^2: a
+  per-sample sort of the positions by id, then a segment sum of g's rows
+  in sorted order (``embedding_plan`` splits it over the card).
 
 Each launches its kernel on CUDA tensors and raises on anything else; the
 ``*_plain`` functions beside them are the same maps in plain PyTorch,
 which the CPU tests and ``chip_smoke.py`` compare them with.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,7 +38,8 @@ from repro_torch.nn.conv import conv_padding
 
 __all__ = [
     "conv_ghost_norm_sq_cuda", "conv_ghost_norm_sq_plain",
-    "embedding_ghost_norm_sq_cuda", "embedding_ghost_norm_sq_plain", "embedding_tile_for",
+    "embedding_ghost_norm_sq_cuda", "embedding_ghost_norm_sq_plain", "embedding_plan",
+    "embedding_slots", "embedding_sort_capacity", "embedding_sort_cluster",
     "ghost_norm_sq_cuda", "ghost_norm_sq_plain", "tile_for",
 ]
 
@@ -46,9 +51,64 @@ def tile_for(t: int) -> int:
     return 16 if t <= 16 else 64
 
 
-def embedding_tile_for(t: int) -> int:
-    """Tile edge of the embedding kernel: 16 for short sequences, else 32."""
-    return 16 if t <= 16 else 32
+# the embedding kernel's segment pass: warps a block (kWarps in
+# csrc/embedding_norm.cu), and the least sorted positions a warp's range is
+# cut to
+EMBED_WARPS = 8
+EMBED_MIN_ROWS = 8
+# the sort: one CTA a sample up to EMBED_SORT_ALONE positions (a cluster's
+# barriers cost more than they save there: 10.1 against 12.7-13.2 us at
+# 4 x 2048 on the H100), else a cluster of one CTA a ~EMBED_SORT_ROWS
+# positions, at most EMBED_SORT_CLUSTER (portable) CTAs
+EMBED_SORT_ALONE = 4096
+EMBED_SORT_ROWS = 1024
+EMBED_SORT_CLUSTER = 8
+
+
+def embedding_plan(n: int, t: int, p: int, vec: int, slots: int) -> tuple[int, int]:
+    """(slices, blocks) of the embedding kernel's segment pass.
+
+    A warp owns 32 lanes x ``vec`` columns (16 bytes a lane) of every row
+    over one range of sorted positions; each (sample, slice) is cut into
+    ``EMBED_WARPS * blocks`` ranges.  ``blocks`` fills the card's ``slots``
+    (SMs x the blocks an SM holds) in one wave, every (sample, slice) alike,
+    but cuts no range under ``EMBED_MIN_ROWS`` positions (at least one
+    block)."""
+    slices = -(-p // (32 * vec))
+    most = t // (EMBED_WARPS * EMBED_MIN_ROWS)
+    return slices, max(1, min(slots // (n * slices), most))
+
+
+def embedding_sort_cluster(t: int) -> int:
+    """CTAs a sample of ``t`` positions is sorted over (a thread-block
+    cluster sharing its counts through distributed shared memory)."""
+    if t <= EMBED_SORT_ALONE:
+        return 1
+    return min(EMBED_SORT_CLUSTER, -(-t // EMBED_SORT_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def embedding_slots(index: int, g_dtype: torch.dtype) -> int:
+    """Card ``index``'s block slots for the segment pass over g of
+    ``g_dtype``: SMs x the blocks an SM holds."""
+    from repro_torch.kernels.build import library
+
+    with torch.cuda.device(index):
+        per_sm = library().embedding_segment_blocks_per_sm(checks.DTYPE_CODES[g_dtype])
+    if per_sm < 1:
+        raise RuntimeError("embedding_ghost_norm_sq: the segment kernel fits no SM")
+    return torch.cuda.get_device_properties(index).multi_processor_count * per_sm
+
+
+@functools.lru_cache(maxsize=None)
+def embedding_sort_capacity(index: int, cluster: int) -> int:
+    """The most positions a sample may have for card ``index`` to sort it
+    over ``cluster`` CTAs in shared memory (above, through a workspace on
+    one CTA)."""
+    from repro_torch.kernels.build import library
+
+    with torch.cuda.device(index):
+        return library().embedding_sort_capacity(cluster)
 
 
 def _pairs(n: int, t: int, tile: int,
@@ -142,13 +202,30 @@ def embedding_ghost_norm_sq_cuda(ids: torch.Tensor, g: torch.Tensor) -> torch.Te
     if g.numel() == 0:
         return torch.zeros((n,), dtype=torch.float32, device=g.device)
     checks.fits_int32("T * p", t * p)
-    tile = embedding_tile_for(t)
-    out, partial = _pairs(n, t, tile, g.device)
+    vec = 16 // g.element_size()
+    slices, blocks = embedding_plan(n, t, p, vec, embedding_slots(g.device.index, g.dtype))
+    cluster = embedding_sort_cluster(t)
+    in_smem = t <= embedding_sort_capacity(g.device.index, cluster)
+    if not in_smem:
+        cluster = 1
+    units = n * slices * blocks
+    checks.fits_int32("N * slices * blocks", units)
+    # one int32 workspace: the sorted order (rounded to 16 bytes), the
+    # segment pass's units (64 * vec + 2 words each), and where the sort does
+    # not fit in shared memory its 64-bit keys, two orders and ranks (5 words
+    # a position)
+    n_order = -(-n * t // 4) * 4
+    n_units = units * (64 * vec + 2)
+    n_sort = 0 if in_smem else 5 * n * t
+    ws = torch.empty((n_order + n_units + n_sort,), dtype=torch.int32, device=g.device)
+    out = torch.empty((n,), dtype=torch.float32, device=g.device)
+    base, word = ws.data_ptr(), ws.element_size()
     with torch.cuda.device(g.device):
         code = library().embedding_ghost_norm_sq_launch(
-            ids.data_ptr(), g.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            n, t, p, checks.DTYPE_CODES[ids.dtype], checks.DTYPE_CODES[g.dtype], tile,
-            checks.stream(g.device),
+            ids.data_ptr(), g.data_ptr(), out.data_ptr(), base, base + n_order * word,
+            base + (n_order + n_units) * word if n_sort else None,
+            n, t, p, checks.DTYPE_CODES[ids.dtype], checks.DTYPE_CODES[g.dtype], cluster, slices,
+            blocks, checks.stream(g.device),
         )
     check(code, "embedding_ghost_norm_sq")
     launches.record("embedding_ghost_norm_sq", "cuda")

@@ -108,21 +108,30 @@ def test_ghost_norm_kernel_mixed_dtypes(gen):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("n,t,vocab,p", [
-    (32, 196, 196, 64),  # the ViT's position ids: all distinct, 7 tiles of 32
-    (3, 37, 5, 33),  # repeated ids, T off the tile
-    (4, 100, 1000, 70),
-    (2, 1, 3, 10),  # T = 1
-    (5, 16, 4, 130),  # one 16-row tile
+@pytest.mark.parametrize("n,t,vocab,p,skewed", [
+    (32, 196, 196, 64, False),  # the ViT's position ids: all distinct
+    (3, 37, 5, 33, False),  # repeated ids, rows off the 16-byte copy
+    (4, 100, 1000, 70, False),
+    (2, 1, 3, 10, False),  # T = 1
+    (5, 16, 4, 130, False),
+    (4, 2048, 64000, 256, True),  # the LM shape at a reduced p, Zipf-skewed ids
+    (2, 3000, 1, 64, False),  # every id equal: one segment over all the ranges
+    (1, 8192, 64000, 128, False),  # N = 1 at a long T
+    (2, 40000, 300, 8, False),  # T above the sort's shared memory: the workspace
 ])
-def test_embedding_ghost_norm_kernel(gen, n, t, vocab, p, dtype, id_dtype):
+def test_embedding_ghost_norm_kernel(gen, n, t, vocab, p, skewed, dtype, id_dtype):
     if vocab == t:
         ids = torch.arange(t, device="cuda").expand(n, t)
+    elif skewed:  # P(id k) ~ (k + 1)^-1.1
+        w = torch.arange(1, vocab + 1, device="cuda", dtype=torch.float64).pow(-1.1)
+        ids = torch.multinomial(w, n * t, replacement=True, generator=gen).view(n, t)
     else:
         ids = torch.randint(0, vocab, (n, t), generator=gen, device="cuda")
     ids = ids.to(id_dtype).contiguous()
     g = _rnd(gen, n, t, p, dtype=dtype)
+    launches.reset()
     got = gn.embedding_ghost_norm_sq_cuda(ids, g)
+    assert launches.snapshot()["embedding_ghost_norm_sq"] == {"cuda": 1, "torch": 0}
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert _rel(got, gn.embedding_ghost_norm_sq_plain(ids, g)) < 1e-4
     assert torch.equal(got, gn.embedding_ghost_norm_sq_cuda(ids, g))  # deterministic

@@ -159,14 +159,15 @@ def test_embedding_pad_sentinels_never_match():
            rtol=1e-4)
 
 
-def _embedding_metas(b, t, vocab, p):
+def _embedding_metas(b, t, vocab, p, bf16=False):
     from repro.core.taps import TapMeta as JTapMeta
     from repro_torch.core.taps import TapMeta
 
     kw = dict(kind="embedding", T=t, D=vocab, p=p, s_shape=(b, t, p), param_path="emb/e",
               batch_size=b, a_shape=(b, t))
-    return (JTapMeta(s_dtype=jnp.float32, a_dtype=jnp.int32, **kw),
-            TapMeta(s_dtype=torch.float32, a_dtype=torch.int64, **kw))
+    return (JTapMeta(s_dtype=jnp.bfloat16 if bf16 else jnp.float32, a_dtype=jnp.int32, **kw),
+            TapMeta(s_dtype=torch.bfloat16 if bf16 else torch.float32, a_dtype=torch.int64,
+                    **kw))
 
 
 def test_embedding_tap_with_repeated_ids_matches_jax():
@@ -201,6 +202,196 @@ def test_embedding_tap_with_repeated_ids_matches_jax():
                                     (vocab, p))
     assert got.keys() == want.keys() == {"emb/e"}
     _close(got["emb/e"], want["emb/e"])
+
+
+def test_embedding_tap_takes_a_bf16_cotangent_as_the_jax_package():
+    """A bf16 cotangent reaches the port's embedding norm in its stored
+    dtype (the plain version upcasts it tile by tile): the port's
+    tap_norm_sq equals the JAX package's on the same bf16 values."""
+    from repro.core import ghost as jghost
+    from repro_torch.core import ghost as tghost
+
+    b, t, vocab, p = 3, 24, 9, 16
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, vocab, size=(b, t)).astype(np.int32)
+    g = torch.from_numpy(_np(rng, b, t, p)).to(torch.bfloat16)
+    jmeta, tmeta = _embedding_metas(b, t, vocab, p, bf16=True)
+    got = tghost.tap_norm_sq(tmeta, torch.from_numpy(ids).long(), g, mode="mixed_ghost")
+    assert got.dtype == torch.float32
+    want = jghost.tap_norm_sq(jmeta, jnp.asarray(ids), jnp.asarray(g.float().numpy(), jnp.bfloat16),
+                              mode="mixed_ghost")
+    _close(got, want, rtol=1e-5)
+
+
+# ----------------------------- the card's embedding norm, emulated --
+# csrc/embedding_norm.cu sorts each sample's positions by id and streams g's
+# rows in that order: a warp sums 32 lanes x V columns (V = 16 bytes of g)
+# over one range of sorted positions, squaring each segment's sum once it
+# ends; a segment that crosses a range's end passes its partial vector on
+# (the range's head or tail).  A block's 8 ranges fold in order into one
+# unit; the finish sums a slice's units' inner sums 32 at a time and carries
+# the crossing segments through the units in order; the slices sum in
+# order.  This emulation follows that order in plain torch (fp32
+# throughout) and predicts the card's reading against its 1e-4 gate.
+_HEAD, _CLOSES, _TAIL = 1, 2, 4
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's xor-butterfly sum over 32 lanes (every lane ends equal)."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[lanes ^ off]
+    return x[0]
+
+
+def _sq(c: torch.Tensor) -> torch.Tensor:
+    s = torch.zeros(c.shape[0])
+    for v in range(c.shape[1]):
+        s = s + c[:, v] * c[:, v]
+    return s
+
+
+def _range_unit(rows, start, k0, k1):
+    """One warp's unit over sorted positions [k0, k1) of one slice: rows
+    (T, 32, V) in sorted order, start (T,) the segment starts."""
+    if k0 == k1:
+        return None
+    t = rows.shape[0]
+    zero = torch.zeros(rows.shape[1:])
+    acc, closed, head, tail = zero, torch.zeros(32), zero, zero
+    in_head = not bool(start[k0])
+    flags = _HEAD if in_head else 0
+    for i in range(k0, k1):
+        if i > k0 and bool(start[i]):
+            if in_head:
+                head, flags, in_head = acc, flags | _CLOSES, False
+            else:
+                closed = closed + _sq(acc)
+            acc = zero
+        acc = acc + rows[i]
+    if in_head:
+        head = acc
+        flags |= _CLOSES if k1 == t or bool(start[k1]) else 0
+    elif k1 == t or bool(start[k1]):
+        closed = closed + _sq(acc)
+    else:
+        tail, flags = acc, flags | _TAIL
+    return {"flags": flags, "inner": _warp_sum(closed), "head": head, "tail": tail}
+
+
+def _fold(a, b, closed):
+    """a followed by b, as the kernel's fold; returns (a, closed)."""
+    if b is None:
+        return a, closed
+    if a is None:
+        return dict(b), closed
+    a = dict(a, inner=a["inner"] + b["inner"])
+    if a["flags"] & _HEAD and not a["flags"] & _CLOSES:  # a is one open segment
+        a.update(head=a["head"] + b["head"], tail=b["tail"],
+                 flags=_HEAD | (b["flags"] & (_CLOSES | _TAIL)))
+        return a, closed
+    if b["flags"] & _HEAD:
+        c = (a["tail"] if a["flags"] & _TAIL else torch.zeros_like(b["head"])) + b["head"]
+        if not b["flags"] & _CLOSES:
+            a.update(tail=c, flags=a["flags"] | _TAIL)
+            return a, closed
+        closed = closed + _sq(c)
+    a.update(tail=b["tail"], flags=(a["flags"] & ~_TAIL) | (b["flags"] & _TAIL))
+    return a, closed
+
+
+SLOTS = 132 * 4  # the H100's SMs x the segment kernel's blocks an SM holds
+
+
+def _emulate_embedding_kernel(ids: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    n, t, p = g.shape
+    vec = 16 // g.element_size()
+    slices, blocks = tgn.embedding_plan(n, t, p, vec, SLOTS)
+    warps = tgn.EMBED_WARPS
+    splits = warps * blocks
+    cols = torch.zeros(n, t, slices * 32 * vec)
+    cols[:, :, :p] = g.float()
+    cols = cols.view(n, t, slices, 32, vec)
+    out = torch.zeros(n)
+    for i in range(n):
+        order = torch.sort(ids[i], stable=True).indices
+        key = ids[i][order]
+        start = torch.ones(t, dtype=torch.bool)
+        start[1:] = key[1:] != key[:-1]
+        rows = cols[i][order]
+        warp_total = torch.zeros(32)
+        for s in range(slices):
+            block_units = []
+            for b in range(blocks):
+                a, closed = None, torch.zeros(32)
+                for w in range(warps):
+                    j = b * warps + w
+                    unit = _range_unit(rows[:, s], start, j * t // splits, (j + 1) * t // splits)
+                    a, closed = _fold(a, unit, closed)
+                a["inner"] = a["inner"] + _warp_sum(closed)
+                block_units.append(a)
+            inner, closed, carry = torch.zeros(()), torch.zeros(32), torch.zeros(32, vec)
+            for b0 in range(0, blocks, 32):
+                chunk = block_units[b0:b0 + 32]
+                lanes = torch.zeros(32)
+                lanes[:len(chunk)] = torch.stack([u["inner"] for u in chunk])
+                inner = inner + _warp_sum(lanes)
+                for u in chunk:
+                    if u["flags"] & _HEAD:
+                        carry = carry + u["head"]
+                        if u["flags"] & _CLOSES:
+                            closed, carry = closed + _sq(carry), torch.zeros(32, vec)
+                    if u["flags"] & _TAIL:
+                        carry = u["tail"]
+            assert not bool(carry.any())  # every segment closed inside [0, T)
+            warp_total[s % 32] += inner + _warp_sum(closed)
+        total = torch.zeros(())
+        for w in range(32):
+            total = total + warp_total[w]
+        out[i] = total
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("all_equal", [False, True])
+def test_embedding_sort_emulation_meets_the_gate(dtype, all_equal):
+    """An LM-like tap with long segments (8 distinct ids over T = 2048, so
+    every segment crosses many of the 256 ranges) and, in the second case,
+    one sample whose ids are all equal: the kernel's order, emulated, within
+    1e-4 of the JAX oracle and of the Pallas kernel (interpret mode)."""
+    n, t, p = 2, 2048, 64
+    rng = np.random.default_rng(17)
+    ids = rng.integers(0, 8, size=(n, t)).astype(np.int32)
+    if all_equal:
+        ids[1] = 5
+    g = torch.from_numpy(_np(rng, n, t, p)).to(dtype)
+    slices, blocks = tgn.embedding_plan(n, t, p, 16 // g.element_size(), SLOTS)
+    assert (slices, blocks) == (1, 32)  # 256 ranges of 8 positions a sample
+    got = _emulate_embedding_kernel(torch.from_numpy(ids).long(), g)
+    jids, jg = jnp.asarray(ids), jnp.asarray(g.float().numpy())
+    _close(got, embedding_ghost_norm_sq_ref(jids, jg), rtol=1e-4)
+    pallas = embedding_ghost_norm_sq_pallas(jids, jg, block_t=1024, block_f=64, interpret=True)
+    _close(got, pallas, rtol=1e-4)
+
+
+def test_embedding_plan_fills_the_card():
+    """The segment pass's split: 16-byte lane slices of 32 lanes; the
+    blocks fill the card's slots in one wave, every (sample, slice) alike,
+    and cut no range under 8 positions; the sort's cluster size; pure
+    functions of the shape."""
+    assert tgn.embedding_plan(32, 196, 768, 8, SLOTS) == (3, 3)  # ViT-Base: T caps it
+    assert tgn.embedding_plan(4, 2048, 4096, 8, SLOTS) == (16, 8)
+    assert tgn.embedding_plan(1, 8192, 4096, 8, SLOTS) == (16, 33)
+    assert tgn.embedding_plan(2, 1, 10, 4, SLOTS) == (1, 1)
+    assert tgn.embedding_plan(64, 512, 4096, 8, SLOTS) == (16, 1)  # more than a wave
+    # the sort: one CTA up to 4096 positions, then one a ~1024, at most 8
+    assert [tgn.embedding_sort_cluster(t) for t in (1, 196, 2048, 4096, 4097, 8192, 40000)] == [
+        1, 1, 1, 1, 5, 8, 8]
+    for n, t, p, vec in ((4, 2048, 4096, 8), (1, 8192, 4096, 8), (2, 40000, 8, 4)):
+        slices, blocks = tgn.embedding_plan(n, t, p, vec, SLOTS)
+        assert slices * 32 * vec >= p > (slices - 1) * 32 * vec
+        assert t // (tgn.EMBED_WARPS * blocks) >= tgn.EMBED_MIN_ROWS
+        assert SLOTS - n * slices <= n * slices * blocks <= SLOTS
 
 
 BOOK_SHAPES = [
@@ -348,11 +539,9 @@ def test_launch_counts_per_impl():
 
 
 def test_ghost_tile_choice_follows_t():
-    """The Gram kernels: T <= 16 in one packed m16 tile, else 64-row tiles;
-    the embedding kernel keeps its 16- or 32-row tiles."""
+    """The Gram kernels: T <= 16 in one packed m16 tile, else 64-row tiles."""
     assert tgn.tile_for(1) == 16 and tgn.tile_for(16) == 16
     assert tgn.tile_for(17) == 64 and tgn.tile_for(256) == 64
-    assert tgn.embedding_tile_for(16) == 16 and tgn.embedding_tile_for(17) == 32
 
 
 # ------------------------------------ the card's book kernel, emulated --
