@@ -656,13 +656,14 @@ RAGGED = {
             (2, 64, 64, 3, 16, 16, 16, 16, "VALID", 48))
     ],
     # (N, T, p, vocab): repeated ids, p off the 16-byte row, T = 1, one id
-    # over every position (vocab 1), T above what the sort holds in shared
-    # memory (40000 > ~20k: the device-memory workspace)
+    # over every position (vocab 1) at T = 3000 and 8192 (the sort makes no
+    # pass), T above what the sort holds in shared memory (40000 > ~9.9k:
+    # the device-memory workspace)
     "embedding_ghost_norm_sq": [
         (shape, [("int64", "float32"), ("int32", "bfloat16")])
         for shape in ((3, 37, 33, 5), (4, 100, 70, 1000), (2, 1, 10, 3),
                       (5, 16, 130, 4), (2, 300, 64, 50), (2, 3000, 40, 1),
-                      EMBED_ABOVE_SORT)
+                      (2, 8192, 64, 1), EMBED_ABOVE_SORT)
     ],
     # R split across blocks (M = 1, R = 8192), every dtype pair, R under one k-step
     "book_weighted_grad": [((3, 37, 33, 130), FLOAT_PAIRS[:2]), ((1, 1, 5, 3), FLOAT_PAIRS[:2]),
@@ -704,7 +705,7 @@ def phase_kernels(paths: dict) -> dict:
 
             print(f"kernel {kernel}: LM shapes")
             t_above = EMBED_ABOVE_SORT[1]
-            capacity = gn.embedding_sort_capacity(0, gn.embedding_sort_cluster(t_above))
+            capacity = gn.embedding_sort_capacity(0)
             require(t_above > capacity, f"T = {t_above} fits the sort's shared memory "
                     f"({capacity} positions): the workspace goes untested")
             for shape, ids_kind in EMBED_LM:

@@ -15,19 +15,17 @@
 // where the pairwise form's 69 GFLOP would take milliseconds.
 //
 // Three launches on the caller's stream:
-// 1. embedding_sort_kernel, a cluster of 1-8 CTAs per sample: a stable LSD
+// 1. embedding_sort_kernel, one CTA of 1024 threads per sample: a stable LSD
 //    radix sort of the positions by id, over only the bits the sample's id
 //    range needs (key = id - min id, 8-bit digits: one pass for the ViT's
-//    196 position ids, two for a 64000-id vocabulary).  Each CTA keeps every
-//    key and ~1024 positions of the order.  Each pass is a stable counting
-//    sort: the 32 warps of a CTA own consecutive runs of its positions, rank
-//    equal digits by ballots and count them per (digit, warp); the digits'
-//    totals, read across the cluster through distributed shared memory,
-//    place each CTA's digits, and each position is stored straight into the
-//    CTA that owns its new place.  Above what shared memory holds, one CTA
-//    a sample sorts through a device workspace.  It writes `order` (N, T):
-//    the sorted positions' t, bit 31 set where a segment of equal ids
-//    starts.  Ties keep t order, so the result is one fixed order.
+//    196 position ids, two for a 64000-id vocabulary).  Each pass is a
+//    stable counting sort: the 32 warps own consecutive runs of the
+//    positions, rank equal digits by ballots and count them per (digit,
+//    warp), and a scan of the counts places every position.  Keys, orders
+//    and ranks (20 bytes a position) sit in shared memory up to ~9.9k
+//    positions on the H100, in a device workspace above that.  It writes
+//    `order` (N, T): the sorted positions' t, bit 31 set where a segment of
+//    equal ids starts.  Ties keep t order, so the result is one fixed order.
 // 2. embedding_segment_kernel streams g's rows in sorted order.  A warp owns
 //    a 512-byte column slice of every row (16 bytes a lane: 8 bf16 or 4
 //    fp32) over a contiguous range of sorted positions.  Rows land in a
@@ -52,13 +50,11 @@
 #include "common.cuh"
 #include "mma.cuh"
 
-#include <cooperative_groups.h>
-
+#include <atomic>
 #include <climits>
 
 namespace {
 
-namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kStart = 0x80000000u;  // order entry: a segment of equal ids starts here
@@ -94,42 +90,18 @@ __device__ __forceinline__ void warp_min_max(long long& lo, long long& hi) {
   }
 }
 
-// Exclusive scan of one value a thread over the first 256 threads (8 warps),
-// through `scratch` (8 words); every thread of the block must call it.
-__device__ __forceinline__ uint32_t scan256(uint32_t x, uint32_t* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t incl = x;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t y = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += y;
-  }
-  if (lane == 31 && warp < kBins / 32) scratch[warp] = incl;
-  __syncthreads();
-  uint32_t before = 0;
-  for (int w = 0; w < warp && w < kBins / 32; ++w) before += scratch[w];
-  __syncthreads();
-  return before + incl - x;
-}
-
 // One stable counting-sort pass over the digit (key >> shift) & 255 of the
-// sample's positions, split over the cluster's CTAs: each holds `len` of
-// them (positions base .. base + len of the current order) in `src` and
-// receives the same range of the new order in `dst`.  Warp w owns src[w *
-// run, (w + 1) * run) and walks it 32 at a time: each position's rank among
-// the equal digits of its run (lanes in order) goes to `rank`, each (digit,
-// warp) count to `hist`; the scan turns the counts into offsets within the
-// CTA; the digits' totals, shared across the cluster, place the CTA's
-// digits among every CTA's (digit-major, then CTA order).  Ties keep the
-// current order.
-__device__ void radix_pass(cg::cluster_group& cluster, const unsigned long long* keys,
-                           const uint32_t* src, uint32_t* dst, uint32_t* rank, uint32_t* hist,
-                           uint32_t* digit_tot, uint32_t* digit_base, uint32_t* scratch, int len,
-                           int chunk, int shift) {
+// sample's `t` positions, from the order `src` into `dst`.  Warp w owns
+// src[w * run, (w + 1) * run) and walks it 32 at a time: each position's rank
+// among the equal digits of its run (lanes in order) goes to `rank`, each
+// (digit, warp) count to `hist`; the scan turns the counts into offsets
+// (digit-major, then warp order).  Ties keep the current order.
+__device__ void radix_pass(const unsigned long long* keys, const uint32_t* src, uint32_t* dst,
+                           uint32_t* rank, uint32_t* hist, uint32_t* scratch, int t, int shift) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned lower = (1u << lane) - 1u;
-  const int run = (len + kSortThreads - 1) / kSortThreads * 32;
-  const int begin = min(warp * run, len), end = min(begin + run, len);
+  const int run = (t + kSortThreads - 1) / kSortThreads * 32;
+  const int begin = min(warp * run, t), end = min(begin + run, t);
   for (int i = threadIdx.x; i < kBins * kHistStride; i += kSortThreads) hist[i] = 0;
   __syncthreads();
   for (int b = begin; b < end; b += 32) {  // count and rank
@@ -182,66 +154,26 @@ __device__ void radix_pass(cg::cluster_group& cluster, const unsigned long long*
     base += c[q];
   }
   __syncthreads();
-  const bool one = cluster.num_blocks() == 1;
-  if (one) {  // the CTA's offsets are the sample's
-    for (int i = begin + lane; i < end; i += 32) {  // scatter
-      const uint32_t r = src[i];
-      const int d = static_cast<int>((keys[r] >> shift) & 255);
-      dst[hist[d * kHistStride + warp] + rank[i]] = r;
-    }
-    __syncthreads();
-    return;
-  }
-  // this CTA's total of digit d, then the digit's place in the cluster's order
-  const int d = threadIdx.x;
-  uint32_t local_pre = 0;
-  if (d < kBins) {
-    local_pre = hist[d * kHistStride];
-    digit_tot[d] = (d + 1 < kBins ? hist[(d + 1) * kHistStride] : len) - local_pre;
-  }
-  cluster.sync();
-  uint32_t all = 0, before_me = 0;
-  if (d < kBins) {
-    const int me = static_cast<int>(cluster.block_rank());
-    for (int q = 0; q < static_cast<int>(cluster.num_blocks()); ++q) {
-      const uint32_t x = cluster.map_shared_rank(digit_tot, q)[d];
-      all += x;
-      before_me += q < me ? x : 0u;
-    }
-  }
-  const uint32_t digit_start = scan256(all, scratch);
-  if (d < kBins) digit_base[d] = digit_start + before_me - local_pre;
-  __syncthreads();
-  for (int i = begin + lane; i < end; i += 32) {  // scatter, into the owner's dst
+  for (int i = begin + lane; i < end; i += 32) {  // scatter
     const uint32_t r = src[i];
-    const int dd = static_cast<int>((keys[r] >> shift) & 255);
-    const uint32_t at = digit_base[dd] + hist[dd * kHistStride + warp] + rank[i];
-    const uint32_t owner = at / chunk;
-    cluster.map_shared_rank(dst, owner)[at - owner * chunk] = r;
+    const int d = static_cast<int>((keys[r] >> shift) & 255);
+    dst[hist[d * kHistStride + warp] + rank[i]] = r;
   }
-  cluster.sync();  // every CTA's dst complete; digit_tot free for the next pass
+  __syncthreads();
 }
 
-// Sample blockIdx.x / (cluster size)'s positions sorted by id (ties by t)
-// into `order`, over a cluster of CTAs: CTA q holds positions [q * chunk,
-// (q + 1) * chunk) of the order and every CTA the sample's keys.
-// ws_keys == nullptr: keys, orders and ranks in shared memory; else (a
-// cluster of one) in the workspace (ws_keys: N * T keys, ws_pos: 3 * N * T
-// words).
+// Sample blockIdx.x's positions sorted by id (ties by t) into `order`, one
+// CTA a sample.  ws_keys == nullptr: keys, orders and ranks in shared memory;
+// else in the workspace (ws_keys: N * T keys, ws_pos: 3 * N * T words).
 template <typename TI>
 __global__ void __launch_bounds__(kSortThreads)
     embedding_sort_kernel(const TI* __restrict__ ids_all, uint32_t* __restrict__ order_all,
                           int t, unsigned long long* ws_keys, uint32_t* ws_pos) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long lo_w[kSortWarps], hi_w[kSortWarps];
-  __shared__ uint32_t scratch[kSortWarps], digit_tot[kBins], digit_base[kBins];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = static_cast<int>(cluster.num_blocks());
-  const int me = static_cast<int>(cluster.block_rank());
-  const int chunk = (t + csize - 1) / csize;
-  const int base = min(me * chunk, t), len = min(chunk, t - base);
+  __shared__ uint32_t scratch[kSortWarps];
   uint32_t* hist = reinterpret_cast<uint32_t*>(smem);
-  const int64_t n = blockIdx.x / csize;
+  const int64_t n = blockIdx.x;
   const TI* ids = ids_all + n * t;
   unsigned long long* keys;
   uint32_t* src;
@@ -252,11 +184,11 @@ __global__ void __launch_bounds__(kSortThreads)
     keys = ws_keys + n * t;
     src = ws_pos + 3 * n * t;
   }
-  uint32_t* dst = src + chunk;
-  uint32_t* rank = dst + chunk;
+  uint32_t* dst = src + t;
+  uint32_t* rank = dst + t;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // every CTA reads all the sample's ids: its keys, min and max
+  // the sample's keys, min and max
   long long lo = LLONG_MAX, hi = LLONG_MIN;
   for (int i = threadIdx.x; i < t; i += kSortThreads) {
     const long long v = static_cast<long long>(ids[i]);
@@ -284,30 +216,26 @@ __global__ void __launch_bounds__(kSortThreads)
   hi = hi_w[0];
   // key = id - min id as an unsigned 64-bit number: order-preserving for any ids
   const unsigned long long key0 = static_cast<unsigned long long>(lo);
-  for (int i = threadIdx.x; i < t; i += kSortThreads) keys[i] -= key0;
-  for (int i = threadIdx.x; i < len; i += kSortThreads) src[i] = static_cast<uint32_t>(base + i);
+  for (int i = threadIdx.x; i < t; i += kSortThreads) {
+    keys[i] -= key0;
+    src[i] = static_cast<uint32_t>(i);
+  }
   const unsigned long long range = static_cast<unsigned long long>(hi) - key0;
   const int bits = range == 0 ? 0 : 64 - __clzll(static_cast<long long>(range));
   __syncthreads();
   for (int shift = 0; shift < bits; shift += 8) {
-    radix_pass(cluster, keys, src, dst, rank, hist, digit_tot, digit_base, scratch, len, chunk,
-               shift);
+    radix_pass(keys, src, dst, rank, hist, scratch, t, shift);
     uint32_t* tmp = src;
     src = dst;
     dst = tmp;
   }
   // segment starts: a position's key against the one before it in the order
   uint32_t* order = order_all + n * t;
-  for (int i = threadIdx.x; i < len; i += kSortThreads) {
+  for (int i = threadIdx.x; i < t; i += kSortThreads) {
     const uint32_t r = src[i];
-    bool start = base + i == 0;
-    if (!start) {
-      const uint32_t prev = i > 0 ? src[i - 1] : cluster.map_shared_rank(src, me - 1)[chunk - 1];
-      start = keys[r] != keys[prev];
-    }
-    order[base + i] = r | (start ? kStart : 0u);
+    const bool start = i == 0 || keys[r] != keys[src[i - 1]];
+    order[i] = r | (start ? kStart : 0u);
   }
-  if (csize > 1) cluster.sync();  // no CTA leaves while another may still read its src
 }
 
 // --------------------------------------------------- the segment sums --
@@ -630,50 +558,47 @@ __global__ void __launch_bounds__(1024)
 }
 
 // ------------------------------------------------------------- launch --
-// Dynamic shared memory of a sort CTA holding a sample of t positions in a
-// cluster of csize: the histogram, keys for all t, three orders for its chunk
-int64_t sort_smem_bytes(int t, int csize) {
-  return kHistBytes + 8 * int64_t{t} + 12 * ((int64_t{t} + csize - 1) / csize);
-}
+// Dynamic shared memory of a sort CTA holding a sample of t positions: the
+// histogram, its keys and three orders
+int64_t sort_smem_bytes(int t) { return kHistBytes + 20 * int64_t{t}; }
 
-// The dynamic shared memory a sort CTA may have on this device (0 on error)
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared memory a sort CTA may have on the current device (0 on
+// error).  The first call on a device lets both sort instances use all of it,
+// so a launch pays neither the query nor the attribute.
 int64_t sort_smem_limit() {
-  int device = 0, optin = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+  static std::atomic<int64_t> ready[kMaxDevices];  // 0 until set
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices) return 0;
+  int64_t limit = ready[device].load(std::memory_order_acquire);
+  if (limit > 0) return limit;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return 0;
+  constexpr int kStatic = 2 * kSortWarps * 8 + kSortWarps * 4;  // lo_w, hi_w, scratch
+  limit = optin - kStatic;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if (cudaFuncSetAttribute(embedding_sort_kernel<int32_t>, attr, static_cast<int>(limit)) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(embedding_sort_kernel<int64_t>, attr, static_cast<int>(limit)) !=
           cudaSuccess)
     return 0;
-  constexpr int kStatic = 2 * kSortWarps * 8 + kSortWarps * 4 + 2 * kBins * 4;
-  return optin - kStatic;
+  ready[device].store(limit, std::memory_order_release);
+  return limit;
 }
 
 template <typename TI>
-cudaError_t launch_sort(const void* ids, uint32_t* order, int n, int t, int csize, void* sort_ws,
+cudaError_t launch_sort(const void* ids, uint32_t* order, int n, int t, void* sort_ws,
                         cudaStream_t stream) {
-  auto kernel = embedding_sort_kernel<TI>;
   unsigned long long* keys = static_cast<unsigned long long*>(sort_ws);
   uint32_t* pos = keys == nullptr ? nullptr : reinterpret_cast<uint32_t*>(keys + int64_t{n} * t);
-  if (csize < 1 || csize > 8 || (keys != nullptr && csize != 1))
-    return cudaErrorInvalidValue;
-  const int64_t bytes64 = keys == nullptr ? sort_smem_bytes(t, csize) : kHistBytes;
-  if (bytes64 > sort_smem_limit()) return cudaErrorInvalidValue;
-  const int bytes = static_cast<int>(bytes64);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n * csize));
-  cfg.blockDim = dim3(kSortThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = csize;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const TI*>(ids), order, t, keys, pos);
+  const int64_t bytes = keys == nullptr ? sort_smem_bytes(t) : kHistBytes;
+  if (bytes > sort_smem_limit()) return cudaErrorInvalidValue;
+  embedding_sort_kernel<TI><<<n, kSortThreads, static_cast<int>(bytes), stream>>>(
+      static_cast<const TI*>(ids), order, t, keys, pos);
+  return cudaGetLastError();
 }
 
 template <typename TG>
@@ -695,9 +620,9 @@ cudaError_t launch_segments(const void* g, const uint32_t* order, float* ws, flo
 template <typename TI>
 cudaError_t launch_for_g(int g_dtype, const void* ids, const void* g, float* out,
                          uint32_t* order, float* ws, void* sort_ws, int n, int t, int p,
-                         int csize, int slices, int blocks, cudaStream_t stream) {
+                         int slices, int blocks, cudaStream_t stream) {
   if (g_dtype != repro::kFloat32 && g_dtype != repro::kBFloat16) return cudaErrorInvalidValue;
-  cudaError_t err = launch_sort<TI>(ids, order, n, t, csize, sort_ws, stream);
+  cudaError_t err = launch_sort<TI>(ids, order, n, t, sort_ws, stream);
   if (err != cudaSuccess) return err;
   if (g_dtype == repro::kFloat32)
     return launch_segments<float>(g, order, ws, out, n, t, p, slices, blocks, stream);
@@ -708,17 +633,9 @@ cudaError_t launch_for_g(int g_dtype, const void* ids, const void* g, float* out
 
 // The most positions a sample may have for its sort to run in shared memory
 // (above it the caller passes a sort workspace).
-// The most positions a sample may have for its sort over a cluster of csize
-// CTAs (1 to 8) to fit in shared memory; above it the sort needs the
-// workspace and a cluster of one.
-extern "C" int embedding_sort_capacity(int csize) {
+extern "C" int embedding_sort_capacity() {
   const int64_t limit = sort_smem_limit();
-  if (csize < 1 || csize > 8 || limit <= kHistBytes) return 0;
-  // 8 t + 12 ceil(t / csize) bytes beside the histogram
-  int64_t t = (limit - kHistBytes) * csize / (8 * csize + 12);
-  while (sort_smem_bytes(static_cast<int>(t + 1), csize) <= limit) ++t;
-  while (t > 0 && sort_smem_bytes(static_cast<int>(t), csize) > limit) --t;
-  return static_cast<int>(t);
+  return limit <= kHistBytes ? 0 : static_cast<int>((limit - kHistBytes) / 20);
 }
 
 // Blocks of the segment kernel for g of `g_dtype` that one SM holds at once
@@ -736,15 +653,14 @@ extern "C" int embedding_segment_blocks_per_sm(int g_dtype) {
 }
 
 // ids (n, t) of `id_dtype` (int32 or int64), g (n, t, p) of `g_dtype`,
-// contiguous, t * p < 2^31; out (n,) fp32.  The sort runs on clusters of
-// `csize` CTAs a sample.  Workspaces from the caller: `order` n * t uint32;
-// `units` (16-byte aligned) n * slices * blocks * (64 * V + 2) floats with V
-// = 16 / sizeof(g's element) and slices = ceil(p / (32 * V)); `sort_ws`
-// nullptr when t <= embedding_sort_capacity(csize), else (csize 1) n * t
-// 64-bit keys followed by 3 * n * t uint32.
+// contiguous, t * p < 2^31; out (n,) fp32.  Workspaces from the caller:
+// `order` n * t uint32; `units` (16-byte aligned) n * slices * blocks * (64 *
+// V + 2) floats with V = 16 / sizeof(g's element) and slices = ceil(p / (32 *
+// V)); `sort_ws` nullptr when t <= embedding_sort_capacity(), else n * t
+// 64-bit keys (8-byte aligned) followed by 3 * n * t uint32.
 extern "C" int embedding_ghost_norm_sq_launch(const void* ids, const void* g, void* out,
                                               void* order, void* units, void* sort_ws, int n,
-                                              int t, int p, int id_dtype, int g_dtype, int csize,
+                                              int t, int p, int id_dtype, int g_dtype,
                                               int slices, int blocks, void* stream_ptr) {
   if (n < 1 || t < 1 || p < 1) return static_cast<int>(cudaErrorInvalidValue);
   uint32_t* o = static_cast<uint32_t*>(order);
@@ -753,10 +669,10 @@ extern "C" int embedding_ghost_norm_sq_launch(const void* ids, const void* g, vo
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaErrorInvalidValue;
   if (id_dtype == repro::kInt32)
-    err = launch_for_g<int32_t>(g_dtype, ids, g, dst, o, ws, sort_ws, n, t, p, csize, slices,
+    err = launch_for_g<int32_t>(g_dtype, ids, g, dst, o, ws, sort_ws, n, t, p, slices,
                                 blocks, stream);
   else if (id_dtype == repro::kInt64)
-    err = launch_for_g<int64_t>(g_dtype, ids, g, dst, o, ws, sort_ws, n, t, p, csize, slices,
+    err = launch_for_g<int64_t>(g_dtype, ids, g, dst, o, ws, sort_ws, n, t, p, slices,
                                 blocks, stream);
   return static_cast<int>(err);
 }

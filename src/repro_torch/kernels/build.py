@@ -41,9 +41,9 @@ _SIGNATURES = {
     # right, p, x_dtype, g_dtype, tile, stream
     "conv_ghost_norm_sq_launch": (_P, _P, _P, _P) + (_I,) * 16 + (_P,),
     # ids, g, out, order, units, sort workspace, n, t, p, id_dtype, g_dtype,
-    # sort cluster size, slices, blocks, stream
-    "embedding_ghost_norm_sq_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
-    "embedding_sort_capacity": (_I,),
+    # slices, blocks, stream
+    "embedding_ghost_norm_sq_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "embedding_sort_capacity": (),
     "embedding_segment_blocks_per_sm": (_I,),
     # a, g, w, out, partial, m, r, d, p, splits, rows_per_split, a_dtype, g_dtype, stream
     "book_weighted_grad_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

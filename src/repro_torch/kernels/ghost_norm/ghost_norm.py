@@ -39,7 +39,7 @@ from repro_torch.nn.conv import conv_padding
 __all__ = [
     "conv_ghost_norm_sq_cuda", "conv_ghost_norm_sq_plain",
     "embedding_ghost_norm_sq_cuda", "embedding_ghost_norm_sq_plain", "embedding_plan",
-    "embedding_slots", "embedding_sort_capacity", "embedding_sort_cluster",
+    "embedding_slots", "embedding_sort_capacity",
     "ghost_norm_sq_cuda", "ghost_norm_sq_plain", "tile_for",
 ]
 
@@ -56,13 +56,6 @@ def tile_for(t: int) -> int:
 # cut to
 EMBED_WARPS = 8
 EMBED_MIN_ROWS = 8
-# the sort: one CTA a sample up to EMBED_SORT_ALONE positions (a cluster's
-# barriers cost more than they save there: 10.1 against 12.7-13.2 us at
-# 4 x 2048 on the H100), else a cluster of one CTA a ~EMBED_SORT_ROWS
-# positions, at most EMBED_SORT_CLUSTER (portable) CTAs
-EMBED_SORT_ALONE = 4096
-EMBED_SORT_ROWS = 1024
-EMBED_SORT_CLUSTER = 8
 
 
 def embedding_plan(n: int, t: int, p: int, vec: int, slots: int) -> tuple[int, int]:
@@ -79,14 +72,6 @@ def embedding_plan(n: int, t: int, p: int, vec: int, slots: int) -> tuple[int, i
     return slices, max(1, min(slots // (n * slices), most))
 
 
-def embedding_sort_cluster(t: int) -> int:
-    """CTAs a sample of ``t`` positions is sorted over (a thread-block
-    cluster sharing its counts through distributed shared memory)."""
-    if t <= EMBED_SORT_ALONE:
-        return 1
-    return min(EMBED_SORT_CLUSTER, -(-t // EMBED_SORT_ROWS))
-
-
 @functools.lru_cache(maxsize=None)
 def embedding_slots(index: int, g_dtype: torch.dtype) -> int:
     """Card ``index``'s block slots for the segment pass over g of
@@ -101,14 +86,13 @@ def embedding_slots(index: int, g_dtype: torch.dtype) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def embedding_sort_capacity(index: int, cluster: int) -> int:
+def embedding_sort_capacity(index: int) -> int:
     """The most positions a sample may have for card ``index`` to sort it
-    over ``cluster`` CTAs in shared memory (above, through a workspace on
-    one CTA)."""
+    in shared memory (above, through a workspace in device memory)."""
     from repro_torch.kernels.build import library
 
     with torch.cuda.device(index):
-        return library().embedding_sort_capacity(cluster)
+        return library().embedding_sort_capacity()
 
 
 def _pairs(n: int, t: int, tile: int,
@@ -204,27 +188,26 @@ def embedding_ghost_norm_sq_cuda(ids: torch.Tensor, g: torch.Tensor) -> torch.Te
     checks.fits_int32("T * p", t * p)
     vec = 16 // g.element_size()
     slices, blocks = embedding_plan(n, t, p, vec, embedding_slots(g.device.index, g.dtype))
-    cluster = embedding_sort_cluster(t)
-    in_smem = t <= embedding_sort_capacity(g.device.index, cluster)
-    if not in_smem:
-        cluster = 1
+    in_smem = t <= embedding_sort_capacity(g.device.index)
     units = n * slices * blocks
     checks.fits_int32("N * slices * blocks", units)
-    # one int32 workspace: the sorted order (rounded to 16 bytes), the
-    # segment pass's units (64 * vec + 2 words each), and where the sort does
-    # not fit in shared memory its 64-bit keys, two orders and ranks (5 words
-    # a position)
-    n_order = -(-n * t // 4) * 4
+    # one allocation, each part 16-byte aligned: the (N,) output, the sorted
+    # order, the segment pass's units (64 * vec + 2 words each), and where
+    # the sort does not fit in shared memory its 64-bit keys, two orders and
+    # ranks (5 words a position)
+    n_out, n_order = -(-n // 4) * 4, -(-n * t // 4) * 4
     n_units = units * (64 * vec + 2)
     n_sort = 0 if in_smem else 5 * n * t
-    ws = torch.empty((n_order + n_units + n_sort,), dtype=torch.int32, device=g.device)
-    out = torch.empty((n,), dtype=torch.float32, device=g.device)
+    ws = torch.empty((n_out + n_order + n_units + n_sort,), dtype=torch.float32,
+                     device=g.device)
+    out = ws[:n]
     base, word = ws.data_ptr(), ws.element_size()
+    at_units = n_out + n_order
     with torch.cuda.device(g.device):
         code = library().embedding_ghost_norm_sq_launch(
-            ids.data_ptr(), g.data_ptr(), out.data_ptr(), base, base + n_order * word,
-            base + (n_order + n_units) * word if n_sort else None,
-            n, t, p, checks.DTYPE_CODES[ids.dtype], checks.DTYPE_CODES[g.dtype], cluster, slices,
+            ids.data_ptr(), g.data_ptr(), base, base + n_out * word, base + at_units * word,
+            base + (at_units + n_units) * word if n_sort else None,
+            n, t, p, checks.DTYPE_CODES[ids.dtype], checks.DTYPE_CODES[g.dtype], slices,
             blocks, checks.stream(g.device),
         )
     check(code, "embedding_ghost_norm_sq")

@@ -116,8 +116,10 @@ def test_ghost_norm_kernel_mixed_dtypes(gen):
     (5, 16, 4, 130, False),
     (4, 2048, 64000, 256, True),  # the LM shape at a reduced p, Zipf-skewed ids
     (2, 3000, 1, 64, False),  # every id equal: one segment over all the ranges
+    (2, 8192, 1, 64, False),  # every id equal at a long T: the sort makes no pass
     (1, 8192, 64000, 128, False),  # N = 1 at a long T
     (2, 40000, 300, 8, False),  # T above the sort's shared memory: the workspace
+    (1, 40000, 1, 8, False),  # the workspace, every id equal
 ])
 def test_embedding_ghost_norm_kernel(gen, n, t, vocab, p, skewed, dtype, id_dtype):
     if vocab == t:

@@ -377,16 +377,12 @@ def test_embedding_sort_emulation_meets_the_gate(dtype, all_equal):
 def test_embedding_plan_fills_the_card():
     """The segment pass's split: 16-byte lane slices of 32 lanes; the
     blocks fill the card's slots in one wave, every (sample, slice) alike,
-    and cut no range under 8 positions; the sort's cluster size; pure
-    functions of the shape."""
+    and cut no range under 8 positions; pure functions of the shape."""
     assert tgn.embedding_plan(32, 196, 768, 8, SLOTS) == (3, 3)  # ViT-Base: T caps it
     assert tgn.embedding_plan(4, 2048, 4096, 8, SLOTS) == (16, 8)
     assert tgn.embedding_plan(1, 8192, 4096, 8, SLOTS) == (16, 33)
     assert tgn.embedding_plan(2, 1, 10, 4, SLOTS) == (1, 1)
     assert tgn.embedding_plan(64, 512, 4096, 8, SLOTS) == (16, 1)  # more than a wave
-    # the sort: one CTA up to 4096 positions, then one a ~1024, at most 8
-    assert [tgn.embedding_sort_cluster(t) for t in (1, 196, 2048, 4096, 4097, 8192, 40000)] == [
-        1, 1, 1, 1, 5, 8, 8]
     for n, t, p, vec in ((4, 2048, 4096, 8), (1, 8192, 4096, 8), (2, 40000, 8, 4)):
         slices, blocks = tgn.embedding_plan(n, t, p, vec, SLOTS)
         assert slices * 32 * vec >= p > (slices - 1) * 32 * vec
