@@ -24,7 +24,10 @@ order; any failure exits non-zero and prints no result:
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
             at the shapes and dtypes its path gives it (the training steps'
             from the models' own taps, the attention kernel's at the eight
-            Yi-6B prompt lengths) and at ragged small shapes (T = 1, T off
+            Yi-6B prompt lengths), at the shapes only the *_taps modes give
+            (a stacked tap's rows at once, the books of instantiate-branch
+            convs), with 1-3 factor rows (psg_contract, segments
+            interleaved), and at ragged small shapes (T = 1, T off
             the tile, D and p off the tile, repeated ids, bf16; conv taps
             with SAME and VALID padding, stride 2, C off the 16-byte
             chunk, T = 1, the ViT patch; the embedding norm at T above its
@@ -42,16 +45,38 @@ order; any failure exits non-zero and prints no result:
             norms' ms per step (dense and conv entries) against their
             yardsticks';
 4. slice    per training path, DP-SGD steps through make_train_step in
-            non_private, mixed_ghost and bk_mixed: loss, kernel launches per
-            step against the taps' expectation, step time (median and
-            quartiles), peak memory, and one profiled step's device busy
-            time and idle share.  The launch counts are zeroed just before
-            each path's steps and read just after them;
+            non_private, mixed_ghost, bk_mixed, vmap (the Opacus analogue),
+            mixed_ghost_taps and bk_mixed_taps: loss, kernel launches per
+            step against the taps' expectation (and no plain-version call),
+            step time (median and quartiles), peak memory, and one profiled
+            step's device busy time and idle share.  The launch counts are
+            zeroed just before each path's steps and read just after them;
 5. compare  per training path, one clipped step's per-sample norms and
             gradient sum on the kernels against the plain versions
             (force_impl("torch")) on the same card, and mixed_ghost against
             bk_mixed;
-6. serve    Yi-6B through the port's Engine as launch/serve.py builds it (4
+6. oracle   per training path, every clipping mode through
+            dp_value_and_clipped_grad against the vmap oracle (per-sample
+            gradients by their definition): per-sample norms within
+            NORM_TOL, clipped gradient sums within KERNEL_GRAD_TOL of the
+            largest entry, under the fixed policy (every mode), per_layer
+            with 3 groups (mixed_ghost, bk_mixed, mixed_ghost_taps,
+            bk_mixed_taps; bk_mixed in one psg_contract launch) and
+            automatic (mixed_ghost); the ViT gated with fp32 compute, its
+            bf16 readings reported beside; VGG-19's fixed-policy modes also
+            reported against vmap with cuDNN off and vmap in fp64 compute;
+7. accum    VGG-19: a logical batch of 512 as 4 microbatches of 128 through
+            make_accum_* in mixed_ghost and bk_mixed, the microsteps under
+            torch.cuda.set_sync_debug_mode("error"): norms, gradient sum and
+            finalized update against four direct 128-sample clipped calls
+            and make_noise_finalize (gated with cuDNN on and off), and
+            against one direct 512-sample step and make_train_step on the
+            same samples and generator seed (gated with PyTorch's own
+            convolutions, reported with cuDNN: its algorithms differ by
+            batch size, and the backward amplifies their rounding); every
+            reading reported against the fp64 definition; both peaks; the
+            quantile policy's step rises by 1 per logical batch;
+8. serve    Yi-6B through the port's Engine as launch/serve.py builds it (4
             slots, page 16, max_len 2080, no EOS), 8 requests of prompt
             lengths 2048 ... 131 with 32 new tokens each: tokens, tok/s,
             TTFT and per-token percentiles, peak memory, attention-kernel
@@ -121,8 +146,16 @@ SASS_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
                 "ghost_norm_tiles_kernel": (8, MMA), "ghost_norm_packed_kernel": (8, MMA),
                 "embedding_segment_kernel": (2, ASYNC_COPY)}
 
-MODES = ("non_private", "mixed_ghost", "bk_mixed")
+MODES = ("non_private", "mixed_ghost", "bk_mixed", "vmap", "mixed_ghost_taps", "bk_mixed_taps")
 STEPS = 10  # timed steps per mode and path
+# the oracle phase: every mode against vmap under the fixed policy; the
+# grouped (per_layer: two prefixes and the catch-all) and automatic runs
+ORACLE_MODES = ("ghost", "fastgradclip", "mixed_ghost", "bk_mixed", "ghost_taps",
+                "fastgradclip_taps", "mixed_ghost_taps", "bk_mixed_taps")
+GROUPED_MODES = ("mixed_ghost", "bk_mixed", "mixed_ghost_taps", "bk_mixed_taps")
+GROUP_PREFIXES = {"vgg19": ("conv", "gn"), "vit_base": ("layers", "patch_embed")}
+# the accum phase: a logical batch of ACCUM_MICRO * ACCUM_STEPS samples
+ACCUM_MICRO, ACCUM_STEPS = 128, 4
 
 # the serve phase: Yi-6B, 4 slots, page 16, 8 requests of these prompt
 # lengths with 32 new tokens each, max_len = the longest prompt + 32
@@ -310,23 +343,27 @@ def _check_sass(info) -> list:
     return rows
 
 
-def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
+def main_path_shapes(model, params, batch) -> tuple[dict, dict, dict]:
     """Kernel call shapes and dtypes of one training step, with their calls
-    per step, and the kernel launches per step of each mode, from the
-    model's own taps and the layerwise decisions.
+    per step, the kernel launches per step of each mode, and the shapes the
+    *_taps modes add, from the model's own taps and the layerwise decisions.
 
-    A stacked tap (ViT layers) launches its norm kernel once per layer and
-    its book contraction once for all layers; every per-sample gradient
-    bank of a step (each layer of a stacked tap its own segment, weights
-    and biases) contracts in one grouped psg_contract launch, recorded as
-    (N, ((F, element offset), ...)) with one dtype per segment.  The ghost norm gets
-    the activation and the cotangent in their stored dtypes (a conv tap's
-    raw input through the conv entry, shape (N, H, W, C, kh, kw, s_h, s_w,
-    padding, p), which launches as ghost_norm_sq); so does the embedding
-    norm, ids and cotangent; the book holds both in the model dtype; banked
-    per-sample gradients are fp32.  A book contraction whose R is split
-    across blocks launches a second kernel that sums the splits
-    (book_splits, from the card's SM count).
+    A stacked tap (ViT layers) launches its norm kernel once per layer in
+    the fused modes and once for all layers (L * B rows) in the *_taps
+    modes; its book contraction runs once for all layers.  Every per-sample
+    gradient bank of a bk_mixed step (each layer of a stacked tap its own
+    segment, weights and biases) contracts in one grouped psg_contract
+    launch, recorded as (N, ((F, element offset), ...)) with one dtype per
+    segment; bk_mixed_taps books every matmul tap (the instantiate-branch
+    convs on unfolded patches too) and contracts scale taps in plain
+    PyTorch.  vmap launches no kernel.  The ghost norm gets the activation
+    and the cotangent in their stored dtypes (a conv tap's raw input through
+    the conv entry, shape (N, H, W, C, kh, kw, s_h, s_w, padding, p), which
+    launches as ghost_norm_sq); so does the embedding norm, ids and
+    cotangent; the book holds both in the model dtype; banked per-sample
+    gradients are fp32.  A book contraction whose R is split across blocks
+    launches a second kernel that sums the splits (book_splits, from the
+    card's SM count).
     """
     import torch
 
@@ -339,12 +376,20 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
 
     meta = discover_meta(model.loss_with_ctx, params, batch)
     shapes = {k: {} for k in RAGGED}
+    taps_shapes = {k: set() for k in RAGGED}
     expected = {mode: dict.fromkeys(KERNEL_INFO, 0.0) for mode in MODES}
     segments, n_psg = [], 0
 
     def add(kernel, shape, dtypes, calls=1):
         key = (shape, dtypes)
         shapes[kernel][key] = shapes[kernel].get(key, 0) + calls
+
+    def book_launches(shape):
+        return 1 + (book_splits(*shape, sms)[0] > 1)
+
+    def conv_spec(m):
+        return (m.batch_size,) + tuple(m.a_shape[-3:]) + tuple(m.conv.kernel) + tuple(
+            m.conv.strides) + (m.conv.padding, m.p)
 
     for m in meta.values():
         b, layers = m.batch_size, m.n_stack
@@ -353,19 +398,30 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
             add("embedding_ghost_norm_sq", (b * layers, m.T, m.p, m.D), (a_dt, s_dt))
             for mode in ("mixed_ghost", "bk_mixed"):
                 expected[mode]["embedding_ghost_norm_sq"] += layers
+            for mode in ("mixed_ghost_taps", "bk_mixed_taps"):
+                expected[mode]["embedding_ghost_norm_sq"] += 1
             continue
+        for mode in ("mixed_ghost", "bk_mixed"):
+            if m.kind == "matmul" and decide(m, mode=mode) == "ghost":
+                expected[f"{mode}_taps"]["ghost_norm_sq"] += 1
+                if m.conv is not None:
+                    taps_shapes["conv_ghost_norm_sq"].add((conv_spec(m), (a_dt, s_dt)))
+                else:
+                    taps_shapes["ghost_norm_sq"].add(((b * layers, m.T, m.D, m.p), (a_dt, s_dt)))
+        if m.kind == "matmul":
+            shape = (layers, b * m.T, m.D, m.p)
+            expected["bk_mixed_taps"]["book_weighted_grad"] += book_launches(shape)
+            taps_shapes["book_weighted_grad"].add((shape, (a_dt, s_dt)))
         if m.kind == "matmul" and decide(m, mode="mixed_ghost") == "ghost":
             if m.conv is not None:
-                spec = (b,) + tuple(m.a_shape[-3:]) + tuple(m.conv.kernel) + tuple(
-                    m.conv.strides) + (m.conv.padding, m.p)
-                add("conv_ghost_norm_sq", spec, (a_dt, s_dt), layers)
+                add("conv_ghost_norm_sq", conv_spec(m), (a_dt, s_dt), layers)
             else:
                 add("ghost_norm_sq", (b, m.T, m.D, m.p), (a_dt, s_dt), layers)
             expected["mixed_ghost"]["ghost_norm_sq"] += layers
         if m.kind == "matmul" and decide(m, mode="bk_mixed") == "ghost":
             expected["bk_mixed"]["ghost_norm_sq"] += layers
             shape = (layers, b * m.T, m.D, m.p)
-            expected["bk_mixed"]["book_weighted_grad"] += 1 + (book_splits(*shape, sms)[0] > 1)
+            expected["bk_mixed"]["book_weighted_grad"] += book_launches(shape)
             add("book_weighted_grad", shape, (a_dt, s_dt))
         else:
             segments += [(f, 0) for f in psg_segment_sizes(m)]
@@ -373,7 +429,9 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict]:
     if segments:  # every psg bank of a bk_mixed step: one grouped launch
         add("psg_contract", (n_psg, tuple(segments)), ("float32",) * len(segments))
         expected["bk_mixed"]["psg_contract"] = 1
-    return shapes, expected
+    for kernel, extra in taps_shapes.items():  # only those the fused modes do not time
+        taps_shapes[kernel] = sorted(extra - set(shapes[kernel]), key=str)
+    return shapes, expected, taps_shapes
 
 
 def _name(dtype) -> str:
@@ -507,7 +565,12 @@ def _embedding_ids(n: int, t: int, vocab: int, kind: str, gen):
     return torch.randint(0, vocab, (n, t), generator=gen, device="cuda")
 
 
-def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool, ids_kind: str = "uniform") -> dict:
+def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool, ids_kind: str = "uniform",
+                 n_rows: int = 0) -> dict:
+    """One kernel call against its plain version (and, timed, against the
+    library call).  ``n_rows`` (psg_contract): a (n_rows, N) factor matrix,
+    the segments' rows interleaved (segment s on row s % n_rows); 0 is the
+    shared (N,) vector of one global threshold."""
     import torch
 
     from repro_torch.kernels.ghost_norm import ghost_norm as gn
@@ -572,16 +635,23 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool, ids_kind: str = "
             return torch.einsum("mrd,mr,mrp->mdp", a, w, g)
     else:  # one grouped call; a segment's bank starts `off` elements into its buffer
         n, segs = shape
+        rows = [i % n_rows for i in range(len(segs))] if n_rows else None
 
         def bank(f, off, dtype):
             return rnd(dtype, n * f + off)[off:].view(n, f)
 
-        args = ([bank(f, off, d) for (f, off), d in zip(segs, dt)],
-                torch.rand(n, generator=gen, device=dev))
-        kern, plain = pc.psg_contract_grouped_cuda, pc.psg_contract_grouped_plain
+        c = torch.rand(*((n_rows,) if n_rows else ()), n, generator=gen, device=dev)
+        args = ([bank(f, off, d) for (f, off), d in zip(segs, dt)], c)
+
+        def kern(psgs, c):
+            return pc.psg_contract_grouped_cuda(psgs, c, rows)
+
+        def plain(psgs, c):
+            return pc.psg_contract_grouped_plain(psgs, c, rows)
 
         def library(psgs, c):  # one `c @ psg` per segment
-            return [c @ x for x in psgs]
+            cs = [c[r] for r in rows] if rows else [c] * len(psgs)
+            return [ci @ x for ci, x in zip(cs, psgs)]
 
     got = kern(*args)
     want = plain(*args)
@@ -593,6 +663,7 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool, ids_kind: str = "
     case = {
         "shape": list(shape), "dtypes": list(dtypes),
         **({"ids": ids_kind} if kernel == "embedding_ghost_norm_sq" else {}),
+        **({"factor_rows": n_rows} if n_rows else {}),
         "max_abs_err": abs_err, "rel_err": rel_err, "tol": TOL[kernel],
         "deterministic": bool(torch.equal(got, again)),
     }
@@ -620,7 +691,7 @@ def _kernel_case(kernel: str, shape, dtypes, gen, timed: bool, ids_kind: str = "
     status = "ok" if rel_err <= TOL[kernel] else "MISMATCH"
     timing = _timing(case) if timed else ""
     ids_note = (f" {ids_kind} ids" if kernel == "embedding_ghost_norm_sq" and shape[3] != shape[1]
-                else "")
+                else f" {n_rows} factor rows" if n_rows else "")
     print(f"  {kernel} {_label(kernel, shape, dtypes)}{ids_note}: rel_err={rel_err:.2e} "
           f"(tol {TOL[kernel]:.0e}) deterministic={case['deterministic']}{timing} {status}")
     require(rel_err <= TOL[kernel], f"{kernel} {shape} {dtypes}: rel err {rel_err:.3e}")
@@ -711,11 +782,27 @@ def phase_kernels(paths: dict) -> dict:
             for shape, ids_kind in EMBED_LM:
                 cases.append(_kernel_case(kernel, shape, ("int64", "bfloat16"), gen, timed=True,
                                           ids_kind=ids_kind))
+        for tag, path in paths.items():
+            if path["taps_shapes"][kernel]:
+                print(f"kernel {kernel}: {tag} shapes only the *_taps modes give it")
+            for shape, dtypes in path["taps_shapes"][kernel]:
+                case = _kernel_case(kernel, shape, dtypes, gen, timed=False)
+                case["path"], case["taps"] = tag, True
+                cases.append(case)
         print(f"kernel {kernel}: ragged shapes")
         for shape, dtype_sets in RAGGED[kernel]:
             timed = kernel == "psg_contract" and shape == RAGGED[kernel][0][0]
             for dtypes in dtype_sets:
                 cases.append(_kernel_case(kernel, shape, dtypes, gen, timed=timed))
+        if kernel == "psg_contract":  # per-layer clipping: a factor row per segment
+            print(f"kernel {kernel}: factor rows (1, 2, 3 rows, segments interleaved)")
+            lists = [(shape, dtypes) for tag, path in paths.items()
+                     for (shape, dtypes) in path["shapes"][kernel]]
+            lists += [(shape, dtype_sets[-1]) for shape, dtype_sets in RAGGED[kernel][1:]]
+            for shape, dtypes in lists:
+                for n_rows in (1, 2, 3):
+                    cases.append(_kernel_case(kernel, shape, dtypes, gen, timed=False,
+                                              n_rows=n_rows))
         out[kernel] = cases
     out["ghost_norm_per_step"] = _ghost_per_step(out)
     return out
@@ -816,7 +903,7 @@ def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
         opt = sgd(momentum=0.9)
         state = make_train_state(model, 0, opt)
         step = make_train_step(
-            model, opt, constant(path["lr"][mode]),
+            model, opt, constant(path["lr"]["non_private" if mode == "non_private" else "dp"]),
             DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
                           logical_batch=batch_size),
             device=dev,
@@ -886,9 +973,7 @@ def phase_compare(tag: str, path: dict) -> dict:
         _, g_got, aux_got = runs[got_key]
         _, g_ref, aux_ref = runs[ref_key]
         norm_err = _max_rel(aux_got["per_sample_norms"], aux_ref["per_sample_norms"])
-        flat_got, flat_ref = flatten_dict(g_got), flatten_dict(g_ref)
-        scale = max(float(v.abs().max()) for v in flat_ref.values())
-        grad_err = max(float((flat_got[k] - v).abs().max()) for k, v in flat_ref.items()) / scale
+        grad_err = _grad_rel_err(flatten_dict(g_got), flatten_dict(g_ref))
         name = f"{tag} {'/'.join(got_key)} vs {'/'.join(ref_key)}"
         print(f"compare {name}: norms rel err {norm_err:.2e} (tol {NORM_TOL:.0e}), "
               f"clipped grad sum rel err {grad_err:.2e} (tol {grad_tol:.0e})")
@@ -896,6 +981,341 @@ def phase_compare(tag: str, path: dict) -> dict:
         require(grad_err <= grad_tol, f"{name}: clipped gradients differ by {grad_err:.3e}")
         out[name] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err, "grad_tol": grad_tol}
     return out
+
+def _timed_clip(model, params, batch, mode: str, policy=None):
+    """One dp_value_and_clipped_grad call: (result, host ms, peak bytes,
+    kernel launches), the launch counts zeroed just before."""
+    import torch
+
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.kernels import launches
+
+    fn = dp_value_and_clipped_grad(model.loss_with_ctx,
+                                   ClipConfig(mode=mode, clip_norm=1.0, policy=policy))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    res = fn(params, batch)
+    torch.cuda.synchronize()
+    return (res, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated(),
+            launches.snapshot())
+
+
+def _grad_rel_err(got: dict, ref: dict) -> float:
+    """max |got - ref| over every leaf, over the largest |ref| entry."""
+    scale = max(float(v.abs().max()) for v in ref.values())
+    return max(float((got[k] - v).abs().max()) for k, v in ref.items()) / max(scale, 1e-30)
+
+
+def _fp64_definition(path: dict, params, batch: dict, chunk: int) -> tuple[dict, object]:
+    """The per-sample definition as referee of fp32 readings: vmap in fp64
+    compute with native convolutions (the fp32 parameters cast up, each
+    sample's gradient rounded to fp32 once), ``chunk`` samples a call:
+    (clipped gradient sum by path, per-sample norms)."""
+    import torch
+
+    from repro_torch.utils.tree import flatten_dict
+
+    model = path["build"]("float64")
+    norms, total = [], None
+    with torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        for lo in range(0, batch["label"].shape[0], chunk):
+            part = {k: v[lo:lo + chunk] for k, v in batch.items()}
+            (_, g, aux), _, _, _ = _timed_clip(model, params, part, "vmap")
+            norms.append(aux["per_sample_norms"])
+            g = flatten_dict(g)
+            total = g if total is None else {k: total[k] + g[k] for k in g}
+    return total, torch.cat(norms)
+
+
+def _against(refs: dict, grads: dict, norms) -> dict:
+    """{reference: {"norm_rel_err", "grad_rel_err"}} of one reading."""
+    return {name: {"norm_rel_err": _max_rel(norms, r_norms),
+                   "grad_rel_err": _grad_rel_err(grads, r_grads)}
+            for name, (r_grads, r_norms) in refs.items()}
+
+
+def _against_line(errs: dict) -> str:
+    return "; ".join(f"vs {name}: norms {e['norm_rel_err']:.2e}, grad sum {e['grad_rel_err']:.2e}"
+                     for name, e in errs.items())
+
+
+def phase_oracle(tag: str, path: dict, dtype=None, gated: bool = True,
+                 native_ref: bool = False) -> dict:
+    """Every clipping mode against the vmap oracle at the path's full size:
+    the fixed policy in every mode, per_layer (GROUP_PREFIXES and the
+    catch-all: 3 groups) in GROUPED_MODES, automatic in mixed_ghost.  Norms
+    within NORM_TOL, clipped gradient sums within KERNEL_GRAD_TOL of the
+    largest entry, no plain-version call, and bk_mixed under per_layer in
+    one psg_contract launch.  ``gated=False`` (the ViT in bf16 compute)
+    reports the fixed-policy readings only.  Times are one call each on the
+    host clock (the first of its mode: informative, not a benchmark).
+
+    ``native_ref`` (VGG-19) also runs the fixed-policy vmap once with cuDNN
+    off (PyTorch's own convolutions, whose results do not move with the
+    batch size) and once in fp64 compute (``_fp64_definition``), and
+    reports the cuDNN vmap and every mode against both: the gated
+    comparison above shares cuDNN's algorithms at this batch size on both
+    sides, these say how far the path that trains sits from the per-sample
+    definition."""
+    import torch
+
+    from repro_torch.policies import AutomaticPolicy, PerLayerPolicy
+    from repro_torch.utils.tree import flatten_dict
+
+    model, params, batch = _model_params_batch(path, dtype)
+    compute = _name(model.dtype)
+    runs = [("fixed", None, ORACLE_MODES)]
+    if gated:
+        runs += [("per_layer", PerLayerPolicy(groups=GROUP_PREFIXES[tag], clip_norm=1.0),
+                  GROUPED_MODES),
+                 ("automatic", AutomaticPolicy(gamma=0.01), ("mixed_ghost",))]
+    out = {"compute": compute, "gated": gated}
+    for pname, policy, modes in runs:
+        (_, g_ref, aux_ref), ms, peak, _ = _timed_clip(model, params, batch, "vmap", policy)
+        ref, norms_ref = flatten_dict(g_ref), aux_ref["per_sample_norms"]
+        del g_ref, aux_ref
+        print(f"oracle {tag} ({compute} compute, {pname} policy): vmap {ms:.1f} ms, peak "
+              f"{peak / 2**20:.1f} MiB")
+        rows = {"vmap": {"ms": ms, "peak_bytes": peak}}
+        refs = {}
+        if native_ref and pname == "fixed":
+            with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                            deterministic=False, allow_tf32=False):
+                (_, g_nat, aux_nat), ms_nat, peak_nat, _ = _timed_clip(
+                    model, params, batch, "vmap", policy)
+            refs["native"] = (flatten_dict(g_nat), aux_nat["per_sample_norms"])
+            del g_nat, aux_nat
+            refs["fp64"] = _fp64_definition(path, params, batch, path["batch"])
+            rows["vmap"]["native_ms"], rows["vmap"]["native_peak_bytes"] = ms_nat, peak_nat
+            rows["vmap"]["vs"] = _against(refs, ref, norms_ref)
+            rows["vmap_native"] = {"vs": _against({"fp64": refs["fp64"]}, *refs["native"])}
+            print(f"  vmap with native convolutions: {ms_nat:.1f} ms, peak "
+                  f"{peak_nat / 2**20:.1f} MiB; {_against_line(rows['vmap_native']['vs'])} "
+                  "(reported, not gated)")
+            print(f"  vmap with cuDNN {_against_line(rows['vmap']['vs'])} (reported, not gated)")
+        for mode in modes:
+            (_, g, aux), ms, peak, counts = _timed_clip(model, params, batch, mode, policy)
+            norm_err = _max_rel(aux["per_sample_norms"], norms_ref)
+            grad_err = _grad_rel_err(flatten_dict(g), ref)
+            vs = _against(refs, flatten_dict(g), aux["per_sample_norms"]) if refs else None
+            del g, aux
+            plain = sum(v["torch"] for v in counts.values())
+            psg = counts["psg_contract"]["cuda"]
+            verdict = ("ok" if norm_err <= NORM_TOL and grad_err <= KERNEL_GRAD_TOL
+                       else "MISMATCH") if gated else "reported, not gated"
+            print(f"  {mode}: norms rel err {norm_err:.2e} (tol {NORM_TOL:.0e}), clipped grad "
+                  f"sum rel err {grad_err:.2e} (tol {KERNEL_GRAD_TOL:.0e}), {ms:.1f} ms, peak "
+                  f"{peak / 2**20:.1f} MiB, psg_contract launches {psg} {verdict}")
+            name = f"{tag} {compute} {pname} {mode} vs vmap"
+            require(plain == 0, f"{name}: {plain} plain-version calls on the card")
+            if gated:
+                require(norm_err <= NORM_TOL, f"{name}: norms differ by {norm_err:.3e}")
+                require(grad_err <= KERNEL_GRAD_TOL,
+                        f"{name}: clipped gradients differ by {grad_err:.3e}")
+            if pname == "per_layer" and mode == "bk_mixed":
+                require(psg == 1, f"{name}: {psg} psg_contract launches, expected 1")
+            if vs is not None:
+                print(f"    {_against_line(vs)} (reported, not gated)")
+            rows[mode] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err, "ms": ms,
+                          "peak_bytes": peak, "psg_contract_launches": psg, "vs": vs}
+        out[pname] = rows
+        del ref, norms_ref, refs
+    return out
+
+
+def phase_accum(path: dict) -> dict:
+    """A logical batch of ACCUM_MICRO * ACCUM_STEPS samples through
+    make_accum_* in mixed_ghost and bk_mixed, the microsteps under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises), held
+    against two references on the same samples:
+
+    - ACCUM_STEPS direct clipped calls of ACCUM_MICRO samples each (their
+      norms concatenated, their sums added), and make_noise_finalize over
+      them against make_accum_finalize: the same convolution algorithms as
+      the microsteps, so this isolates the accumulation.  Gated with cuDNN
+      on (the path that trains) and off;
+    - one direct clipped call of the whole logical batch, and make_train_step
+      on it against make_accum_finalize.  Gated with cuDNN off (PyTorch's
+      own convolutions), reported with it on: cuDNN picks its convolution
+      algorithms by batch size, and VGG-19's backward at initialisation
+      amplifies their ~1e-6 forward differences (512 vs 128 samples) to
+      ~1e-3 in the per-sample norms, whatever the accumulation does.
+
+    Each reading, with cuDNN and without, one call or accumulated, is also
+    reported against the fp64 definition (``_fp64_definition``) of the same
+    samples.
+
+    Then two logical batches under the quantile policy (cuDNN on): its step
+    counter reads 1, then 2."""
+    import torch
+
+    from repro_torch.data.synthetic import synthetic_vision_batch
+    from repro_torch.launch.steps import (
+        DPTrainConfig,
+        make_accum_finalize,
+        make_accum_init,
+        make_accum_microstep,
+        make_noise_finalize,
+        make_train_state,
+        make_train_step,
+    )
+    from repro_torch.optim import constant, sgd
+    from repro_torch.policies import QuantilePolicy
+    from repro_torch.utils.tree import flatten_dict, unflatten_dict
+
+    model = path["build"]()
+    logical = ACCUM_MICRO * ACCUM_STEPS
+    batches = [synthetic_vision_batch(batch=logical, image=path["image"], channels=3,
+                                      n_classes=10, step=i, device=model.device)
+               for i in range(2)]
+    lr = constant(path["lr"]["dp"])
+    opt = sgd()
+
+    def micro_rows(batch, i):
+        rows = slice(i * ACCUM_MICRO, (i + 1) * ACCUM_MICRO)
+        return {k: v[rows] for k, v in batch.items()}
+
+    def accumulate(micro, init, params, pstate, batch, gate=True):
+        acc = init()
+        torch.cuda.synchronize()
+        if gate:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(ACCUM_STEPS):
+                acc = micro(params, pstate, acc, micro_rows(batch, i), i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return acc
+
+    def update(new_state, p0):
+        return {k: v - p0[k] for k, v in flatten_dict(new_state["params"]).items()}
+
+    def against_direct(mode, dp):
+        """The accumulated logical batch against the direct calls: errors,
+        times and peaks, and the tensors compared."""
+        state = make_train_state(model, 0, opt)
+        params = state["params"]
+        p0 = flatten_dict(params)
+        _timed_clip(model, params, batches[1], mode)  # warm-up at the logical batch
+        (_, g_direct, aux), direct_ms, direct_peak, _ = _timed_clip(model, params, batches[0],
+                                                                   mode)
+        g_direct = flatten_dict(g_direct)
+        micro_norms, g_micro = [], None
+        for i in range(ACCUM_STEPS):
+            (_, g, a), _, _, _ = _timed_clip(model, params, micro_rows(batches[0], i), mode)
+            micro_norms.append(a["per_sample_norms"])
+            g = flatten_dict(g)
+            g_micro = g if g_micro is None else {k: g_micro[k] + g[k] for k in g}
+        micro_norms = torch.cat(micro_norms)
+        init, micro = make_accum_init(params, logical), make_accum_microstep(model, dp)
+        accumulate(micro, init, params, state["policy"], batches[1], gate=False)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        acc = accumulate(micro, init, params, state["policy"], batches[0])
+        torch.cuda.synchronize()
+        g_acc = flatten_dict(acc["grads"])
+        row = {"accum_ms": (time.perf_counter() - t0) * 1e3,
+               "accum_peak_bytes": torch.cuda.max_memory_allocated(),
+               "direct_ms": direct_ms, "direct_peak_bytes": direct_peak,
+               "norm_rel_err": _max_rel(acc["norms"], aux["per_sample_norms"]),
+               "grad_rel_err": _grad_rel_err(g_acc, g_direct),
+               "micro_norm_rel_err": _max_rel(acc["norms"], micro_norms),
+               "micro_grad_rel_err": _grad_rel_err(g_acc, g_micro),
+               "mask_equal": _equal(acc["mask"], batches[0]["mask"])}
+        kept = {"direct_norms": aux["per_sample_norms"], "direct_grads": g_direct,
+                "accum_norms": acc["norms"].clone(), "accum_grads": g_acc}
+        # the finalized update against make_train_step's on the logical batch
+        # and against make_noise_finalize over the microbatch-sized calls,
+        # same samples and seeds
+        new_a, _ = make_accum_finalize(opt, lr, dp)(state, acc)
+        new_d, _ = make_train_step(model, opt, lr, dp, device=model.device)(
+            make_train_state(model, 0, opt), batches[0])
+        new_m = make_noise_finalize(opt, lr, dp)(
+            make_train_state(model, 0, opt), unflatten_dict(g_micro), micro_norms,
+            batches[0]["mask"])
+        u_acc = update(new_a, p0)
+        row["update_rel_err"] = _grad_rel_err(u_acc, update(new_d, p0))
+        row["micro_update_rel_err"] = _grad_rel_err(u_acc, update(new_m, p0))
+        return row, kept
+
+    # the detector's own control: a host read of a device value must raise
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones((), device=model.device).item()
+        detected = False
+    except RuntimeError:
+        detected = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(detected, "sync debug mode 'error' let a device-to-host read pass")
+    out = {"sync_detector_control": detected}
+    refs = {"fp64": _fp64_definition(path, make_train_state(model, 0, opt)["params"],
+                                     batches[0], ACCUM_MICRO)}
+    for mode in ("mixed_ghost", "bk_mixed"):
+        dp = DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
+                           logical_batch=logical, accumulation_steps=ACCUM_STEPS)
+        out[mode], kept = {}, {}
+        for conv in ("native", "cudnn"):
+            with torch.backends.cudnn.flags(enabled=conv == "cudnn", benchmark=False,
+                                            deterministic=False, allow_tf32=False):
+                r, kept[conv] = against_direct(mode, dp)
+            logical_gated = conv == "native"
+            print(f"accum vgg19 {mode} ({conv} convolutions): {ACCUM_STEPS} x {ACCUM_MICRO} "
+                  f"vs {ACCUM_STEPS} direct {ACCUM_MICRO}-sample calls (gated): norms rel err "
+                  f"{r['micro_norm_rel_err']:.2e} (tol {NORM_TOL:.0e}), clipped grad sum rel "
+                  f"err {r['micro_grad_rel_err']:.2e} (tol {KERNEL_GRAD_TOL:.0e}), finalized "
+                  f"update vs make_noise_finalize {r['micro_update_rel_err']:.2e} (tol "
+                  f"{KERNEL_GRAD_TOL:.0e}); vs one {logical}-sample step "
+                  f"({'gated' if logical_gated else 'reported, not gated'}): norms rel err "
+                  f"{r['norm_rel_err']:.2e}, clipped grad sum rel err {r['grad_rel_err']:.2e}, "
+                  f"finalized update vs make_train_step {r['update_rel_err']:.2e}; mask equal "
+                  f"{r['mask_equal']}; microsteps {r['accum_ms']:.1f} ms under sync debug "
+                  f"'error', peak {r['accum_peak_bytes'] / 2**20:.1f} MiB; direct "
+                  f"{r['direct_ms']:.1f} ms, peak {r['direct_peak_bytes'] / 2**20:.1f} MiB")
+            require(r["mask_equal"], f"accum {mode}: the accumulated mask differs")
+            keys = ("micro_norm_rel_err", "micro_grad_rel_err", "micro_update_rel_err")
+            if logical_gated:
+                keys += ("norm_rel_err", "grad_rel_err", "update_rel_err")
+            for key in keys:
+                tol = NORM_TOL if key.endswith("norm_rel_err") else KERNEL_GRAD_TOL
+                require(r[key] <= tol, f"accum {mode} ({conv}): {key} {r[key]:.3e}")
+            out[mode][conv] = r
+        # where each convolution path and batch size sits: every reading
+        # against the fp64 definition of the same samples
+        labels = {"direct": f"one {logical}-sample call",
+                  "accum": f"{ACCUM_STEPS} x {ACCUM_MICRO} accumulated"}
+        vs = {}
+        for conv, k in kept.items():
+            for kind, label in labels.items():
+                vs[f"{conv}_{kind}"] = _against(refs, k[f"{kind}_grads"], k[f"{kind}_norms"])
+                print(f"accum vgg19 {mode} {conv} convolutions, {label}: "
+                      f"{_against_line(vs[f'{conv}_{kind}'])} (reported, not gated)")
+        out[mode]["vs"] = vs
+        del kept
+        # the quantile policy: one update per logical batch
+        policy = QuantilePolicy(release_sigma=1.0, init_clip_norm=1.0)
+        dpq = dataclasses.replace(dp, policy=policy)
+        sq = make_train_state(model, 0, opt, policy)
+        init = make_accum_init(sq["params"], logical)
+        micro_q, finalize_q = make_accum_microstep(model, dpq), make_accum_finalize(opt, lr, dpq)
+        steps, radii = [], []
+        for batch in batches:
+            acc = accumulate(micro_q, init, sq["params"], sq["policy"], batch)
+            sq, _ = finalize_q(sq, acc)
+            steps.append(int(sq["policy"]["step"]))
+            radii.append(float(sq["policy"]["clip_norm"]))
+        print(f"accum vgg19 {mode} quantile policy: step {steps} after each logical batch, "
+              f"R {radii}")
+        require(steps == [1, 2], f"accum {mode}: quantile policy steps {steps}, expected [1, 2]")
+        require(all(math.isfinite(r) for r in radii), f"accum {mode}: R {radii}")
+        out[mode]["quantile_steps"], out[mode]["quantile_clip_norms"] = steps, radii
+        del acc, sq
+    return out
+
 
 # ------------------------------------------------------- attention kernel --
 # (B, Sq, Skv, H, K, hd, causal, window, q_offset) and dtypes: Sq and Skv
@@ -1444,13 +1864,14 @@ def summary_line(kernels: dict, runs: dict) -> dict:
     return {"kernels": rows}
 
 
-def _model_params_batch(path: dict):
-    """A path's model, its parameters from seed 0 and the batch of step 0."""
+def _model_params_batch(path: dict, dtype=None):
+    """A path's model (in ``dtype`` compute where given), its parameters
+    from seed 0 and the batch of step 0."""
     import torch
 
     from repro_torch.data.synthetic import synthetic_vision_batch
 
-    model = path["build"]()
+    model = path["build"](dtype)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = synthetic_vision_batch(batch=path["batch"], image=path["image"], channels=3,
                                    n_classes=10, step=0, device="cuda")
@@ -1461,29 +1882,34 @@ def _paths() -> dict:
     """The two main paths, with the kernel shapes and expected launches of
     their taps.  Each phase builds a path's model anew (seed 0) and drops it
     after, so one path's memory never counts in the other's peak."""
+    import torch
+
     from repro_torch.configs.paper_native import VIT_BASE
     from repro_torch.models.cnn import VGG
     from repro_torch.models.vit import ViT
+
+    def vit(dtype=None):
+        cfg = VIT_BASE if dtype is None else dataclasses.replace(VIT_BASE, dtype=dtype)
+        return ViT(cfg, image_size=224, patch=16, n_classes=10, device="cuda")
 
     specs = {
         # the paper's Table 6 batch; DP modes step on the privatized mean of
         # gradients clipped to norm 1, non_private (as in the JAX package) on
         # the plain sum of unclipped gradients (per-sample norms ~200 at init)
-        "vgg19": dict(build=lambda: VGG("vgg19", device="cuda"), batch=128, image=32,
-                      lr={"non_private": 0.05 / (128 * 200), "mixed_ghost": 0.05,
-                          "bk_mixed": 0.05}),
+        "vgg19": dict(build=lambda dtype=None: VGG(
+                          "vgg19", dtype=getattr(torch, dtype or "float32"), device="cuda"),
+                      batch=128, image=32, lr={"non_private": 0.05 / (128 * 200), "dp": 0.05}),
         # ViT-Base/16 on CIFAR-10 upscaled to 224, as the paper fine-tunes
-        # its ViTs; small learning rates keep 86M noisy coordinates finite
-        "vit_base": dict(build=lambda: ViT(VIT_BASE, image_size=224, patch=16, n_classes=10,
-                                           device="cuda"),
-                         batch=32, image=224,
-                         lr={"non_private": 1e-3 / 32, "mixed_ghost": 1e-3,
-                             "bk_mixed": 1e-3}),
+        # its ViTs; small learning rates keep 86M noisy coordinates finite.
+        # bf16 compute; the oracle's gate runs it in fp32 compute
+        "vit_base": dict(build=vit, batch=32, image=224,
+                         lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
     }
     for tag, path in specs.items():
         model, params, batch = _model_params_batch(path)
         path["dtype"] = _name(model.dtype)
-        path["shapes"], path["expected"] = main_path_shapes(model, params, batch)
+        path["shapes"], path["expected"], path["taps_shapes"] = main_path_shapes(
+            model, params, batch)
         print(f"{tag} at batch {path['batch']} ({path['dtype']} compute): "
               f"expected kernel launches per step {path['expected']}")
     return specs
@@ -1502,6 +1928,10 @@ def run() -> dict:
     kernels["flash_attention"] = phase_flash_kernel()
     slices = {tag: phase_slice(tag, path, STEPS) for tag, path in paths.items()}
     compare = {tag: phase_compare(tag, path) for tag, path in paths.items()}
+    oracle = {"vgg19": phase_oracle("vgg19", paths["vgg19"], native_ref=True),
+              "vit_base": phase_oracle("vit_base", paths["vit_base"], "float32"),
+              "vit_base_bfloat16": phase_oracle("vit_base", paths["vit_base"], gated=False)}
+    accum = phase_accum(paths["vgg19"])
     serve = phase_serve()
     summary = summary_line(kernels, {**slices, "serve": serve})
     OUT_DIR.mkdir(exist_ok=True)
@@ -1510,7 +1940,8 @@ def run() -> dict:
         "paths": {tag: {"batch": path["batch"], "image": path["image"],
                         "dtype": path["dtype"], "expected": path["expected"]}
                   for tag, path in paths.items()},
-        "kernels": kernels, "slice": slices, "compare": compare, "serve": serve,
+        "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
+        "accum": accum, "serve": serve,
         "summary": summary,
     }, indent=1))
     return {"summary": summary, "card": card}

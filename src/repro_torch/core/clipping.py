@@ -5,11 +5,15 @@ everything else happens here.  Every mode is a ``ClipExecutor``, one
 three-stage pipeline
 
     norms stage    -> per-sample squared norms (mode-specific machinery)
-    factor stage   -> C_i = clip_fn(||g_i||, R) * mask      (the ClipPolicy)
+    factor stage   -> C_i = policy(||g_i||) * mask         (the ClipPolicy)
     gradient stage -> sum_i C_i g_i                         (mode-specific)
 
-Modes in this slice:
+Modes:
 
+- ``vmap``  the Opacus analogue and the correctness oracle: per-sample
+  gradients from ``torch.func.vmap`` of ``torch.func.grad_and_value`` of
+  the single-sample loss (the forward under ``Ctx.disabled()``), clipped
+  and summed; O(B x |params|) memory.
 - ``ghost`` / ``fastgradclip`` / ``mixed_ghost``  the fused probes compute
   the norms inside the first backward (ghost norm everywhere / instantiation
   everywhere / the paper's Eq-(4.1) layerwise choice, Alg. 1), then a second
@@ -18,9 +22,19 @@ Modes in this slice:
 - ``bk_mixed``  book-keeping (arXiv:2210.00038): the probes also bank the
   residuals, and the gradient stage contracts the banks with the clip
   factors; no second backward.
+- ``*_taps``  the reference executors on the explicit-tap engine: every tap
+  records its input and keeps its pre-activation ``s``; the first backward
+  is taken with respect to the ``s`` tensors, the norms are computed per
+  tap afterwards, then a second backward (``bk_mixed_taps``: a book
+  contraction of every tap).  The exactness oracle for the fused engine.
 - ``non_private``  C_i = 1, the baseline.
 
-``vmap`` and the ``*_taps`` reference executors come with a later slice.
+Grouped policies (``per_layer``) take ``path_norms2``, each parameter
+path's squared-norm contribution, from every executor and give one factor
+row per layer group: the second-backward modes run one backward per group
+on the retained graph, book-keeping contracts each tap (and each psg bank,
+in the one grouped launch) against its own group's row, vmap scales each
+leaf.
 
 Flow of the fused family (``FusedExecutor``)::
 
@@ -29,25 +43,31 @@ Flow of the fused family (``FusedExecutor``)::
                                                     # param-grad kernels pruned
     C = policy(sqrt(sum_tap banks[tap]["n"])) * mask
     grad(losses, inputs=params, grad_outputs=C)     # 2nd backward (not bk_mixed)
+
+The tuner's knobs (a ClipPlan's per-tap branches and kernels,
+``decision_by``, ``ghost_block``, ``inst_block_d``) come with the tuner's
+slice; the port fixes them at the JAX defaults.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
 from repro_torch.core import ghost
 from repro_torch.core.taps import ClipRuntime, Ctx, TapMeta, bank_keys
 from repro_torch.kernels import dispatch
-from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from repro_torch.policies.base import GroupedFactors, group_index
+from repro_torch.utils.tree import flatten_dict, tree_map, unflatten_dict
 
 LossFn = Callable[..., torch.Tensor]  # (params, batch, ctx) -> (B,) losses
 
-MODES = ("ghost", "fastgradclip", "mixed_ghost", "bk_mixed", "non_private")
-LATER_MODES = (
-    "vmap", "ghost_taps", "fastgradclip_taps", "mixed_ghost_taps", "bk_mixed_taps",
+MODES = (
+    "vmap", "ghost", "fastgradclip", "mixed_ghost", "bk_mixed",
+    "ghost_taps", "fastgradclip_taps", "mixed_ghost_taps", "bk_mixed_taps",
+    "non_private",
 )
 
 
@@ -108,15 +128,53 @@ def _leaves_requiring_grad(params: Any) -> tuple[dict[str, torch.Tensor], Any]:
     return leaves, unflatten_dict(leaves)
 
 
-def _param_grads(losses, leaves: dict[str, torch.Tensor], cotangent) -> Any:
+def _param_grads(losses, leaves: dict[str, torch.Tensor], cotangent,
+                 retain_graph: bool = False) -> dict[str, torch.Tensor]:
+    """{path: grad of sum_i cotangent_i L_i} over ``leaves`` (zeros where unused)."""
     grads = torch.autograd.grad(
         losses, list(leaves.values()), grad_outputs=cotangent.to(losses.dtype),
-        allow_unused=True,
+        allow_unused=True, retain_graph=retain_graph,
     )
+    return {k: torch.zeros_like(v) if gr is None else gr
+            for (k, v), gr in zip(leaves.items(), grads)}
+
+
+def _grouped_second_backward(st: "_NormState", c: GroupedFactors) -> Any:
+    """Second-backward gradient stage under per-layer-group clip factors.
+
+    The loss cotangent is one weight per sample, so factors that differ per
+    layer group cannot ride one second backward: one backward per group,
+    each over that group's leaves only, on the graph retained through all
+    but the last.
+    """
+    by_group: dict[int, dict[str, torch.Tensor]] = {}
+    for path, leaf in st.leaves.items():
+        by_group.setdefault(c.group_index(path), {})[path] = leaf
+    out: dict[str, torch.Tensor] = {}
+    order = sorted(by_group)
+    for i, gi in enumerate(order):
+        out.update(_param_grads(st.losses, by_group[gi], c.factors[gi],
+                                retain_graph=i < len(order) - 1))
+    return unflatten_dict({path: out[path] for path in st.leaves})
+
+
+def _assemble_bk_grads(params: Any, parts: Iterable[dict[str, torch.Tensor]]) -> Any:
+    """Book-keeping gradient assembly: sum every part's {path: grad}, zero-fill
+    the uncovered (frozen) leaves and cast back to each leaf's dtype."""
+    flat_params = flatten_dict(params)
+    flat_grads: dict[str, torch.Tensor] = {}
+    for part in parts:
+        for path, val in part.items():
+            flat_grads[path] = flat_grads[path] + val if path in flat_grads else val
     return unflatten_dict({
-        k: torch.zeros_like(v) if gr is None else gr
-        for (k, v), gr in zip(leaves.items(), grads)
+        path: flat_grads[path].to(leaf.dtype) if path in flat_grads else torch.zeros_like(leaf)
+        for path, leaf in flat_params.items()
     })
+
+
+def _stacked(xs: list[torch.Tensor]) -> torch.Tensor:
+    """One tap's per-layer tensors on a leading stack dim (one layer: as is)."""
+    return xs[0] if len(xs) == 1 else torch.stack(xs)
 
 
 @dataclasses.dataclass
@@ -128,14 +186,21 @@ class _NormState:
     leaves: Optional[dict[str, torch.Tensor]] = None  # second-backward modes
     runtime: Optional[ClipRuntime] = None  # the probes' phase flag and banks
     meta: Optional[dict[str, TapMeta]] = None
+    acts: Optional[dict[str, torch.Tensor]] = None  # explicit engine, per tap
+    gs: Optional[dict[str, torch.Tensor]] = None  # explicit engine: dL/ds per tap
+    per_sample_grads: Optional[dict[str, torch.Tensor]] = None  # vmap only
+    # grouped policies: {param_path: (B,)} squared-norm contributions,
+    # summing to norms2
+    path_norms2: Optional[dict[str, torch.Tensor]] = None
 
 
 class ClipExecutor:
     """Template for every clipping mode: norms -> clip factors -> gradients.
 
     ``fn(params, batch, policy_state=None) -> (mean_loss, clipped_grad_sum,
-    aux)`` with aux = {"per_sample_norms": (B,), "clip_factors": (B,)}.
-    Noise is added downstream by the privacy engine.
+    aux)`` with aux = {"per_sample_norms": (B,), "clip_factors": (B,)} (a
+    grouped policy reports its smallest factor per sample).  Noise is added
+    downstream by the privacy engine.
     """
 
     def __init__(self, loss_with_ctx: LossFn, cfg: ClipConfig):
@@ -147,12 +212,41 @@ class ClipExecutor:
             from repro_torch.policies.fixed import FixedPolicy
 
             self.policy = FixedPolicy(clip_norm=cfg.clip_norm, clip_fn=cfg.clip_fn)
+        self.grouped = bool(getattr(self.policy, "grouped", False))
 
     def _norm_state(self, params, batch) -> _NormState:
         raise NotImplementedError
 
-    def _clip_factors(self, norms, mask, pstate) -> torch.Tensor:
-        c = self.policy.clip_factors(norms, pstate)
+    def _tally(self, per_tap: Iterable[tuple[TapMeta, torch.Tensor]], b: int,
+               device: torch.device):
+        """(norms2 (B,), path_norms2 or None) from each tap's (B,) norm."""
+        norms2 = torch.zeros(b, dtype=torch.float32, device=device)
+        path_norms2: Optional[dict[str, torch.Tensor]] = {} if self.grouped else None
+        for m, n in per_tap:
+            norms2 = norms2 + n
+            if path_norms2 is not None:
+                prev = path_norms2.get(m.param_path)
+                path_norms2[m.param_path] = n if prev is None else prev + n
+        return norms2, path_norms2
+
+    def _validate_groups(self, meta: dict[str, TapMeta]) -> None:
+        """A group boundary must not split a tap's (weight, bias) pair: their
+        per-sample norm is computed jointly."""
+        for name, m in meta.items():
+            if m.bias_path is None:
+                continue
+            groups = self.policy.groups
+            if group_index(groups, m.param_path) != group_index(groups, m.bias_path):
+                raise ValueError(
+                    f"layer groups split tap {name!r}: weight {m.param_path!r} and bias "
+                    f"{m.bias_path!r} land in different groups but share one per-sample norm"
+                )
+
+    def _clip_factors(self, norms, mask, st: _NormState, pstate):
+        c = self.policy.clip_factors(norms, pstate, path_norms2=st.path_norms2)
+        if isinstance(c, GroupedFactors):
+            f = c.factors if mask is None else c.factors * mask.to(c.factors.dtype)[None, :]
+            return dataclasses.replace(c, factors=f.detach())
         if mask is not None:
             c = c * mask.to(c.dtype)
         return c.detach()
@@ -164,11 +258,13 @@ class ClipExecutor:
         mask = _batch_mask(batch)
         st = self._norm_state(params, batch)
         norms = torch.sqrt(st.norms2)
-        pstate = policy_state if policy_state is not None else self.policy.init_state()
-        c = self._clip_factors(norms, mask, pstate)
+        pstate = (policy_state if policy_state is not None
+                  else self.policy.init_state(device=norms.device))
+        c = self._clip_factors(norms, mask, st, pstate)
         grads = self._weighted_grads(st, c, params)
         loss = st.losses.detach().sum() / st.losses.shape[0]
-        return loss, grads, {"per_sample_norms": norms, "clip_factors": c}
+        rep = c.representative if isinstance(c, GroupedFactors) else c
+        return loss, grads, {"per_sample_norms": norms, "clip_factors": rep}
 
 
 class NonPrivateExecutor(ClipExecutor):
@@ -183,11 +279,54 @@ class NonPrivateExecutor(ClipExecutor):
             leaves=leaves,
         )
 
-    def _clip_factors(self, norms, mask, pstate):
+    def _clip_factors(self, norms, mask, st, pstate):
         return torch.ones_like(norms)
 
     def _weighted_grads(self, st, c, params):
-        return _param_grads(st.losses, st.leaves, c)
+        return unflatten_dict(_param_grads(st.losses, st.leaves, c))
+
+
+class VmapExecutor(ClipExecutor):
+    """Opacus analogue and correctness oracle: vmap(grad) per sample.
+
+    Each sample gets a singleton batch dim (``x[:, None]``) and runs the
+    forward under ``Ctx.disabled()``, so no tap, probe or kernel is on its
+    path.  Keeps the per-sample gradients (B x |params| floats); the
+    per-path norms are exact, so grouped policies need nothing more.
+    """
+
+    _groups_checked = False
+
+    def _norm_state(self, params, batch) -> _NormState:
+        from torch.func import grad_and_value, vmap
+
+        def single(p, ex):
+            return self.loss(p, ex, Ctx.disabled())[0]
+
+        per_ex = tree_map(lambda x: x[:, None], batch)
+        grads, losses = vmap(grad_and_value(single), in_dims=(None, 0))(params, per_ex)
+        flat = flatten_dict(grads)
+        if self.grouped and not self._groups_checked:
+            # a group boundary through a tap's (weight, bias) pair would give
+            # this oracle semantics no other executor reproduces; the taps
+            # are the model's, so one traced forward checks them for good
+            self._validate_groups(discover_meta(self.loss, params, batch))
+            self._groups_checked = True
+        b = losses.shape[0]
+        per_path = {path: g.float().reshape(b, -1).square().sum(dim=-1)
+                    for path, g in flat.items()}
+        return _NormState(
+            losses=losses, norms2=sum(per_path.values()), per_sample_grads=flat,
+            path_norms2=per_path if self.grouped else None,
+        )
+
+    def _weighted_grads(self, st, c, params):
+        grouped = isinstance(c, GroupedFactors)
+        return unflatten_dict({
+            path: torch.tensordot(c.for_path(path) if grouped else c, g.float(),
+                                  dims=([0], [0])).to(g.dtype)
+            for path, g in st.per_sample_grads.items()
+        })
 
 
 class FusedExecutor(ClipExecutor):
@@ -203,8 +342,7 @@ class FusedExecutor(ClipExecutor):
         return self.cfg.mode == "bk_mixed"
 
     def _norm_state(self, params, batch) -> _NormState:
-        cfg = self.cfg
-        runtime = ClipRuntime(mode=cfg.mode)
+        runtime = ClipRuntime(mode=self.cfg.mode)
         leaves = None
         if not self.is_bk:
             leaves, params = _leaves_requiring_grad(params)
@@ -217,52 +355,54 @@ class FusedExecutor(ClipExecutor):
             retain_graph=not self.is_bk,
         )
         runtime.phase = "grad"
-        b = losses.shape[0]
-        norms2 = torch.zeros(b, dtype=torch.float32, device=losses.device)
-        for name, m in ctx.meta.items():  # a stacked tap: one bank per layer
-            for key in bank_keys(name, m):
-                norms2 = norms2 + runtime.banks[key]["n"]
+        if self.grouped:
+            self._validate_groups(ctx.meta)
+        norms2, path_norms2 = self._tally(
+            ((m, sum(runtime.banks[k]["n"] for k in bank_keys(name, m)))  # over layers
+             for name, m in ctx.meta.items()),
+            losses.shape[0], losses.device,
+        )
         return _NormState(
             losses=losses.detach() if self.is_bk else losses,
             norms2=norms2, leaves=leaves, runtime=runtime, meta=ctx.meta,
+            path_norms2=path_norms2,
         )
 
     def _weighted_grads(self, st, c, params):
+        grouped = isinstance(c, GroupedFactors)
         if not self.is_bk:
-            return _param_grads(st.losses, st.leaves, c)  # second backward
+            if grouped:
+                return _grouped_second_backward(st, c)
+            return unflatten_dict(_param_grads(st.losses, st.leaves, c))  # second backward
         # book-keeping: contractions of the banks; nothing re-propagates.
-        # A book contracts per tap; every psg bank of the step contracts in
-        # one grouped call, its sums written to the parameter paths after
+        # A book contracts per tap against its group's factors; every psg
+        # bank of the step contracts in one grouped call, each against its
+        # own group's row, its sums written to the parameter paths after
         flat_params = flatten_dict(params)
-        flat_grads: dict[str, torch.Tensor] = {}
-
-        def add(path, val):
-            flat_grads[path] = flat_grads[path] + val if path in flat_grads else val
-
-        segments = []
+        parts, segments = [], []
         for name, m in st.meta.items():
             banks = [st.runtime.banks.pop(k) for k in bank_keys(name, m)]
             shape = tuple(flat_params[m.param_path].shape)
             if "g" in banks[0]:
                 book = _stack_banks(banks)
-                for path, val in ghost.tap_weighted_grads(m, book["a"], book["g"], c,
-                                                          shape).items():
-                    add(path, val)
+                cw = c.for_path(m.param_path) if grouped else c
+                parts.append(ghost.tap_weighted_grads(m, book["a"], book["g"], cw, shape))
             else:
                 segments.extend(ghost.psg_segments(m, banks, shape))
         if segments:
-            sums = dispatch.psg_contract_grouped([x for _, _, xs in segments for x in xs], c)
-            at = 0
+            psgs = [x for _, _, xs in segments for x in xs]
+            if grouped:
+                rows = [c.group_index(path) for path, _, xs in segments for _ in xs]
+                sums = dispatch.psg_contract_grouped(psgs, c.factors, rows)
+            else:
+                sums = dispatch.psg_contract_grouped(psgs, c)
+            at, part = 0, {}
             for path, shape, _ in segments:
                 size = math.prod(shape)
-                add(path, sums[at:at + size].reshape(shape))
+                part[path] = sums[at:at + size].reshape(shape)
                 at += size
-        for path, leaf in flat_params.items():
-            if path not in flat_grads:
-                flat_grads[path] = torch.zeros_like(leaf)
-            else:
-                flat_grads[path] = flat_grads[path].to(leaf.dtype)
-        return unflatten_dict(flat_grads)
+            parts.append(part)
+        return _assemble_bk_grads(params, parts)
 
 
 def _stack_banks(banks: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
@@ -273,12 +413,82 @@ def _stack_banks(banks: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor
     return {k: torch.stack([bk[k] for bk in banks]) for k in banks[0] if k != "n"}
 
 
+class TapsExecutor(ClipExecutor):
+    """Reference explicit-tap engine (``*_taps`` modes).
+
+    The forward records every tap's input and pre-activation (``Ctx`` with
+    ``acts``).  The first backward is taken with respect to the
+    pre-activations only, which gives each tap's ``dL/ds`` and prunes every
+    parameter-gradient kernel; ``tap_norm_sq`` then norms each tap (a
+    stacked tap once, its layers stacked on a leading dim) on the branch its
+    mode picks.  The gradient stage is a second backward over the retained
+    graph, or for ``bk_mixed_taps`` a book contraction of every tap
+    (``ghost.tap_weighted_grads``).  It keeps every activation and
+    cotangent of the step: the transparent formulation the fused engine is
+    tested against.
+    """
+
+    def __init__(self, loss_with_ctx: LossFn, cfg: ClipConfig):
+        super().__init__(loss_with_ctx, cfg)
+        self.branch_mode = cfg.mode.removesuffix("_taps")
+
+    @property
+    def is_bk(self) -> bool:
+        return self.branch_mode == "bk_mixed"
+
+    def _norm_state(self, params, batch) -> _NormState:
+        leaves, p = _leaves_requiring_grad(params)
+        ctx = Ctx(meta={}, acts={})
+        losses = self.loss(p, batch, ctx)
+        keys = list(ctx.zs)
+        # first backward: dL/ds at every tap; the graph stays for the second
+        gs = torch.autograd.grad(
+            losses, [ctx.zs[k] for k in keys], grad_outputs=torch.ones_like(losses),
+            retain_graph=not self.is_bk, allow_unused=True,
+        )
+        cot = {k: torch.zeros_like(ctx.zs[k]) if g is None else g for k, g in zip(keys, gs)}
+        if self.grouped:
+            self._validate_groups(ctx.meta)
+        acts, cots, per_tap = {}, {}, []
+        for name, m in ctx.meta.items():
+            ks = bank_keys(name, m)
+            acts[name] = _stacked([ctx.acts[k] for k in ks])
+            cots[name] = _stacked([cot[k] for k in ks])
+            per_tap.append((m, ghost.tap_norm_sq(m, acts[name], cots[name],
+                                                 mode=self.branch_mode)))
+        norms2, path_norms2 = self._tally(per_tap, losses.shape[0], losses.device)
+        if not self.is_bk:  # the second backward needs no activation or cotangent
+            return _NormState(losses=losses, norms2=norms2, leaves=leaves,
+                              path_norms2=path_norms2)
+        return _NormState(losses=losses.detach(), norms2=norms2, meta=ctx.meta, acts=acts,
+                          gs=cots, path_norms2=path_norms2)
+
+    def _weighted_grads(self, st, c, params):
+        grouped = isinstance(c, GroupedFactors)
+        if not self.is_bk:
+            if grouped:
+                return _grouped_second_backward(st, c)
+            return unflatten_dict(_param_grads(st.losses, st.leaves, c))  # second backward
+        flat_params = flatten_dict(params)
+        return _assemble_bk_grads(params, (
+            ghost.tap_weighted_grads(m, st.acts[name], st.gs[name],
+                                     c.for_path(m.param_path) if grouped else c,
+                                     tuple(flat_params[m.param_path].shape))
+            for name, m in st.meta.items()
+        ))
+
+
 _EXECUTORS = {
     "non_private": NonPrivateExecutor,
+    "vmap": VmapExecutor,
     "ghost": FusedExecutor,
     "fastgradclip": FusedExecutor,
     "mixed_ghost": FusedExecutor,
     "bk_mixed": FusedExecutor,
+    "ghost_taps": TapsExecutor,
+    "fastgradclip_taps": TapsExecutor,
+    "mixed_ghost_taps": TapsExecutor,
+    "bk_mixed_taps": TapsExecutor,
 }
 
 
@@ -286,11 +496,8 @@ def dp_value_and_clipped_grad(
     loss_with_ctx: LossFn, cfg: ClipConfig = ClipConfig()
 ) -> ClipExecutor:
     """Returns fn(params, batch, policy_state=None) -> (mean_loss,
-    clipped_grad_sum, aux); ``clipped_grad_sum`` is sum_i C_i g_i."""
-    if cfg.mode in LATER_MODES:
-        raise NotImplementedError(
-            f"clipping mode {cfg.mode!r} is ported with a later slice; have {MODES}"
-        )
+    clipped_grad_sum, aux); ``clipped_grad_sum`` is sum_i C_i g_i.  The
+    policy's update runs outside (once per logical batch, ``launch.steps``)."""
     try:
         executor_cls = _EXECUTORS[cfg.mode]
     except KeyError:

@@ -7,9 +7,12 @@
     engine.record_step()
 
 ``privatize`` adds noise once per *logical* batch and divides by the
-logical batch size (the paper's virtual-step semantics).  The tuner entry
-points (``tune``, ``use_plan``, ``recertify_max_batch``) come with the
-tuner's slice.
+logical batch size (the paper's virtual-step semantics).  ``mode`` is any
+of ``clipping.MODES``; ``clip_policy`` any ClipPolicy (``make_policy``),
+and a policy that releases a statistic each step (quantile) is composed
+into the accountant beside the gradient mechanism, in ``epsilon`` and in
+the ``target_epsilon`` search alike.  The tuner entry points (``tune``,
+``use_plan``, ``recertify_max_batch``) come with the tuner's slice.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.core.accountant import RDPAccountant, compute_epsilon, find_noise_multiplier
 from repro_torch.core.clipping import (
+    MODES,
     ClipConfig,
     discover_meta,
     dp_value_and_clipped_grad,
@@ -51,6 +55,8 @@ class PrivacyEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.mode not in MODES:
+            raise ValueError(f"unknown clipping mode {self.mode!r}; have {MODES}")
         self.sampling_rate = self.batch_size / self.sample_size
         if self.steps is None:
             if self.epochs is None:
@@ -85,7 +91,8 @@ class PrivacyEngine:
         return (ev.release_sigma,) if ev.spends else ()
 
     def init_policy_state(self) -> Any:
-        return self.clip_policy.init_state()
+        """The policy state the first step takes, on the engine's device."""
+        return self.clip_policy.init_state(device=self.device)
 
     def validate(self, params: Any, batch: Any) -> None:
         """Raise if any trainable parameter escapes per-sample clipping."""
@@ -107,7 +114,7 @@ class PrivacyEngine:
         """Add sigma * sensitivity * N(0, I) once per logical batch, then
         divide by the logical batch size.  ``generator`` lives on the
         gradients' device."""
-        pstate = policy_state if policy_state is not None else self.clip_policy.init_state()
+        pstate = policy_state if policy_state is not None else self.init_policy_state()
         std = self.noise_multiplier * self.clip_policy.sensitivity(pstate)
         noisy = add_dp_noise(grad_sum, generator, std)
         return tree_map(lambda g: (g.float() / self.batch_size).to(g.dtype), noisy)

@@ -10,7 +10,10 @@ directly from the banked residuals, skipping the second backward.
 - ``tap_norm_sq``          per-sample norm^2 from (a, g);
 - ``tap_bank``             the fused probe's backward payload for one tap
                            (one layer of a stack);
-- ``tap_weighted_grads``   ``sum_i C_i g_i`` from an (a, g) book;
+- ``tap_weighted_grads``   ``sum_i C_i g_i`` of one tap from its (a, g)
+                           book, every kind (the bk_mixed gradient stage
+                           of a ghost-banked tap, and of every tap under
+                           ``bk_mixed_taps``);
 - ``psg_segments``         a psg-banked tap's per-sample gradients as
                            the segments of the step's one grouped
                            contraction (``dispatch.psg_contract_grouped``).
@@ -262,28 +265,24 @@ def tap_weighted_grads(
     clip: torch.Tensor,  # (B,) clip factors C_i
     param_shape: tuple[int, ...],
 ) -> dict[str, torch.Tensor]:
-    """Book-keeping gradients sum_i C_i g_i of a matmul or embedding tap,
-    from its (a, g) book (stack dims leading).
+    """Book-keeping gradients sum_i C_i g_i of one tap from its (a, g) book
+    (stack dims leading), every kind.
 
     A matmul's weight goes through one ``dispatch.book_weighted_grad``
     launch with the layers and groups on its leading dim, M = L*G (the CUDA
     kernel scales cotangent tiles in shared memory, so ``C_i * g_i`` never
     reaches device memory).  An embedding's weighted rows are scatter-added
-    by id.  Returns {param_path: grad, [bias_path: grad]}.
+    by id; a scale (norm gain) or bias tap's weighted cotangent is summed
+    over samples and positions, times the recorded ``x_hat`` for a scale.
+    Returns {param_path: grad, [bias_path: grad]}.
     """
-    if meta.kind not in ("matmul", "embedding"):
-        raise NotImplementedError(
-            f"book contraction of {meta.kind!r} taps comes with the *_taps executors"
-        )
+    if meta.kind not in ("matmul", "embedding", "scale", "bias"):
+        raise _unsupported(meta)
     b = meta.batch_size
     lead = meta.n_stack
     gdim = max(meta.n_groups, 1)
     cw = clip.float()
-    if meta.kind == "embedding":
-        gw = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
-        w = torch.zeros(param_shape, dtype=torch.float32, device=g.device)
-        out = {meta.param_path: w.index_add_(0, a.reshape(-1), gw.reshape(-1, meta.p))}
-    else:
+    if meta.kind == "matmul":
         if meta.conv is not None:
             aa = unfold2d(a.reshape((lead * b,) + tuple(a.shape[-3:])), meta.conv)
         else:
@@ -297,6 +296,16 @@ def tap_weighted_grads(
         w2 = cw[:, None].expand(b, meta.T).reshape(1, b * meta.T).expand(lead * gdim, -1)
         w = dispatch.book_weighted_grad(a2, g2, w2)
         out = {meta.param_path: _finish_matmul_grad(meta, w, param_shape)}
+    else:
+        gw = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
+        if meta.kind == "embedding":
+            w = torch.zeros(param_shape, dtype=torch.float32, device=g.device)
+            w = w.index_add_(0, a.reshape(-1), gw.reshape(-1, meta.p))
+        elif meta.kind == "scale":
+            w = (gw * a.float().reshape(gw.shape)).sum(dim=(1, 2)).reshape(param_shape)
+        else:
+            w = gw.sum(dim=(1, 2)).reshape(param_shape)
+        out = {meta.param_path: w}
     if meta.bias_path is not None:
         gb = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
         out[meta.bias_path] = gb.sum(dim=(1, 2)).reshape(meta.stack_dims + (meta.p,))

@@ -4,10 +4,22 @@ The paper's algorithm needs, for every parameterized linear op
 ``s = U(a) @ W + b``, the pair ``(a_i, dL/ds_i)`` per sample.  Every such op
 hands its pre-activation ``s`` and its input ``a`` to ``Ctx.tap``:
 
-- in discovery mode (``clip=None``) the tap only records its ``TapMeta``;
+- in discovery mode (``clip=None``, ``acts=None``) the tap only records its
+  ``TapMeta``;
 - under the fused engine (``clip`` set) ``s`` is routed through an identity
   probe (``core/fused.py``) whose backward computes the tap's per-sample
-  norm (and, in book-keeping mode, its bank) from ``a`` and ``dL/ds``.
+  norm (and, in book-keeping mode, its bank) from ``a`` and ``dL/ds``;
+- under the explicit engine (``acts`` set: the ``*_taps`` reference
+  executors) the tap records ``a`` in ``acts`` and keeps ``s`` itself in
+  ``zs``.  The engine's first ``torch.autograd.grad`` is taken with respect
+  to those ``s`` tensors, which gives ``dL/ds`` per tap: PyTorch's own
+  idiom, so the JAX package's zero taps added to every pre-activation
+  (``make_zero_taps``, ``tap_specs``) have no counterpart here.  Late taps
+  (``late=True``, ``record_act``: recurrent LM weights) come with the LM
+  slice.
+
+In both engines ``zs`` holds what the first backward differentiates with
+respect to: the probes' dummy leaves, or the pre-activations themselves.
 
 Tap names and param paths are the JAX package's (``conv4/out``,
 ``conv4/w``, ``gn5/g``), so tests compare the two per tap by name.
@@ -20,9 +32,11 @@ with an optional bias, and ``embedding``.
 
 Stacked layers (``nn/stack.py``'s ``ScannedStack``) run one block per layer
 under the same tap names.  The meta is recorded once per name with a
-leading stack dim (``TapMeta.with_stack``), and each layer's probe banks
-under its own key ``(name, layer)``; the clipping engine sums the norms
-over the layers and contracts the stacked banks once per name.
+leading stack dim (``TapMeta.with_stack``), and each layer's probe bank,
+activation and pre-activation under its own key ``(name, layer)``; the
+fused engine sums the norms over the layers and contracts the stacked banks
+once per name, the explicit engine stacks a tap's per-layer ``a`` and
+``dL/ds`` on a leading dim and norms (and contracts) them once per name.
 """
 from __future__ import annotations
 
@@ -111,10 +125,12 @@ class Ctx:
     each tap adds one 0-dim dummy leaf to ``zs``: the first backward asks
     autograd for the gradients of those leaves only, which runs every probe
     and prunes every parameter-gradient kernel.  ``stack`` is set inside a
-    ``ScannedStack``: (this layer's index, the number of layers).
+    ``ScannedStack``: (this layer's index, the number of layers).  ``acts``
+    set (and ``clip`` None) is the explicit engine: each tap records its
+    input there and its pre-activation in ``zs``.
     """
 
-    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack")
+    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack", "acts")
 
     def __init__(
         self,
@@ -124,6 +140,7 @@ class Ctx:
         clip: Optional[ClipRuntime] = None,
         zs: Optional[dict[BankKey, torch.Tensor]] = None,
         stack: Optional[tuple[int, int]] = None,
+        acts: Optional[dict[BankKey, torch.Tensor]] = None,
     ):
         self.meta = {} if meta is None else meta
         self.path = path
@@ -131,15 +148,18 @@ class Ctx:
         self.clip = clip
         self.zs = {} if zs is None else zs
         self.stack = stack
+        self.acts = acts
 
     def scope(self, name: str) -> "Ctx":
-        return Ctx(self.meta, self._join(name), self.collect, self.clip, self.zs, self.stack)
+        return Ctx(self.meta, self._join(name), self.collect, self.clip, self.zs, self.stack,
+                   self.acts)
 
     def layer(self, index: int, n: int) -> "Ctx":
         """The context of layer ``index`` of an ``n``-layer stack."""
         if self.stack is not None:
             raise NotImplementedError("nested layer stacks come with the LM slice")
-        return Ctx(self.meta, self.path, self.collect, self.clip, self.zs, (index, n))
+        return Ctx(self.meta, self.path, self.collect, self.clip, self.zs, (index, n),
+                   self.acts)
 
     def _join(self, name: str) -> str:
         return f"{self.path}/{name}" if self.path else name
@@ -183,6 +203,10 @@ class Ctx:
             index, n = self.stack
             self.meta[full] = meta.with_stack(n)
             key = (full, index)
+        if self.acts is not None:  # explicit engine: dL/ds is taken at s itself
+            self.acts[key] = a.detach()
+            self.zs[key] = s
+            return s
         if self.clip is None:
             return s
         from repro_torch.core.fused import probe

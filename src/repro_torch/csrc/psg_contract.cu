@@ -1,9 +1,11 @@
 // Weighted bank sums of book-keeping clipping, one launch for a group of
-// banks that share the clip factors:
+// banks, each with its own row of clip factors:
 //
-//     out_s[f] = sum_n c[n] * psg_s[n, f]     psg_s (N, F_s), c (N,) -> out_s (F_s,) fp32
+//     out_s[f] = sum_n c_s[n] * psg_s[n, f]     psg_s (N, F_s), c_s (N,) -> out_s (F_s,) fp32
 //
-// for every segment s of the group.  Replaces
+// for every segment s of the group.  Under one global clip threshold every
+// c_s is the same row; under per-layer clipping each bank takes its own
+// layer group's row, and the step stays one launch.  Replaces
 // src/repro/kernels/psg_contract/psg_contract.py::psg_contract_pallas, which
 // contracts one bank per call.
 //
@@ -13,9 +15,9 @@
 // 40 of them, 2 KB to 75 MB; ViT-Base: 50, 96 KB each), so one launch per
 // bank costs more in host launch time than the card spends reading them.
 //
-// Design: one launch per group.  The segment descriptors {psg, out, F, dtype}
-// travel by value in a __grid_constant__ kernel parameter (up to
-// kMaxSegments of them, ~10 KB; CUDA 12.1+ takes 32 KB of parameters), so no
+// Design: one launch per group.  The segment descriptors {psg, out, F, dtype,
+// c} travel by value in a __grid_constant__ kernel parameter (up to
+// kMaxSegments of them, ~11.3 KB; CUDA 12.1+ takes 32 KB of parameters), so no
 // host-to-device copy precedes the launch; a longer list is launched in
 // chunks by the caller.  The grid is the concatenation of every segment's
 // column blocks, and a block finds its segment by binary search over the
@@ -39,10 +41,10 @@ struct Segment {
   float* out;
   long long f;
   int dtype;
+  const float* c;  // this segment's row of clip factors, (n,) fp32
 };
 
 struct Group {
-  const float* c;
   int n;
   int n_segments;
   int first_block[kMaxSegments + 1];  // prefix sum of the segments' blocks
@@ -154,36 +156,36 @@ __global__ void __launch_bounds__(kThreads)
   const Segment& s = g.seg[lo];
   const int64_t col0 = static_cast<int64_t>(block - g.first_block[lo]) * kCols;
   if (s.dtype == repro::kFloat32) {
-    contract(static_cast<const float*>(s.psg), s.out, s.f, col0, g.c, g.n);
+    contract(static_cast<const float*>(s.psg), s.out, s.f, col0, s.c, g.n);
   } else {
-    contract(static_cast<const __nv_bfloat16*>(s.psg), s.out, s.f, col0, g.c, g.n);
+    contract(static_cast<const __nv_bfloat16*>(s.psg), s.out, s.f, col0, s.c, g.n);
   }
 }
 
 }  // namespace
 
-// One launch over `n_segments` (1 .. kMaxSegments) banks that share c (n,)
-// fp32.  `table` holds 4 int64 per segment: the psg pointer ((n, f)
-// contiguous of `dtype`), the out pointer ((f,) fp32), f and the dtype code.
-extern "C" int psg_contract_grouped_launch(const int64_t* table, int n_segments, const void* c,
-                                           int n, void* stream_ptr) {
+// One launch over `n_segments` (1 .. kMaxSegments) banks of n samples.
+// `table` holds 5 int64 per segment: the psg pointer ((n, f) contiguous of
+// `dtype`), the out pointer ((f,) fp32), f, the dtype code and the pointer
+// to the segment's clip factors ((n,) fp32).
+extern "C" int psg_contract_grouped_launch(const int64_t* table, int n_segments, int n,
+                                           void* stream_ptr) {
   if (n_segments < 1 || n_segments > kMaxSegments || n < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Group g;
-  g.c = static_cast<const float*>(c);
   g.n = n;
   g.n_segments = n_segments;
   int64_t blocks = 0;
   for (int s = 0; s < n_segments; ++s) {
-    const int64_t* row = table + 4 * s;
+    const int64_t* row = table + 5 * s;
     const int dtype = static_cast<int>(row[3]);
     if (row[2] < 0 || (dtype != repro::kFloat32 && dtype != repro::kBFloat16)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int64_t seg_blocks = (row[2] + kCols - 1) / kCols;
     g.seg[s] = {reinterpret_cast<const void*>(row[0]), reinterpret_cast<float*>(row[1]), row[2],
-                dtype};
+                dtype, reinterpret_cast<const float*>(row[4])};
     g.first_block[s] = static_cast<int>(blocks);
     blocks += seg_blocks;
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "embedding_segment_blocks_per_sm": (_I,),
     # a, g, w, out, partial, m, r, d, p, splits, rows_per_split, a_dtype, g_dtype, stream
     "book_weighted_grad_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # segment table (4 int64 each: psg, out, f, dtype), segments, c, n, stream
-    "psg_contract_grouped_launch": (_P, _I, _P, _I, _P),
+    # segment table (5 int64 each: psg, out, f, dtype, c row), segments, n, stream
+    "psg_contract_grouped_launch": (_P, _I, _I, _P),
     # q, k, v, out, b, sq, skv, heads, kv_heads, hd, causal, window, q_offset,
     # scale, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -147,21 +147,23 @@ def book_weighted_grad(
 
 
 def psg_contract_grouped(
-    psgs: Sequence[torch.Tensor], c: torch.Tensor, *, impl: Optional[str] = None
+    psgs: Sequence[torch.Tensor], c: torch.Tensor, rows: Optional[Sequence[int]] = None, *,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
-    """Weighted bank sums of several banks that share the clip factors:
-    each psg (N, ...) has the sample axis first; returns one fp32 vector
-    holding every bank's sum_n c[n] * psg[n], flattened, back to back in
-    list order.  One kernel launch on the card (a ``psg_contract`` launch),
-    one count on the plain path."""
+    """Weighted bank sums of several banks: each psg (N, ...) has the sample
+    axis first; returns one fp32 vector holding every bank's
+    sum_n c_s[n] * psg[n], flattened, back to back in list order.  ``c`` is
+    (N,), shared by every bank, or (G, N) with ``rows[s]`` bank s's row (a
+    per-layer-group policy).  One kernel launch on the card (a
+    ``psg_contract`` launch), one count on the plain path."""
     flats = [psg if psg.dim() == 2 else psg.reshape(psg.shape[0], -1) for psg in psgs]
     if resolve("psg_contract", c, impl) == "cuda":
         from repro_torch.kernels.psg_contract.psg_contract import psg_contract_grouped_cuda
 
         return psg_contract_grouped_cuda([x.contiguous() for x in flats],
-                                         c.float().contiguous())
+                                         c.float().contiguous(), rows)
     launches.record("psg_contract", "torch")
-    return cops.psg_contract_grouped(flats, c)
+    return cops.psg_contract_grouped(flats, c, rows)
 
 
 def psg_contract(

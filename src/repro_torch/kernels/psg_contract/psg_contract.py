@@ -6,8 +6,10 @@ Ports of ``kernels/psg_contract/psg_contract.py``:
   ``book_weighted_grad_pallas``: out[m] = sum_r w[m,r] a[m,r]^T g[m,r],
   with the weighted cotangent kept in shared memory;
 - ``psg_contract_grouped_cuda`` (``csrc/psg_contract.cu``) replaces
-  ``psg_contract_pallas``: out_s = sum_n c[n] psg_s[n] for a group of banks
-  that share c, in one launch (``psg_contract_cuda`` is a group of one).
+  ``psg_contract_pallas``: out_s = sum_n c_s[n] psg_s[n] for a group of
+  banks, each with its own row c_s of the clip factors (one row shared by
+  all, or one per layer group), in one launch (``psg_contract_cuda`` is a
+  group of one).
 
 Each launches its kernel on CUDA tensors and raises on anything else.  The
 ``*_plain`` functions beside them are the same maps in plain PyTorch.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import array
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -104,21 +106,26 @@ def book_weighted_grad_cuda(
     return out
 
 
-def psg_contract_grouped_cuda(psgs: Sequence[torch.Tensor], c: torch.Tensor) -> torch.Tensor:
-    """psgs: banks (N, F_s), each fp32 or bf16, c (N,) fp32 -> (sum F_s,) fp32,
-    every bank's sum_n c[n] psg[n] back to back in list order.
+def psg_contract_grouped_cuda(
+    psgs: Sequence[torch.Tensor], c: torch.Tensor, rows: Optional[Sequence[int]] = None
+) -> torch.Tensor:
+    """psgs: banks (N, F_s), each fp32 or bf16; c (N,) fp32, or (G, N) fp32
+    with ``rows[s]`` the row of bank s -> (sum F_s,) fp32, every bank's
+    sum_n c_s[n] psg_s[n] back to back in list order.
 
     One launch per ``MAX_SEGMENTS`` banks (one for every list a training
-    step gives); the descriptors go to the kernel by value.  The per-bank
-    host work is kept to a few attribute reads: a step's call is short
-    enough on the card that the host sets its time.
+    step gives); the descriptors, each with a pointer to its bank's factor
+    row, go to the kernel by value.  The per-bank host work is kept to a few
+    attribute reads: a step's call is short enough on the card that the
+    host sets its time.
     """
     from repro_torch.kernels.build import check, library
 
-    checks.operand("c", c, 1, dtypes=(torch.float32,))
-    n, device = c.shape[0], c.get_device()
+    checks.operand("c", c, 2 if c.dim() == 2 else 1, dtypes=(torch.float32,))
+    n, device = c.shape[-1], c.get_device()
     checks.fits_int32("N", n)
-    rows, total = array.array("q"), 0  # 4 int64 a bank: psg, out offset, F, dtype
+    row_ptrs = _factor_rows(c, rows, len(psgs))
+    table, total = array.array("q"), 0  # 5 int64 a bank: psg, out offset, F, dtype, c row
     for i, psg in enumerate(psgs):
         if not (psg.is_cuda and psg.dim() == 2 and psg.dtype in checks.FLOATS
                 and psg.is_contiguous() and psg.get_device() == device):
@@ -127,25 +134,41 @@ def psg_contract_grouped_cuda(psgs: Sequence[torch.Tensor], c: torch.Tensor) -> 
         if n_i != n:
             _refuse(f"psgs[{i}]", psg, c)
         if f:
-            rows.extend((psg.data_ptr(), total, f, checks.DTYPE_CODES[psg.dtype]))
+            table.extend((psg.data_ptr(), total, f, checks.DTYPE_CODES[psg.dtype], row_ptrs[i]))
         total += f
     out = torch.empty((total,), dtype=torch.float32, device=c.device)
-    if not rows:
+    if not table:
         return out
     if n == 0:
         return out.zero_()
     base = out.data_ptr()
-    for j in range(1, len(rows), 4):
-        rows[j] = base + 4 * rows[j]
+    for j in range(1, len(table), 5):
+        table[j] = base + 4 * table[j]
     with torch.cuda.device(c.device):
-        for first in range(0, len(rows), 4 * MAX_SEGMENTS):
-            chunk = rows[first:first + 4 * MAX_SEGMENTS]
-            table = (ctypes.c_int64 * len(chunk)).from_buffer(chunk)
+        for first in range(0, len(table), 5 * MAX_SEGMENTS):
+            chunk = table[first:first + 5 * MAX_SEGMENTS]
+            ctable = (ctypes.c_int64 * len(chunk)).from_buffer(chunk)
             code = library().psg_contract_grouped_launch(
-                table, len(chunk) // 4, c.data_ptr(), n, checks.stream(c.device))
+                ctable, len(chunk) // 5, n, checks.stream(c.device))
             check(code, "psg_contract")
             launches.record("psg_contract", "cuda")
     return out
+
+
+def _factor_rows(c: torch.Tensor, rows: Optional[Sequence[int]], n_banks: int) -> list[int]:
+    """Each bank's factor-row pointer: c itself when it is (N,), row
+    ``rows[s]`` of a (G, N) c."""
+    if c.dim() == 1:
+        if rows is not None:
+            raise ValueError("rows index a (G, N) factor matrix; c is (N,)")
+        return [c.data_ptr()] * n_banks
+    if rows is None or len(rows) != n_banks:
+        raise ValueError(f"a (G, N) factor matrix needs one row index per bank "
+                         f"({n_banks}), got {rows!r}")
+    g, n = c.shape
+    if any(not 0 <= r < g for r in rows):
+        raise ValueError(f"row indices {list(rows)} outside the {g} rows of c")
+    return [c.data_ptr() + 4 * n * r for r in rows]
 
 
 def _refuse(name: str, psg: torch.Tensor, c: torch.Tensor) -> None:

@@ -1,11 +1,24 @@
-"""The DP train step and the greedy decode step (port of ``launch/steps.py``).
+"""The DP train step, gradient accumulation and the greedy decode step
+(port of ``launch/steps.py``).
 
 ``make_train_step`` is the paper's full mechanism: per-sample clipping
 (mixed ghost or book-keeping) + Gaussian noise + optimizer update.  PyTorch
 runs it eagerly; the step enqueues device work and returns its metrics as
-device tensors, so it never waits for the device itself.  The gradient
-accumulation steps come with a later slice.  ``make_decode_step`` is
-the serving engine's greedy step.
+device tensors, so it never waits for the device itself.
+
+Gradient accumulation (the paper's virtual step): a logical batch of
+``accumulation_steps`` physical microbatches.  ``make_accum_init`` makes the
+accumulator (fp32 gradient buffers, the loss and clip-hit counters, and
+``(logical,)`` norm and mask buffers); ``make_accum_microstep`` clips a
+microbatch under the step's policy state and folds it in place (``add_``,
+the norms and mask copied in at ``idx * physical``), with no host sync;
+``make_accum_finalize`` (around ``make_noise_finalize``) draws the noise
+once per logical batch, runs the one policy update from ``state["rng"]``
+and applies the optimizer; ``make_train_step`` runs the same tail after its
+one clipped call.  Where the JAX
+package donates its accumulator through jitted programs, the port writes
+into the same tensors.  ``make_decode_step`` is the serving engine's
+greedy step.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ class DPTrainConfig:
     clip_fn: str = "abadi"
     noise_multiplier: float = 1.0
     logical_batch: int = 256  # denominator for the privatized mean
+    accumulation_steps: int = 1  # physical microbatches per logical batch
     # clipping policy (repro_torch.policies.ClipPolicy); None builds the
     # fixed flat-R policy from (clip_norm, clip_fn)
     policy: Optional[Any] = None
@@ -55,7 +69,7 @@ def make_train_state(model, seed: int, optimizer: Optimizer, policy: Any = None)
         "opt": optimizer.init(params),
         "step": 0,
         "rng": torch.Generator(device=dev).manual_seed(seed + 1),
-        "policy": policy.init_state(),
+        "policy": policy.init_state(device=dev),
     }
 
 
@@ -80,41 +94,19 @@ def make_train_step(
         mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn, policy=policy,
     )
     grad_fn = dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
+    finalize = make_noise_finalize(optimizer, schedule, dp)
 
     def train_step(state: dict, batch: Any) -> tuple[dict, dict]:
         for name, x in flatten_dict(batch).items():
             if x.device != dev:
                 raise ValueError(f"batch[{name!r}] on {x.device}, the step runs on {dev}")
-        pstate = state.get("policy", policy.init_state())
+        pstate = state.get("policy", policy.init_state(device=dev))
         loss, grad_sum, aux = grad_fn(state["params"], batch, pstate)
-        if dp.clipping_mode == "non_private":
-            grads = tree_map(lambda g: g.float(), grad_sum)
-            new_pstate = pstate
-        else:
-            std = dp.noise_multiplier * policy.sensitivity(pstate)
-            noisy = add_dp_noise(grad_sum, state["rng"], std)
-            grads = tree_map(lambda g: g.float() / dp.logical_batch, noisy)
-            new_pstate, _ = policy.update(
-                pstate, aux["per_sample_norms"], generator=state["rng"],
-                mask=_batch_mask(batch),
-            )
-        lr = schedule(state["step"])
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(
-                grads, state["opt"], state["params"], state["step"], lr
-            )
-            params = apply_updates(state["params"], updates)
-        new_state = {
-            "params": params,
-            "opt": opt_state,
-            "step": state["step"] + 1,
-            "rng": state["rng"],
-            "policy": new_pstate,
-        }
+        new_state = finalize(state, grad_sum, aux["per_sample_norms"], _batch_mask(batch))
         norms = aux["per_sample_norms"]
         metrics = {
             "loss": loss,
-            "lr": lr,
+            "lr": schedule(state["step"]),
             "norm_mean": norms.mean(),
             "norm_max": norms.max(),
             "clip_frac": (aux["clip_factors"] < 1.0).float().mean(),
@@ -123,6 +115,143 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_clipped_microstep(model, dp: DPTrainConfig) -> Callable:
+    """Gradient-accumulation half: (params, batch, policy_state) -> (loss,
+    clipped grad SUM, aux).  Every microstep of a logical batch runs under
+    the same policy state; ``make_noise_finalize`` adds the noise and runs
+    the one policy update."""
+    clip_cfg = ClipConfig(
+        mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn,
+        policy=_policy_for(dp),
+    )
+    return dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
+
+
+def make_accum_init(grad_spec: Any, n_samples: int) -> Callable:
+    """Zero accumulator for one logical batch: () -> acc.
+
+    ``grads`` mirrors ``grad_spec`` (the parameters, or any tree of tensors
+    of their shapes) in fp32 on its device; ``norms`` and ``mask`` are flat
+    ``(n_samples,)`` buffers the microsteps copy into, so the policy update
+    sees the whole logical batch without a concatenation.
+    """
+    device = next(iter(flatten_dict(grad_spec).values())).device
+
+    def init() -> dict:
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        return {
+            "grads": tree_map(lambda s: zeros(*s.shape), grad_spec),
+            "loss": zeros(),
+            "clip_hits": zeros(),
+            "norms": zeros(n_samples),
+            "mask": zeros(n_samples),
+        }
+
+    return init
+
+
+def make_accum_microstep(model, dp: DPTrainConfig) -> Callable:
+    """Accumulating microstep: (params, policy_state, acc, batch, idx) -> acc.
+
+    Clips one microbatch and folds it into the logical-batch accumulator in
+    place: the gradient sum, the loss and clip-hit counters, and the
+    per-sample norms and Poisson mask copied in at microstep ``idx``'s
+    offset.  It enqueues device work only: no host sync.
+    """
+    grad_fn = make_clipped_microstep(model, dp)
+
+    def micro(params, policy_state, acc: dict, batch: Any, idx: int) -> dict:
+        loss, g, aux = grad_fn(params, batch, policy_state)
+        norms = aux["per_sample_norms"]
+        physical = norms.shape[0]
+        rows = slice(idx * physical, (idx + 1) * physical)
+        flat_g = flatten_dict(g)
+        with torch.no_grad():
+            for path, buf in flatten_dict(acc["grads"]).items():
+                buf.add_(flat_g[path])
+            acc["loss"].add_(loss)
+            acc["clip_hits"].add_((aux["clip_factors"] < 1.0).float().sum())
+            acc["norms"][rows].copy_(norms)
+            m = _batch_mask(batch)
+            if m is None:
+                acc["mask"][rows].fill_(1.0)
+            else:
+                acc["mask"][rows].copy_(m)
+        return acc
+
+    return micro
+
+
+def make_accum_finalize(
+    optimizer: Optimizer, schedule: Callable[[int], float], dp: DPTrainConfig
+) -> Callable:
+    """Logical-batch finalize over the accumulator: (state, acc) -> (state,
+    metrics).  The metrics are device tensors over the whole logical batch;
+    reading one is the only sync, once per logical batch."""
+    base = make_noise_finalize(optimizer, schedule, dp)
+
+    def finalize(state: dict, acc: dict) -> tuple[dict, dict]:
+        metrics = {
+            "loss": acc["loss"] / dp.accumulation_steps,
+            "lr": schedule(state["step"]),
+            "clip_frac": acc["clip_hits"] / dp.logical_batch,
+            "norm_mean": acc["norms"].mean(),
+            "norm_max": acc["norms"].max(),
+        }
+        new_state = base(state, acc["grads"], acc["norms"], acc["mask"])
+        return new_state, metrics
+
+    return finalize
+
+
+def make_noise_finalize(
+    optimizer: Optimizer, schedule: Callable[[int], float], dp: DPTrainConfig
+) -> Callable:
+    """Noise + update once per logical batch: (state, grad_sum, norms=None,
+    mask=None) -> state.
+
+    ``norms``/``mask`` are the whole logical batch's per-sample norms and
+    Poisson mask; they feed the policy update, one release per noise
+    addition, so the quantile policy spends exactly once per accounted step.
+    The noise is drawn first, then the update, both from ``state["rng"]``;
+    ``make_train_step`` calls this after its clipped call, so the two share
+    one noise-then-update order.  ``norms=None`` skips the update.
+    """
+    policy = _policy_for(dp)
+
+    def finalize(state: dict, grad_sum: Any, norms: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None) -> dict:
+        dev = state["rng"].device
+        pstate = state.get("policy", policy.init_state(device=dev))
+        if dp.clipping_mode == "non_private":
+            grads = tree_map(lambda g: g.float(), grad_sum)
+            new_pstate = pstate
+        else:
+            std = dp.noise_multiplier * policy.sensitivity(pstate)
+            noisy = add_dp_noise(grad_sum, state["rng"], std)
+            grads = tree_map(lambda g: g.float() / dp.logical_batch, noisy)
+            new_pstate = pstate
+            if norms is not None:
+                new_pstate, _ = policy.update(pstate, norms, generator=state["rng"], mask=mask)
+        lr = schedule(state["step"])
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(
+                grads, state["opt"], state["params"], state["step"], lr
+            )
+            params = apply_updates(state["params"], updates)
+        return {
+            "params": params,
+            "opt": opt_state,
+            "step": state["step"] + 1,
+            "rng": state["rng"],
+            "policy": new_pstate,
+        }
+
+    return finalize
 
 
 def make_decode_step(model) -> Callable:

@@ -11,10 +11,11 @@ def per_sample_xent(
     labels: torch.Tensor,  # (B, S) int; -100 = ignore
     sample_mask: Optional[torch.Tensor] = None,  # (B,)
 ) -> torch.Tensor:
-    """Mean token cross-entropy per sample: (B,) fp32."""
+    """Mean token cross-entropy per sample: (B,) in fp32, or fp64 for fp64
+    logits."""
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    lf = logits.float()
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(lf, dim=-1)  # (B, S)
     picked = torch.gather(lf, -1, safe[..., None])[..., 0]
     tok_loss = (lse - picked) * valid.float()

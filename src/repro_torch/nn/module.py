@@ -121,7 +121,9 @@ class GroupNorm(Module):
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         # x: (B, *spatial, d)
         batch = x.shape[0]
-        xf = x.float().reshape(batch, -1, self.groups, self.d // self.groups)
+        # statistics in fp32 at least (fp64 compute keeps fp64)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+            batch, -1, self.groups, self.d // self.groups)
         mu = xf.mean(dim=(1, 3), keepdim=True)
         var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
         x_hat = ((xf - mu) * torch.rsqrt(var + NORM_EPS)).reshape(x.shape).to(self.dtype)

@@ -4,10 +4,12 @@
 exactly as in the JAX tree, so ``interop.params_from_jax`` copies it
 unchanged.  Where the JAX package scans, this is a Python loop over the
 layers; each layer runs under ``ctx.layer(l, n)``, so its taps record the
-meta once per name with a leading stack dim and bank under their own
-``(name, layer)`` key.  The leaves are split with one ``unbind`` per
-forward, whose backward stacks the per-layer gradients into one (L, ...)
-tensor.
+meta once per name with a leading stack dim and keep their per-layer
+tensors under their own ``(name, layer)`` key: the fused probes' banks, or
+under the explicit engine the activation and the pre-activation.  The
+leaves are split with one ``unbind`` per forward, whose backward stacks the
+per-layer gradients into one (L, ...) tensor; under ``torch.func`` (the
+vmap oracle) the parameters are not batched and the split is the same.
 
 A serving cache is stacked the same way: every cache leaf is (L, B, ...),
 and layer ``l`` reads and writes its slice ``[l]`` (a view), so a block

@@ -1,6 +1,8 @@
 """Fixed-threshold policy: the paper's flat R (port of ``policies/fixed.py``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.functions import get_clip_fn
@@ -15,8 +17,14 @@ class FixedPolicy(ClipPolicy):
         self.clip_fn_name = clip_fn
         self._clip_fn = get_clip_fn(clip_fn)
 
-    def clip_factors(self, norms: torch.Tensor, state: dict[str, torch.Tensor]) -> torch.Tensor:
-        del state
+    def clip_factors(
+        self,
+        norms: torch.Tensor,
+        state: dict[str, torch.Tensor],
+        *,
+        path_norms2: Optional[dict[str, torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        del state, path_norms2
         return self._clip_fn(norms, self.clip_norm)
 
     def sensitivity(self, state: dict[str, torch.Tensor]) -> float:

@@ -1,11 +1,12 @@
 """Small pieces of the port's clipping core, held against the JAX package:
-clip functions, learning-rate schedules, coverage validation, and the
-modes and tap kinds that wait for later slices."""
+clip functions, learning-rate schedules, coverage validation, every
+clipping mode accepted, and the tap kinds that wait for later slices."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import clipping as jclip
 from repro.core import functions as jfn
 from repro.optim import schedules as jsched
 from repro_torch.core import clipping as tclip
@@ -50,10 +51,22 @@ def test_validate_coverage_reports_missing_and_rejects_duplicates():
         tclip.validate_coverage(meta, params)
 
 
-@pytest.mark.parametrize("mode", tclip.LATER_MODES)
-def test_later_modes_raise_not_implemented(mode):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tclip.dp_value_and_clipped_grad(lambda *a: None, tclip.ClipConfig(mode=mode))
+# the modes an earlier slice refused with NotImplementedError; each now
+# builds its executor, and an unknown mode still raises
+FORMERLY_LATER_MODES = {
+    "vmap": tclip.VmapExecutor, "ghost_taps": tclip.TapsExecutor,
+    "fastgradclip_taps": tclip.TapsExecutor, "mixed_ghost_taps": tclip.TapsExecutor,
+    "bk_mixed_taps": tclip.TapsExecutor,
+}
+
+
+@pytest.mark.parametrize("mode", sorted(FORMERLY_LATER_MODES))
+def test_every_jax_mode_builds_its_executor(mode):
+    """Every JAX mode builds its executor, the five that came last included;
+    only an unknown mode raises."""
+    assert set(tclip.MODES) == set(jclip.MODES)
+    fn = tclip.dp_value_and_clipped_grad(lambda *a: None, tclip.ClipConfig(mode=mode))
+    assert type(fn) is FORMERLY_LATER_MODES[mode]
     with pytest.raises(ValueError, match="unknown clipping mode"):
         tclip.dp_value_and_clipped_grad(lambda *a: None, tclip.ClipConfig(mode="nope"))
 

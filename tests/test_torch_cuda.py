@@ -261,6 +261,27 @@ def test_psg_contract_grouped_kernel_chunks_a_long_list(gen):
     assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c))
 
 
+@pytest.mark.parametrize("n_rows", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_psg_contract_grouped_kernel_with_factor_rows(gen, case, n_rows):
+    """A (G, N) factor matrix, each segment on its own row (interleaved):
+    still one launch, within 1e-5 of the plain version, deterministic, and
+    each segment equal to a one-bank call on its row."""
+    n, segs = GROUPED_CASES[case]
+    psgs = [_bank(gen, n, f, off, dtype or torch.float32) for f, off, dtype in segs]
+    c = torch.rand(n_rows, n, generator=gen, device="cuda")
+    rows = [i % n_rows for i in range(len(psgs))]
+    launches.reset()
+    got = pc.psg_contract_grouped_cuda(psgs, c, rows)
+    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0}
+    assert _rel(got, pc.psg_contract_grouped_plain(psgs, c, rows)) < 1e-5
+    assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c, rows))
+    for part, psg, r in zip(torch.split(got, [f for f, _, _ in segs]), psgs, rows):
+        assert torch.equal(part, pc.psg_contract_cuda(psg, c[r].contiguous()))
+    with pytest.raises(ValueError, match="row indices"):
+        pc.psg_contract_grouped_cuda(psgs, c, [n_rows] * len(psgs))
+
+
 def _step_segments(model, image, batch):
     """The grouped call's segment sizes of one bk_mixed step, from the taps."""
     from repro_torch.core import ghost

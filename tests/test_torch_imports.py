@@ -1,14 +1,15 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports JAX or the JAX package, and ``triton`` is only
-ever imported inside the function that launches a kernel (the CPU tests
-import every module and have no ``triton``)."""
+"""The port stands alone: nothing under ``src/repro_torch/``, nor
+``chip_smoke.py`` or the port's example, imports JAX or the JAX package, and
+``triton`` is only ever imported inside the function that launches a kernel
+(the CPU tests import every module and have no ``triton``)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "dp_finetune_cnn_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -471,6 +471,28 @@ def test_dispatch_psg_contract_grouped_is_one_call():
     assert tpc.psg_contract_grouped_plain([], c).shape == (0,)
 
 
+@pytest.mark.parametrize("n_rows", [1, 2, 3])
+def test_psg_contract_grouped_plain_with_factor_rows(n_rows):
+    """A (G, N) factor matrix with one row index per bank, the rows
+    interleaved across the banks: each bank's sum is its own einsum against
+    its own row; one dispatched call, one count."""
+    rng = np.random.default_rng(n_rows)
+    sizes = GROUPED_LISTS["vit_2_layers"]
+    psgs = [torch.from_numpy(_np(rng, 5, f)) for f in sizes]
+    c = torch.from_numpy(rng.uniform(size=(n_rows, 5)).astype(np.float32))
+    rows = [i % n_rows for i in range(len(psgs))]
+    launches.reset()
+    got = dispatch.psg_contract_grouped(psgs, c, rows)
+    assert launches.snapshot()["psg_contract"] == {"cuda": 0, "torch": 1}
+    want = torch.cat([torch.einsum("nf,n->f", x, c[r]) for x, r in zip(psgs, rows)])
+    torch.testing.assert_close(got, want)
+    torch.testing.assert_close(tpc.psg_contract_grouped_plain(psgs, c, rows), want)
+    with pytest.raises(ValueError, match="one row index per bank"):
+        tpc.psg_contract_grouped_plain(psgs, c)
+    with pytest.raises(ValueError, match="c is \\(N,\\)"):
+        tpc.psg_contract_grouped_plain(psgs, c[0], rows)
+
+
 def test_dispatch_psg_contract_axis():
     """The result drops the sample axis and keeps the other dims in order."""
     rng = np.random.default_rng(0)
