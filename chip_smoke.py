@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py            # from the repository root; one CUDA device
 
-Three main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
-classes, GroupNorm, fp32) at batch 128 and of ViT-Base/16 (12 layers,
-d_model 768, 224x224, 10 classes, bf16 compute with fp32 parameters) at
-batch 32, and serving Yi-6B (32 layers, d_model 4096, 32 query heads over
-4 KV heads, full width and depth, random weights from seed 0, bf16 compute
-with fp32 parameters) through the continuous-batching engine.  Phases, in
-order; any failure exits non-zero and prints no result:
+Four main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
+classes, GroupNorm, fp32) at batch 128, of ViT-Base/16 (12 layers, d_model
+768, 224x224, 10 classes) and of BEiT-Large/16 (24 layers, d_model 1024,
+304M parameters, 224x224, 1000 classes) at batch 32, both ViTs in bf16
+compute with fp32 parameters and each layer rematerialised in the backward
+(the configs' remat), and serving Yi-6B (32 layers, d_model 4096, 32 query
+heads over 4 KV heads, full width and depth, bf16 compute with fp32
+parameters) through the continuous-batching engine; random weights from
+seed 0 throughout.  Phases, in order, each one's seconds printed; any
+failure exits non-zero and prints no result:
 
 1. card     the name and power limit, as nvidia-smi reports them;
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
@@ -46,7 +49,8 @@ order; any failure exits non-zero and prints no result:
             yardsticks';
 4. slice    per training path, DP-SGD steps through make_train_step in
             non_private, mixed_ghost, bk_mixed, vmap (the Opacus analogue),
-            mixed_ghost_taps and bk_mixed_taps: loss, kernel launches per
+            mixed_ghost_taps and bk_mixed_taps (BEiT-Large: the first three):
+            loss, kernel launches per
             step against the taps' expectation (and no plain-version call),
             step time (median and quartiles), peak memory, and one profiled
             step's device busy time and idle share.  The launch counts are
@@ -62,9 +66,10 @@ order; any failure exits non-zero and prints no result:
             largest entry, under the fixed policy (every mode), per_layer
             with 3 groups (mixed_ghost, bk_mixed, mixed_ghost_taps,
             bk_mixed_taps; bk_mixed in one psg_contract launch) and
-            automatic (mixed_ghost); the ViT gated with fp32 compute, its
-            bf16 readings reported beside; VGG-19's fixed-policy modes also
-            reported against vmap with cuDNN off and vmap in fp64 compute;
+            automatic (mixed_ghost); the ViTs gated with fp32 compute, their
+            bf16 readings reported beside (BEiT-Large: 8 samples, the fixed
+            policy); VGG-19's fixed-policy modes also reported against vmap
+            with cuDNN off and vmap in fp64 compute;
 7. accum    VGG-19: a logical batch of 512 as 4 microbatches of 128 through
             make_accum_* in mixed_ghost and bk_mixed, the microsteps under
             torch.cuda.set_sync_debug_mode("error"): norms, gradient sum and
@@ -76,7 +81,30 @@ order; any failure exits non-zero and prints no result:
             batch size, and the backward amplifies their rounding); every
             reading reported against the fp64 definition; both peaks; the
             quantile policy's step rises by 1 per logical batch;
-8. serve    Yi-6B through the port's Engine as launch/serve.py builds it (4
+8. remat    ViT-Base and BEiT-Large at batch 32 in non_private, mixed_ghost
+            and bk_mixed with remat on and off, timed in interleaved rounds
+            (on, off, off, on): step median (q1-q3) and each round's, the
+            host's enqueue ms, device busy (remat on: the slice phase's
+            profile) and peak memory each way; on and off gated equal in
+            fp32 compute (norms and clipped sums within REMAT_TOL);
+9. tune     PrivacyEngine.tune on VGG-19 and ViT-Base (no cache, the plan
+            written to a temporary directory): per tap the five timings and
+            where the measured winner differs from Eq. 4.1 (both maps), the
+            recommended mode, the certified physical batch and its
+            accumulation, the kernel map (the card's kernels only); a step
+            under the adopted plan and one under the time rule (Remark 4.1)
+            against the analytic step, gated within PLAN_TOL in fp32
+            compute, reported in bf16, all timed;
+10. max_batch  the paper's Table 7 on the card: the largest physical batch
+            under the 16 GB budget by trial (the allocator capped with
+            set_per_process_memory_fraction) for VGG-19 in non_private,
+            vmap, mixed_ghost and bk_mixed and for both ViTs in non_private,
+            mixed_ghost and bk_mixed; each certified batch must run again
+            under the cap (whether the next one fails is reported), and at
+            it the kernels must agree with the plain versions (the launch
+            counters show each side ran only its own); ratios against vmap
+            and non_private;
+11. serve    Yi-6B through the port's Engine as launch/serve.py builds it (4
             slots, page 16, max_len 2080, no EOS), 8 requests of prompt
             lengths 2048 ... 131 with 32 new tokens each: tokens, tok/s,
             TTFT and per-token percentiles, peak memory, attention-kernel
@@ -147,6 +175,8 @@ SASS_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
                 "embedding_segment_kernel": (2, ASYNC_COPY)}
 
 MODES = ("non_private", "mixed_ghost", "bk_mixed", "vmap", "mixed_ghost_taps", "bk_mixed_taps")
+# BEiT-Large's timed modes: vmap would hold 304M x 32 per-sample gradients
+BEIT_MODES = ("non_private", "mixed_ghost", "bk_mixed")
 STEPS = 10  # timed steps per mode and path
 # the oracle phase: every mode against vmap under the fixed policy; the
 # grouped (per_layer: two prefixes and the catch-all) and automatic runs
@@ -156,6 +186,26 @@ GROUPED_MODES = ("mixed_ghost", "bk_mixed", "mixed_ghost_taps", "bk_mixed_taps")
 GROUP_PREFIXES = {"vgg19": ("conv", "gn"), "vit_base": ("layers", "patch_embed")}
 # the accum phase: a logical batch of ACCUM_MICRO * ACCUM_STEPS samples
 ACCUM_MICRO, ACCUM_STEPS = 128, 4
+# the remat phase: these paths and modes with ScannedStack's remat on and
+# off, REMAT_ROUNDS rounds of REMAT_STEPS timed steps each way, interleaved;
+# their norms and clipped sums in fp32 compute within REMAT_TOL
+REMAT_PATHS = ("vit_base", "beit_large")
+REMAT_MODES = ("non_private", "mixed_ghost", "bk_mixed")
+REMAT_ROUNDS, REMAT_STEPS = 2, 6
+REMAT_TOL = 1e-6
+# the tune phase: PrivacyEngine.tune on these paths (a logical batch of
+# TUNE_LOGICAL samples, whose accumulation the certified batch gives); a
+# step under the adopted plan, and one under the time rule, against the
+# analytic step within PLAN_TOL (a plan moves cost, never the math)
+TUNE_PATHS = ("vgg19", "vit_base")
+TUNE_LOGICAL = 1024
+PLAN_TOL = 1e-4
+# the max_batch phase (the paper's Table 7): the largest physical batch
+# under the paper's 16 GB budget, by trial, per model and mode
+TABLE7 = {"vgg19": ("non_private", "vmap", "mixed_ghost", "bk_mixed"),
+          "vit_base": ("non_private", "mixed_ghost", "bk_mixed"),
+          "beit_large": ("non_private", "mixed_ghost", "bk_mixed")}
+MAX_BATCH_HI_CAP = 4096
 
 # the serve phase: Yi-6B, 4 slots, page 16, 8 requests of these prompt
 # lengths with 32 new tokens each, max_len = the longest prompt + 32
@@ -882,66 +932,85 @@ def _profiled(fn, median_ms: float) -> dict:
             "im2col": im2col}
 
 
-def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
+def _time_train_steps(model, path: dict, mode: str, batches: list, n_steps: int,
+                      profiled: bool = True) -> dict:
+    """One make_train_step per call of ``batches[1:]`` after a warm-up on
+    ``batches[0]``: losses, step times (median and quartiles), the host's
+    share (ms until the step call returns, before the sync: the time to
+    enqueue the step's work), peak memory, kernel launches per step by
+    impl, and one profiled step (``profiled``)."""
     import torch
 
-    from repro_torch.data.synthetic import synthetic_vision_batch
     from repro_torch.kernels import launches
     from repro_torch.launch.steps import DPTrainConfig, make_train_state, make_train_step
     from repro_torch.optim import constant, sgd
 
-    model, batch_size, expected = path["build"](), path["batch"], path["expected"]
-    dev = model.device
-    batches = [
-        synthetic_vision_batch(batch=batch_size, image=path["image"], channels=3,
-                               n_classes=10, step=i, device=dev)
-        for i in range(n_steps + 1)
-    ]
+    opt = sgd(momentum=0.9)
+    state = make_train_state(model, 0, opt)
+    step = make_train_step(
+        model, opt, constant(path["lr"]["non_private" if mode == "non_private" else "dp"]),
+        DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
+                      logical_batch=path["batch"]),
+        device=model.device,
+    )
+    state, _ = step(state, batches[0])  # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launches.snapshot()
+    times, host, losses = [], [], []
+    for i in range(1, n_steps + 1):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    after = launches.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(times)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    trace = _profiled(lambda: step(state, batches[0]), median) if profiled else None
+    return {"losses": losses, "step_ms": times, "median_step_ms": median, "q1_step_ms": q1,
+            "q3_step_ms": q3, "host_ms": host, "median_host_ms": statistics.median(host),
+            "peak_bytes": peak, "trace": trace,
+            "launches_per_step": {k: (after[k]["cuda"] - before[k]["cuda"]) / n_steps
+                                  for k in KERNEL_INFO},
+            "plain_calls": sum(after[k]["torch"] - before[k]["torch"] for k in KERNEL_INFO)}
+
+
+def _train_batches(path: dict, n: int, device) -> list:
+    from repro_torch.data.synthetic import synthetic_vision_batch
+
+    return [synthetic_vision_batch(batch=path["batch"], image=path["image"], channels=3,
+                                   n_classes=path["n_classes"], step=i, device=device)
+            for i in range(n)]
+
+
+def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
+    from repro_torch.kernels import launches
+
+    model, expected = path["build"](), path["expected"]
+    batches = _train_batches(path, n_steps + 1, model.device)
     out = {}
     launches.reset()  # this path's counts start here ...
-    for mode in MODES:
-        opt = sgd(momentum=0.9)
-        state = make_train_state(model, 0, opt)
-        step = make_train_step(
-            model, opt, constant(path["lr"]["non_private" if mode == "non_private" else "dp"]),
-            DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
-                          logical_batch=batch_size),
-            device=dev,
-        )
-        state, _ = step(state, batches[0])  # warm-up (cuDNN plans, allocator)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = launches.snapshot()
-        times, losses = [], []
-        for i in range(1, n_steps + 1):
-            t0 = time.perf_counter()
-            state, metrics = step(state, batches[i])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(metrics["loss"]))
-        after = launches.snapshot()
-        peak = torch.cuda.max_memory_allocated()
-        median = statistics.median(times)
-        q1, _, q3 = statistics.quantiles(times, n=4)
-        trace = _profiled(lambda: step(state, batches[0]), median)
-        per_step = {
-            k: (after[k]["cuda"] - before[k]["cuda"]) / n_steps for k in KERNEL_INFO
-        }
-        plain_calls = sum(after[k]["torch"] - before[k]["torch"] for k in KERNEL_INFO)
+    for mode in path["modes"]:
+        row = _time_train_steps(model, path, mode, batches, n_steps)
+        losses, per_step = row.pop("losses"), row["launches_per_step"]
         print(f"slice {tag} {mode}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-              f"step ms median {median:.2f} (q1 {q1:.2f}, q3 {q3:.2f}), "
-              f"peak memory {peak / 2**20:.1f} MiB, kernel launches per step {per_step}")
+              f"step ms median {row['median_step_ms']:.2f} (q1 {row['q1_step_ms']:.2f}, q3 "
+              f"{row['q3_step_ms']:.2f}), peak memory {row['peak_bytes'] / 2**20:.1f} MiB, "
+              f"kernel launches per step {per_step}")
         require(all(math.isfinite(x) for x in losses), f"{tag} {mode}: non-finite loss")
-        require(plain_calls == 0, f"{tag} {mode}: {plain_calls} plain-version calls on the card")
+        require(row["plain_calls"] == 0,
+                f"{tag} {mode}: {row['plain_calls']} plain-version calls on the card")
         require(per_step == expected[mode],
                 f"{tag} {mode}: launches per step {per_step}, expected {expected[mode]}")
-        out[mode] = {"losses": losses, "step_ms": times, "median_step_ms": median,
-                     "q1_step_ms": q1, "q3_step_ms": q3, "peak_bytes": peak,
-                     "launches_per_step": per_step, "trace": trace}
+        out[mode] = {"losses": losses, **row}
     counts = launches.snapshot()  # ... and are read here
     out["launches"] = {k: counts[k]["cuda"] for k in KERNEL_INFO}
     for kernel in KERNEL_INFO:
-        wanted = any(expected[mode][kernel] for mode in MODES)
+        wanted = any(expected[mode][kernel] for mode in path["modes"])
         require(not wanted or out["launches"][kernel] > 0,
                 f"{tag}: {kernel} was never launched on its main path")
     return out
@@ -981,6 +1050,13 @@ def phase_compare(tag: str, path: dict) -> dict:
         require(grad_err <= grad_tol, f"{name}: clipped gradients differ by {grad_err:.3e}")
         out[name] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err, "grad_tol": grad_tol}
     return out
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    """Launches between two ``launches.snapshot()``s, summed per impl."""
+    return {impl: sum(after[k][impl] - before[k][impl] for k in after)
+            for impl in ("cuda", "torch")}
+
 
 def _timed_clip(model, params, batch, mode: str, policy=None):
     """One dp_value_and_clipped_grad call: (result, host ms, peak bytes,
@@ -1043,14 +1119,17 @@ def _against_line(errs: dict) -> str:
 
 
 def phase_oracle(tag: str, path: dict, dtype=None, gated: bool = True,
-                 native_ref: bool = False) -> dict:
+                 native_ref: bool = False, policies: bool = True) -> dict:
     """Every clipping mode against the vmap oracle at the path's full size:
     the fixed policy in every mode, per_layer (GROUP_PREFIXES and the
     catch-all: 3 groups) in GROUPED_MODES, automatic in mixed_ghost.  Norms
     within NORM_TOL, clipped gradient sums within KERNEL_GRAD_TOL of the
     largest entry, no plain-version call, and bk_mixed under per_layer in
-    one psg_contract launch.  ``gated=False`` (the ViT in bf16 compute)
-    reports the fixed-policy readings only.  Times are one call each on the
+    one psg_contract launch.  ``gated=False`` (the ViTs in bf16 compute)
+    reports the fixed-policy readings only; ``policies=False`` (BEiT-Large)
+    runs the fixed policy only.  The batch is the path's ``oracle_batch``
+    where it has one (BEiT-Large: 8, as 304M x 8 fp32 per-sample gradients
+    are 9.7 GB), else its training batch.  Times are one call each on the
     host clock (the first of its mode: informative, not a benchmark).
 
     ``native_ref`` (VGG-19) also runs the fixed-policy vmap once with cuDNN
@@ -1065,20 +1144,20 @@ def phase_oracle(tag: str, path: dict, dtype=None, gated: bool = True,
     from repro_torch.policies import AutomaticPolicy, PerLayerPolicy
     from repro_torch.utils.tree import flatten_dict
 
-    model, params, batch = _model_params_batch(path, dtype)
+    model, params, batch = _model_params_batch(path, dtype, batch=path.get("oracle_batch"))
     compute = _name(model.dtype)
     runs = [("fixed", None, ORACLE_MODES)]
-    if gated:
+    if gated and policies:
         runs += [("per_layer", PerLayerPolicy(groups=GROUP_PREFIXES[tag], clip_norm=1.0),
                   GROUPED_MODES),
                  ("automatic", AutomaticPolicy(gamma=0.01), ("mixed_ghost",))]
-    out = {"compute": compute, "gated": gated}
+    out = {"compute": compute, "gated": gated, "batch": batch["label"].shape[0]}
     for pname, policy, modes in runs:
         (_, g_ref, aux_ref), ms, peak, _ = _timed_clip(model, params, batch, "vmap", policy)
         ref, norms_ref = flatten_dict(g_ref), aux_ref["per_sample_norms"]
         del g_ref, aux_ref
-        print(f"oracle {tag} ({compute} compute, {pname} policy): vmap {ms:.1f} ms, peak "
-              f"{peak / 2**20:.1f} MiB")
+        print(f"oracle {tag} b{out['batch']} ({compute} compute, {pname} policy): vmap "
+              f"{ms:.1f} ms, peak {peak / 2**20:.1f} MiB")
         rows = {"vmap": {"ms": ms, "peak_bytes": peak}}
         refs = {}
         if native_ref and pname == "fixed":
@@ -1314,6 +1393,360 @@ def phase_accum(path: dict) -> dict:
         require(all(math.isfinite(r) for r in radii), f"accum {mode}: R {radii}")
         out[mode]["quantile_steps"], out[mode]["quantile_clip_norms"] = steps, radii
         del acc, sq
+    return out
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_remat(paths: dict, slices: dict) -> dict:
+    """REMAT_PATHS in REMAT_MODES with ScannedStack's remat on and off, timed
+    interleaved on two models held side by side (rounds on, off, off, on,
+    ..., REMAT_STEPS steps each on the same batches, so the host's drift
+    falls on both settings alike): each round's median step, the pooled
+    median (q1-q3), the host's enqueue ms (the step call until it returns,
+    before the sync), device busy (one profiled step with remat off; with
+    it on, the slice phase's profile of the same step: device time does
+    not drift with the host) and peak memory each way, in the path's
+    compute dtype; then one clipped call each way in fp32 compute, norms
+    and clipped sums gated equal within REMAT_TOL (remat recomputes the
+    same layer with the same kernels: it changes memory, never a value)."""
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.utils.tree import flatten_dict
+
+    out = {}
+    for tag in REMAT_PATHS:
+        path = paths[tag]
+        rows = out[tag] = {}
+        models = {remat: path["build"](None, remat) for remat in (True, False)}
+        batches = _train_batches(path, REMAT_STEPS + 1, models[True].device)
+        for mode in REMAT_MODES:
+            rounds = {True: [], False: []}
+            order = [r for i in range(REMAT_ROUNDS) for r in ((True, False) if i % 2 == 0
+                                                              else (False, True))]
+            for remat in order:
+                rounds[remat].append(_time_train_steps(
+                    models[remat], path, mode, batches, REMAT_STEPS,
+                    profiled=not remat and not rounds[remat]))
+                _free()
+            for remat in (True, False):
+                rs = rounds[remat]
+                times = [t for r in rs for t in r["step_ms"]]
+                host = [t for r in rs for t in r["host_ms"]]
+                q1, _, q3 = statistics.quantiles(times, n=4)
+                row = {"median_step_ms": statistics.median(times), "q1_step_ms": q1,
+                       "q3_step_ms": q3, "round_median_ms": [r["median_step_ms"] for r in rs],
+                       "median_host_ms": statistics.median(host),
+                       "peak_bytes": max(r["peak_bytes"] for r in rs),
+                       "trace": slices[tag][mode]["trace"] if remat else rs[0]["trace"],
+                       "losses": [x for r in rs for x in r["losses"]],
+                       "plain_calls": sum(r["plain_calls"] for r in rs)}
+                busy = row["trace"]["device_busy_ms"]
+                row["idle_share"] = 1 - busy / row["median_step_ms"]
+                key = f"{mode} remat {'on' if remat else 'off'}"
+                print(f"remat {tag} b{path['batch']} {key}: step ms median "
+                      f"{row['median_step_ms']:.2f} (q1 {row['q1_step_ms']:.2f}, q3 "
+                      f"{row['q3_step_ms']:.2f}; round medians "
+                      + " ".join(f"{x:.2f}" for x in row["round_median_ms"])
+                      + f"), host enqueue {row['median_host_ms']:.2f} ms, device busy "
+                      f"{busy:.2f} ms (idle share {row['idle_share']:.2f}), peak "
+                      f"{row['peak_bytes'] / 2**20:.1f} MiB")
+                require(all(math.isfinite(x) for x in row["losses"]), f"remat {tag} {key}: loss")
+                require(row["plain_calls"] == 0, f"remat {tag} {key}: plain-version calls")
+                rows[key] = row
+            on, off = rows[f"{mode} remat on"], rows[f"{mode} remat off"]
+            on_busy, off_busy = on["trace"]["device_busy_ms"], off["trace"]["device_busy_ms"]
+            print(f"remat {tag} {mode}: on / off peak {on['peak_bytes'] / off['peak_bytes']:.3f}, "
+                  f"median step {on['median_step_ms'] / off['median_step_ms']:.3f} "
+                  f"({on['median_step_ms'] - off['median_step_ms']:+.2f} ms), host enqueue "
+                  f"{on['median_host_ms'] / off['median_host_ms']:.3f} "
+                  f"({on['median_host_ms'] - off['median_host_ms']:+.2f} ms), device busy "
+                  f"{on_busy / off_busy:.3f} ({on_busy - off_busy:+.2f} ms)")
+        del models, batches
+        _free()
+        for mode in REMAT_MODES:
+            res = {}
+            for remat in (True, False):
+                model, params, batch = _model_params_batch(path, "float32", remat)
+                fn = dp_value_and_clipped_grad(model.loss_with_ctx,
+                                               ClipConfig(mode=mode, clip_norm=1.0))
+                _, g, aux = fn(params, batch)
+                res[remat] = (flatten_dict(g), aux["per_sample_norms"])
+                del model, params, batch, fn, g, aux
+                _free()
+            norm_err = _max_rel(res[True][1], res[False][1])
+            grad_err = _grad_rel_err(res[True][0], res[False][0])
+            del res
+            print(f"remat {tag} {mode} (float32 compute): on vs off norms rel err {norm_err:.2e}, "
+                  f"clipped grad sum rel err {grad_err:.2e} (tol {REMAT_TOL:.0e})")
+            require(norm_err <= REMAT_TOL and grad_err <= REMAT_TOL,
+                    f"remat {tag} {mode}: on vs off differ (norms {norm_err:.3e}, sums "
+                    f"{grad_err:.3e})")
+            rows[f"{mode} gate"] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err}
+    return out
+
+
+def _clip_ms(fn, params, batch, n: int = 5) -> float:
+    """Median host ms of ``n`` clipped calls, each ending in a sync, after
+    one warm-up."""
+    import torch
+
+    fn(params, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+class _TrialCounter:
+    """Counts the max-batch search's trials (``trial_survives`` calls; the
+    candidates its memory model rules out run none) while it is
+    installed."""
+
+    def __init__(self):
+        from repro_torch.tuner import max_batch as mb
+
+        self.mb, self.real, self.sizes = mb, mb.trial_survives, []
+
+    def __enter__(self):
+        def counting(run, b, **kw):
+            self.sizes.append(b)
+            return self.real(run, b, **kw)
+
+        self.mb.trial_survives = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mb.trial_survives = self.real
+        return False
+
+
+def _plan_step_gate(tag: str, model, params, batch, plan, label: str) -> dict:
+    """A clipped step under ``plan`` (mixed_ghost and bk_mixed, each reading
+    its own map) and one under the time rule, against the analytic step:
+    norms and clipped sums within PLAN_TOL; all timed."""
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad, discover_meta
+    from repro_torch.utils.tree import flatten_dict
+
+    meta = discover_meta(model.loss_with_ctx, params, batch)
+    require(plan.matches(meta, model.device), f"tune {tag}: the plan does not match its model")
+    out = {}
+    for mode in ("mixed_ghost", "bk_mixed"):
+        ref_fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode))
+        _, g_ref, aux_ref = ref_fn(params, batch)
+        g_ref = flatten_dict(g_ref)
+        variants = {"plan": ClipConfig(mode=mode, plan=plan),
+                    "time rule": ClipConfig(mode=mode, decision_by="time")}
+        row = {"analytic_ms": _clip_ms(ref_fn, params, batch)}
+        for name, cfg in variants.items():
+            fn = dp_value_and_clipped_grad(model.loss_with_ctx, cfg)
+            _, g, aux = fn(params, batch)
+            norm_err = _max_rel(aux["per_sample_norms"], aux_ref["per_sample_norms"])
+            grad_err = _grad_rel_err(flatten_dict(g), g_ref)
+            del g, aux
+            ms = _clip_ms(fn, params, batch)
+            print(f"tune {tag} {label} {mode}: {name} step vs analytic: norms rel err "
+                  f"{norm_err:.2e}, clipped grad sum rel err {grad_err:.2e} (tol "
+                  f"{PLAN_TOL:.0e}); {ms:.2f} ms against the analytic {row['analytic_ms']:.2f}")
+            require(norm_err <= PLAN_TOL and grad_err <= PLAN_TOL,
+                    f"tune {tag} {label} {mode}: the {name} step differs from the analytic "
+                    f"(norms {norm_err:.3e}, sums {grad_err:.3e})")
+            row[name] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err, "ms": ms}
+        out[mode] = row
+        del g_ref, aux_ref
+    return out
+
+
+def phase_tune(paths: dict) -> dict:
+    """PrivacyEngine.tune on TUNE_PATHS (mixed_ghost, a logical batch of
+    TUNE_LOGICAL, the default MeasureConfig and 16 GB budget, no cache, the
+    plan written to a temporary directory): per tap the five timings and
+    where the measured winner differs from the analytic rule (both maps);
+    the recommended mode, the certified physical batch and its
+    accumulation; the kernel map (every entry the card's kernel).  Then the
+    step gate (``_plan_step_gate``) in fp32 compute (the ViT's bf16 plan
+    restamped with the fp32 model's fingerprint: the same taps by name) and
+    reported in the path's own compute."""
+    import dataclasses as dc
+    import os
+    import tempfile
+
+    from repro_torch.core.clipping import discover_meta
+    from repro_torch.core.decision import decide
+    from repro_torch.core.engine import PrivacyEngine
+    from repro_torch.tuner import shape_fingerprint
+
+    out = {}
+    for tag in TUNE_PATHS:
+        path = paths[tag]
+        model, params, batch = _model_params_batch(path)
+        engine = PrivacyEngine(loss_with_ctx=model.loss_with_ctx, batch_size=TUNE_LOGICAL,
+                               sample_size=50_000, steps=1000, max_grad_norm=1.0,
+                               noise_multiplier=1.0, mode="mixed_ghost", device=model.device)
+        with tempfile.TemporaryDirectory() as tmp, _TrialCounter() as trials:
+            t0 = time.perf_counter()
+            plan = engine.tune(params, batch, arch=tag, use_cache=False,
+                               plan_path=os.path.join(tmp, f"{tag}.json"),
+                               hi_cap=MAX_BATCH_HI_CAP)
+            seconds = time.perf_counter() - t0
+            require(os.path.exists(os.path.join(tmp, f"{tag}.json")), f"tune {tag}: no plan file")
+        meta = discover_meta(model.loss_with_ctx, params, batch)
+        taps = {}
+        print(f"tune {tag} ({path['dtype']} compute) on {plan.device}: {seconds:.1f} s, "
+              f"{len(trials.sizes)} max-batch trials; per tap ghost / instantiate / bk ghost / "
+              "bk instantiate / second backward us:")
+        for name, t in sorted(plan.tap_timings().items()):
+            m = meta[name]
+            analytic = {mode: decide(m, mode=mode) for mode in ("mixed_ghost", "bk_mixed")}
+            flips = [f"{mode} measured {w} != Eq. 4.1 {analytic[mode]}"
+                     for mode, w in (("mixed_ghost", t.winner), ("bk_mixed", t.bk_winner))
+                     if w != analytic[mode]]
+            print(f"  {name:28s} T={m.T:5d} D={m.D:5d} p={m.p:5d}: {t.ghost_us:9.1f} "
+                  f"{t.instantiate_us:9.1f} {t.bk_ghost_us:9.1f} {t.bk_instantiate_us:9.1f} "
+                  f"{t.second_bwd_us:9.1f} -> {t.winner}/{t.bk_winner}"
+                  f"{'  (' + '; '.join(flips) + ')' if flips else ''}")
+            taps[name] = {"timing": t.as_tuple(name)[1:], "winner": t.winner,
+                          "bk_winner": t.bk_winner, "analytic": analytic}
+        kernels = sorted({(op, impl) for _, op, impl in plan.kernels})
+        flips = {mode: sum(1 for r in taps.values()
+                           if r["winner" if mode == "mixed_ghost" else "bk_winner"]
+                           != r["analytic"][mode]) for mode in ("mixed_ghost", "bk_mixed")}
+        print(f"tune {tag}: measured vs Eq. 4.1 flips {flips}; recommended mode "
+              f"{plan.recommended_mode()} (mixed_ghost {plan.mode_cost_us('mixed_ghost'):.0f} us, "
+              f"bk_mixed {plan.mode_cost_us('bk_mixed'):.0f} us per step); certified physical "
+              f"batch {plan.physical_batch} under {plan.budget_bytes / 2**30:.0f} GiB, logical "
+              f"{plan.logical_batch} as {plan.accumulation_steps} microstep(s); measured at the "
+              f"physical batch {plan.measured_at_physical}; kernel map {kernels}")
+        require(plan.physical_batch and plan.physical_batch > 0, f"tune {tag}: nothing fits")
+        require({impl for _, impl in kernels} == {"cuda"},
+                f"tune {tag}: the kernel map sends a tap to {kernels}")
+        row = {"seconds": seconds, "trials": len(trials.sizes), "trial_sizes": trials.sizes,
+               "plan": json.loads(plan.to_json()), "taps": taps, "flips": flips,
+               "recommended_mode": plan.recommended_mode()}
+        row["gate_" + path["dtype"]] = _plan_step_gate(tag, model, params, batch, plan,
+                                                       f"({path['dtype']} compute, reported)"
+                                                       if path["dtype"] != "float32" else
+                                                       "(float32 compute)")
+        del model, params, batch
+        _free()
+        if path["dtype"] != "float32":
+            model, params, batch = _model_params_batch(path, "float32")
+            plan32 = dc.replace(plan, fingerprint=shape_fingerprint(
+                discover_meta(model.loss_with_ctx, params, batch)))
+            row["gate_float32"] = _plan_step_gate(tag, model, params, batch, plan32,
+                                                  "(float32 compute, the bf16 plan's maps)")
+            del model, params, batch
+            _free()
+        out[tag] = row
+    return out
+
+
+def phase_max_batch(paths: dict, tune: dict) -> dict:
+    """The paper's Table 7 on the card: per TABLE7 model and mode, the
+    largest physical batch whose clipped gradient step runs under the
+    paper's 16 GB budget (less the training loop's resident state,
+    ``resident_state_bytes``), by trial (``max_batch_by_trial``: the
+    allocator capped by ``set_per_process_memory_fraction``).  mixed_ghost
+    on the tuned paths reuses the tune phase's certificate.  Each
+    certificate is checked: the certified batch runs again under the same
+    cap (gated; whether the next batch fails is reported, since within
+    about a percent of the answer a trial's outcome also turns on the
+    allocator's state), and at the certified batch the kernels' step matches
+    force_impl("torch")'s (norms NORM_TOL, sums KERNEL_GRAD_TOL; uncapped)
+    so no kernel's index range breaks below it; the launch counters show
+    the kernel side launched kernels only and the plain side none (the
+    reused plan's kernel map included).  Ratios against vmap and
+    non_private."""
+    import torch
+
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.kernels import dispatch, launches
+    from repro_torch.tuner import ClipPlan
+    from repro_torch.tuner import max_batch as mb
+    from repro_torch.utils.tree import flatten_dict
+
+    out = {}
+    for tag, modes in TABLE7.items():
+        path = paths[tag]
+        model, params, batch = _model_params_batch(path)
+        reserved = mb.resident_state_bytes(params)
+        cap = mb.DEFAULT_BUDGET_BYTES - reserved
+        rows = out[tag] = {}
+        for mode in modes:
+            reuse = mode == "mixed_ghost" and tag in tune
+            plan = ClipPlan.from_json(json.dumps(tune[tag]["plan"])) if reuse else None
+            fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode, plan=plan))
+            runner = mb._default_runner(fn, params, batch)
+            if reuse:
+                got, n, seconds = plan.physical_batch, tune[tag]["trials"], None
+                source = "tune phase (under its plan)"
+            else:
+                with _TrialCounter() as trials:
+                    t0 = time.perf_counter()
+                    got = mb.max_batch_by_trial(fn, params, batch,
+                                                budget_bytes=mb.DEFAULT_BUDGET_BYTES,
+                                                hi_cap=MAX_BATCH_HI_CAP, reserved_bytes=reserved)
+                    seconds = time.perf_counter() - t0
+                n, source = len(trials.sizes), "trials"
+            require(got > 0, f"max_batch {tag} {mode}: nothing fits")
+            with mb._memory_fraction(model.device, cap):
+                holds = mb.trial_survives(runner, got, attempts=2)
+                next_fails = (None if got >= MAX_BATCH_HI_CAP
+                              else not mb.trial_survives(runner, got + 1, attempts=2))
+            require(holds, f"max_batch {tag} {mode}: the certified batch {got} no longer runs "
+                    "under the cap")
+            check = None
+            if mode in ("mixed_ghost", "bk_mixed"):
+                big = mb.batch_at(batch, got)
+                c0 = launches.snapshot()
+                _, g_k, aux_k = fn(params, big)
+                c1 = launches.snapshot()
+                g_k = flatten_dict(g_k)
+                with dispatch.force_impl("torch"):
+                    _, g_p, aux_p = fn(params, big)
+                c2 = launches.snapshot()
+                check = {"norm_rel_err": _max_rel(aux_k["per_sample_norms"],
+                                                  aux_p["per_sample_norms"]),
+                         "grad_rel_err": _grad_rel_err(g_k, flatten_dict(g_p)),
+                         "kernel_run": _launch_delta(c0, c1), "plain_run": _launch_delta(c1, c2)}
+                del big, g_k, aux_k, g_p, aux_p
+                # each side ran what it claims: a plan's kernel map must not
+                # send the plain side back to the kernels
+                require(check["kernel_run"]["torch"] == 0 and check["kernel_run"]["cuda"] > 0
+                        and check["plain_run"]["cuda"] == 0 and check["plain_run"]["torch"] > 0,
+                        f"max_batch {tag} {mode}: launches kernel side {check['kernel_run']}, "
+                        f"plain side {check['plain_run']}")
+                require(check["norm_rel_err"] <= NORM_TOL
+                        and check["grad_rel_err"] <= KERNEL_GRAD_TOL,
+                        f"max_batch {tag} {mode}: kernels vs plain at batch {got}: {check}")
+            del fn, runner
+            _free()
+            sec = "" if seconds is None else f" in {seconds:.1f} s"
+            print(f"max_batch {tag} {mode}: {got} ({source}: {n} trials{sec}); runs again under "
+                  f"the cap {holds}; the next batch fails {next_fails} (reported: the edge is "
+                  f"not sharp); kernels vs plain at it {check}")
+            rows[mode] = {"max_batch": got, "trials": n, "seconds": seconds, "source": source,
+                          "holds": holds, "next_fails": next_fails, "kernel_check": check}
+        for base in ("vmap", "non_private"):
+            if base in rows:
+                ratios = {m: r["max_batch"] / rows[base]["max_batch"] for m, r in rows.items()
+                          if m != base and isinstance(r, dict) and "max_batch" in r}
+                rows[f"ratio_to_{base}"] = ratios
+                print(f"max_batch {tag}: ratio to {base} " + ", ".join(
+                    f"{m} {v:.2f}" for m, v in ratios.items()))
+        del model, params, batch
+        _free()
+        torch.cuda.reset_peak_memory_stats()
     return out
 
 
@@ -1864,54 +2297,100 @@ def summary_line(kernels: dict, runs: dict) -> dict:
     return {"kernels": rows}
 
 
-def _model_params_batch(path: dict, dtype=None):
-    """A path's model (in ``dtype`` compute where given), its parameters
-    from seed 0 and the batch of step 0."""
+def per_path_lines(kernels: dict, runs: dict) -> dict:
+    """The summary line's sums split by path (PERF.md's kernel table reads
+    them): per kernel and path, ms (CUDA events), device ms (profiler; None
+    where a call has none), plain, library and bound ms summed over one
+    step's (or the serve phase's) main-path calls, and the path's launches
+    in its run."""
+    out = {}
+    for kernel in KERNEL_INFO:
+        entries = kernels[kernel] + (kernels["conv_ghost_norm_sq"]
+                                     if kernel == "ghost_norm_sq" else [])
+        by_path = {}
+        for c in entries:
+            if "calls_per_step" in c:
+                by_path.setdefault(c.get("path", "serve"), []).append(c)
+        for tag, main in by_path.items():
+            row = {key: sum(c[key] * c["calls_per_step"] for c in main)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            dev = [c.get("device_ms") for c in main]
+            row["device_ms"] = (None if any(d is None for d in dev) else
+                                sum(d * c["calls_per_step"] for d, c in zip(dev, main)))
+            row["launches"] = runs[tag]["launches"][kernel] if tag in runs else None
+            out[f"{kernel} {tag}"] = row
+            d = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f}"
+            print(f"kernel {kernel} per {tag} step: {row['ms']:.4f} ms [device {d}], plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+                  f"{row['bound_ms']:.4f}; {row['launches']} launches in the run")
+    return out
+
+
+def _model_params_batch(path: dict, dtype=None, remat: bool = True, batch: int = None):
+    """A path's model (in ``dtype`` compute where given, its stacks
+    rematerialised or not), its parameters from seed 0 and the batch of
+    step 0 (``batch`` samples, else the path's batch)."""
     import torch
 
     from repro_torch.data.synthetic import synthetic_vision_batch
 
-    model = path["build"](dtype)
+    model = path["build"](dtype, remat)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    batch = synthetic_vision_batch(batch=path["batch"], image=path["image"], channels=3,
-                                   n_classes=10, step=0, device="cuda")
+    batch = synthetic_vision_batch(batch=batch or path["batch"], image=path["image"],
+                                   channels=3, n_classes=path["n_classes"], step=0,
+                                   device="cuda")
     return model, params, batch
 
 
 def _paths() -> dict:
-    """The two main paths, with the kernel shapes and expected launches of
-    their taps.  Each phase builds a path's model anew (seed 0) and drops it
-    after, so one path's memory never counts in the other's peak."""
+    """The three training paths, with the kernel shapes and expected
+    launches of their taps.  Each phase builds a path's model anew (seed 0)
+    and drops it after, so one path's memory never counts in another's
+    peak."""
     import torch
 
-    from repro_torch.configs.paper_native import VIT_BASE
+    from repro_torch.configs.paper_native import BEIT_LARGE, VIT_BASE
     from repro_torch.models.cnn import VGG
     from repro_torch.models.vit import ViT
 
-    def vit(dtype=None):
-        cfg = VIT_BASE if dtype is None else dataclasses.replace(VIT_BASE, dtype=dtype)
-        return ViT(cfg, image_size=224, patch=16, n_classes=10, device="cuda")
+    def vit(base, n_classes):
+        def build(dtype=None, remat=True):
+            cfg = dataclasses.replace(base, remat=remat, **({} if dtype is None
+                                                            else {"dtype": dtype}))
+            return ViT(cfg, image_size=224, patch=16, n_classes=n_classes, device="cuda")
+        return build
 
     specs = {
         # the paper's Table 6 batch; DP modes step on the privatized mean of
         # gradients clipped to norm 1, non_private (as in the JAX package) on
         # the plain sum of unclipped gradients (per-sample norms ~200 at init)
-        "vgg19": dict(build=lambda dtype=None: VGG(
+        "vgg19": dict(build=lambda dtype=None, remat=True: VGG(
                           "vgg19", dtype=getattr(torch, dtype or "float32"), device="cuda"),
-                      batch=128, image=32, lr={"non_private": 0.05 / (128 * 200), "dp": 0.05}),
+                      batch=128, image=32, n_classes=10, modes=MODES,
+                      lr={"non_private": 0.05 / (128 * 200), "dp": 0.05}),
         # ViT-Base/16 on CIFAR-10 upscaled to 224, as the paper fine-tunes
         # its ViTs; small learning rates keep 86M noisy coordinates finite.
-        # bf16 compute; the oracle's gate runs it in fp32 compute
-        "vit_base": dict(build=vit, batch=32, image=224,
-                         lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
+        # bf16 compute, each layer rematerialised (the config's default); the
+        # oracle's gate runs it in fp32 compute
+        "vit_base": dict(build=vit(VIT_BASE, 10), batch=32, image=224, n_classes=10,
+                         modes=MODES, lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
+        # BEiT-Large/16 (24 layers, d_model 1024, 304M parameters), the
+        # paper's headline model, at 1000 classes: bf16 compute, remat on;
+        # the oracle at 8 samples in fp32 compute
+        "beit_large": dict(build=vit(BEIT_LARGE, 1000), batch=32, image=224, n_classes=1000,
+                           modes=BEIT_MODES, oracle_batch=8,
+                           lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
     }
     for tag, path in specs.items():
         model, params, batch = _model_params_batch(path)
         path["dtype"] = _name(model.dtype)
         path["shapes"], path["expected"], path["taps_shapes"] = main_path_shapes(
             model, params, batch)
+        if not any(mode.endswith("_taps") for mode in path["modes"]):
+            path["taps_shapes"] = {k: [] for k in path["taps_shapes"]}
         print(f"{tag} at batch {path['batch']} ({path['dtype']} compute): "
               f"expected kernel launches per step {path['expected']}")
+        del model, params, batch
     return specs
 
 
@@ -1921,29 +2400,56 @@ def run() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for cuDNN and matmuls: fp32 comparisons in full fp32")
-    card = phase_card()
-    build = phase_build()
-    paths = _paths()
-    kernels = phase_kernels(paths)
-    kernels["flash_attention"] = phase_flash_kernel()
-    slices = {tag: phase_slice(tag, path, STEPS) for tag, path in paths.items()}
-    compare = {tag: phase_compare(tag, path) for tag, path in paths.items()}
-    oracle = {"vgg19": phase_oracle("vgg19", paths["vgg19"], native_ref=True),
-              "vit_base": phase_oracle("vit_base", paths["vit_base"], "float32"),
-              "vit_base_bfloat16": phase_oracle("vit_base", paths["vit_base"], gated=False)}
-    accum = phase_accum(paths["vgg19"])
-    serve = phase_serve()
+    seconds = {}
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        _free()
+        print(f"phase {name}: {seconds[name]:.1f} s")
+        return res
+
+    card = phase("card", phase_card)
+    build = phase("build", phase_build)
+    paths = phase("paths", _paths)
+    kernels = phase("kernels", phase_kernels, paths)
+    kernels["flash_attention"] = phase("flash_kernel", phase_flash_kernel)
+    slices = {tag: phase(f"slice {tag}", phase_slice, tag, path, STEPS)
+              for tag, path in paths.items()}
+    compare = {tag: phase(f"compare {tag}", phase_compare, tag, path)
+               for tag, path in paths.items()}
+    oracle = {
+        "vgg19": phase("oracle vgg19", phase_oracle, "vgg19", paths["vgg19"], native_ref=True),
+        "vit_base": phase("oracle vit_base", phase_oracle, "vit_base", paths["vit_base"],
+                          "float32"),
+        "vit_base_bfloat16": phase("oracle vit_base bf16", phase_oracle, "vit_base",
+                                   paths["vit_base"], gated=False),
+        "beit_large": phase("oracle beit_large", phase_oracle, "beit_large",
+                            paths["beit_large"], "float32", policies=False),
+        "beit_large_bfloat16": phase("oracle beit_large bf16", phase_oracle, "beit_large",
+                                     paths["beit_large"], gated=False),
+    }
+    accum = phase("accum", phase_accum, paths["vgg19"])
+    remat = phase("remat", phase_remat, paths, slices)
+    tune = phase("tune", phase_tune, paths)
+    max_batch = phase("max_batch", phase_max_batch, paths, tune)
+    serve = phase("serve", phase_serve)
     summary = summary_line(kernels, {**slices, "serve": serve})
+    per_path = per_path_lines(kernels, {**slices, "serve": serve})
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.1f}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "build": build, "steps": STEPS,
+        "card": card, "build": build, "steps": STEPS, "seconds": seconds,
         "paths": {tag: {"batch": path["batch"], "image": path["image"],
-                        "dtype": path["dtype"], "expected": path["expected"]}
+                        "dtype": path["dtype"], "expected": path["expected"],
+                        "modes": path["modes"]}
                   for tag, path in paths.items()},
         "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
-        "accum": accum, "serve": serve,
-        "summary": summary,
-    }, indent=1))
+        "accum": accum, "remat": remat, "tune": tune, "max_batch": max_batch, "serve": serve,
+        "summary": summary, "per_path": per_path,
+    }, indent=1, default=str))
     return {"summary": summary, "card": card}
 
 

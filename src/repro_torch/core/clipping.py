@@ -44,9 +44,17 @@ Flow of the fused family (``FusedExecutor``)::
     C = policy(sqrt(sum_tap banks[tap]["n"])) * mask
     grad(losses, inputs=params, grad_outputs=C)     # 2nd backward (not bk_mixed)
 
-The tuner's knobs (a ClipPlan's per-tap branches and kernels,
-``decision_by``, ``ghost_block``, ``inst_block_d``) come with the tuner's
-slice; the port fixes them at the JAX defaults.
+The tuner's knobs: ``decision_by`` (Eq. 4.1 by space or Remark 4.1 by
+time), ``ghost_block`` and ``inst_block_d`` (the plain versions' tiles) and
+``plan`` (a ``repro_torch.tuner.ClipPlan``, duck-typed: its per-tap branch
+overrides for the running mode and its per-tap kernel choices).  The fused
+and explicit executors read the plan once the forward has named the taps
+and thread it to every tap, as the JAX package does.  A stale plan
+(another device, another shape fingerprint) gives no override and no
+kernel choice: the analytic rule and the device default apply, and the
+plan logs why.  A kernel choice other than the device's production impl
+(``dispatch.available_impls``: the kernel on the card) is refused, and a
+``dispatch.force_impl`` override outranks every recorded choice.
 """
 from __future__ import annotations
 
@@ -76,9 +84,61 @@ class ClipConfig:
     mode: str = "mixed_ghost"
     clip_norm: float = 1.0
     clip_fn: str = "abadi"
+    decision_by: str = "space"  # Eq 4.1 (space) or Remark 4.1 (time)
+    ghost_block: int = 512
+    inst_block_d: int = 8192
+    # measured-cost branch plan (repro_torch.tuner.ClipPlan, duck-typed to
+    # keep core free of tuner imports); a plan whose device or shape
+    # fingerprint does not match the model gives the analytic rule
+    plan: Optional[Any] = None
     # clipping policy (repro_torch.policies.ClipPolicy); None builds the
     # fixed flat-R policy from (clip_norm, clip_fn)
     policy: Optional[Any] = None
+
+
+def _plan_overrides(
+    plan: Optional[Any], meta: dict[str, TapMeta], mode: str, device: torch.device
+) -> dict[str, str]:
+    """Validated per-tap branch overrides from a tuner plan ({} if stale).
+
+    Plans are mode-specific: the book-keeping branch trades bank size, not
+    norm cost, so ``bk_mixed`` reads another branch map than
+    ``mixed_ghost``; ``plan.overrides_for`` dispatches on the mode.
+    """
+    if plan is None:
+        return {}
+    return plan.overrides_for(meta, device=device, mode=mode)
+
+
+def _plan_kernels(
+    plan: Optional[Any], meta: dict[str, TapMeta], device: torch.device
+) -> dict[str, dict[str, str]]:
+    """Validated per-tap kernel choices from a tuner plan ({} if stale).
+
+    ``{tap: {op: impl}}``; an impl other than the device's production one
+    raises: no plan sends a card's tap to the plain version."""
+    if plan is None:
+        return {}
+    fn = getattr(plan, "kernels_for", None)
+    kernels = fn(meta, device=device) if fn is not None else {}
+    allowed = dispatch.available_impls(device)
+    for name, ops in kernels.items():
+        for op, impl in ops.items():
+            if impl not in allowed:
+                raise ValueError(
+                    f"plan routes tap {name!r}'s {op} to {impl!r} on {device}; "
+                    f"this device runs {allowed}")
+    return kernels
+
+
+def _psg_impl(kernels: dict[str, dict[str, str]], names: Iterable[str]) -> Optional[str]:
+    """The one impl of a step's grouped psg contraction: the taps' recorded
+    choice (they must agree; one launch serves them all)."""
+    choices = {kernels[n]["psg_contract"] for n in names
+               if "psg_contract" in kernels.get(n, {})}
+    if len(choices) > 1:
+        raise ValueError(f"one grouped psg_contract launch, but the plan records {choices}")
+    return choices.pop() if choices else None
 
 
 def discover_meta(loss_with_ctx: LossFn, params: Any, batch: Any) -> dict[str, TapMeta]:
@@ -192,6 +252,8 @@ class _NormState:
     # grouped policies: {param_path: (B,)} squared-norm contributions,
     # summing to norms2
     path_norms2: Optional[dict[str, torch.Tensor]] = None
+    # explicit engine: the plan's per-tap kernel choices, for the books
+    kernels: Optional[dict[str, dict[str, str]]] = None
 
 
 class ClipExecutor:
@@ -301,7 +363,8 @@ class VmapExecutor(ClipExecutor):
         from torch.func import grad_and_value, vmap
 
         def single(p, ex):
-            return self.loss(p, ex, Ctx.disabled())[0]
+            # torch.func refuses checkpointing's saved-tensor hooks: no remat
+            return self.loss(p, ex, Ctx.disabled(remat=False))[0]
 
         per_ex = tree_map(lambda x: x[:, None], batch)
         grads, losses = vmap(grad_and_value(single), in_dims=(None, 0))(params, per_ex)
@@ -342,12 +405,17 @@ class FusedExecutor(ClipExecutor):
         return self.cfg.mode == "bk_mixed"
 
     def _norm_state(self, params, batch) -> _NormState:
-        runtime = ClipRuntime(mode=self.cfg.mode)
+        cfg = self.cfg
+        runtime = ClipRuntime(mode=cfg.mode, decision_by=cfg.decision_by,
+                              ghost_block=cfg.ghost_block, inst_block_d=cfg.inst_block_d)
         leaves = None
         if not self.is_bk:
             leaves, params = _leaves_requiring_grad(params)
         ctx = Ctx(meta={}, clip=runtime)
         losses = self.loss(params, batch, ctx)
+        # the forward has named the taps: the plan's choices for the probes
+        runtime.overrides = _plan_overrides(cfg.plan, ctx.meta, cfg.mode, losses.device)
+        runtime.kernels = _plan_kernels(cfg.plan, ctx.meta, losses.device)
         # first backward: gradients of the probes' dummy leaves only, so
         # autograd runs every probe and prunes every parameter-gradient kernel
         torch.autograd.grad(
@@ -379,23 +447,27 @@ class FusedExecutor(ClipExecutor):
         # bank of the step contracts in one grouped call, each against its
         # own group's row, its sums written to the parameter paths after
         flat_params = flatten_dict(params)
-        parts, segments = [], []
+        kernels = st.runtime.kernels
+        parts, segments, psg_taps = [], [], []
         for name, m in st.meta.items():
             banks = [st.runtime.banks.pop(k) for k in bank_keys(name, m)]
             shape = tuple(flat_params[m.param_path].shape)
             if "g" in banks[0]:
                 book = _stack_banks(banks)
                 cw = c.for_path(m.param_path) if grouped else c
-                parts.append(ghost.tap_weighted_grads(m, book["a"], book["g"], cw, shape))
+                parts.append(ghost.tap_weighted_grads(m, book["a"], book["g"], cw, shape,
+                                                      kernels=kernels.get(name)))
             else:
                 segments.extend(ghost.psg_segments(m, banks, shape))
+                psg_taps.append(name)
         if segments:
             psgs = [x for _, _, xs in segments for x in xs]
+            impl = _psg_impl(kernels, psg_taps)
             if grouped:
                 rows = [c.group_index(path) for path, _, xs in segments for _ in xs]
-                sums = dispatch.psg_contract_grouped(psgs, c.factors, rows)
+                sums = dispatch.psg_contract_grouped(psgs, c.factors, rows, impl=impl)
             else:
-                sums = dispatch.psg_contract_grouped(psgs, c)
+                sums = dispatch.psg_contract_grouped(psgs, c, impl=impl)
             at, part = 0, {}
             for path, shape, _ in segments:
                 size = math.prod(shape)
@@ -437,9 +509,12 @@ class TapsExecutor(ClipExecutor):
         return self.branch_mode == "bk_mixed"
 
     def _norm_state(self, params, batch) -> _NormState:
+        cfg = self.cfg
         leaves, p = _leaves_requiring_grad(params)
         ctx = Ctx(meta={}, acts={})
         losses = self.loss(p, batch, ctx)
+        overrides = _plan_overrides(cfg.plan, ctx.meta, self.branch_mode, losses.device)
+        kernels = _plan_kernels(cfg.plan, ctx.meta, losses.device)
         keys = list(ctx.zs)
         # first backward: dL/ds at every tap; the graph stays for the second
         gs = torch.autograd.grad(
@@ -454,14 +529,17 @@ class TapsExecutor(ClipExecutor):
             ks = bank_keys(name, m)
             acts[name] = _stacked([ctx.acts[k] for k in ks])
             cots[name] = _stacked([cot[k] for k in ks])
-            per_tap.append((m, ghost.tap_norm_sq(m, acts[name], cots[name],
-                                                 mode=self.branch_mode)))
+            per_tap.append((m, ghost.tap_norm_sq(
+                m, acts[name], cots[name], mode=self.branch_mode,
+                decision_by=cfg.decision_by, ghost_block=cfg.ghost_block,
+                inst_block_d=cfg.inst_block_d, override=overrides.get(name),
+                kernels=kernels.get(name))))
         norms2, path_norms2 = self._tally(per_tap, losses.shape[0], losses.device)
         if not self.is_bk:  # the second backward needs no activation or cotangent
             return _NormState(losses=losses, norms2=norms2, leaves=leaves,
                               path_norms2=path_norms2)
         return _NormState(losses=losses.detach(), norms2=norms2, meta=ctx.meta, acts=acts,
-                          gs=cots, path_norms2=path_norms2)
+                          gs=cots, path_norms2=path_norms2, kernels=kernels)
 
     def _weighted_grads(self, st, c, params):
         grouped = isinstance(c, GroupedFactors)
@@ -473,7 +551,8 @@ class TapsExecutor(ClipExecutor):
         return _assemble_bk_grads(params, (
             ghost.tap_weighted_grads(m, st.acts[name], st.gs[name],
                                      c.for_path(m.param_path) if grouped else c,
-                                     tuple(flat_params[m.param_path].shape))
+                                     tuple(flat_params[m.param_path].shape),
+                                     kernels=st.kernels.get(name))
             for name, m in st.meta.items()
         ))
 

@@ -8,6 +8,7 @@ identity ``torch.autograd.Function`` that keeps the op's input ``a`` and a
     forward:   s -> s                       (identity; saves a)
     backward:  ds = g                       (the cotangent flows on)
                bank = ghost.tap_bank(a, g)  -> runtime.banks[key]
+                                            (the runtime's knobs, plan)
                dz = 0                       (z only marks the probe)
 
 ``key`` is ``(tap name, layer)``: each layer of a stack banks under its own
@@ -24,6 +25,12 @@ A second backward over the same graph (``mixed_ghost``'s clipped-gradient
 pass) runs ``Probe.backward`` again; with ``runtime.phase == "grad"`` it
 only passes the cotangent through, so the banks are computed once per step
 (in JAX the second pullback's bank computation is dead code).
+
+Under a rematerialised stack (``nn/stack.py``) a layer's probes run their
+forward again in each backward, which restores the saved ``a``; their
+backward runs on the original graph only, so each (tap, layer) banks once
+a step, in the ``"bank"`` phase, and the banks stay outside the recomputed
+region.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ class Probe(torch.autograd.Function):
         if runtime.phase != "bank":
             return g, None, None, None, None, None
         (a,) = ctx.saved_tensors
-        runtime.banks[ctx.key] = ghost.tap_bank(ctx.meta, a, g, mode=runtime.mode)
+        runtime.banks[ctx.key] = ghost.tap_bank(ctx.meta, a, g, **runtime.tap_args(ctx.key[0]))
         return g, None, g.new_zeros(()), None, None, None
 
 

@@ -37,11 +37,18 @@ JAX package does.  The other norms take it in fp32, as in the JAX package.
 ``dw_conv`` and ``scale_grouped`` arrive with the LM slice.
 Autograd saves integer ids, so the JAX package's fp32 id side channel and
 its 2^24 vocab guard have no counterpart here.
+
+The tuner's knobs arrive per call, as in the JAX package: ``decision_by``
+(Eq. 4.1's space rule or Remark 4.1's time rule), ``override`` (a
+``ClipPlan``'s measured branch for this tap; it never wins over a forced
+kind or a reference mode, ``decision.decide``), ``ghost_block`` and
+``inst_block_d`` (the plain versions' tiles) and ``kernels`` (the plan's
+``{op: impl}`` for this tap, ``kernels/dispatch.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -52,10 +59,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.ghost_norm import ops as gops
 from repro_torch.nn.conv import conv_padding, pad_nchw, unfold2d
 
-# The plain instantiated norm's fan-in chunk (the JAX ClipConfig default).
-# Per-tap block sizes, the time-priority decision rule and per-tap branch
-# overrides come back with the tuner's ClipPlan.
-INST_BLOCK_D = 8192
+KernelChoices = Optional[Mapping[str, str]]  # {dispatch op: impl} of one tap
 
 _LATER = {"dw_conv": "the LM slice", "scale_grouped": "the LM slice"}
 
@@ -93,13 +97,15 @@ def _canonical_ag(meta: TapMeta, a: torch.Tensor, g: torch.Tensor):
     return aa, gg
 
 
-def _ghost_rows(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _ghost_rows(meta: TapMeta, a: torch.Tensor, g: torch.Tensor, *, block: int = 512,
+                impl: Optional[str] = None) -> torch.Tensor:
     """Ghost norms (N,) of a matmul tap's rows; a conv reads its raw input."""
     if meta.conv is None:
-        return dispatch.ghost_norm_sq(*_canonical_ag(meta, a, g))
+        return dispatch.ghost_norm_sq(*_canonical_ag(meta, a, g), block=block, impl=impl)
     rows = meta.n_stack * meta.batch_size
     x = a.reshape((rows,) + tuple(a.shape[-3:]))
-    return dispatch.conv_ghost_norm_sq(x, g.reshape(rows, meta.T, meta.p), meta.conv)
+    return dispatch.conv_ghost_norm_sq(x, g.reshape(rows, meta.T, meta.p), meta.conv,
+                                       block=block, impl=impl)
 
 
 def tap_norm_sq(
@@ -108,21 +114,28 @@ def tap_norm_sq(
     g: torch.Tensor,
     *,
     mode: str = "mixed_ghost",
+    decision_by: str = "space",
+    ghost_block: int = 512,
+    inst_block_d: int = 8192,
+    override: Optional[str] = None,
+    kernels: KernelChoices = None,
     include_bias: bool = True,
 ) -> torch.Tensor:
     """Per-sample squared norm contributions: (B,) fp32 (weight + bias)."""
     b = meta.batch_size
     if meta.kind == "matmul":
-        if decide(meta, mode=mode) == "ghost":
-            rows = _ghost_rows(meta, a, g)  # the cotangent in its stored dtype
+        if decide(meta, mode=mode, by=decision_by, override=override) == "ghost":
+            rows = _ghost_rows(meta, a, g, block=ghost_block,  # g in its stored dtype
+                               impl=dispatch.kernels_arg(kernels, "ghost_norm"))
         else:
             aa, gg = _canonical_ag(meta, a, g.float())
-            rows = gops.instantiated_norm_sq(aa, gg, block_d=INST_BLOCK_D)
+            rows = gops.instantiated_norm_sq(aa, gg, block_d=inst_block_d)
         total = _per_sample(meta, rows)
     elif meta.kind == "embedding":
         n = meta.n_stack * b
         rows = dispatch.embedding_ghost_norm_sq(  # the cotangent in its stored dtype
-            a.reshape(n, meta.T), g.reshape(n, meta.T, meta.p)
+            a.reshape(n, meta.T), g.reshape(n, meta.T, meta.p),
+            impl=dispatch.kernels_arg(kernels, "embedding_ghost_norm"),
         )
         total = _per_sample(meta, rows)
     elif meta.kind in ("scale", "bias"):
@@ -202,6 +215,11 @@ def tap_bank(
     g: torch.Tensor,
     *,
     mode: str = "mixed_ghost",
+    decision_by: str = "space",
+    ghost_block: int = 512,
+    inst_block_d: int = 8192,
+    override: Optional[str] = None,
+    kernels: KernelChoices = None,
 ) -> dict[str, torch.Tensor]:
     """The fused probe's backward payload for one tap.
 
@@ -212,22 +230,24 @@ def tap_bank(
     ghost-branch matmuls and embeddings.  ``meta`` is one layer's (no stack
     dims): the engine stacks a stacked tap's per-layer banks afterwards.
     """
+    knobs = dict(decision_by=decision_by, ghost_block=ghost_block,
+                 inst_block_d=inst_block_d, kernels=kernels)
     if mode != "bk_mixed":
-        return {"n": tap_norm_sq(meta, a, g, mode=mode)}
+        return {"n": tap_norm_sq(meta, a, g, mode=mode, override=override, **knobs)}
     b = meta.batch_size
     g32 = g.float()
     bank: dict[str, torch.Tensor] = {}
     if meta.kind == "matmul":
-        if decide(meta, mode="bk_mixed") == "instantiate":
+        if decide(meta, mode="bk_mixed", by=decision_by, override=override) == "instantiate":
             psg = _matmul_psg(meta, a, g32)
             bank["psg"] = psg
             n = psg.square().reshape(b, -1).sum(dim=-1)
         else:
             bank["a"], bank["g"] = a, g
-            n = tap_norm_sq(meta, a, g, mode="ghost", include_bias=False)
+            n = tap_norm_sq(meta, a, g, mode="ghost", include_bias=False, **knobs)
     elif meta.kind == "embedding":
         bank["a"], bank["g"] = a, g
-        n = tap_norm_sq(meta, a, g, mode="bk_mixed", include_bias=False)
+        n = tap_norm_sq(meta, a, g, mode="bk_mixed", include_bias=False, **knobs)
     elif meta.kind in ("scale", "bias"):
         psg = _small_psg(meta, a, g32)[0]
         bank["psg"] = psg
@@ -264,6 +284,7 @@ def tap_weighted_grads(
     g: torch.Tensor,
     clip: torch.Tensor,  # (B,) clip factors C_i
     param_shape: tuple[int, ...],
+    kernels: KernelChoices = None,
 ) -> dict[str, torch.Tensor]:
     """Book-keeping gradients sum_i C_i g_i of one tap from its (a, g) book
     (stack dims leading), every kind.
@@ -294,7 +315,8 @@ def tap_weighted_grads(
         a2 = aa.transpose(1, 2).reshape(lead * gdim, b * meta.T, meta.D)
         g2 = gg.transpose(1, 2).reshape(lead * gdim, b * meta.T, meta.p)
         w2 = cw[:, None].expand(b, meta.T).reshape(1, b * meta.T).expand(lead * gdim, -1)
-        w = dispatch.book_weighted_grad(a2, g2, w2)
+        w = dispatch.book_weighted_grad(a2, g2, w2,
+                                        impl=dispatch.kernels_arg(kernels, "psg_contract"))
         out = {meta.param_path: _finish_matmul_grad(meta, w, param_shape)}
     else:
         gw = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]

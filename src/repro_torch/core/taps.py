@@ -37,6 +37,9 @@ activation and pre-activation under its own key ``(name, layer)``; the
 fused engine sums the norms over the layers and contracts the stacked banks
 once per name, the explicit engine stacks a tap's per-layer ``a`` and
 ``dL/ds`` on a leading dim and norms (and contracts) them once per name.
+A rematerialised stack runs each layer's forward again in the backward;
+``Ctx.tap`` keeps what the first forward recorded under a key (the meta it
+writes again is equal).
 """
 from __future__ import annotations
 
@@ -115,6 +118,19 @@ class ClipRuntime:
     mode: str = "mixed_ghost"
     phase: str = "bank"
     banks: dict[BankKey, dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+    # the step's branch knobs (``ClipConfig``) and, once the forward has
+    # named the taps, a plan's per-tap branch overrides and kernel choices
+    decision_by: str = "space"
+    ghost_block: int = 512
+    inst_block_d: int = 8192
+    overrides: dict[str, str] = dataclasses.field(default_factory=dict)
+    kernels: dict[str, dict[str, str]] = dataclasses.field(default_factory=dict)
+
+    def tap_args(self, name: str) -> dict:
+        """``ghost.tap_bank``'s keyword arguments for tap ``name``."""
+        return dict(mode=self.mode, decision_by=self.decision_by,
+                    ghost_block=self.ghost_block, inst_block_d=self.inst_block_d,
+                    override=self.overrides.get(name), kernels=self.kernels.get(name))
 
 
 class Ctx:
@@ -127,10 +143,12 @@ class Ctx:
     and prunes every parameter-gradient kernel.  ``stack`` is set inside a
     ``ScannedStack``: (this layer's index, the number of layers).  ``acts``
     set (and ``clip`` None) is the explicit engine: each tap records its
-    input there and its pre-activation in ``zs``.
+    input there and its pre-activation in ``zs``.  ``remat=False`` turns off
+    the stacks' rematerialisation for this forward (``torch.func``, which
+    the vmap oracle runs under, refuses the saved-tensor hooks it needs).
     """
 
-    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack", "acts")
+    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack", "acts", "remat")
 
     def __init__(
         self,
@@ -141,6 +159,7 @@ class Ctx:
         zs: Optional[dict[BankKey, torch.Tensor]] = None,
         stack: Optional[tuple[int, int]] = None,
         acts: Optional[dict[BankKey, torch.Tensor]] = None,
+        remat: bool = True,
     ):
         self.meta = {} if meta is None else meta
         self.path = path
@@ -149,17 +168,18 @@ class Ctx:
         self.zs = {} if zs is None else zs
         self.stack = stack
         self.acts = acts
+        self.remat = remat
 
     def scope(self, name: str) -> "Ctx":
         return Ctx(self.meta, self._join(name), self.collect, self.clip, self.zs, self.stack,
-                   self.acts)
+                   self.acts, self.remat)
 
     def layer(self, index: int, n: int) -> "Ctx":
         """The context of layer ``index`` of an ``n``-layer stack."""
         if self.stack is not None:
             raise NotImplementedError("nested layer stacks come with the LM slice")
         return Ctx(self.meta, self.path, self.collect, self.clip, self.zs, (index, n),
-                   self.acts)
+                   self.acts, self.remat)
 
     def _join(self, name: str) -> str:
         return f"{self.path}/{name}" if self.path else name
@@ -203,18 +223,23 @@ class Ctx:
             index, n = self.stack
             self.meta[full] = meta.with_stack(n)
             key = (full, index)
+        # a rematerialised layer's recomputation (nn/stack.py) calls its taps
+        # again: the first forward's records stand
+        first = key not in self.zs
         if self.acts is not None:  # explicit engine: dL/ds is taken at s itself
-            self.acts[key] = a.detach()
-            self.zs[key] = s
+            if first:
+                self.acts[key] = a.detach()
+                self.zs[key] = s
             return s
         if self.clip is None:
             return s
         from repro_torch.core.fused import probe
 
         z = torch.zeros((), device=s.device, requires_grad=True)
-        self.zs[key] = z
+        if first:
+            self.zs[key] = z
         return probe(s, a, z, key, meta, self.clip)
 
     @staticmethod
-    def disabled() -> "Ctx":
-        return Ctx(collect=False)
+    def disabled(remat: bool = True) -> "Ctx":
+        return Ctx(collect=False, remat=remat)

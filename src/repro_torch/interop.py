@@ -8,10 +8,15 @@ weights, collected when it is built (``model.conv_weights``).  Every other
 leaf keeps its layout, stacked or grouped 4-D leaves such as MoE experts
 (L, E, D, F) included.  Everything crosses as numpy arrays, so neither side
 imports the other.
+
+``plan_from_jax`` carries a tuner ``ClipPlan`` across (its JSON): the same
+schema and shape fingerprint, with the kernel impls renamed.
 """
 from __future__ import annotations
 
 from typing import Any, Collection, Mapping
+
+import json
 
 import numpy as np
 import torch
@@ -64,3 +69,27 @@ def batch_from_numpy(batch: Mapping[str, Any], device: DeviceLike = None) -> dic
     """A numpy batch (the JAX package's keys and layouts) -> tensors on ``device``."""
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(v)).to(dev) for k, v in batch.items()}
+
+
+# the JAX package's kernel impls and the port's counterparts
+_JAX_IMPLS = {"pallas": "cuda", "xla": "torch"}
+
+
+def plan_from_jax(text: str, *, device: DeviceLike = None):
+    """A JAX-package ``ClipPlan`` JSON -> the port's ``ClipPlan``.
+
+    The kernel impls map ``pallas`` -> ``cuda`` and ``xla`` -> ``torch``;
+    the shape fingerprint and both branch maps are kept as written (the
+    fingerprints of one model agree across the packages).  The plan keeps
+    the device it was measured on, so ``matches`` holds only where that
+    device runs, unless ``device`` is given: then it is restamped to that
+    device's string (the caller vouches that the measurement applies).
+    """
+    from repro_torch.tuner.plan import ClipPlan, device_string
+
+    d = json.loads(text)
+    d["kernels"] = [[name, op, _JAX_IMPLS.get(impl, impl)]
+                    for name, op, impl in d.get("kernels", ())]
+    if device is not None:
+        d["device"] = device_string(device)
+    return ClipPlan.from_json(json.dumps(d))

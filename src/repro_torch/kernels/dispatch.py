@@ -17,10 +17,23 @@ this module is the one place that picks between them:
 
 Resolution order, per call:
 
-1. an explicit ``impl=`` argument;
-2. a ``force_impl`` context override (tests, and ``chip_smoke.py`` running
+1. a ``force_impl`` context override (tests, and ``chip_smoke.py`` running
    the whole step on the plain versions for comparison);
+2. an explicit ``impl=`` argument (a tuner ``ClipPlan``'s per-tap
+   ``kernels`` map, threaded through the clipping executors);
 3. the device default: ``cuda`` for a CUDA tensor, ``torch`` for a CPU one.
+
+The JAX package puts the explicit argument first.  Here the override wins,
+so a yardstick run under ``force_impl("torch")`` runs the plain versions
+even when a plan records the kernel for every tap.
+
+``available_impls`` is what the tuner may record per tap: the one
+production impl of the tensor's device (``cuda`` on the card, ``torch`` on
+the CPU).  The plain versions are yardsticks on the card, never a
+production choice, so a plan cannot send a card's tap to them (the
+executors refuse such a map, ``core/clipping.py``).  The ``block`` sizes
+(a plan's ``ghost_block``) tile the plain versions only; the kernels have
+their own tiles.
 
 There is no fallback: a CUDA tensor goes to its kernel, which raises if it
 cannot build or launch, and ``cuda`` asked for a CPU tensor raises too.
@@ -32,7 +45,7 @@ the static masks only.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Sequence, Union
+from typing import Iterator, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -49,6 +62,14 @@ IMPLS = ("cuda", "torch")
 _forced: dict[str, str] = {}
 
 
+def available_impls(x: Union[torch.Tensor, torch.device, str]) -> tuple[str, ...]:
+    """The production impls for a tensor's (or a device's) device: the
+    kernel on the card, the plain version on the CPU (one each: the tuner
+    records it without a race)."""
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    return ("cuda",) if dev.type == "cuda" else ("torch",)
+
+
 def default_impl(op: str, x: torch.Tensor) -> str:
     """The kernel for a CUDA tensor, the plain version for a CPU one."""
     if op not in OPS:
@@ -57,11 +78,10 @@ def default_impl(op: str, x: torch.Tensor) -> str:
 
 
 def resolve(op: str, x: torch.Tensor, impl: Optional[str] = None) -> str:
-    """Pick the impl for one op: explicit > forced > device default."""
+    """Pick the impl for one op: forced > explicit > device default."""
     if op not in OPS:
         raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
-    if impl is None:
-        impl = _forced.get(op)
+    impl = _forced.get(op, impl)
     if impl is None:
         return default_impl(op, x)
     if impl not in IMPLS:
@@ -90,9 +110,14 @@ def force_impl(impl: Optional[str] = None, **per_op: str) -> Iterator[None]:
         _forced.update(saved)
 
 
+def kernels_arg(kernels: Optional[Mapping[str, str]], op: str) -> Optional[str]:
+    """The per-tap plan choice for ``op`` (None: no recorded choice)."""
+    return None if kernels is None else kernels.get(op)
+
+
 # -- the dispatched ops ----------------------------------------------------
 def ghost_norm_sq(
-    a: torch.Tensor, g: torch.Tensor, *, impl: Optional[str] = None
+    a: torch.Tensor, g: torch.Tensor, *, block: int = 512, impl: Optional[str] = None
 ) -> torch.Tensor:
     """Ghost norm (Eq. 2.7): a (N,T,D), g (N,T,p) -> (N,) fp32."""
     if resolve("ghost_norm", a, impl) == "cuda":
@@ -100,11 +125,12 @@ def ghost_norm_sq(
 
         return ghost_norm_sq_cuda(a.contiguous(), g.contiguous())
     launches.record("ghost_norm_sq", "torch")
-    return gops.ghost_norm_sq(a, g)
+    return gops.ghost_norm_sq(a, g, block=block)
 
 
 def conv_ghost_norm_sq(
-    x: torch.Tensor, g: torch.Tensor, info: ConvInfo, *, impl: Optional[str] = None
+    x: torch.Tensor, g: torch.Tensor, info: ConvInfo, *, block: int = 512,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Ghost norm of a conv tap from its raw input: x (N,H,W,C), g (N,T,p)
     -> (N,) fp32.  The kernel builds the patches on chip; the plain version
@@ -114,7 +140,7 @@ def conv_ghost_norm_sq(
 
         return conv_ghost_norm_sq_cuda(x.contiguous(), g.contiguous(), info)
     launches.record("ghost_norm_sq", "torch")
-    return gops.conv_ghost_norm_sq(x, g, info)
+    return gops.conv_ghost_norm_sq(x, g, info, block=block)
 
 
 def embedding_ghost_norm_sq(

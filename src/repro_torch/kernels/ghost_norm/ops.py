@@ -71,10 +71,12 @@ def ghost_norm_sq(a: torch.Tensor, g: torch.Tensor, *, block: int = 512) -> torc
     return acc
 
 
-def conv_ghost_norm_sq(x: torch.Tensor, g: torch.Tensor, info: ConvInfo) -> torch.Tensor:
+def conv_ghost_norm_sq(
+    x: torch.Tensor, g: torch.Tensor, info: ConvInfo, *, block: int = 512
+) -> torch.Tensor:
     """Ghost norm of a conv tap from its raw NHWC input: x (N, H, W, C),
     g (N, H_out*W_out, p) -> (N,) fp32, as ``ghost_norm_sq(unfold2d(x), g)``."""
-    return ghost_norm_sq(unfold2d(x, info), g)
+    return ghost_norm_sq(unfold2d(x, info), g, block=block)
 
 
 def instantiated_norm_sq(

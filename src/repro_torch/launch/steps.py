@@ -45,6 +45,9 @@ class DPTrainConfig:
     # clipping policy (repro_torch.policies.ClipPolicy); None builds the
     # fixed flat-R policy from (clip_norm, clip_fn)
     policy: Optional[Any] = None
+    # measured-cost branch plan (repro_torch.tuner.ClipPlan); threaded into
+    # the clipping of every step (a stale plan gives the analytic rule)
+    plan: Optional[Any] = None
 
 
 def _policy_for(dp: DPTrainConfig):
@@ -91,7 +94,8 @@ def make_train_step(
         raise ValueError(f"train step on {dev} but the model lives on {model.device}")
     policy = _policy_for(dp)
     clip_cfg = ClipConfig(
-        mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn, policy=policy,
+        mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn,
+        plan=dp.plan, policy=policy,
     )
     grad_fn = dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
     finalize = make_noise_finalize(optimizer, schedule, dp)
@@ -124,7 +128,7 @@ def make_clipped_microstep(model, dp: DPTrainConfig) -> Callable:
     the one policy update."""
     clip_cfg = ClipConfig(
         mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn,
-        policy=_policy_for(dp),
+        plan=dp.plan, policy=_policy_for(dp),
     )
     return dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
 

@@ -3,7 +3,8 @@
 The convolutional ViT/BEiT of the paper's Table 5: a VALID strided
 ``Conv2d`` patch embedding (a ghost tap with T = patches), a learned
 position ``Embedding`` over ``arange(T)`` (the embedding tap), a
-``ScannedStack`` of pre-norm transformer blocks, a final LayerNorm, mean
+``ScannedStack`` of pre-norm transformer blocks (each layer
+rematerialised in the backward when ``cfg.remat``, the default), a final LayerNorm, mean
 pooling over patches and a ``Dense`` head on a T = 1 tap.  Compute runs in
 ``cfg.dtype`` (bf16 for ViT-Base) with parameters in ``cfg.param_dtype``
 (fp32).  The public batch is the JAX package's: ``batch["image"]``
@@ -43,7 +44,7 @@ class ViT:
             "vb", dataclasses.replace(cfg, norm="layernorm", act="gelu"), causal=False,
             **common,
         )
-        self.layers = ScannedStack("layers", block, cfg.n_layers)
+        self.layers = ScannedStack("layers", block, cfg.n_layers, remat=cfg.remat)
         self.norm_f = LayerNorm("norm_f", cfg.d_model, **common)
         self.head = Dense("head", cfg.d_model, n_classes, **common)
         self.conv_weights = (self.patch_embed.weight_path,)

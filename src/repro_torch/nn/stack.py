@@ -15,15 +15,37 @@ A serving cache is stacked the same way: every cache leaf is (L, B, ...),
 and layer ``l`` reads and writes its slice ``[l]`` (a view), so a block
 that updates its cache in place updates the stacked tree.
 
-The JAX package rematerialises each layer in the backward (``cfg.remat``);
-this port keeps every layer's activations instead, so its peak memory
-differs by design.
+Rematerialisation (``remat=True``, the JAX package's ``cfg.remat``):
+while autograd records, each layer runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps the
+layer's input and drops what its ops save; every backward that needs them
+runs the layer again.  A step's two backwards over one graph (the
+second-backward modes' clipped pass) recompute each layer twice, as the
+JAX package's two pullbacks under ``jax.checkpoint`` do.  The recomputed
+forward calls the same taps: ``Ctx.tap`` records the meta, the explicit
+engine's activations and the probes' dummy leaves only the first time a
+key is seen, so a recomputation leaves the step's records as the first
+forward wrote them; the probes themselves run again (their saved input
+is what the recomputation restores) and bank only in the backward of the
+original graph.  The explicit engine (``*_taps``) keeps every tap's input
+and pre-activation outside the recomputed region, as the JAX package keeps
+them as scan ys, so remat saves less there; so does book-keeping
+(``bk_mixed``), whose books keep a ghost-banked tap's activation and
+cotangent from the backward to the contraction.  The ``vmap`` oracle runs
+its stack without remat (``Ctx.remat`` False), a divergence by design:
+``torch.func``'s transforms refuse the saved-tensor hooks that
+non-reentrant checkpointing installs, and the function is the same.  The
+forward draws no random numbers (no dropout), so the RNG state is not
+saved and restored (``preserve_rng_state=False``: it would buy nothing and
+costs a device state copy per layer).  Under ``no_grad`` (serving,
+discovery) the plain loop runs.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.module import Module, Params
@@ -33,10 +55,11 @@ from repro_torch.utils.tree import flatten_dict, unflatten_dict
 class ScannedStack(Module):
     """``n`` copies of ``block`` applied in order over stacked params."""
 
-    def __init__(self, name: str, block: Module, n: int):
+    def __init__(self, name: str, block: Module, n: int, *, remat: bool = True):
         self.name = name
         self.block = block
         self.n = n
+        self.remat = remat
 
     def init(self, generator: torch.Generator) -> Params:
         """Layer by layer into preallocated (L, ...) leaves: the same draws in
@@ -67,9 +90,18 @@ class ScannedStack(Module):
         flat = flatten_dict(params)
         per_layer = zip(*(leaf.unbind(0) for leaf in flat.values()))
         if cache is None:
+            remat = self.remat and ctx.remat and torch.is_grad_enabled()
             for index, leaves in enumerate(per_layer):
-                x = self.block(unflatten_dict(dict(zip(flat, leaves))), x,
-                               ctx.layer(index, self.n), **kw)
+                lctx = ctx.layer(index, self.n)
+
+                def layer(h, *ls, lctx=lctx):
+                    return self.block(unflatten_dict(dict(zip(flat, ls))), h, lctx, **kw)
+
+                if remat:
+                    x = checkpoint(layer, x, *leaves, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = layer(x, *leaves)
             return x
         flat_cache = flatten_dict(cache)
         for index, leaves in enumerate(per_layer):

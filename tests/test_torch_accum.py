@@ -10,7 +10,8 @@
 - the quantile policy updates once per logical batch, on the whole
   batch's norms and mask, as the JAX package's finalize does (rtol 1e-6);
 - ``DataPipeline.seek`` replays the same batches;
-- ``examples/dp_finetune_cnn_torch.py --device cpu --steps 1`` runs.
+- ``examples/dp_finetune_cnn_torch.py --device cpu --steps 1`` runs, and
+  with ``--tune`` measures and writes a plan that ``--plan`` adopts.
 """
 import os
 import subprocess
@@ -209,3 +210,25 @@ def test_cnn_example_runs_on_the_cpu():
     assert out.returncode == 0, out.stderr[-2000:]
     assert "layerwise decision" in out.stdout and "step 0: loss=" in out.stdout
     assert "privacy spent: eps=" in out.stdout
+
+
+def test_cnn_example_tunes_on_the_cpu(tmp_path):
+    """``--tune`` measures a plan on the CPU, prints the measured map against
+    Eq. 4.1, the recommended mode and the certified batch, writes the plan
+    where ``--plan`` says, and ``--plan`` alone adopts it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_TUNER_CACHE=str(tmp_path))
+    plan = tmp_path / "vgg11.json"
+    cmd = [sys.executable, str(ROOT / "examples" / "dp_finetune_cnn_torch.py"),
+           "--device", "cpu", "--steps", "1"]
+    out = subprocess.run(cmd + ["--tune", "--plan", str(plan)], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "tuned on cpu:cpu: max physical batch = 16" in out.stdout
+    assert "recommended mode:" in out.stdout and "kernel impls: ['torch']" in out.stdout
+    assert "layerwise decision (Eq 4.1 vs measured)" in out.stdout
+    assert "(measured: " in out.stdout and "step 0: loss=" in out.stdout
+    assert plan.exists()
+    again = subprocess.run(cmd + ["--plan", str(plan)], capture_output=True, text=True,
+                           timeout=300, env=env, cwd=ROOT)
+    assert again.returncode == 0, again.stderr[-2000:]
+    assert f"adopted the plan in {plan}" in again.stdout and "(measured: " in again.stdout

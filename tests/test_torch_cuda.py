@@ -506,3 +506,116 @@ def test_reduced_yi_engine_on_the_card(gen):
     with dispatch.force_impl("torch"):
         plain, _ = model.prefill(params, {"tokens": toks}, model.init_state(1, 24))
     assert _rel(logits, plain) < 1e-5
+
+
+def _vit4(remat: bool):
+    """A 4-layer ViT (ViT-Base's topology cut to d_model 256, 4 heads) on
+    the card, fp32, 64x64 images in 8x8 patches (T = 64)."""
+    import dataclasses
+
+    from repro_torch.configs.paper_native import VIT_BASE
+    from repro_torch.models.vit import ViT
+
+    cfg = dataclasses.replace(VIT_BASE, n_layers=4, d_model=256, n_heads=4, n_kv=4, d_ff=1024,
+                              dtype="float32", remat=remat)
+    return ViT(cfg, image_size=64, patch=8, n_classes=10, device="cuda")
+
+
+def _vit_batch(b: int, gen):
+    return {"image": torch.randn(b, 64, 64, 3, generator=gen, device="cuda"),
+            "label": torch.randint(0, 10, (b,), generator=gen, device="cuda"),
+            "mask": torch.ones(b, device="cuda")}
+
+
+@pytest.mark.parametrize("mode", ["non_private", "mixed_ghost", "bk_mixed"])
+def test_remat_lowers_the_peak_at_equal_outputs(gen, mode):
+    """Remat on: a lower max_memory_allocated for one clipped step of a
+    4-layer ViT at batch 32, and the same loss, norms and clipped sum
+    (relative 1e-6: the recomputed layer runs the same kernels).  bk_mixed
+    is the exception for memory: its books keep every ghost-banked tap's
+    activation and cotangent to the contraction, so remat saves nothing
+    there (a 4% higher peak on the card, the recomputation's transients);
+    its peak is held within 10% of remat off's."""
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.utils.tree import flatten_dict
+
+    batch = _vit_batch(32, gen)
+    out, peaks = {}, {}
+    for remat in (False, True):
+        model = _vit4(remat)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode))
+        fn(params, batch)  # warm-up: kernel builds, cuBLAS handles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[remat] = fn(params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+    if mode == "bk_mixed":
+        assert peaks[True] <= 1.1 * peaks[False], peaks
+    else:
+        assert peaks[True] < peaks[False], peaks
+    (l0, g0, a0), (l1, g1, a1) = out[False], out[True]
+    assert _rel(l1, l0) <= 1e-6
+    assert _rel(a1["per_sample_norms"], a0["per_sample_norms"]) <= 1e-6
+    f0, f1 = flatten_dict(g0), flatten_dict(g1)
+    scale = max(float(v.abs().max()) for v in f0.values())
+    assert max(float((f1[k] - f0[k]).abs().max()) for k in f0) <= 1e-6 * scale
+
+
+def test_max_batch_by_trial_under_a_fraction(gen):
+    """Under a 1 GiB budget the search certifies a batch whose mixed_ghost
+    step of the 4-layer ViT runs: it runs again under the same cap, and a
+    quarter more fails to allocate (within about a percent of the answer a
+    trial's outcome also turns on the allocator's state, so the next batch
+    is no sharp edge).  The process's memory fraction comes back
+    afterwards."""
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.tuner import max_batch as mb
+
+    model = _vit4(True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _vit_batch(4, gen)
+    fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode="mixed_ghost"))
+    torch.cuda.set_per_process_memory_fraction(0.9)
+    try:
+        got = mb.max_batch_by_trial(fn, params, batch, budget_bytes=1 << 30, hi_cap=4096)
+        assert torch.cuda.get_per_process_memory_fraction() == pytest.approx(0.9)
+        assert 4 < got < 4096
+        run = mb._default_runner(fn, params, batch)
+        with mb._memory_fraction(torch.device("cuda", torch.cuda.current_device()), 1 << 30):
+            assert mb.trial_survives(run, got, attempts=2)
+            assert not mb.trial_survives(run, got + got // 4 + 1, attempts=2)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+
+
+@pytest.mark.parametrize("mode", ["mixed_ghost", "bk_mixed"])
+def test_plan_under_force_impl_runs_the_plain_versions(gen, mode):
+    """A plan whose kernel map names the card's kernel for every tap does not
+    bypass ``force_impl("torch")``: the planned step under it counts plain
+    calls only, and without it kernel launches only."""
+    from repro_torch.core.clipping import ClipConfig, discover_meta, dp_value_and_clipped_grad
+    from repro_torch.tuner import ClipPlan, device_string, shape_fingerprint
+    from repro_torch.tuner.measure import KERNEL_OPS_BY_KIND
+
+    model = _vit4(True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _vit_batch(4, gen)
+    metas = discover_meta(model.loss_with_ctx, params, batch)
+    plan = ClipPlan(fingerprint=shape_fingerprint(metas), device=device_string(model.device),
+                    kernels=tuple((n, op, "cuda") for n, m in sorted(metas.items())
+                                  for op in KERNEL_OPS_BY_KIND.get(m.kind, ())))
+    fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode, plan=plan))
+    counts = {}
+    for forced in (False, True):
+        launches.reset()
+        if forced:
+            with dispatch.force_impl("torch"):
+                fn(params, batch)
+        else:
+            fn(params, batch)
+        snap = launches.snapshot()
+        counts[forced] = {impl: sum(v[impl] for v in snap.values()) for impl in ("cuda", "torch")}
+    assert counts[True]["cuda"] == 0 and counts[True]["torch"] > 0, counts
+    assert counts[False]["torch"] == 0 and counts[False]["cuda"] > 0, counts
