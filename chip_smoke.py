@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py            # from the repository root; one CUDA device
 
-Four main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
+The main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
 classes, GroupNorm, fp32) at batch 128, of ViT-Base/16 (12 layers, d_model
 768, 224x224, 10 classes) and of BEiT-Large/16 (24 layers, d_model 1024,
 304M parameters, 224x224, 1000 classes) at batch 32, both ViTs in bf16
 compute with fp32 parameters and each layer rematerialised in the backward
-(the configs' remat), and serving Yi-6B (32 layers, d_model 4096, 32 query
-heads over 4 KV heads, full width and depth, bf16 compute with fp32
-parameters) through the continuous-batching engine; random weights from
-seed 0 throughout.  Phases, in order, each one's seconds printed; any
+(the configs' remat); DP training of the decoder LMs at full width, depth
+cut: Yi-6B (8 of 32 layers, d_model 4096, 32 query heads over 4 KV heads,
+d_ff 11008, vocab 64000; adamw) at batch 4 and Mixtral-8x7B (2 of 32
+layers, 8 experts top 2, d_ff 14336, window 4096; sgd) at batch 2, both
+at 4096 tokens in bf16 compute with fp32 parameters, remat on; serving
+Yi-6B (32 layers, full width and depth, bf16 compute with fp32
+parameters) and Mixtral-8x7B (2 layers, fp32) through the
+continuous-batching engine; and the tuner CLI on the 8-layer Yi-6B.
+Random weights from seed 0 throughout.  Phases, in order, each one's seconds printed; any
 failure exits non-zero and prints no result:
 
 1. card     the name and power limit, as nvidia-smi reports them;
@@ -49,7 +54,8 @@ failure exits non-zero and prints no result:
             yardsticks';
 4. slice    per training path, DP-SGD steps through make_train_step in
             non_private, mixed_ghost, bk_mixed, vmap (the Opacus analogue),
-            mixed_ghost_taps and bk_mixed_taps (BEiT-Large: the first three):
+            mixed_ghost_taps and bk_mixed_taps (BEiT-Large and the LMs: the
+            first three; the LMs LM_STEPS timed steps):
             loss, kernel launches per
             step against the taps' expectation (and no plain-version call),
             step time (median and quartiles), peak memory, and one profiled
@@ -58,7 +64,8 @@ failure exits non-zero and prints no result:
 5. compare  per training path, one clipped step's per-sample norms and
             gradient sum on the kernels against the plain versions
             (force_impl("torch")) on the same card, and mixed_ghost against
-            bk_mixed;
+            bk_mixed (the LMs gated in fp32 compute at 2 samples, their bf16
+            readings reported beside the kernels' own run-to-run spread);
 6. oracle   per training path, every clipping mode through
             dp_value_and_clipped_grad against the vmap oracle (per-sample
             gradients by their definition): per-sample norms within
@@ -68,8 +75,10 @@ failure exits non-zero and prints no result:
             bk_mixed_taps; bk_mixed in one psg_contract launch) and
             automatic (mixed_ghost); the ViTs gated with fp32 compute, their
             bf16 readings reported beside (BEiT-Large: 8 samples, the fixed
-            policy); VGG-19's fixed-policy modes also reported against vmap
-            with cuDNN off and vmap in fp64 compute;
+            policy; the LMs in fp32 at a smaller cut: Yi-6B 2 layers, batch
+            2, 512 tokens, Mixtral 1 layer, batch 2, 256 tokens); VGG-19's
+            fixed-policy modes also reported against vmap with cuDNN off and
+            vmap in fp64 compute;
 7. accum    VGG-19: a logical batch of 512 as 4 microbatches of 128 through
             make_accum_* in mixed_ghost and bk_mixed, the microsteps under
             torch.cuda.set_sync_debug_mode("error"): norms, gradient sum and
@@ -121,7 +130,16 @@ failure exits non-zero and prints no result:
             step of a drain against B=1 decodes from each lane's own state
             (the first difference located layer by layer), and the same
             drain and oracle in fp32 compute, whose streams must all be
-            equal.
+            equal;
+12. moe_serve  Mixtral-8x7B (2 layers, full width, fp32) through the Engine:
+            4 requests of 77-512 tokens, 16 new tokens each, one
+            flash_attention launch per layer per prefill, the streams equal
+            to sequential_decode's token for token, the longest prefill's
+            logits kernel against plain;
+13. tuner_cli  python -m repro_torch.tuner on the 8-layer Yi-6B at batch 4 x
+            4096 (the max-batch search skipped), its table printed; the
+            plan's step and the time rule's against the analytic step in
+            fp32 compute on 2 samples.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -177,13 +195,16 @@ SASS_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
 MODES = ("non_private", "mixed_ghost", "bk_mixed", "vmap", "mixed_ghost_taps", "bk_mixed_taps")
 # BEiT-Large's timed modes: vmap would hold 304M x 32 per-sample gradients
 BEIT_MODES = ("non_private", "mixed_ghost", "bk_mixed")
-STEPS = 10  # timed steps per mode and path
+LM_MODES = BEIT_MODES
+LM_STEPS = 3  # timed steps per mode on the LM paths (seconds each)
+STEPS = 6  # timed steps per mode and path (10 until the LM paths came)
 # the oracle phase: every mode against vmap under the fixed policy; the
 # grouped (per_layer: two prefixes and the catch-all) and automatic runs
 ORACLE_MODES = ("ghost", "fastgradclip", "mixed_ghost", "bk_mixed", "ghost_taps",
                 "fastgradclip_taps", "mixed_ghost_taps", "bk_mixed_taps")
 GROUPED_MODES = ("mixed_ghost", "bk_mixed", "mixed_ghost_taps", "bk_mixed_taps")
-GROUP_PREFIXES = {"vgg19": ("conv", "gn"), "vit_base": ("layers", "patch_embed")}
+GROUP_PREFIXES = {"vgg19": ("conv", "gn"), "vit_base": ("layers", "patch_embed"),
+                  "yi_6b": ("layers", "embed"), "mixtral": ("layers", "embed")}
 # the accum phase: a logical batch of ACCUM_MICRO * ACCUM_STEPS samples
 ACCUM_MICRO, ACCUM_STEPS = 128, 4
 # the remat phase: these paths and modes with ScannedStack's remat on and
@@ -248,6 +269,12 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # step against each lane's B=1 step stays gated in bf16: bf16 activations
 # pass through 32 layers and round differently where a GEMM's shape differs
 SERVE_KERNEL_LOGIT_TOL = 1e-4
+# Mixtral-8x7B served at full width, 2 layers, fp32 compute: 4 requests
+MOE_SERVE_PROMPTS = (300, 77, 512, 129)
+MOE_SERVE_NEW = 16
+# the tuner CLI on the lm_train model (Yi-6B, 8 layers, full width); the
+# plan's step is gated on 2 samples (the fingerprint is batch-free)
+TUNER_GATE_BATCH = 2
 SERVE_LOGIT_TOL = 2e-2
 
 KERNEL_INFO = {
@@ -273,22 +300,42 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """Mean device time of ``fn`` per call from torch.profiler (kernel time
-    only: where a call is short, cuda_ms also counts the host's enqueue);
-    None when the trace holds no device time."""
+    only: where a call is short, cuda_ms also counts the host's enqueue).
+    Each trace follows one traced warm-up call that it drops (without it a
+    session's first kernel event went missing on the card).  One traced
+    call counts the device events a call makes; the trace of ``iters``
+    calls must hold exactly ``iters`` times as many, else (or with no
+    device time) the reading is None, not measured, and the counts are
+    printed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def traced(n: int) -> tuple[int, float]:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.count for e in events),
+                sum(getattr(e, "self_device_time_total", 0) for e in events))
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
+    per_call, _ = traced(1)
+    count, us = traced(iters)
+    if per_call == 0 or count != iters * per_call or us <= 0:
+        print(f"    device time not measured: the trace of {iters} calls holds {count} "
+              f"device events, one call {per_call}")
+        return None
+    return us / 1e3 / iters
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -443,6 +490,10 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict, dict]:
 
     for m in meta.values():
         b, layers = m.batch_size, m.n_stack
+        # a grouped tap (MoE experts, n_groups = E): each sample's G expert
+        # products are rows of its norm (N = B * G) and instances of its book
+        # (M = L * G), as core/ghost.py folds them
+        groups = max(m.n_groups, 1)
         a_dt, s_dt = _name(m.a_dtype), _name(m.s_dtype)
         if m.kind == "embedding":
             add("embedding_ghost_norm_sq", (b * layers, m.T, m.p, m.D), (a_dt, s_dt))
@@ -457,20 +508,21 @@ def main_path_shapes(model, params, batch) -> tuple[dict, dict, dict]:
                 if m.conv is not None:
                     taps_shapes["conv_ghost_norm_sq"].add((conv_spec(m), (a_dt, s_dt)))
                 else:
-                    taps_shapes["ghost_norm_sq"].add(((b * layers, m.T, m.D, m.p), (a_dt, s_dt)))
+                    taps_shapes["ghost_norm_sq"].add(((b * layers * groups, m.T, m.D, m.p),
+                                                      (a_dt, s_dt)))
         if m.kind == "matmul":
-            shape = (layers, b * m.T, m.D, m.p)
+            shape = (layers * groups, b * m.T, m.D, m.p)
             expected["bk_mixed_taps"]["book_weighted_grad"] += book_launches(shape)
             taps_shapes["book_weighted_grad"].add((shape, (a_dt, s_dt)))
         if m.kind == "matmul" and decide(m, mode="mixed_ghost") == "ghost":
             if m.conv is not None:
                 add("conv_ghost_norm_sq", conv_spec(m), (a_dt, s_dt), layers)
             else:
-                add("ghost_norm_sq", (b, m.T, m.D, m.p), (a_dt, s_dt), layers)
+                add("ghost_norm_sq", (b * groups, m.T, m.D, m.p), (a_dt, s_dt), layers)
             expected["mixed_ghost"]["ghost_norm_sq"] += layers
         if m.kind == "matmul" and decide(m, mode="bk_mixed") == "ghost":
             expected["bk_mixed"]["ghost_norm_sq"] += layers
-            shape = (layers, b * m.T, m.D, m.p)
+            shape = (layers * groups, b * m.T, m.D, m.p)
             expected["bk_mixed"]["book_weighted_grad"] += book_launches(shape)
             add("book_weighted_grad", shape, (a_dt, s_dt))
         else:
@@ -786,10 +838,12 @@ RAGGED = {
                       (5, 16, 130, 4), (2, 300, 64, 50), (2, 3000, 40, 1),
                       (2, 8192, 64, 1), EMBED_ABOVE_SORT)
     ],
-    # R split across blocks (M = 1, R = 8192), every dtype pair, R under one k-step
+    # R split across blocks (M = 1, R = 8192), every dtype pair, R under one
+    # k-step, R * p past 2^31 (the tuner's 64-sample book of Yi's MLP taps)
     "book_weighted_grad": [((3, 37, 33, 130), FLOAT_PAIRS[:2]), ((1, 1, 5, 3), FLOAT_PAIRS[:2]),
                            ((2, 100, 70, 9), FLOAT_PAIRS + [("float32", "bfloat16")]),
-                           ((1, 8192, 130, 70), FLOAT_PAIRS + [("float32", "bfloat16")])],
+                           ((1, 8192, 130, 70), FLOAT_PAIRS + [("float32", "bfloat16")]),
+                           ((1, 32769, 16, 65536), FLOAT_PAIRS[1:2])],
     # then grouped lists: F = 1, odd F, F a multiple of 4, N = 1 and 130, banks
     # that start off the 16-byte line (element offsets 1 and 3), fp32, bf16
     # and mixed; 300 segments, more than one launch's parameter block holds
@@ -944,8 +998,9 @@ def _time_train_steps(model, path: dict, mode: str, batches: list, n_steps: int,
     from repro_torch.kernels import launches
     from repro_torch.launch.steps import DPTrainConfig, make_train_state, make_train_step
     from repro_torch.optim import constant, sgd
+    from repro_torch.utils.tree import flatten_dict
 
-    opt = sgd(momentum=0.9)
+    opt = path.get("optimizer", lambda: sgd(momentum=0.9))()
     state = make_train_state(model, 0, opt)
     step = make_train_step(
         model, opt, constant(path["lr"]["non_private" if mode == "non_private" else "dp"]),
@@ -971,20 +1026,38 @@ def _time_train_steps(model, path: dict, mode: str, batches: list, n_steps: int,
     median = statistics.median(times)
     q1, _, q3 = statistics.quantiles(times, n=4)
     trace = _profiled(lambda: step(state, batches[0]), median) if profiled else None
+    n_params = sum(x.numel() for x in flatten_dict(state["params"]).values())
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in flatten_dict({"p": state["params"], "o": state["opt"]}).values())
     return {"losses": losses, "step_ms": times, "median_step_ms": median, "q1_step_ms": q1,
             "q3_step_ms": q3, "host_ms": host, "median_host_ms": statistics.median(host),
-            "peak_bytes": peak, "trace": trace,
+            "peak_bytes": peak, "trace": trace, "n_params": n_params,
+            "state_bytes": state_bytes,
             "launches_per_step": {k: (after[k]["cuda"] - before[k]["cuda"]) / n_steps
                                   for k in KERNEL_INFO},
             "plain_calls": sum(after[k]["torch"] - before[k]["torch"] for k in KERNEL_INFO)}
 
 
-def _train_batches(path: dict, n: int, device) -> list:
-    from repro_torch.data.synthetic import synthetic_vision_batch
+def _path_batch(path: dict, b: int, step: int, device="cuda") -> dict:
+    """Step ``step``'s synthetic batch of ``b`` samples: token sequences of
+    the path's length for an LM path, else class-conditional images."""
+    from repro_torch.data import synthetic
 
-    return [synthetic_vision_batch(batch=path["batch"], image=path["image"], channels=3,
-                                   n_classes=path["n_classes"], step=i, device=device)
-            for i in range(n)]
+    if "seq" in path:
+        return synthetic.synthetic_lm_batch(
+            synthetic.SyntheticLMConfig(vocab=path["vocab"], seq_len=path["seq"], batch=b),
+            step, device=device)
+    return synthetic.synthetic_vision_batch(batch=b, image=path["image"], channels=3,
+                                            n_classes=path["n_classes"], step=step,
+                                            device=device)
+
+
+def _batch_size(batch: dict) -> int:
+    return int(batch["mask"].shape[0])
+
+
+def _train_batches(path: dict, n: int, device) -> list:
+    return [_path_batch(path, path["batch"], i, device) for i in range(n)]
 
 
 def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
@@ -999,8 +1072,9 @@ def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
         losses, per_step = row.pop("losses"), row["launches_per_step"]
         print(f"slice {tag} {mode}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
               f"step ms median {row['median_step_ms']:.2f} (q1 {row['q1_step_ms']:.2f}, q3 "
-              f"{row['q3_step_ms']:.2f}), peak memory {row['peak_bytes'] / 2**20:.1f} MiB, "
-              f"kernel launches per step {per_step}")
+              f"{row['q3_step_ms']:.2f}), peak memory {row['peak_bytes'] / 2**20:.1f} MiB "
+              f"({row['n_params']} parameters, {row['state_bytes'] / 2**30:.2f} GiB of "
+              f"parameters and optimizer state), kernel launches per step {per_step}")
         require(all(math.isfinite(x) for x in losses), f"{tag} {mode}: non-finite loss")
         require(row["plain_calls"] == 0,
                 f"{tag} {mode}: {row['plain_calls']} plain-version calls on the card")
@@ -1020,35 +1094,76 @@ def _max_rel(x, y) -> float:
     return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
 
 
-def phase_compare(tag: str, path: dict) -> dict:
+def phase_compare(tag: str, path: dict, dtype=None, gated: bool = True,
+                  batch_size: int = None) -> dict:
+    """One clipped step's norms and gradient sum on the kernels against the
+    plain versions (force_impl("torch")) in mixed_ghost and bk_mixed, and
+    mixed_ghost against bk_mixed.  ``dtype`` overrides the compute dtype
+    (the LM paths are gated in fp32 compute on ``compare_batch`` samples);
+    ``gated=False`` reports the sides' own runs (the LMs in bf16, where the
+    two sides' clip factors differ by ~1e-6 relative) beside the kernels'
+    run against run, and gates the witness of where the difference comes
+    from: the plain versions given the kernel side's clip factors (a policy
+    that returns them) against the kernel side, at KERNEL_GRAD_TOL."""
     from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
     from repro_torch.kernels import dispatch
+    from repro_torch.policies.fixed import FixedPolicy
     from repro_torch.utils.tree import flatten_dict
 
-    model, params, batch = _model_params_batch(path)
-    runs = {}
+    class GivenFactors(FixedPolicy):
+        """Returns the factors it was given, whatever the norms."""
+
+        def __init__(self, factors):
+            super().__init__(clip_norm=1.0)
+            self.factors = factors
+
+        def clip_factors(self, norms, state, *, path_norms2=None):
+            return self.factors
+
+    model, params, batch = _model_params_batch(path, dtype, batch=batch_size)
+    compute = _name(model.dtype)
+    out = {}
+
+    def check(got, ref, got_key, ref_key, grad_tol, gate=gated):
+        norm_err = _max_rel(got[1], ref[1])
+        grad_err = _grad_rel_err(got[0], ref[0])
+        factor_err = _max_rel(got[2], ref[2])
+        name = f"{tag} ({compute}) {'/'.join(got_key)} vs {'/'.join(ref_key)}"
+        print(f"compare {name}: norms rel err {norm_err:.2e} (tol {NORM_TOL:.0e}), "
+              f"clip factors rel err {factor_err:.2e}, "
+              f"clipped grad sum rel err {grad_err:.2e} (tol {grad_tol:.0e})"
+              + ("" if gate else " (reported, not gated)"))
+        require(not gate or norm_err <= NORM_TOL, f"{name}: norms differ by {norm_err:.3e}")
+        require(not gate or grad_err <= grad_tol,
+                f"{name}: clipped gradients differ by {grad_err:.3e}")
+        out[name] = {"norm_rel_err": norm_err, "factor_rel_err": factor_err,
+                     "grad_rel_err": grad_err, "grad_tol": grad_tol, "gated": gate}
+
+    # one run held per mode, each other run compared as it comes and dropped
+    # (an LM's gradient trees are 7.6-12.7 GB each)
+    kept = {}
     for mode in ("mixed_ghost", "bk_mixed"):
         fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode, clip_norm=1.0))
-        runs[(mode, "cuda")] = fn(params, batch)
+
+        def run(fn=fn):
+            _, g, aux = fn(params, batch)
+            return flatten_dict(g), aux["per_sample_norms"], aux["clip_factors"]
+
+        kept[mode] = run()
         with dispatch.force_impl("torch"):
-            runs[(mode, "torch")] = fn(params, batch)
-    out = {}
-    pairs = [
-        (("mixed_ghost", "cuda"), ("mixed_ghost", "torch"), KERNEL_GRAD_TOL),
-        (("bk_mixed", "cuda"), ("bk_mixed", "torch"), KERNEL_GRAD_TOL),
-        (("mixed_ghost", "cuda"), ("bk_mixed", "cuda"), MODE_GRAD_TOL[path["dtype"]]),
-    ]
-    for got_key, ref_key, grad_tol in pairs:
-        _, g_got, aux_got = runs[got_key]
-        _, g_ref, aux_ref = runs[ref_key]
-        norm_err = _max_rel(aux_got["per_sample_norms"], aux_ref["per_sample_norms"])
-        grad_err = _grad_rel_err(flatten_dict(g_got), flatten_dict(g_ref))
-        name = f"{tag} {'/'.join(got_key)} vs {'/'.join(ref_key)}"
-        print(f"compare {name}: norms rel err {norm_err:.2e} (tol {NORM_TOL:.0e}), "
-              f"clipped grad sum rel err {grad_err:.2e} (tol {grad_tol:.0e})")
-        require(norm_err <= NORM_TOL, f"{name}: norms differ by {norm_err:.3e}")
-        require(grad_err <= grad_tol, f"{name}: clipped gradients differ by {grad_err:.3e}")
-        out[name] = {"norm_rel_err": norm_err, "grad_rel_err": grad_err, "grad_tol": grad_tol}
+            check(kept[mode], run(), (mode, "cuda"), (mode, "torch"), KERNEL_GRAD_TOL)
+        _free()
+        if not gated:  # the kernels' own run-to-run spread, then the witness
+            check(run(), kept[mode], (mode, "cuda again"), (mode, "cuda"), KERNEL_GRAD_TOL)
+            _free()
+            given = dp_value_and_clipped_grad(
+                model.loss_with_ctx, ClipConfig(mode=mode, policy=GivenFactors(kept[mode][2])))
+            with dispatch.force_impl("torch"):
+                check(run(given), kept[mode], (mode, "torch given the cuda factors"),
+                      (mode, "cuda"), KERNEL_GRAD_TOL, gate=True)
+            _free()
+    check(kept["mixed_ghost"], kept["bk_mixed"], ("mixed_ghost", "cuda"), ("bk_mixed", "cuda"),
+          MODE_GRAD_TOL[compute])
     return out
 
 
@@ -1151,7 +1266,7 @@ def phase_oracle(tag: str, path: dict, dtype=None, gated: bool = True,
         runs += [("per_layer", PerLayerPolicy(groups=GROUP_PREFIXES[tag], clip_norm=1.0),
                   GROUPED_MODES),
                  ("automatic", AutomaticPolicy(gamma=0.01), ("mixed_ghost",))]
-    out = {"compute": compute, "gated": gated, "batch": batch["label"].shape[0]}
+    out = {"compute": compute, "gated": gated, "batch": _batch_size(batch)}
     for pname, policy, modes in runs:
         (_, g_ref, aux_ref), ms, peak, _ = _timed_clip(model, params, batch, "vmap", policy)
         ref, norms_ref = flatten_dict(g_ref), aux_ref["per_sample_norms"]
@@ -1531,10 +1646,11 @@ class _TrialCounter:
         return False
 
 
-def _plan_step_gate(tag: str, model, params, batch, plan, label: str) -> dict:
+def _plan_step_gate(tag: str, model, params, batch, plan, label: str, n: int = 5) -> dict:
     """A clipped step under ``plan`` (mixed_ghost and bk_mixed, each reading
     its own map) and one under the time rule, against the analytic step:
-    norms and clipped sums within PLAN_TOL; all timed."""
+    norms and clipped sums within PLAN_TOL; each timed over ``n`` calls
+    (0: not timed)."""
     from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad, discover_meta
     from repro_torch.utils.tree import flatten_dict
 
@@ -1547,17 +1663,19 @@ def _plan_step_gate(tag: str, model, params, batch, plan, label: str) -> dict:
         g_ref = flatten_dict(g_ref)
         variants = {"plan": ClipConfig(mode=mode, plan=plan),
                     "time rule": ClipConfig(mode=mode, decision_by="time")}
-        row = {"analytic_ms": _clip_ms(ref_fn, params, batch)}
+        row = {"analytic_ms": _clip_ms(ref_fn, params, batch, n) if n else None}
         for name, cfg in variants.items():
             fn = dp_value_and_clipped_grad(model.loss_with_ctx, cfg)
             _, g, aux = fn(params, batch)
             norm_err = _max_rel(aux["per_sample_norms"], aux_ref["per_sample_norms"])
             grad_err = _grad_rel_err(flatten_dict(g), g_ref)
             del g, aux
-            ms = _clip_ms(fn, params, batch)
+            ms = _clip_ms(fn, params, batch, n) if n else None
+            timing = (f"; {ms:.2f} ms against the analytic {row['analytic_ms']:.2f}" if n
+                      else "")
             print(f"tune {tag} {label} {mode}: {name} step vs analytic: norms rel err "
                   f"{norm_err:.2e}, clipped grad sum rel err {grad_err:.2e} (tol "
-                  f"{PLAN_TOL:.0e}); {ms:.2f} ms against the analytic {row['analytic_ms']:.2f}")
+                  f"{PLAN_TOL:.0e}){timing}")
             require(norm_err <= PLAN_TOL and grad_err <= PLAN_TOL,
                     f"tune {tag} {label} {mode}: the {name} step differs from the analytic "
                     f"(norms {norm_err:.3e}, sums {grad_err:.3e})")
@@ -2332,14 +2450,9 @@ def _model_params_batch(path: dict, dtype=None, remat: bool = True, batch: int =
     step 0 (``batch`` samples, else the path's batch)."""
     import torch
 
-    from repro_torch.data.synthetic import synthetic_vision_batch
-
     model = path["build"](dtype, remat)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    batch = synthetic_vision_batch(batch=batch or path["batch"], image=path["image"],
-                                   channels=3, n_classes=path["n_classes"], step=0,
-                                   device="cuda")
-    return model, params, batch
+    return model, params, _path_batch(path, batch or path["batch"], 0)
 
 
 def _paths() -> dict:
@@ -2381,6 +2494,7 @@ def _paths() -> dict:
                            modes=BEIT_MODES, oracle_batch=8,
                            lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
     }
+    specs.update(_lm_paths())
     for tag, path in specs.items():
         model, params, batch = _model_params_batch(path)
         path["dtype"] = _name(model.dtype)
@@ -2392,6 +2506,150 @@ def _paths() -> dict:
               f"expected kernel launches per step {path['expected']}")
         del model, params, batch
     return specs
+
+
+def _lm_paths() -> dict:
+    """DP training of the decoder LMs at full width, depth cut: Yi-6B (8 of
+    32 layers, d_model 4096, 32 query heads over 4 KV heads, d_ff 11008,
+    vocab 64000) at batch 4 and Mixtral-8x7B (2 of 32 layers, 8 experts top
+    2, d_ff 14336, 8 KV heads, window 4096, vocab 32000) at batch 2, both at
+    4096 tokens (the registry's train_4k length), bf16 compute with fp32
+    parameters, remat on (the configs' default).  Yi-6B steps with adamw;
+    Mixtral's 3.17B parameters with adamw's two fp32 moments would not fit
+    the card's update (params, gradients, noised gradients, the old and the
+    new moments and the update: 9 x 12.7 GB), so it steps with plain sgd.
+    Each path's oracle runs a smaller cut in fp32 compute: Yi-6B at 2
+    layers, batch 2, 512 tokens; Mixtral at 1 layer, batch 2, 256 tokens."""
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.optim import adamw, sgd
+
+    def lm(name, layers):
+        def build(dtype=None, remat=True, n_layers=layers):
+            over = {} if dtype is None else {"dtype": dtype}
+            cfg = dataclasses.replace(get_arch(name), n_layers=n_layers, remat=remat, **over)
+            return build_model(cfg, device="cuda")
+        return build
+
+    return {
+        "yi_6b": dict(build=lm("yi-6b", 8), batch=4, seq=4096, vocab=64000, modes=LM_MODES,
+                      steps=LM_STEPS, optimizer=adamw, lr={"non_private": 1e-4, "dp": 1e-4},
+                      compare_batch=2, oracle=dict(layers=2, batch=2, seq=512)),
+        "mixtral": dict(build=lm("mixtral-8x7b", 2), batch=2, seq=4096, vocab=32000,
+                        modes=LM_MODES, steps=LM_STEPS, optimizer=sgd,
+                        lr={"non_private": 1e-5, "dp": 1e-3}, compare_batch=2,
+                        oracle=dict(layers=1, batch=2, seq=256)),
+    }
+
+
+def _oracle_path(path: dict) -> dict:
+    """An LM path cut to its oracle's depth, batch and length."""
+    o = path["oracle"]
+    return {**path, "batch": o["batch"], "seq": o["seq"],
+            "build": lambda dtype=None, remat=True: path["build"](dtype, remat, o["layers"])}
+
+
+def phase_moe_serve() -> dict:
+    """Mixtral-8x7B at full width (2 layers, fp32 compute) through the
+    port's Engine: MOE_SERVE_PROMPTS with MOE_SERVE_NEW new tokens each, 4
+    slots; each prefill launches flash_attention once per layer (the counts
+    zeroed just before the drain, read just after); the streams must equal
+    sequential_decode's token for token (the decode routes each lane within
+    its own capacity, as the JAX engine's vmapped B=1 step does, and the
+    prefill dispatches globally over its one request)."""
+    import torch
+
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.kernels import dispatch, launches
+    from repro_torch.launch.serve import submit_all
+    from repro_torch.serving import Engine, aggregate_metrics, sequential_decode
+    from repro_torch.utils.tree import flatten_dict
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=2, dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(x.numel() for x in flatten_dict(params).values())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=gen, device="cuda").tolist()
+               for n in MOE_SERVE_PROMPTS]
+    engine = Engine(model, params, n_slots=SLOTS, page_size=PAGE,
+                    max_len=max(MOE_SERVE_PROMPTS) + MOE_SERVE_NEW, eos_id=None)
+    submit_all(engine, prompts, max_new=MOE_SERVE_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()  # the MoE serve path's counts start here ...
+    t0 = time.perf_counter()
+    completions = engine.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launches.snapshot()  # ... and are read here
+    peak = torch.cuda.max_memory_allocated()
+    m = aggregate_metrics(completions)
+    tokens = [completions[i].tokens for i in range(len(prompts))]
+    print(f"moe_serve mixtral-8x7b (2 layers, {n_params} parameters, fp32): "
+          f"{int(m['tokens'])} tokens in {wall_s:.2f} s, {m['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{m['ttft_p50_ms']:.1f} ms, per-token p50 {m['per_token_p50_ms']:.1f} ms, peak "
+          f"{peak / 2**20:.1f} MiB; kernel launches {counts}")
+    require(m["tokens"] == len(prompts) * MOE_SERVE_NEW, f"moe_serve: {m['tokens']} tokens")
+    require(counts["flash_attention"] == {"cuda": cfg.n_layers * len(prompts), "torch": 0},
+            f"moe_serve: flash_attention launches {counts['flash_attention']}")
+    require(all(v == {"cuda": 0, "torch": 0} for k, v in counts.items()
+                if k != "flash_attention"), f"moe_serve: other kernels ran {counts}")
+    want = sequential_decode(model, params, prompts, max_new=MOE_SERVE_NEW,
+                             view_len=engine.view_len)
+    equal = sum(g == w for g, w in zip(tokens, want))
+    print(f"compare moe_serve engine vs sequential_decode (float32 compute): streams equal "
+          f"token for token {equal}/{len(prompts)}")
+    require(equal == len(prompts), "moe_serve: an engine stream differs from sequential_decode")
+    # the longest prompt's prefill logits, kernel against plain (fp32)
+    longest = torch.tensor([prompts[2]], device="cuda")
+    state = model.init_state(1, engine.view_len)
+    kernel_logits, _ = model.prefill(params, {"tokens": longest}, state)
+    with dispatch.force_impl("torch"):
+        plain_logits, _ = model.prefill(params, {"tokens": longest}, state)
+    err = _max_rel(kernel_logits, plain_logits)
+    print(f"compare moe_serve prefill kernel vs torch (float32 compute): logits rel err "
+          f"{err:.2e} (tol {SERVE_KERNEL_LOGIT_TOL:.0e})")
+    require(err <= SERVE_KERNEL_LOGIT_TOL, f"moe_serve prefill logits differ by {err:.3e}")
+    return {"metrics": m, "wall_s": wall_s, "peak_bytes": peak, "n_params": n_params,
+            "streams_equal": equal, "prefill_rel_err": err, "engine_streams": tokens,
+            "launches": {k: counts[k]["cuda"] for k in KERNEL_INFO}}
+
+
+def phase_tuner_cli(path: dict) -> dict:
+    """``python -m repro_torch.tuner`` on Yi-6B's full configuration (32
+    layers, 6.06B parameters) at the lm_train path's batch and length (the
+    max-batch search skipped), its table printed; the plan's step (and the
+    time rule's) against the analytic step on the lm_train model (8 layers)
+    in fp32 compute on TUNER_GATE_BATCH samples (_plan_step_gate, untimed:
+    the slice phase times the steps; the plan restamped to that model's
+    fp32 fingerprint: its taps are the full model's, stacked 8 deep)."""
+    import contextlib
+    import io
+
+    from repro_torch.core.clipping import discover_meta
+    from repro_torch.tuner import cli
+    from repro_torch.tuner.plan import ClipPlan, shape_fingerprint
+
+    out_path = ROOT / "build" / "plans" / "yi-6b.json"
+    argv = ["--arch", "yi-6b", "--seq", str(path["seq"]), "--batch", str(path["batch"]),
+            "--skip-max-batch", "--repeats", "2", "--warmup", "1", "--plan", str(out_path)]
+    print(f"tuner_cli: python -m repro_torch.tuner {' '.join(argv)}")
+    table = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(table):
+        rc = cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    print(table.getvalue().rstrip())
+    require(rc == 0, f"tuner_cli: exit code {rc}")
+    plan = ClipPlan.load(str(out_path))
+    _free()
+    model, params, batch = _model_params_batch(path, "float32", batch=TUNER_GATE_BATCH)
+    plan32 = dataclasses.replace(
+        plan, fingerprint=shape_fingerprint(discover_meta(model.loss_with_ctx, params, batch)))
+    gate = _plan_step_gate("yi_6b", model, params, batch, plan32, "float32", n=0)
+    return {"argv": argv, "cli_s": cli_s, "table": table.getvalue(),
+            "recommended_mode": plan.recommended_mode(), "branches": plan.branch_map(),
+            "bk_branches": plan.branch_map("bk_mixed"), "gate": gate}
 
 
 def run() -> dict:
@@ -2415,10 +2673,17 @@ def run() -> dict:
     paths = phase("paths", _paths)
     kernels = phase("kernels", phase_kernels, paths)
     kernels["flash_attention"] = phase("flash_kernel", phase_flash_kernel)
-    slices = {tag: phase(f"slice {tag}", phase_slice, tag, path, STEPS)
+    slices = {tag: phase(f"slice {tag}", phase_slice, tag, path, path.get("steps", STEPS))
               for tag, path in paths.items()}
-    compare = {tag: phase(f"compare {tag}", phase_compare, tag, path)
-               for tag, path in paths.items()}
+    compare = {}
+    for tag, path in paths.items():
+        if "seq" in path:  # the LMs: gated in fp32 compute, bf16 reported
+            compare[tag] = phase(f"compare {tag}", phase_compare, tag, path, "float32",
+                                 batch_size=path["compare_batch"])
+            compare[f"{tag}_bfloat16"] = phase(f"compare {tag} bf16", phase_compare, tag, path,
+                                               gated=False, batch_size=path["compare_batch"])
+        else:
+            compare[tag] = phase(f"compare {tag}", phase_compare, tag, path)
     oracle = {
         "vgg19": phase("oracle vgg19", phase_oracle, "vgg19", paths["vgg19"], native_ref=True),
         "vit_base": phase("oracle vit_base", phase_oracle, "vit_base", paths["vit_base"],
@@ -2429,25 +2694,33 @@ def run() -> dict:
                             paths["beit_large"], "float32", policies=False),
         "beit_large_bfloat16": phase("oracle beit_large bf16", phase_oracle, "beit_large",
                                      paths["beit_large"], gated=False),
+        "yi_6b": phase("oracle yi_6b", phase_oracle, "yi_6b", _oracle_path(paths["yi_6b"]),
+                       "float32"),
+        "mixtral": phase("oracle mixtral", phase_oracle, "mixtral",
+                         _oracle_path(paths["mixtral"]), "float32"),
     }
     accum = phase("accum", phase_accum, paths["vgg19"])
     remat = phase("remat", phase_remat, paths, slices)
     tune = phase("tune", phase_tune, paths)
     max_batch = phase("max_batch", phase_max_batch, paths, tune)
     serve = phase("serve", phase_serve)
-    summary = summary_line(kernels, {**slices, "serve": serve})
-    per_path = per_path_lines(kernels, {**slices, "serve": serve})
+    moe_serve = phase("moe_serve", phase_moe_serve)
+    tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
+    runs = {**slices, "serve": serve, "moe_serve": moe_serve}
+    summary = summary_line(kernels, runs)
+    per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build": build, "steps": STEPS, "seconds": seconds,
-        "paths": {tag: {"batch": path["batch"], "image": path["image"],
-                        "dtype": path["dtype"], "expected": path["expected"],
-                        "modes": path["modes"]}
+        "paths": {tag: {"batch": path["batch"], "image": path.get("image"),
+                        "seq": path.get("seq"), "dtype": path["dtype"],
+                        "expected": path["expected"], "modes": path["modes"]}
                   for tag, path in paths.items()},
         "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
         "accum": accum, "remat": remat, "tune": tune, "max_batch": max_batch, "serve": serve,
+        "moe_serve": moe_serve, "tuner_cli": tuner_cli,
         "summary": summary, "per_path": per_path,
     }, indent=1, default=str))
     return {"summary": summary, "card": card}

@@ -1,25 +1,31 @@
 """Architecture registry: ``--arch <id>`` resolution and model construction
 (port of ``configs/registry.py`` for the archs ported so far).
 
-``ARCHS`` holds the dense decoder LMs the serving slice covers.  The other
-archs of the JAX registry are known by name and raise
+``ARCHS`` holds the dense and MoE decoder LMs, which train and serve.  The
+other archs of the JAX registry are known by name and raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.configs import codeqwen1_5_7b, yi_6b
+from repro_torch.configs import (
+    arctic_480b,
+    codeqwen1_5_7b,
+    mixtral_8x7b,
+    qwen1_5_32b,
+    qwen2_72b,
+    yi_6b,
+)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (yi_6b.CONFIG, codeqwen1_5_7b.CONFIG)}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in (
+    yi_6b.CONFIG, codeqwen1_5_7b.CONFIG, qwen1_5_32b.CONFIG, qwen2_72b.CONFIG,
+    mixtral_8x7b.CONFIG, arctic_480b.CONFIG,
+)}
 
 NOT_PORTED: dict[str, str] = {
-    "qwen1.5-32b": "a later dense-LM slice",
-    "qwen2-72b": "a later dense-LM slice",
-    "mixtral-8x7b": "the MoE slice",
-    "arctic-480b": "the MoE slice",
     "jamba-1.5-large-398b": "the hybrid (Mamba) slice",
     "xlstm-350m": "the xLSTM slice",
     "whisper-large-v3": "the encoder-decoder slice",

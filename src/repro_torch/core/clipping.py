@@ -497,7 +497,11 @@ class TapsExecutor(ClipExecutor):
     graph, or for ``bk_mixed_taps`` a book contraction of every tap
     (``ghost.tap_weighted_grads``).  It keeps every activation and
     cotangent of the step: the transparent formulation the fused engine is
-    tested against.
+    tested against.  Under a rematerialised stack the pre-activations leave
+    ``zs`` once the first backward has read them: a checkpointed layer's
+    recomputation closes over the ``Ctx``, so an ``s`` held there would tie
+    the graph to itself, and a grouped policy's partial backwards leave
+    saved tensors behind that would keep the step's graph alive.
     """
 
     def __init__(self, loss_with_ctx: LossFn, cfg: ClipConfig):
@@ -522,6 +526,7 @@ class TapsExecutor(ClipExecutor):
             retain_graph=not self.is_bk, allow_unused=True,
         )
         cot = {k: torch.zeros_like(ctx.zs[k]) if g is None else g for k, g in zip(keys, gs)}
+        ctx.zs.clear()  # no reference cycle through a recomputation (see above)
         if self.grouped:
             self._validate_groups(ctx.meta)
         acts, cots, per_tap = {}, {}, []

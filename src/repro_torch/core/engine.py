@@ -45,6 +45,11 @@ from repro_torch.utils.tree import tree_map
 
 log = logging.getLogger("repro_torch.engine")
 
+# the fleet agreement's refusal, shared by PrivacyEngine.tune and the tuner CLI
+CONSENSUS_LATER = ("fleet consensus comes with the port of tuner/consensus.py over "
+                   "torch.distributed, in the slice of the runtime around training "
+                   "(checkpoint, obs, runtime, parallel)")
+
 
 @dataclasses.dataclass
 class PrivacyEngine:
@@ -179,9 +184,7 @@ class PrivacyEngine:
         plan equal the analytic decision's: a plan moves cost, never math.
         """
         if consensus or gather_fn is not None:
-            raise NotImplementedError(
-                "fleet consensus (consensus=, gather_fn=) comes with the port of "
-                "tuner/consensus.py over torch.distributed")
+            raise NotImplementedError(CONSENSUS_LATER)
         from repro_torch.tuner import max_batch as _mb
         from repro_torch.tuner.measure import (
             MeasureConfig,

@@ -34,7 +34,8 @@ first; bf16 -> fp32 is exact and the kernel accumulates in fp32, so the norm
 is the same); a conv tap's ghost norm reads its raw input and never unfolds
 it.  The embedding norm takes the cotangent in its stored dtype too, as the
 JAX package does.  The other norms take it in fp32, as in the JAX package.
-``dw_conv`` and ``scale_grouped`` arrive with the LM slice.
+``dw_conv`` and ``scale_grouped`` arrive with the SSM, xLSTM and hybrid
+slice.
 Autograd saves integer ids, so the JAX package's fp32 id side channel and
 its 2^24 vocab guard have no counterpart here.
 
@@ -61,7 +62,8 @@ from repro_torch.nn.conv import conv_padding, pad_nchw, unfold2d
 
 KernelChoices = Optional[Mapping[str, str]]  # {dispatch op: impl} of one tap
 
-_LATER = {"dw_conv": "the LM slice", "scale_grouped": "the LM slice"}
+_LATER = {"dw_conv": "the SSM, xLSTM and hybrid LM slice",
+          "scale_grouped": "the SSM, xLSTM and hybrid LM slice"}
 
 
 def _unsupported(meta: TapMeta) -> NotImplementedError:

@@ -15,8 +15,8 @@ hands its pre-activation ``s`` and its input ``a`` to ``Ctx.tap``:
   to those ``s`` tensors, which gives ``dL/ds`` per tap: PyTorch's own
   idiom, so the JAX package's zero taps added to every pre-activation
   (``make_zero_taps``, ``tap_specs``) have no counterpart here.  Late taps
-  (``late=True``, ``record_act``: recurrent LM weights) come with the LM
-  slice.
+  (``late=True``, ``record_act``: recurrent weights) come with the SSM,
+  xLSTM and hybrid slice.
 
 In both engines ``zs`` holds what the first backward differentiates with
 respect to: the probes' dummy leaves, or the pre-activations themselves.
@@ -27,8 +27,10 @@ Tap names and param paths are the JAX package's (``conv4/out``,
 Layouts follow the JAX package at the tap: convolutions record their raw
 NHWC input and NHWC pre-activation; ``a`` and ``g`` of dense and scale taps
 are (B, T, width); an embedding records its integer ids (B, T).  Tap kinds
-in this slice: ``matmul`` (dense and conv), ``scale`` (norm gains), each
-with an optional bias, and ``embedding``.
+ported: ``matmul`` (dense and conv), ``scale`` (norm gains), each with an
+optional bias, and ``embedding``.  A grouped matmul (the MoE experts,
+``n_groups = E``) records a (B, E, C, D) and s (B, E, C, p): each sample's
+expert slots are G separate products, whose norms the engine sums.
 
 Stacked layers (``nn/stack.py``'s ``ScannedStack``) run one block per layer
 under the same tap names.  The meta is recorded once per name with a
@@ -177,7 +179,8 @@ class Ctx:
     def layer(self, index: int, n: int) -> "Ctx":
         """The context of layer ``index`` of an ``n``-layer stack."""
         if self.stack is not None:
-            raise NotImplementedError("nested layer stacks come with the LM slice")
+            raise NotImplementedError(
+                "nested layer stacks come with the SSM, xLSTM and hybrid LM slice")
         return Ctx(self.meta, self.path, self.collect, self.clip, self.zs, (index, n),
                    self.acts, self.remat)
 
@@ -197,6 +200,7 @@ class Ctx:
         param_path: str,
         bias_path: Optional[str] = None,
         conv: Optional[ConvInfo] = None,
+        n_groups: int = 1,
     ) -> torch.Tensor:
         """Register pre-activation ``s`` with recorded input ``a``."""
         if not self.collect:
@@ -212,6 +216,7 @@ class Ctx:
             param_path=self._join(param_path),
             bias_path=self._join(bias_path) if bias_path else None,
             conv=conv,
+            n_groups=n_groups,
             batch_size=int(s.shape[0]),
             a_shape=tuple(int(d) for d in a.shape),
             a_dtype=a.dtype,
@@ -224,8 +229,9 @@ class Ctx:
             self.meta[full] = meta.with_stack(n)
             key = (full, index)
         # a rematerialised layer's recomputation (nn/stack.py) calls its taps
-        # again: the first forward's records stand
-        first = key not in self.zs
+        # again: the first forward's records stand (the explicit engine's
+        # are its acts: it empties zs after the first backward)
+        first = key not in (self.zs if self.acts is None else self.acts)
         if self.acts is not None:  # explicit engine: dL/ds is taken at s itself
             if first:
                 self.acts[key] = a.detach()

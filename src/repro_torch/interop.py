@@ -5,8 +5,9 @@ only in the convolution weight layout: HWIO (kh, kw, d_in, d_out) in JAX,
 OIHW (d_out, d_in, kh, kw) here.  Which leaves are conv weights, the
 model says: ``conv_weights`` are the paths of its ``Conv2d`` modules'
 weights, collected when it is built (``model.conv_weights``).  Every other
-leaf keeps its layout, stacked or grouped 4-D leaves such as MoE experts
-(L, E, D, F) included.  Everything crosses as numpy arrays, so neither side
+leaf keeps its layout, stacked or grouped 4-D leaves included: an MoE
+layer's ``router/w`` (L, d, E), ``wg``/``wu`` (L, E, d, f) and ``wo``
+(L, E, f, d), and Arctic's ``dense_mlp``, as the JAX package lays them out.  Everything crosses as numpy arrays, so neither side
 imports the other.
 
 ``plan_from_jax`` carries a tuner ``ClipPlan`` across (its JSON): the same

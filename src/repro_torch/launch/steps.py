@@ -17,8 +17,8 @@ once per logical batch, runs the one policy update from ``state["rng"]``
 and applies the optimizer; ``make_train_step`` runs the same tail after its
 one clipped call.  Where the JAX
 package donates its accumulator through jitted programs, the port writes
-into the same tensors.  ``make_decode_step`` is the serving engine's
-greedy step.
+into the same tensors.  ``make_prefill_step`` and ``make_decode_step`` are
+the serving steps (the decode greedy).
 """
 from __future__ import annotations
 
@@ -237,7 +237,9 @@ def make_noise_finalize(
         else:
             std = dp.noise_multiplier * policy.sensitivity(pstate)
             noisy = add_dp_noise(grad_sum, state["rng"], std)
-            grads = tree_map(lambda g: g.float() / dp.logical_batch, noisy)
+            # the noisy tree is this call's own: divided in place, the update
+            # holds one model-sized tree fewer at its peak
+            grads = tree_map(lambda g: g.float().div_(dp.logical_batch), noisy)
             new_pstate = pstate
             if norms is not None:
                 new_pstate, _ = policy.update(pstate, norms, generator=state["rng"], mask=mask)
@@ -256,6 +258,15 @@ def make_noise_finalize(
         }
 
     return finalize
+
+
+def make_prefill_step(model) -> Callable:
+    """(params, batch, state) -> (last-position logits (B, 1, V), state)."""
+
+    def prefill_step(params, batch: dict, state: dict):
+        return model.prefill(params, batch, state)
+
+    return prefill_step
 
 
 def make_decode_step(model) -> Callable:

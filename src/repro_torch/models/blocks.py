@@ -1,9 +1,16 @@
-"""The pre-norm transformer block (port of ``models/blocks.py``'s
-``TransformerBlock``, without MoE or cross-attention).
+"""The pre-norm transformer block and the layer period (port of
+``models/blocks.py``'s ``TransformerBlock`` and ``build_period``, without
+cross-attention).
 
 LayerNorm/GELU blocks for the ViT (bidirectional, no rotary embeddings),
 RMSNorm/SwiGLU blocks with rotary embeddings for the decoder LMs, as the
-JAX package picks them from the configuration.
+JAX package picks them from the configuration; a block's feed-forward is an
+MLP or, with ``use_moe``, routed experts (``nn/moe.py``) plus Arctic's
+parallel dense-residual MLP (``moe_dense_ff``).  The decoder LMs train and
+serve through it (causal attention through ``flash_attention_train`` in
+training, the cache and the attention kernel in serving).  Periods longer
+than one block (``SequentialBlocks``: MoE every other layer, the
+Mamba/xLSTM patterns) come with the hybrid slice.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from repro_torch.core.taps import Ctx
 from repro_torch.nn.attention import Attention, make_kv_cache
 from repro_torch.nn.mlp import MLP, GatedMLP
 from repro_torch.nn.module import LayerNorm, Module, Params, RMSNorm
+from repro_torch.nn.moe import MoE
 
 
 def _norm(cfg: ArchConfig, name: str, d: int, **common) -> Module:
@@ -29,43 +37,79 @@ def _ffn(cfg: ArchConfig, name: str, d_ff: int, **common) -> Module:
 
 
 class TransformerBlock(Module):
-    """x + attn(n1(x)), then x + mlp(n2(x))."""
+    """x + attn(n1(x)), then x + ffn(n2(x)) with ffn an MLP, or the experts
+    plus (Arctic) a parallel dense MLP on the same input."""
 
-    def __init__(self, name: str, cfg: ArchConfig, *, causal: bool = True,
-                 dtype=torch.float32, param_dtype=torch.float32, device: torch.device):
-        if cfg.moe_experts:
-            raise NotImplementedError(f"{cfg.name}: MoE blocks come with the MoE slice")
+    def __init__(self, name: str, cfg: ArchConfig, *, use_moe: bool = False,
+                 causal: bool = True, dtype=torch.float32, param_dtype=torch.float32,
+                 device: torch.device):
         self.name = name
         self.cfg = cfg
         self.device = device
+        self.use_moe = use_moe and cfg.moe_experts > 0
         d = cfg.d_model
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.n1 = _norm(cfg, "n1", d, **common)
         self.attn = Attention(
             "attn", d, cfg.n_heads, cfg.n_kv, head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
             use_rope=cfg.norm == "rmsnorm",  # LayerNorm families use learned positions
-            rope_theta=cfg.rope_theta, causal=causal, window=cfg.window, **common,
+            rope_theta=cfg.rope_theta, causal=causal, window=cfg.window,
+            block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv, **common,
         )
         self.n2 = _norm(cfg, "n2", d, **common)
-        self.mlp = _ffn(cfg, "mlp", cfg.d_ff, **common)
+        if self.use_moe:
+            self.moe = MoE("moe", d, cfg.d_ff, cfg.moe_experts, cfg.moe_top_k,
+                           capacity_factor=cfg.capacity_factor, **common)
+            if cfg.moe_dense_ff:
+                self.dense_mlp = _ffn(cfg, "dense_mlp", cfg.moe_dense_ff, **common)
+        else:
+            self.mlp = _ffn(cfg, "mlp", cfg.d_ff, **common)
 
     def init(self, generator: torch.Generator) -> Params:
-        return {"n1": self.n1.init(generator), "attn": self.attn.init(generator),
-                "n2": self.n2.init(generator), "mlp": self.mlp.init(generator)}
+        p = {"n1": self.n1.init(generator), "attn": self.attn.init(generator),
+             "n2": self.n2.init(generator)}
+        if self.use_moe:
+            p["moe"] = self.moe.init(generator)
+            if self.cfg.moe_dense_ff:
+                p["dense_mlp"] = self.dense_mlp.init(generator)
+        else:
+            p["mlp"] = self.mlp.init(generator)
+        return p
 
     def init_cache(self, batch: int, dtype: torch.dtype, *, max_len: int) -> dict:
         return {"kv": make_kv_cache(batch, max_len, self.attn.n_kv, self.attn.head_dim, dtype,
                                     window=self.cfg.window, device=self.device)}
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
-                 cache: Optional[dict] = None, positions: Optional[torch.Tensor] = None):
-        """Without ``cache`` returns x; with it, (x, cache)."""
+                 cache: Optional[dict] = None, positions: Optional[torch.Tensor] = None,
+                 dispatch: str = "per_sample"):
+        """Without ``cache`` returns x; with it, (x, cache).  ``dispatch`` is
+        the experts' ("per_sample" in training, "global" in serving)."""
         h = self.attn(params["attn"], self.n1(params["n1"], x, ctx.scope("n1")),
                       ctx.scope("attn"), positions=positions,
                       cache=None if cache is None else cache["kv"])
         if cache is not None:
             h, _ = h
         x = x + h
-        x = x + self.mlp(params["mlp"], self.n2(params["n2"], x, ctx.scope("n2")),
-                         ctx.scope("mlp"))
+        h_in = self.n2(params["n2"], x, ctx.scope("n2"))
+        if self.use_moe:
+            h = self.moe(params["moe"], h_in, ctx.scope("moe"), dispatch=dispatch)
+            if self.cfg.moe_dense_ff:
+                h = h + self.dense_mlp(params["dense_mlp"], h_in, ctx.scope("dense_mlp"))
+        else:
+            h = self.mlp(params["mlp"], h_in, ctx.scope("mlp"))
+        x = x + h
         return x if cache is None else (x, cache)
+
+
+def build_period(cfg: ArchConfig, *, causal: bool = True, dtype=torch.float32,
+                 param_dtype=torch.float32, device: torch.device) -> tuple[Module, int]:
+    """The repeating block and its count (the JAX ``build_period`` for
+    periods of one block: the dense LMs, and MoE on every layer)."""
+    if cfg.block_pattern or (cfg.moe_experts and cfg.moe_every != 1):
+        raise NotImplementedError(
+            f"{cfg.name}: periods longer than one block (SequentialBlocks) come with "
+            "the hybrid slice")
+    block = TransformerBlock("b0", cfg, use_moe=cfg.moe_experts > 0, causal=causal,
+                             dtype=dtype, param_dtype=param_dtype, device=device)
+    return block, cfg.n_layers

@@ -1,11 +1,29 @@
-"""Decoder-only language model, dense family (port of ``models/lm.py``).
+"""Decoder-only language model, dense and MoE families (port of
+``models/lm.py``).
 
-The serving entry points of the JAX package's ``DecoderLM``:
+The entry points of the JAX package's ``DecoderLM``:
 
+- ``loss_with_ctx(params, batch, ctx)``   per-sample losses (B,) with the
+  DP taps threaded: the clipping engines' model function
 - ``init_state(batch, max_len)``          an empty KV cache per layer
 - ``prefill(params, batch, state)``       the prompt's forward + cache fill;
   the lm_head runs on the last position only
 - ``decode_step(params, tokens, state)``  one token per lane
+
+Training dispatches the experts per sample (each sample's tokens fill its
+own capacity, so per-sample clipping stays exact) and ``prefill``
+globally, as the JAX package threads ``dispatch`` through its trunk.
+``decode_step`` dispatches per lane: its B lanes are the serving engine's
+independent requests, which the JAX engine decodes as ``vmap`` of a B=1
+step (each lane its own capacity), so a lane's tokens never depend on its
+neighbours' routing and the engine's streams equal ``sequential_decode``'s.
+A JAX ``decode_step`` called on B > 1 outside the engine dispatches over
+all B tokens; the two agree whenever no expert overflows its capacity.
+
+With ``cfg.remat`` every layer is recomputed in the backward
+(``ScannedStack``) and so is the head with its loss (``head_loss`` under
+non-reentrant ``torch.utils.checkpoint``): the (B, S, V) logits are the
+largest activation of a step, and only the head's input is kept.
 
 A state is ``{"cache": ..., "pos": (B,)}``: every cache leaf is (L, B, ...)
 and ``pos`` counts each lane's tokens, so the lanes of one batched decode
@@ -14,19 +32,21 @@ may sit at different positions (RoPE and masks per lane).  ``prefill`` and
 caller's state is never written.  Compute runs in ``cfg.dtype`` with
 parameters in ``cfg.param_dtype``.
 
-Training of the LMs (``loss_with_ctx``) comes with the LM training slice.
-MoE, hybrid, SSM and prefix (VLM) families are refused here.
+The hybrid, SSM, xLSTM, prefix (VLM) and encoder-decoder families are
+refused here; they come with their slices.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core.taps import Ctx
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.blocks import TransformerBlock
+from repro_torch.models.blocks import build_period
+from repro_torch.models.losses import per_sample_xent
 from repro_torch.nn.module import Dense, Embedding, LayerNorm, RMSNorm
 from repro_torch.nn.stack import ScannedStack
 from repro_torch.utils.tree import tree_map
@@ -34,11 +54,11 @@ from repro_torch.utils.tree import tree_map
 
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
-        if (cfg.family != "dense" or cfg.moe_experts or cfg.block_pattern
+        if (cfg.family not in ("dense", "moe") or cfg.block_pattern
                 or cfg.prefix_tokens or cfg.encoder_layers):
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): only the dense decoder LMs are ported; "
-                "MoE, hybrid, SSM, VLM and encoder-decoder families come with later slices"
+                f"{cfg.name} ({cfg.family}): the dense and MoE decoder LMs are ported; "
+                "hybrid, SSM, VLM and encoder-decoder families come with later slices"
             )
         self.cfg = cfg
         self.device = dev = resolve_device(device)
@@ -49,7 +69,8 @@ class DecoderLM:
         self.use_learned_pos = cfg.norm == "layernorm"
         if self.use_learned_pos:
             self.pos_embed = Embedding("pos_embed", max(cfg.encoder_seq, 32768), d, **common)
-        self.layers = ScannedStack("layers", TransformerBlock("b0", cfg, **common), cfg.n_layers)
+        period, n_periods = build_period(cfg, **common)
+        self.layers = ScannedStack("layers", period, n_periods, remat=cfg.remat)
         norm_cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
         self.norm_f = norm_cls("norm_f", d, **common)
         self.lm_head = Dense("lm_head", d, cfg.vocab, use_bias=False, **common)
@@ -68,8 +89,10 @@ class DecoderLM:
         return p
 
     # -- shared trunk --------------------------------------------------------
-    def _trunk(self, params, tokens: torch.Tensor, ctx: Ctx, *, cache: dict,
-               positions: Optional[torch.Tensor] = None):
+    def _trunk(self, params, tokens: torch.Tensor, ctx: Ctx, *, cache: Optional[dict] = None,
+               positions: Optional[torch.Tensor] = None, dispatch: str = "per_sample"):
+        """Embeddings, the layers and the final norm: (x, cache), the cache
+        None without one (training)."""
         x = self.embed(params["embed"], tokens, ctx.scope("embed"))
         b, s = x.shape[:2]
         if positions is None:
@@ -77,13 +100,25 @@ class DecoderLM:
         if self.use_learned_pos:
             x = x + self.pos_embed(params["pos_embed"], positions.expand(b, s),
                                    ctx.scope("pos_embed"))
-        x, cache = self.layers(params["layers"], x, ctx.scope("layers"), cache=cache,
-                               positions=positions)
+        out = self.layers(params["layers"], x, ctx.scope("layers"), cache=cache,
+                          positions=positions, dispatch=dispatch)
+        x, cache = (out, None) if cache is None else out
         return self.norm_f(params["norm_f"], x, ctx.scope("norm_f")), cache
 
     # -- training ------------------------------------------------------------
     def loss_with_ctx(self, params, batch, ctx: Ctx) -> torch.Tensor:
-        raise NotImplementedError("LM training comes with the LM training slice")
+        """Per-sample mean token cross-entropy (B,): ``batch["tokens"]`` and
+        ``batch["labels"]`` (B, S), -100 ignored, an optional ``mask`` (B,)."""
+        x, _ = self._trunk(params, batch["tokens"], ctx)
+
+        def head_loss(head_params, x_in):
+            logits = self.lm_head(head_params, x_in, ctx.scope("lm_head"))
+            return per_sample_xent(logits, batch["labels"], batch.get("mask"))
+
+        if self.cfg.remat and ctx.remat and torch.is_grad_enabled():
+            return checkpoint(head_loss, params["lm_head"], x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return head_loss(params["lm_head"], x)
 
     # -- serving -------------------------------------------------------------
     def init_state(self, batch: int, max_len: int) -> dict:
@@ -96,7 +131,8 @@ class DecoderLM:
         the last position (B, 1, V) and the filled state."""
         tokens = batch["tokens"]
         state = tree_map(torch.clone, state)
-        x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"])
+        x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"],
+                               dispatch="global")
         logits = self.lm_head(params["lm_head"], x[:, -1:], Ctx.disabled())
         return logits, {"cache": cache, "pos": state["pos"] + tokens.shape[1]}
 
@@ -105,7 +141,7 @@ class DecoderLM:
         state = tree_map(torch.clone, state)
         positions = state["pos"][:, None] + torch.arange(tokens.shape[1], device=tokens.device)
         x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"],
-                               positions=positions)
+                               positions=positions, dispatch="per_sample")  # per lane
         logits = self.lm_head(params["lm_head"], x, Ctx.disabled())
         return logits, {"cache": cache, "pos": state["pos"] + tokens.shape[1]}
 

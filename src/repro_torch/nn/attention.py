@@ -4,12 +4,14 @@ KV cache (port of ``nn/attention.py``).
 The projections are ``Dense`` modules, so each gets a DP tap; the
 attention itself has no parameters and the clipping engine never sees it.
 
-Without a cache (training) this is the ViT's bidirectional attention: plain
-PyTorch softmax on fp32 copies of q, k and v, as the JAX package computes
-training attention in fp32 outside any Pallas kernel.  It runs the same ops
-in every backward, so ``mixed_ghost``'s second backward over the retained
-graph repeats the first's arithmetic.  Causal, windowed or grouped-head
-training attention comes with the LM training slice.
+Without a cache (training) attention runs in fp32 outside any kernel, as
+the JAX package computes it outside any Pallas kernel.  Causal, windowed or
+grouped-head attention (the decoder LMs) goes through
+``flash_attention_train``, the JAX package's blocked attention with its
+custom VJP (``block_q`` / ``block_kv`` from the configuration); the ViT's
+bidirectional MHA keeps the plain softmax on fp32 copies of q, k and v.
+Both run the same ops in every backward, so ``mixed_ghost``'s second
+backward over the retained graph repeats the first's arithmetic.
 
 With a cache (serving) the three branches of the JAX module:
 
@@ -45,6 +47,7 @@ import torch
 
 from repro_torch.core.taps import Ctx
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention.ops import flash_attention_train
 from repro_torch.nn.module import Dense, Module, Params
 from repro_torch.nn.rotary import apply_rope
 
@@ -79,6 +82,7 @@ class Attention(Module):
         self, name: str, d_model: int, n_heads: int, n_kv: int, *,
         head_dim: Optional[int] = None, qkv_bias: bool = False, use_rope: bool = True,
         rope_theta: float = 10000.0, causal: bool = True, window: Optional[int] = None,
+        block_q: int = 512, block_kv: int = 512,
         dtype=torch.float32, param_dtype=torch.float32, device: torch.device,
     ):
         if n_heads % n_kv:
@@ -91,6 +95,8 @@ class Attention(Module):
         self.rope_theta = rope_theta
         self.causal = causal
         self.window = window
+        self.block_q = block_q
+        self.block_kv = block_kv
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.wq = Dense(f"{name}.q", d_model, n_heads * self.head_dim, use_bias=qkv_bias,
                         **common)
@@ -128,11 +134,10 @@ class Attention(Module):
 
         if cache is None:
             if self.causal or self.window is not None or self.n_kv != self.n_heads:
-                raise NotImplementedError(
-                    "causal, windowed or grouped-head training attention comes with "
-                    "the LM training slice"
-                )
-            out = attention(q, k, v)
+                out = flash_attention_train(q, k, v, causal=self.causal, window=self.window,
+                                            block_q=self.block_q, block_kv=self.block_kv)
+            else:
+                out = attention(q, k, v)
             return self.wo(params["o"], out.reshape(b, s, -1), ctx.scope("o"))
 
         idx, length = cache["idx"], cache["k"].shape[1]

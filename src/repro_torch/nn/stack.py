@@ -29,7 +29,9 @@ forward wrote them; the probes themselves run again (their saved input
 is what the recomputation restores) and bank only in the backward of the
 original graph.  The explicit engine (``*_taps``) keeps every tap's input
 and pre-activation outside the recomputed region, as the JAX package keeps
-them as scan ys, so remat saves less there; so does book-keeping
+them as scan ys, so remat saves less there (it empties ``zs`` after its
+first backward, which the recomputation's closure would otherwise tie to
+the graph); so does book-keeping
 (``bk_mixed``), whose books keep a ghost-banked tap's activation and
 cotangent from the backward to the contraction.  The ``vmap`` oracle runs
 its stack without remat (``Ctx.remat`` False), a divergence by design:

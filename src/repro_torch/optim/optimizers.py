@@ -82,3 +82,11 @@ def adam(
         return tree_map(upd, m, v, params), {"m": m, "v": v}
 
     return Optimizer(init, update)
+
+
+def adamw(
+    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01,
+    state_dtype=torch.float32,
+) -> Optimizer:
+    """AdamW: ``adam`` with decoupled weight decay (the JAX package's defaults)."""
+    return adam(b1, b2, eps, weight_decay=weight_decay, state_dtype=state_dtype)

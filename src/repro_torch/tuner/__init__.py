@@ -5,9 +5,9 @@ Replaces the analytic Eq-(4.1) rule with per-tap timings of the port's own
 branch code on the device, caches the result as a ``ClipPlan`` (plan.py),
 and certifies the largest physical microbatch under a memory budget by
 trial (max_batch.py).  Consumed by ``ClipConfig(plan=...)``,
-``DPTrainConfig(plan=...)`` and ``PrivacyEngine.tune``.  The tuner CLI
-comes with the LM training slice and the fleet consensus with
-``torch.distributed``.
+``DPTrainConfig(plan=...)`` and ``PrivacyEngine.tune``; the CLI
+(``python -m repro_torch.tuner``, cli.py) profiles a registry arch.  The
+fleet consensus comes with ``torch.distributed``.
 """
 from repro_torch.tuner.max_batch import (
     certify_max_batch,
@@ -34,6 +34,7 @@ from repro_torch.tuner.plan import (
     device_string,
     load_cached_plan,
     shape_fingerprint,
+    verify_plan,
 )
 
 __all__ = [
@@ -57,4 +58,5 @@ __all__ = [
     "device_string",
     "load_cached_plan",
     "shape_fingerprint",
+    "verify_plan",
 ]

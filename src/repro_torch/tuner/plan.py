@@ -471,6 +471,27 @@ class ClipPlan:
             return cls.from_json(f.read())
 
 
+def verify_plan(plan: ClipPlan, metas: Mapping[str, TapMeta], device: DeviceLike = None
+                ) -> None:
+    """Strict validity gate for an imported plan: raises ``ValueError`` on a
+    fingerprint or device mismatch, or when a claimed agreement hash does
+    not re-verify.  Where ``overrides_for`` falls back to the analytic rule
+    (right for a best-effort cache hit), a rank that was handed a plan must
+    stop instead: its peers trace the plan's branches (the single-process
+    part of the JAX package's ``consensus.verify_adopted``)."""
+    dev = device_string(device)
+    fp = shape_fingerprint(metas)
+    if plan.fingerprint != fp:
+        raise ValueError(f"plan fingerprint {plan.fingerprint} does not match the model's "
+                         f"taps ({fp}): it was measured for another model")
+    if not plan.ratified_on(dev):
+        raise ValueError(f"plan was measured on {plan.device} and ratified by "
+                         f"{list(plan.devices) or 'no fleet'}; this device is {dev}")
+    if plan.agreed_hash is not None and plan.agreed_hash != plan.consensus_hash():
+        raise ValueError(f"plan claims agreement hash {plan.agreed_hash} but hashes to "
+                         f"{plan.consensus_hash()}: its measurements were edited")
+
+
 def cache_dir() -> str:
     """Plan cache root: ``$REPRO_TUNER_CACHE`` or ``~/.cache/repro-torch-tuner``."""
     return os.environ.get(

@@ -619,3 +619,86 @@ def test_plan_under_force_impl_runs_the_plain_versions(gen, mode):
         counts[forced] = {impl: sum(v[impl] for v in snap.values()) for impl in ("cuda", "torch")}
     assert counts[True]["cuda"] == 0 and counts[True]["torch"] > 0, counts
     assert counts[False]["torch"] == 0 and counts[False]["cuda"] > 0, counts
+
+
+# -- the LM training shapes ---------------------------------------------------
+@pytest.mark.parametrize("n,t,d,p", [
+    (1, 4096, 4096, 11008),  # Yi-6B's MLP tap at T = 4096: 2080 tile pairs a sample
+    (1, 4096, 4096, 64000),  # Yi-6B's head: bf16 g summed over p = 64000
+    (16, 1280, 4096, 14336),  # Mixtral's experts: B = 2 x E = 8 groups of C = 1280 rows
+    (16, 1280, 14336, 4096),  # the experts' down projection
+])
+def test_ghost_norm_kernel_at_lm_shapes(gen, n, t, d, p):
+    a = _rnd(gen, n, t, d, dtype=torch.bfloat16)
+    g = _rnd(gen, n, t, p, dtype=torch.bfloat16)
+    launches.reset()
+    got = gn.ghost_norm_sq_cuda(a, g)
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert _rel(got, gn.ghost_norm_sq_plain(a, g)) < 1e-4
+    assert torch.equal(got, gn.ghost_norm_sq_cuda(a, g))
+
+
+def test_book_kernel_at_the_lm_head(gen):
+    """Yi-6B's head book, (D, p) = (4096, 64000) fp32 (1.05 GB), over a
+    4096-token sample's rows in bf16."""
+    a = _rnd(gen, 1, 4096, 4096, dtype=torch.bfloat16)
+    g = _rnd(gen, 1, 4096, 64000, dtype=torch.bfloat16)
+    w = torch.rand(1, 4096, generator=gen, device="cuda")
+    got = pc.book_weighted_grad_cuda(a, g, w)
+    assert got.shape == (1, 4096, 64000)
+    assert _rel(got, pc.book_weighted_grad_plain(a, g, w)) < 1e-4
+
+
+def test_book_kernel_past_32_bit_offsets(gen):
+    """R * p past 2^31 (the tuner's 64-sample book of Yi-6B's MLP taps at
+    4096 tokens has R * p = 2.9e9): the kernel offsets elements in 64 bits
+    and counts only rows in 32."""
+    a = _rnd(gen, 1, 32769, 16, dtype=torch.bfloat16)
+    g = _rnd(gen, 1, 32769, 65536, dtype=torch.bfloat16)
+    w = torch.rand(1, 32769, generator=gen, device="cuda")
+    got = pc.book_weighted_grad_cuda(a, g, w)
+    assert _rel(got, pc.book_weighted_grad_plain(a, g, w)) < 1e-4
+
+
+def test_embedding_norm_on_a_yi_batch(gen):
+    """A Yi-6B token batch (the synthetic Markov stream, vocab 64000, 4 x
+    4096) with a bf16 cotangent of the model's width."""
+    from repro_torch.data.synthetic import SyntheticLMConfig, synthetic_lm_batch
+
+    ids = synthetic_lm_batch(SyntheticLMConfig(vocab=64000, seq_len=4096, batch=4), 0,
+                             device="cuda")["tokens"]
+    g = _rnd(gen, 4, 4096, 4096, dtype=torch.bfloat16)
+    got = gn.embedding_ghost_norm_sq_cuda(ids, g)
+    assert _rel(got, gn.embedding_ghost_norm_sq_plain(ids, g)) < 1e-4
+
+
+@pytest.mark.parametrize("mode", ["mixed_ghost", "bk_mixed"])
+def test_reduced_mixtral_step_kernels_vs_plain(gen, mode):
+    """A reduced Mixtral step (grouped expert taps) on the kernels against
+    the plain versions: norms and clipped sums within 1e-4."""
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.data.synthetic import synthetic_arch_batch
+
+    cfg = get_arch("mixtral-8x7b").reduced()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = synthetic_arch_batch(cfg, batch=2, seq=64, device="cuda")
+    fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode))
+    launches.reset()
+    _, g_k, aux_k = fn(params, batch)
+    snap = launches.snapshot()
+    assert sum(v["cuda"] for v in snap.values()) > 0  # bk_mixed at 64 tokens: psg banks
+    assert all(v["torch"] == 0 for v in snap.values())
+    with dispatch.force_impl("torch"):
+        _, g_p, aux_p = fn(params, batch)
+    assert _rel(aux_k["per_sample_norms"], aux_p["per_sample_norms"]) < 1e-4
+    scale = max(float(v.abs().max()) for v in _leaves(g_p))
+    err = max(float((x - y).abs().max()) for x, y in zip(_leaves(g_k), _leaves(g_p)))
+    assert err <= 1e-4 * scale
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

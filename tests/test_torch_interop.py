@@ -2,7 +2,10 @@
 
 Only the weights of the model's ``Conv2d`` modules change layout (HWIO <->
 OIHW), whatever they are called; a 4-D leaf elsewhere, such as a stacked MoE
-expert weight (L, E, D, F), crosses unchanged both ways.
+expert weight (L, E, D, F), crosses unchanged both ways.  The reduced
+Mixtral and Arctic trees (router, experts (L, E, d, f) / (L, E, f, d),
+Arctic's dense-residual MLP) cross leaf by leaf, and the port's own tree
+has the JAX tree's paths, shapes and dtypes.
 """
 import jax
 import numpy as np
@@ -10,9 +13,12 @@ import pytest
 import torch
 
 from repro.configs.paper_native import VIT_BASE as JVIT_BASE
+from repro.configs.registry import ARCHS as JARCHS
+from repro.configs.registry import build_model as jbuild
 from repro.models import cnn, vit
 from repro_torch import interop
 from repro_torch.configs.paper_native import VIT_BASE
+from repro_torch.configs.registry import build_model, get_arch
 from repro_torch.models import cnn as tcnn
 from repro_torch.models import vit as tvit
 from repro_torch.utils.tree import flatten_dict
@@ -83,3 +89,28 @@ def test_layout_follows_the_model_not_the_leaf_name():
     np.testing.assert_array_equal(port["proj"]["w"].numpy(), proj)
     with pytest.raises(KeyError, match="patch_embed/w"):
         interop.grads_to_jax_layout({"proj": {"w": torch.zeros(3, 4)}}, ["patch_embed/w"])
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "arctic-480b"])
+def test_moe_lm_trees_cross_leaf_by_leaf(name):
+    jmodel = jbuild(JARCHS[name].reduced())
+    tmodel = build_model(get_arch(name).reduced(), device="cpu")
+    tree = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    flat = flatten_dict(tree)
+    own = flatten_dict(tmodel.init(torch.Generator().manual_seed(0)))
+    assert own.keys() == flat.keys()
+    for path, leaf in flat.items():
+        assert tuple(own[path].shape) == leaf.shape, path
+        assert str(own[path].dtype).removeprefix("torch.") == str(leaf.dtype), path
+    cfg = tmodel.cfg
+    layers, e, d, f = cfg.n_layers, cfg.moe_experts, cfg.d_model, cfg.d_ff
+    assert flat["layers/moe/wg"].shape == (layers, e, d, f)
+    assert flat["layers/moe/wo"].shape == (layers, e, f, d)
+    assert flat["layers/moe/router/w"].shape == (layers, d, e)
+    assert ("layers/dense_mlp/wg/w" in flat) == bool(cfg.moe_dense_ff)
+    params = interop.params_from_jax(tree, tmodel.conv_weights, device="cpu")
+    back = flatten_dict(interop.grads_to_jax_layout(params, tmodel.conv_weights))
+    for path, leaf in flat.items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg=path)
+        np.testing.assert_array_equal(flatten_dict(params)[path].numpy(), leaf,
+                                      err_msg=path)

@@ -155,15 +155,18 @@ def test_ring_prefill_matches_jax():
 
 def test_registry_refuses_what_is_not_ported():
     assert get_arch("yi_6b").name == "yi-6b"
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        get_arch("mixtral-8x7b")
+    assert get_arch("mixtral_8x7b").name == "mixtral-8x7b"  # the MoE LMs are ported
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        get_arch("jamba-1.5-large-398b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="LM training"):
-        _pair("yi-6b")[1].loss_with_ctx({}, {}, None)
-    moe = dataclasses.replace(get_arch("yi-6b").reduced(), family="moe", moe_experts=4)
+    hybrid = dataclasses.replace(get_arch("yi-6b").reduced(), family="hybrid",
+                                 block_pattern=("attn", "mamba"))
     with pytest.raises(NotImplementedError):
-        build_model(moe, device="cpu")
+        build_model(hybrid, device="cpu")
+    moe_every_other = dataclasses.replace(get_arch("mixtral-8x7b").reduced(), moe_every=2)
+    with pytest.raises(NotImplementedError, match="hybrid slice"):
+        build_model(moe_every_other, device="cpu")
 
 
 # -- the engine: the port's Engine == its sequential_decode == the JAX Engine

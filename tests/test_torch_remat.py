@@ -175,3 +175,40 @@ def test_vmap_under_a_remat_model_runs_without_checkpoint():
     ctx = tclip.Ctx.disabled(remat=False)
     assert not ctx.scope("layers").layer(0, 2).remat
     assert tclip.Ctx.disabled().remat
+
+
+@pytest.mark.parametrize("mode", ["mixed_ghost", "bk_mixed", "mixed_ghost_taps",
+                                  "bk_mixed_taps", "ghost_taps"])
+def test_grouped_step_frees_its_graph_under_remat(mode):
+    """A per_layer step (one partial backward per group on the retained
+    graph) on a rematerialised LM leaves nothing alive once it returns: no
+    tensor on the parameters' storage survives them.  The explicit engine
+    under a checkpointed stack kept its graph, and with it every parameter
+    leaf, alive while its pre-activations stayed in the ``Ctx`` that the
+    recomputation closes over (0.84 GiB a call at the Yi-6B oracle's size
+    on the card)."""
+    import gc
+    import warnings
+
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.data.synthetic import synthetic_arch_batch
+    from repro_torch.policies import PerLayerPolicy
+
+    def step():
+        cfg = get_arch("yi-6b").reduced()
+        assert cfg.remat
+        model = build_model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        batch = synthetic_arch_batch(cfg, batch=2, seq=32, device="cpu")
+        policy = PerLayerPolicy(groups=("layers", "embed"), clip_norm=1.0)
+        tclip.dp_value_and_clipped_grad(
+            model.loss_with_ctx, tclip.ClipConfig(mode=mode, policy=policy))(params, batch)
+        return {v.data_ptr() for v in flatten_dict(params).values()}
+
+    storage = step()
+    gc.collect()
+    with warnings.catch_warnings():  # the scan touches deprecated module objects
+        warnings.simplefilter("ignore", FutureWarning)
+        alive = [o for o in gc.get_objects()
+                 if isinstance(o, torch.Tensor) and o.data_ptr() in storage]
+    assert not alive, [tuple(t.shape) for t in alive]

@@ -13,6 +13,13 @@ both packages the same norms and clipped sums (1e-5), and the time rule
 full-width taps (meta discovery only, on abstract shapes: JAX's eval_shape
 and torch's ``meta`` device, so nothing is allocated).  Inputs come from
 numpy or a seeded generator; tolerances are stated per test.
+
+The CLI (``python -m repro_torch.tuner``, ``tuner/cli.py``) on the CPU with
+a reduced LM: a plan is written and ``PrivacyEngine.use_plan`` runs a step
+under it equal to the analytic step (1e-6), ``--import-plan`` adopts it,
+a plan with another fingerprint, device or an agreement hash that does not
+re-verify exits 1, and ``--consensus`` is refused naming the slice that
+brings it.
 """
 import dataclasses
 import json
@@ -748,3 +755,85 @@ def test_time_rule_picks_the_jax_branch_per_tap(which):
                 assert got == jdecide(jmeta[name], mode=mode, by=by), (name, mode, by)
                 picks[(mode, by)] = picks.get((mode, by), set()) | {got}
     assert picks[("mixed_ghost", "time")]  # the rule ran on every tap
+
+
+# ------------------------------------------------------------------- CLI --
+CLI_FAST = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16", "--repeats", "1",
+            "--warmup", "1", "--hi-cap", "8"]
+
+
+@pytest.fixture(scope="module")
+def cli_plan(tmp_path_factory):
+    """One CLI run on reduced Yi-6B: (plan path, printed table)."""
+    import contextlib
+    import io
+
+    from repro_torch.tuner import cli
+
+    path = tmp_path_factory.mktemp("cli") / "plan.json"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["--arch", "yi-6b", *CLI_FAST, "--plan", str(path)]) == 0
+    return path, out.getvalue()
+
+
+def test_cli_writes_a_plan_the_engine_adopts(cli_plan):
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.data.synthetic import synthetic_arch_batch
+
+    path, table = cli_plan
+    assert "ClipPlan for yi-6b on cpu:cpu" in table and "recommended mode" in table
+    assert "lm_head/out" in table and "max physical batch" in table
+    plan = ClipPlan.load(str(path))
+    cfg = get_arch("yi-6b").reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = synthetic_arch_batch(cfg, batch=2, seq=16, device="cpu")
+    assert plan.matches(discover_meta(model.loss_with_ctx, params, batch), CPU)
+    assert plan.physical_batch and plan.physical_batch >= 2
+    eng = PrivacyEngine(loss_with_ctx=model.loss_with_ctx, batch_size=2, sample_size=100,
+                        steps=1, max_grad_norm=1.0, noise_multiplier=1.0, device="cpu")
+    _, g0, aux0 = eng.clipped_grad_fn()(params, batch)
+    eng.use_plan(plan)
+    assert eng.clipped_grad_fn().cfg.plan == plan
+    _, g1, aux1 = eng.clipped_grad_fn()(params, batch)
+    torch.testing.assert_close(aux1["per_sample_norms"], aux0["per_sample_norms"],
+                               rtol=1e-6, atol=0)
+    assert _max_diff(g1, g0) <= 1e-6
+
+
+def test_cli_import_plan_adopts_and_reexports(cli_plan, tmp_path, capsys):
+    from repro_torch.tuner import cli
+
+    path, _ = cli_plan
+    out = tmp_path / "again.json"
+    rc = cli.main(["--arch", "yi-6b", *CLI_FAST, "--import-plan", str(path),
+                   "--export-plan", str(out)])
+    assert rc == 0
+    assert "adopted ClipPlan" in capsys.readouterr().out
+    assert ClipPlan.load(str(out)) == ClipPlan.load(str(path))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fingerprint", "0" * 16),                 # measured for another model
+    ("device", "gpu:NVIDIA H100 80GB HBM3"),    # measured on another device
+    ("agreed_hash", "feedfacefeedface"),        # edited after an agreement
+])
+def test_cli_import_rejects_a_tampered_plan(cli_plan, tmp_path, field, value):
+    from repro_torch.tuner import cli
+
+    path, _ = cli_plan
+    d = json.loads(path.read_text())
+    d[field] = value
+    bad = tmp_path / "tampered.json"
+    bad.write_text(json.dumps(d))
+    assert cli.main(["--arch", "yi-6b", *CLI_FAST, "--import-plan", str(bad)]) == 1
+    # another arch's model does not take the plan either
+    assert cli.main(["--arch", "mixtral-8x7b", *CLI_FAST, "--import-plan", str(path)]) == 1
+
+
+def test_cli_refuses_consensus():
+    from repro_torch.tuner import cli
+
+    with pytest.raises(NotImplementedError, match="runtime around training"):
+        cli.main(["--arch", "yi-6b", *CLI_FAST, "--consensus"])
