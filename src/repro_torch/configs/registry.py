@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution and model construction
 (port of ``configs/registry.py`` for the archs ported so far).
 
-``ARCHS`` holds the dense and MoE decoder LMs, which train and serve.  The
-other archs of the JAX registry are known by name and raise
+``ARCHS`` holds the dense, MoE, hybrid and SSM decoder LMs, which train and
+serve.  The other archs of the JAX registry are known by name and raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
@@ -12,9 +12,11 @@ from typing import Any
 from repro_torch.configs import (
     arctic_480b,
     codeqwen1_5_7b,
+    jamba_1_5_large,
     mixtral_8x7b,
     qwen1_5_32b,
     qwen2_72b,
+    xlstm_350m,
     yi_6b,
 )
 from repro_torch.configs.base import ArchConfig
@@ -22,12 +24,10 @@ from repro_torch.device import DeviceLike
 
 ARCHS: dict[str, ArchConfig] = {c.name: c for c in (
     yi_6b.CONFIG, codeqwen1_5_7b.CONFIG, qwen1_5_32b.CONFIG, qwen2_72b.CONFIG,
-    mixtral_8x7b.CONFIG, arctic_480b.CONFIG,
+    mixtral_8x7b.CONFIG, arctic_480b.CONFIG, jamba_1_5_large.CONFIG, xlstm_350m.CONFIG,
 )}
 
 NOT_PORTED: dict[str, str] = {
-    "jamba-1.5-large-398b": "the hybrid (Mamba) slice",
-    "xlstm-350m": "the xLSTM slice",
     "whisper-large-v3": "the encoder-decoder slice",
     "phi-3-vision-4.2b": "the VLM slice",
 }

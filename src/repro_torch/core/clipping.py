@@ -44,6 +44,13 @@ Flow of the fused family (``FusedExecutor``)::
     C = policy(sqrt(sum_tap banks[tap]["n"])) * mask
     grad(losses, inputs=params, grad_outputs=C)     # 2nd backward (not bk_mixed)
 
+A late tap (a recurrent weight, ``Ctx.record_act``) has no probe: the
+first backward also takes dL/ds at its recorded pre-activation, in the
+same ``torch.autograd.grad`` call, and its norm (and, in ``bk_mixed``, its
+book contraction) comes from the explicit ``(a, g)`` as in the explicit
+engine.  Its pre-activations leave ``zs`` right after that backward (a
+checkpointed layer's recomputation closes over the ``Ctx``).
+
 The tuner's knobs: ``decision_by`` (Eq. 4.1 by space or Remark 4.1 by
 time), ``ghost_block`` and ``inst_block_d`` (the plain versions' tiles) and
 ``plan`` (a ``repro_torch.tuner.ClipPlan``, duck-typed: its per-tap branch
@@ -232,9 +239,27 @@ def _assemble_bk_grads(params: Any, parts: Iterable[dict[str, torch.Tensor]]) ->
     })
 
 
-def _stacked(xs: list[torch.Tensor]) -> torch.Tensor:
-    """One tap's per-layer tensors on a leading stack dim (one layer: as is)."""
+def _stacked(xs: list[Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
+    """One tap's per-layer tensors on a leading stack dim (one layer: as is;
+    a tap without an activation: None)."""
+    if xs[0] is None:
+        return None
     return xs[0] if len(xs) == 1 else torch.stack(xs)
+
+
+def _first_backward(losses: torch.Tensor, zs: dict, retain_graph: bool) -> dict:
+    """{key: dL/d zs[key]} of one backward with unit loss cotangents (zeros
+    where a key does not reach the losses); ``zs`` is emptied after it: a
+    pre-activation kept there would tie the step's graph to a checkpointed
+    layer's recomputation, which closes over the ``Ctx``."""
+    keys = list(zs)
+    gs = torch.autograd.grad(
+        losses, [zs[k] for k in keys], grad_outputs=torch.ones_like(losses),
+        retain_graph=retain_graph, allow_unused=True,
+    )
+    out = {k: torch.zeros_like(zs[k]) if g is None else g for k, g in zip(keys, gs)}
+    zs.clear()
+    return out
 
 
 @dataclasses.dataclass
@@ -246,8 +271,8 @@ class _NormState:
     leaves: Optional[dict[str, torch.Tensor]] = None  # second-backward modes
     runtime: Optional[ClipRuntime] = None  # the probes' phase flag and banks
     meta: Optional[dict[str, TapMeta]] = None
-    acts: Optional[dict[str, torch.Tensor]] = None  # explicit engine, per tap
-    gs: Optional[dict[str, torch.Tensor]] = None  # explicit engine: dL/ds per tap
+    acts: Optional[dict[str, torch.Tensor]] = None  # explicit engine (fused: late taps)
+    gs: Optional[dict[str, torch.Tensor]] = None  # dL/ds per tap, as ``acts``
     per_sample_grads: Optional[dict[str, torch.Tensor]] = None  # vmap only
     # grouped policies: {param_path: (B,)} squared-norm contributions,
     # summing to norms2
@@ -290,6 +315,15 @@ class ClipExecutor:
                 prev = path_norms2.get(m.param_path)
                 path_norms2[m.param_path] = n if prev is None else prev + n
         return norms2, path_norms2
+
+    def _explicit_norm(self, name: str, m: TapMeta, a, g, mode: str, overrides: dict,
+                       kernels: dict) -> torch.Tensor:
+        """Tap ``name``'s (B,) norm from its explicit (a, g), on ``mode``'s branch."""
+        cfg = self.cfg
+        return ghost.tap_norm_sq(
+            m, a, g, mode=mode, decision_by=cfg.decision_by, ghost_block=cfg.ghost_block,
+            inst_block_d=cfg.inst_block_d, override=overrides.get(name),
+            kernels=kernels.get(name))
 
     def _validate_groups(self, meta: dict[str, TapMeta]) -> None:
         """A group boundary must not split a tap's (weight, bias) pair: their
@@ -416,24 +450,30 @@ class FusedExecutor(ClipExecutor):
         # the forward has named the taps: the plan's choices for the probes
         runtime.overrides = _plan_overrides(cfg.plan, ctx.meta, cfg.mode, losses.device)
         runtime.kernels = _plan_kernels(cfg.plan, ctx.meta, losses.device)
-        # first backward: gradients of the probes' dummy leaves only, so
-        # autograd runs every probe and prunes every parameter-gradient kernel
-        torch.autograd.grad(
-            losses, list(ctx.zs.values()), grad_outputs=torch.ones_like(losses),
-            retain_graph=not self.is_bk,
-        )
+        # first backward: gradients of the probes' dummy leaves (and of the
+        # late taps' pre-activations) only, so autograd runs every probe and
+        # prunes every parameter-gradient kernel
+        cot = _first_backward(losses, ctx.zs, retain_graph=not self.is_bk)
         runtime.phase = "grad"
         if self.grouped:
             self._validate_groups(ctx.meta)
-        norms2, path_norms2 = self._tally(
-            ((m, sum(runtime.banks[k]["n"] for k in bank_keys(name, m)))  # over layers
-             for name, m in ctx.meta.items()),
-            losses.shape[0], losses.device,
-        )
+        acts, gs, per_tap = {}, {}, []
+        for name, m in ctx.meta.items():
+            keys = bank_keys(name, m)
+            if not m.late:
+                per_tap.append((m, sum(runtime.banks[k]["n"] for k in keys)))  # over layers
+                continue
+            acts[name] = _stacked([ctx.late_acts[k] for k in keys])
+            gs[name] = _stacked([cot[k] for k in keys])
+            per_tap.append((m, self._explicit_norm(name, m, acts[name], gs[name], cfg.mode,
+                                                   runtime.overrides, runtime.kernels)))
+        norms2, path_norms2 = self._tally(per_tap, losses.shape[0], losses.device)
+        if not self.is_bk:  # the second backward needs no late activation
+            acts = gs = {}
         return _NormState(
             losses=losses.detach() if self.is_bk else losses,
             norms2=norms2, leaves=leaves, runtime=runtime, meta=ctx.meta,
-            path_norms2=path_norms2,
+            path_norms2=path_norms2, acts=acts, gs=gs,
         )
 
     def _weighted_grads(self, st, c, params):
@@ -450,8 +490,13 @@ class FusedExecutor(ClipExecutor):
         kernels = st.runtime.kernels
         parts, segments, psg_taps = [], [], []
         for name, m in st.meta.items():
-            banks = [st.runtime.banks.pop(k) for k in bank_keys(name, m)]
             shape = tuple(flat_params[m.param_path].shape)
+            if m.late:  # the explicit channel: a book contraction
+                cw = c.for_path(m.param_path) if grouped else c
+                parts.append(ghost.tap_weighted_grads(m, st.acts[name], st.gs[name], cw, shape,
+                                                      kernels=kernels.get(name)))
+                continue
+            banks = [st.runtime.banks.pop(k) for k in bank_keys(name, m)]
             if "g" in banks[0]:
                 book = _stack_banks(banks)
                 cw = c.for_path(m.param_path) if grouped else c
@@ -519,14 +564,9 @@ class TapsExecutor(ClipExecutor):
         losses = self.loss(p, batch, ctx)
         overrides = _plan_overrides(cfg.plan, ctx.meta, self.branch_mode, losses.device)
         kernels = _plan_kernels(cfg.plan, ctx.meta, losses.device)
-        keys = list(ctx.zs)
         # first backward: dL/ds at every tap; the graph stays for the second
-        gs = torch.autograd.grad(
-            losses, [ctx.zs[k] for k in keys], grad_outputs=torch.ones_like(losses),
-            retain_graph=not self.is_bk, allow_unused=True,
-        )
-        cot = {k: torch.zeros_like(ctx.zs[k]) if g is None else g for k, g in zip(keys, gs)}
-        ctx.zs.clear()  # no reference cycle through a recomputation (see above)
+        # (zs emptied after it: no reference cycle through a recomputation)
+        cot = _first_backward(losses, ctx.zs, retain_graph=not self.is_bk)
         if self.grouped:
             self._validate_groups(ctx.meta)
         acts, cots, per_tap = {}, {}, []
@@ -534,11 +574,8 @@ class TapsExecutor(ClipExecutor):
             ks = bank_keys(name, m)
             acts[name] = _stacked([ctx.acts[k] for k in ks])
             cots[name] = _stacked([cot[k] for k in ks])
-            per_tap.append((m, ghost.tap_norm_sq(
-                m, acts[name], cots[name], mode=self.branch_mode,
-                decision_by=cfg.decision_by, ghost_block=cfg.ghost_block,
-                inst_block_d=cfg.inst_block_d, override=overrides.get(name),
-                kernels=kernels.get(name))))
+            per_tap.append((m, self._explicit_norm(name, m, acts[name], cots[name],
+                                                   self.branch_mode, overrides, kernels)))
         norms2, path_norms2 = self._tally(per_tap, losses.shape[0], losses.device)
         if not self.is_bk:  # the second backward needs no activation or cotangent
             return _NormState(losses=losses, norms2=norms2, leaves=leaves,

@@ -63,5 +63,6 @@ def probe(
     s: torch.Tensor, a: torch.Tensor, z: torch.Tensor, key: BankKey, meta: TapMeta,
     runtime: ClipRuntime,
 ) -> torch.Tensor:
-    """Identity on ``s`` whose backward banks ``key`` into ``runtime``."""
-    return Probe.apply(s, a.detach(), z, key, meta, runtime)
+    """Identity on ``s`` whose backward banks ``key`` into ``runtime``
+    (``a`` None: a bias tap, banked from its cotangent alone)."""
+    return Probe.apply(s, None if a is None else a.detach(), z, key, meta, runtime)

@@ -20,7 +20,10 @@ directly from the banked residuals, skipping the second backward.
 
 Canonical layouts (stack dims folded into the row dim N = L * B * G):
 matmul a (N, T, D), g (N, T, p); embedding ids (N, T), g (N, T, p); scale
-a, g (N, T, p) with grad = sum_T g*a; bias g (N, T, p) with grad = sum_T g.
+a, g (N, T, p) with grad = sum_T g*a; bias g (N, T, p) with grad = sum_T g;
+dw_conv a (N, T, k, d), g (N, T, d) with grad (k, d) = sum_T a*g;
+scale_grouped a, g (N, T, h*dh) with grad (h,) = sum over T and each head's
+dh channels of g*a.
 Per-sample conv gradients are in the parameter's own OIHW layout
 (p, d, kh, kw).  The norm, bank and gradient functions take a stacked meta
 (``stack_dims = (L,)``) as the JAX package's do: the stack folds into the
@@ -34,8 +37,14 @@ first; bf16 -> fp32 is exact and the kernel accumulates in fp32, so the norm
 is the same); a conv tap's ghost norm reads its raw input and never unfolds
 it.  The embedding norm takes the cotangent in its stored dtype too, as the
 JAX package does.  The other norms take it in fp32, as in the JAX package.
-``dw_conv`` and ``scale_grouped`` arrive with the SSM, xLSTM and hybrid
-slice.
+The small kinds (``scale``, ``bias``, ``dw_conv``, ``scale_grouped``) are
+forced to instantiate: their per-sample gradients are parameter-sized
+(a gain, a bias, a (k, d) depthwise kernel, one gain per head), so their
+norms come from them and book-keeping banks them, one segment each in the
+step's grouped ``psg_contract``.  A depthwise conv's window ``a`` may be a
+strided view of its padded input (``nn/conv.py``): its gradient is formed
+one kernel tap at a time, so neither the window nor its fp32 copy is ever
+materialised.
 Autograd saves integer ids, so the JAX package's fp32 id side channel and
 its 2^24 vocab guard have no counterpart here.
 
@@ -62,17 +71,11 @@ from repro_torch.nn.conv import conv_padding, pad_nchw, unfold2d
 
 KernelChoices = Optional[Mapping[str, str]]  # {dispatch op: impl} of one tap
 
-_LATER = {"dw_conv": "the SSM, xLSTM and hybrid LM slice",
-          "scale_grouped": "the SSM, xLSTM and hybrid LM slice"}
+SMALL_KINDS = ("scale", "bias", "dw_conv", "scale_grouped")  # forced instantiate
 
 
-def _unsupported(meta: TapMeta) -> NotImplementedError:
-    later = _LATER.get(meta.kind)
-    if later is None:
-        return NotImplementedError(f"unknown tap kind {meta.kind!r}")
-    return NotImplementedError(
-        f"tap kind {meta.kind!r} ({meta.param_path}) is ported with {later}"
-    )
+def _unsupported(meta: TapMeta) -> ValueError:
+    return ValueError(f"unknown tap kind {meta.kind!r} ({meta.param_path})")
 
 
 def _fold(meta: TapMeta, x: torch.Tensor, trailing: tuple[int, ...]) -> torch.Tensor:
@@ -140,8 +143,9 @@ def tap_norm_sq(
             impl=dispatch.kernels_arg(kernels, "embedding_ghost_norm"),
         )
         total = _per_sample(meta, rows)
-    elif meta.kind in ("scale", "bias"):
-        total = _small_psg(meta, a, g).square().sum(dim=(0, 2))
+    elif meta.kind in SMALL_KINDS:
+        psg = _small_psg(meta, a, g)  # (L, B, *param)
+        total = psg.square().reshape(meta.n_stack, b, -1).sum(dim=(0, 2))
     else:
         raise _unsupported(meta)
     if meta.bias_path is not None and include_bias:
@@ -153,7 +157,8 @@ def tap_norm_sq(
 def psg_param_shape(meta: TapMeta) -> tuple[int, ...]:
     """Shape of one sample's banked gradient = the parameter's layout.
 
-    conv (p, d, kh, kw) | dense (D, p) | grouped (G, D, p) | scale, bias (p,).
+    conv (p, d, kh, kw) | dense (D, p) | grouped (G, D, p) | scale, bias (p,)
+    | dw_conv (k, d) | scale_grouped (h,).
     """
     if meta.kind == "matmul":
         if meta.conv is not None:
@@ -162,7 +167,9 @@ def psg_param_shape(meta: TapMeta) -> tuple[int, ...]:
         if meta.n_groups > 1:
             return (meta.n_groups, meta.D, meta.p)
         return (meta.D, meta.p)
-    if meta.kind in ("scale", "bias"):
+    if meta.kind == "dw_conv":
+        return (meta.D, meta.p)
+    if meta.kind in ("scale", "bias", "scale_grouped"):
         return (meta.p,)
     raise _unsupported(meta)
 
@@ -202,7 +209,19 @@ def _matmul_psg(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor
 
 
 def _small_psg(meta: TapMeta, a: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
-    """Per-sample gradients of the small forced-instantiate kinds: (L, B, p)."""
+    """Per-sample gradients of the small forced-instantiate kinds, stack dim
+    leading: scale, bias (L, B, p) | dw_conv (L, B, k, d) | scale_grouped
+    (L, B, h)."""
+    if meta.kind == "dw_conv":
+        k, d = meta.D, meta.p
+        gf = _fold(meta, g.float(), (meta.T, d))
+        af = _fold(meta, a, (meta.T, k, d))  # a view of a window view: no copy
+        return torch.stack([(af[:, :, :, j].float() * gf).sum(dim=2) for j in range(k)],
+                           dim=2)
+    if meta.kind == "scale_grouped":
+        h, dh = meta.p, meta.D
+        prod = _fold(meta, g.float(), (meta.T, h, dh)) * _fold(meta, a.float(), (meta.T, h, dh))
+        return prod.sum(dim=(2, 4))
     if meta.kind not in ("scale", "bias"):
         raise _unsupported(meta)
     gf = _fold(meta, g.float(), (meta.T, meta.p))
@@ -250,10 +269,10 @@ def tap_bank(
     elif meta.kind == "embedding":
         bank["a"], bank["g"] = a, g
         n = tap_norm_sq(meta, a, g, mode="bk_mixed", include_bias=False, **knobs)
-    elif meta.kind in ("scale", "bias"):
+    elif meta.kind in SMALL_KINDS:
         psg = _small_psg(meta, a, g32)[0]
         bank["psg"] = psg
-        n = psg.square().sum(dim=-1)
+        n = psg.square().reshape(b, -1).sum(dim=-1)
     else:
         raise _unsupported(meta)
 
@@ -289,17 +308,18 @@ def tap_weighted_grads(
     kernels: KernelChoices = None,
 ) -> dict[str, torch.Tensor]:
     """Book-keeping gradients sum_i C_i g_i of one tap from its (a, g) book
-    (stack dims leading), every kind.
+    (stack dims leading), every kind (a late tap's too, in ``bk_mixed``).
 
     A matmul's weight goes through one ``dispatch.book_weighted_grad``
     launch with the layers and groups on its leading dim, M = L*G (the CUDA
     kernel scales cotangent tiles in shared memory, so ``C_i * g_i`` never
     reaches device memory).  An embedding's weighted rows are scatter-added
     by id; a scale (norm gain) or bias tap's weighted cotangent is summed
-    over samples and positions, times the recorded ``x_hat`` for a scale.
-    Returns {param_path: grad, [bias_path: grad]}.
+    over samples and positions, times the recorded ``x_hat`` for a scale; a
+    depthwise conv's and a grouped scale's per-sample gradients are summed
+    against the factors.  Returns {param_path: grad, [bias_path: grad]}.
     """
-    if meta.kind not in ("matmul", "embedding", "scale", "bias"):
+    if meta.kind not in ("matmul", "embedding") + SMALL_KINDS:
         raise _unsupported(meta)
     b = meta.batch_size
     lead = meta.n_stack
@@ -320,6 +340,10 @@ def tap_weighted_grads(
         w = dispatch.book_weighted_grad(a2, g2, w2,
                                         impl=dispatch.kernels_arg(kernels, "psg_contract"))
         out = {meta.param_path: _finish_matmul_grad(meta, w, param_shape)}
+    elif meta.kind in ("dw_conv", "scale_grouped"):
+        psg = _small_psg(meta, a, g)  # (L, B, *param)
+        w = torch.tensordot(psg, cw, dims=([1], [0]))
+        out = {meta.param_path: w.reshape(param_shape)}
     else:
         gw = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
         if meta.kind == "embedding":

@@ -14,12 +14,24 @@ hands its pre-activation ``s`` and its input ``a`` to ``Ctx.tap``:
   ``zs``.  The engine's first ``torch.autograd.grad`` is taken with respect
   to those ``s`` tensors, which gives ``dL/ds`` per tap: PyTorch's own
   idiom, so the JAX package's zero taps added to every pre-activation
-  (``make_zero_taps``, ``tap_specs``) have no counterpart here.  Late taps
-  (``late=True``, ``record_act``: recurrent weights) come with the SSM,
-  xLSTM and hybrid slice.
+  (``make_zero_taps``, ``tap_specs``) have no counterpart here.
 
 In both engines ``zs`` holds what the first backward differentiates with
 respect to: the probes' dummy leaves, or the pre-activations themselves.
+
+Late taps (``late=True``, recurrent weights: the sLSTM's ``wr``) register
+their pre-activation before their activation exists: the recurrent input
+``h_{t-1}`` comes out of the time loop afterwards and arrives through
+``Ctx.record_act``.  A late tap never gets a probe.  Under the fused
+engine it takes the explicit channel within the same step, as the JAX
+package's fused executor falls back for it: its ``s`` joins ``zs``, so
+the first backward gives ``dL/ds`` beside the probes' banks, and its
+activation goes to ``late_acts``; the executor norms it (and, in
+``bk_mixed``, contracts it) from the explicit ``(a, g)`` and drops its
+``s`` from ``zs`` after that backward.  Under the explicit engine a late
+tap is an ordinary one whose activation is recorded later.  A tap may also
+have no activation at all (``a=None``: the Mamba ``dt_bias`` bias tap,
+whose per-sample gradient is the cotangent summed over positions).
 
 Tap names and param paths are the JAX package's (``conv4/out``,
 ``conv4/w``, ``gn5/g``), so tests compare the two per tap by name.
@@ -28,7 +40,10 @@ Layouts follow the JAX package at the tap: convolutions record their raw
 NHWC input and NHWC pre-activation; ``a`` and ``g`` of dense and scale taps
 are (B, T, width); an embedding records its integer ids (B, T).  Tap kinds
 ported: ``matmul`` (dense and conv), ``scale`` (norm gains), each with an
-optional bias, and ``embedding``.  A grouped matmul (the MoE experts,
+optional bias, ``embedding``, ``bias`` (a bias alone), ``dw_conv`` (a
+causal depthwise conv: ``a`` its (B, T, k, d) window, the weight (k, d))
+and ``scale_grouped`` (one gain per head of ``dh`` channels: Mamba's
+``D``, ``a`` and ``s`` (B, T, h*dh)).  A grouped matmul (the MoE experts,
 ``n_groups = E``) records a (B, E, C, D) and s (B, E, C, p): each sample's
 expert slots are G separate products, whose norms the engine sums.
 
@@ -40,8 +55,9 @@ fused engine sums the norms over the layers and contracts the stacked banks
 once per name, the explicit engine stacks a tap's per-layer ``a`` and
 ``dL/ds`` on a leading dim and norms (and contracts) them once per name.
 A rematerialised stack runs each layer's forward again in the backward;
-``Ctx.tap`` keeps what the first forward recorded under a key (the meta it
-writes again is equal).
+``Ctx.tap`` and ``Ctx.record_act`` keep what the first forward recorded
+under a key (the meta it writes again is equal): a late tap's record is
+its activation, which outlives the executor's emptying of ``zs``.
 """
 from __future__ import annotations
 
@@ -50,7 +66,7 @@ from typing import Any, Optional
 
 import torch
 
-TapKind = str  # "matmul" | "scale" | "embedding"
+TapKind = str  # "matmul" | "scale" | "embedding" | "bias" | "dw_conv" | "scale_grouped"
 BankKey = tuple[str, Optional[int]]  # (tap name, layer index; None unstacked)
 
 
@@ -79,8 +95,9 @@ class TapMeta:
     stack_dims: tuple[int, ...] = ()  # leading dims added by ScannedStack
     conv: Optional[ConvInfo] = None
     batch_size: int = 0
-    a_shape: Optional[tuple[int, ...]] = None
+    a_shape: Optional[tuple[int, ...]] = None  # None: no activation, or a late tap's
     a_dtype: Any = None
+    late: bool = False  # the activation arrives through Ctx.record_act
 
     def with_stack(self, n: int) -> "TapMeta":
         """The meta of ``n`` stacked copies of this tap."""
@@ -147,10 +164,13 @@ class Ctx:
     set (and ``clip`` None) is the explicit engine: each tap records its
     input there and its pre-activation in ``zs``.  ``remat=False`` turns off
     the stacks' rematerialisation for this forward (``torch.func``, which
-    the vmap oracle runs under, refuses the saved-tensor hooks it needs).
+    the vmap oracle runs under, refuses the saved-tensor hooks it needs),
+    and has the sLSTM record its time loop op by op (``nn/xlstm.py``).
+    ``late_acts`` holds the fused engine's late-tap activations.
     """
 
-    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack", "acts", "remat")
+    __slots__ = ("meta", "path", "collect", "clip", "zs", "stack", "acts", "remat",
+                 "late_acts")
 
     def __init__(
         self,
@@ -162,6 +182,7 @@ class Ctx:
         stack: Optional[tuple[int, int]] = None,
         acts: Optional[dict[BankKey, torch.Tensor]] = None,
         remat: bool = True,
+        late_acts: Optional[dict[BankKey, torch.Tensor]] = None,
     ):
         self.meta = {} if meta is None else meta
         self.path = path
@@ -171,21 +192,32 @@ class Ctx:
         self.stack = stack
         self.acts = acts
         self.remat = remat
+        self.late_acts = {} if late_acts is None else late_acts
 
     def scope(self, name: str) -> "Ctx":
         return Ctx(self.meta, self._join(name), self.collect, self.clip, self.zs, self.stack,
-                   self.acts, self.remat)
+                   self.acts, self.remat, self.late_acts)
 
     def layer(self, index: int, n: int) -> "Ctx":
-        """The context of layer ``index`` of an ``n``-layer stack."""
+        """The context of layer ``index`` of an ``n``-layer stack (one level:
+        the hybrid periods are ``SequentialBlocks`` inside one stack)."""
         if self.stack is not None:
-            raise NotImplementedError(
-                "nested layer stacks come with the SSM, xLSTM and hybrid LM slice")
+            raise NotImplementedError("nested layer stacks: no model of the registry has one")
         return Ctx(self.meta, self.path, self.collect, self.clip, self.zs, (index, n),
-                   self.acts, self.remat)
+                   self.acts, self.remat, self.late_acts)
 
     def _join(self, name: str) -> str:
         return f"{self.path}/{name}" if self.path else name
+
+    def _key(self, full: str) -> BankKey:
+        return (full, None if self.stack is None else self.stack[0])
+
+    def _records(self, late: bool) -> dict:
+        """Where a tap's first-forward record lives: the explicit engine's
+        ``acts``, a fused late tap's ``late_acts``, else ``zs``."""
+        if self.acts is not None:
+            return self.acts
+        return self.late_acts if late else self.zs
 
     def tap(
         self,
@@ -193,7 +225,7 @@ class Ctx:
         s: torch.Tensor,
         *,
         kind: TapKind,
-        a: torch.Tensor,
+        a: Optional[torch.Tensor] = None,
         T: int,
         D: int,
         p: int,
@@ -201,8 +233,10 @@ class Ctx:
         bias_path: Optional[str] = None,
         conv: Optional[ConvInfo] = None,
         n_groups: int = 1,
+        late: bool = False,
     ) -> torch.Tensor:
-        """Register pre-activation ``s`` with recorded input ``a``."""
+        """Register pre-activation ``s`` with recorded input ``a`` (None for a
+        bias tap, and for a late tap, whose ``a`` comes by ``record_act``)."""
         if not self.collect:
             return s
         full = self._join(name)
@@ -218,26 +252,28 @@ class Ctx:
             conv=conv,
             n_groups=n_groups,
             batch_size=int(s.shape[0]),
-            a_shape=tuple(int(d) for d in a.shape),
-            a_dtype=a.dtype,
+            a_shape=None if a is None else tuple(int(d) for d in a.shape),
+            a_dtype=None if a is None else a.dtype,
+            late=late,
         )
-        if self.stack is None:
-            self.meta[full] = meta
-            key: BankKey = (full, None)
-        else:
-            index, n = self.stack
-            self.meta[full] = meta.with_stack(n)
-            key = (full, index)
+        self.meta[full] = meta if self.stack is None else meta.with_stack(self.stack[1])
+        key = self._key(full)
         # a rematerialised layer's recomputation (nn/stack.py) calls its taps
         # again: the first forward's records stand (the explicit engine's
-        # are its acts: it empties zs after the first backward)
-        first = key not in (self.zs if self.acts is None else self.acts)
+        # are its acts, a fused late tap's its late_acts: the executors
+        # empty zs after the first backward)
+        first = key not in self._records(late)
         if self.acts is not None:  # explicit engine: dL/ds is taken at s itself
             if first:
-                self.acts[key] = a.detach()
+                if not late:  # a late tap's activation comes by record_act
+                    self.acts[key] = None if a is None else a.detach()
                 self.zs[key] = s
             return s
         if self.clip is None:
+            return s
+        if late:  # the explicit channel inside the fused step
+            if first:
+                self.zs[key] = s
             return s
         from repro_torch.core.fused import probe
 
@@ -245,6 +281,18 @@ class Ctx:
         if first:
             self.zs[key] = z
         return probe(s, a, z, key, meta, self.clip)
+
+    def record_act(self, name: str, a: torch.Tensor) -> None:
+        """The activation of late tap ``name``, once it exists (the recurrent
+        input ``h_{t-1}`` of every step, after the time loop).  Discovery
+        records nothing, and a recomputation's call leaves the first
+        forward's record."""
+        if not self.collect or (self.acts is None and self.clip is None):
+            return
+        store = self._records(late=True)
+        key = self._key(self._join(name))
+        if key not in store:
+            store[key] = a.detach()
 
     @staticmethod
     def disabled(remat: bool = True) -> "Ctx":

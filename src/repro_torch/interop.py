@@ -7,8 +7,13 @@ model says: ``conv_weights`` are the paths of its ``Conv2d`` modules'
 weights, collected when it is built (``model.conv_weights``).  Every other
 leaf keeps its layout, stacked or grouped 4-D leaves included: an MoE
 layer's ``router/w`` (L, d, E), ``wg``/``wu`` (L, E, d, f) and ``wo``
-(L, E, f, d), and Arctic's ``dense_mlp``, as the JAX package lays them out.  Everything crosses as numpy arrays, so neither side
-imports the other.
+(L, E, f, d), and Arctic's ``dense_mlp``, as the JAX package lays them out,
+and the depthwise conv kernels of the Mamba and xLSTM blocks, which keep
+the JAX layout (k, d) (stacked (L, k, d)): they are no ``Conv2d`` weight.
+Everything crosses as numpy arrays, so neither side imports the other.
+A bf16 leaf (Jamba's ``param_dtype``) crosses bit for bit: numpy's
+``bfloat16`` (the ``ml_dtypes`` type the JAX package hands out) is read
+through its 16-bit pattern, and written back the same way.
 
 ``plan_from_jax`` carries a tuner ``ClipPlan`` across (its JSON): the same
 schema and shape fingerprint, with the kernel impls renamed.
@@ -37,6 +42,23 @@ def _conv_leaves(flat: Mapping[str, Any], conv_weights: Collection[str]) -> set[
     return set(conv_weights)
 
 
+def _to_torch(leaf: Any) -> torch.Tensor:
+    """A numpy leaf as a tensor; numpy's bfloat16 through its bit pattern."""
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as numpy; bf16 as numpy's bfloat16 (``ml_dtypes``)."""
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return x.contiguous().view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return x.contiguous().numpy()
+
+
 def params_from_jax(
     tree: Mapping[str, Any], conv_weights: Collection[str], device: DeviceLike = None
 ) -> dict:
@@ -46,7 +68,7 @@ def params_from_jax(
     convs = _conv_leaves(flat, conv_weights)
     out = {}
     for path, leaf in flat.items():
-        x = torch.as_tensor(np.array(leaf))
+        x = _to_torch(leaf)
         if path in convs:  # HWIO -> OIHW
             x = x.permute(3, 2, 0, 1)
         out[path] = x.contiguous().to(dev)
@@ -62,7 +84,7 @@ def grads_to_jax_layout(tree: Mapping[str, Any], conv_weights: Collection[str]) 
         x = leaf.detach().cpu()
         if path in convs:  # OIHW -> HWIO
             x = x.permute(2, 3, 1, 0)
-        out[path] = x.contiguous().numpy()
+        out[path] = _to_numpy(x)
     return unflatten_dict(out)
 
 

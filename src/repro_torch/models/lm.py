@@ -1,11 +1,13 @@
-"""Decoder-only language model, dense and MoE families (port of
-``models/lm.py``).
+"""Decoder-only language model: the dense, MoE, hybrid (Jamba: Mamba and
+attention) and SSM (xLSTM) families (port of ``models/lm.py``).
 
 The entry points of the JAX package's ``DecoderLM``:
 
 - ``loss_with_ctx(params, batch, ctx)``   per-sample losses (B,) with the
   DP taps threaded: the clipping engines' model function
-- ``init_state(batch, max_len)``          an empty KV cache per layer
+- ``init_state(batch, max_len)``          an empty cache per layer: KV rows
+  for attention, the conv and SSM states for Mamba and mLSTM, the
+  sLSTM's ``h``, ``c``, ``n`` and ``m``
 - ``prefill(params, batch, state)``       the prompt's forward + cache fill;
   the lm_head runs on the last position only
 - ``decode_step(params, tokens, state)``  one token per lane
@@ -32,8 +34,10 @@ may sit at different positions (RoPE and masks per lane).  ``prefill`` and
 caller's state is never written.  Compute runs in ``cfg.dtype`` with
 parameters in ``cfg.param_dtype``.
 
-The hybrid, SSM, xLSTM, prefix (VLM) and encoder-decoder families are
-refused here; they come with their slices.
+A recurrent layer's state is the same at every position, so its cache
+does not grow with the prompt; the serving engine carries it in its dense
+per-lane state.  The prefix (VLM) and encoder-decoder families are refused
+here; they come with their slice.
 """
 from __future__ import annotations
 
@@ -54,11 +58,11 @@ from repro_torch.utils.tree import tree_map
 
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
-        if (cfg.family not in ("dense", "moe") or cfg.block_pattern
-                or cfg.prefix_tokens or cfg.encoder_layers):
+        if (cfg.family not in ("dense", "moe", "hybrid", "ssm") or cfg.prefix_tokens
+                or cfg.encoder_layers):
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): the dense and MoE decoder LMs are ported; "
-                "hybrid, SSM, VLM and encoder-decoder families come with later slices"
+                f"{cfg.name} ({cfg.family}): the dense, MoE, hybrid and SSM decoder LMs "
+                "are ported; the VLM and encoder-decoder families come with a later slice"
             )
         self.cfg = cfg
         self.device = dev = resolve_device(device)

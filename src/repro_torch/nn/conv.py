@@ -11,11 +11,18 @@ unfolds lazily (``unfold2d``) only on the branch that needs the patches.
 ``SAME`` padding follows XLA: for stride 2 on an even input the padding is
 (0, 1), not torch's symmetric (1, 1), so it is computed per dim and applied
 the same way by the conv and by ``unfold2d``.
+
+``DepthwiseConv1d`` is the causal depthwise conv of the Mamba and xLSTM
+blocks, with its weight in the JAX layout (k, d) (so ``interop`` copies it
+unchanged: it is no ``Conv2d`` weight) and a ``dw_conv`` tap.  Its window
+``(B, T, k, d)`` is a strided view of the left-padded input, where the
+JAX package stacks k shifted copies: the tap records the view, so a probe
+keeps the (B, T + k - 1, d) input alive, not k copies of it.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -117,6 +124,54 @@ class Conv2d(Module):
                 conv=ConvInfo(kernel=self.kernel, strides=self.strides, padding=self.padding),
             )
         return s
+
+
+class DepthwiseConv1d(Module):
+    """Causal depthwise conv1d: s[b, t, c] = sum_j w[j, c] x[b, t - k + 1 + j, c]
+    (+ b[c]), left-padded with zeros or with the carried state, the last
+    k - 1 inputs of the previous call (B, k - 1, d)."""
+
+    def __init__(
+        self, name: str, d: int, k: int = 4, *, use_bias: bool = True, dtype=torch.float32,
+        param_dtype=torch.float32, device: torch.device,
+    ):
+        self.name = name
+        self.d = d
+        self.k = k
+        self.use_bias = use_bias
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = device
+
+    def init(self, generator: torch.Generator) -> Params:
+        p = {"w": normal_init(generator, (self.k, self.d), 1.0 / math.sqrt(self.k),
+                              self.param_dtype, self.device)}
+        if self.use_bias:
+            p["b"] = torch.zeros((self.d,), dtype=self.param_dtype, device=self.device)
+        return p
+
+    def padded(self, x: torch.Tensor, state: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T + k - 1, d): the carried state (zeros without one), then x."""
+        if state is None:
+            pad = x.new_zeros((x.shape[0], self.k - 1, self.d))
+        else:
+            pad = state.to(x.dtype)
+        return torch.cat([pad, x], dim=1)
+
+    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
+                 state: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(y, new state): the state is the last k - 1 rows of the padded
+        input, the carried ones included where the call is shorter."""
+        x = x.to(self.dtype)
+        xp = self.padded(x, state)
+        unf = xp.unfold(1, self.k, 1).transpose(2, 3)  # (B, T, k, d), a view
+        s = torch.einsum("btkd,kd->btd", unf, params["w"].to(self.dtype))
+        if self.use_bias:
+            s = s + params["b"].to(self.dtype)
+        if ctx.collect:
+            s = ctx.tap("out", s, kind="dw_conv", a=unf, T=int(x.shape[1]), D=self.k,
+                        p=self.d, param_path="w", bias_path="b" if self.use_bias else None)
+        return s, xp[:, xp.shape[1] - (self.k - 1):]
 
 
 def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Layer stacking (port of ``nn/stack.py``'s ``ScannedStack``).
+"""Layer stacking (port of ``nn/stack.py``: ``ScannedStack`` and
+``SequentialBlocks``).
 
 ``n`` copies of one block over stacked parameters: every leaf is (L, ...)
 exactly as in the JAX tree, so ``interop.params_from_jax`` copies it
@@ -41,6 +42,13 @@ forward draws no random numbers (no dropout), so the RNG state is not
 saved and restored (``preserve_rng_state=False``: it would buy nothing and
 costs a device state copy per layer).  Under ``no_grad`` (serving,
 discovery) the plain loop runs.
+
+``SequentialBlocks`` runs a period of different blocks in order (Jamba's
+Mamba and attention layers, xLSTM's sLSTM and mLSTMs), its parameters and
+cache keyed by position (``"0"``, ``"1"``, ...) as in the JAX package.  A
+``ScannedStack`` of it stacks the period: one stack level, whose remat unit
+is the whole period (the JAX package's ``nested_remat``, off by default,
+has no counterpart).
 """
 from __future__ import annotations
 
@@ -52,6 +60,32 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.module import Module, Params
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+
+
+class SequentialBlocks(Module):
+    """Apply ``blocks`` in order; params and cache keyed by position."""
+
+    def __init__(self, name: str, blocks: list[Module]):
+        self.name = name
+        self.blocks = list(blocks)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {str(i): b.init(generator) for i, b in enumerate(self.blocks)}
+
+    def init_cache(self, batch: int, dtype: torch.dtype, **kw) -> dict:
+        return {str(i): b.init_cache(batch, dtype, **kw) for i, b in enumerate(self.blocks)}
+
+    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
+                 cache: Optional[dict] = None, **kw):
+        """Without ``cache`` returns x; with it, (x, cache), each block
+        writing its part of ``cache`` in place."""
+        for i, block in enumerate(self.blocks):
+            key = str(i)
+            if cache is None:
+                x = block(params[key], x, ctx.scope(key), **kw)
+            else:
+                x, _ = block(params[key], x, ctx.scope(key), cache=cache[key], **kw)
+        return x if cache is None else (x, cache)
 
 
 class ScannedStack(Module):

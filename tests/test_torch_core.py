@@ -73,7 +73,40 @@ def test_every_jax_mode_builds_its_executor(mode):
 
 @pytest.mark.parametrize("kind,slice_name", [("dw_conv", "LM"), ("scale_grouped", "LM")])
 def test_later_tap_kinds_name_their_slice(kind, slice_name):
-    a, g = torch.zeros(2, 3, 4), torch.zeros(2, 3, 5)
+    """The two kinds an earlier slice refused, naming the recurrent LM slice
+    that ports them, now norm, bank and contract as the JAX package's do:
+    a depthwise conv's (B, T, k, d) window against its (B, T, d) cotangent,
+    a grouped scale's (B, T, h * dh) input against its cotangent, with a
+    bias on the conv."""
+    from repro.core import ghost as jghost
+    from repro.core.taps import TapMeta as JTapMeta
+
+    b, t, k, d, h, dh = 2, 3, 4, 5, 5, 4
+    rng = np.random.default_rng(3)
+    if kind == "dw_conv":
+        dims = dict(T=t, D=k, p=d, s_shape=(b, t, d), bias_path="x/b")
+        a = rng.standard_normal((b, t, k, d)).astype(np.float32)
+        g = rng.standard_normal((b, t, d)).astype(np.float32)
+    else:
+        dims = dict(T=t, D=dh, p=h, s_shape=(b, t, h * dh), bias_path=None)
+        a = rng.standard_normal((b, t, h * dh)).astype(np.float32)
+        g = rng.standard_normal((b, t, h * dh)).astype(np.float32)
+    c = rng.uniform(0.1, 1.0, b).astype(np.float32)
+    common = dict(kind=kind, param_path="x/w", batch_size=b, a_shape=a.shape, **dims)
+    tm = TapMeta(s_dtype=torch.float32, a_dtype=torch.float32, **common)
+    jm = JTapMeta(s_dtype=jnp.float32, a_dtype=jnp.float32, **common)
+    shape = tghost.psg_param_shape(tm)
+    assert shape == jghost.psg_param_shape(jm), f"{kind} (ported with the {slice_name} slice)"
+    ta, tg = torch.as_tensor(a), torch.as_tensor(g)
     for mode in ("mixed_ghost", "bk_mixed"):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tghost.tap_bank(_meta(kind), a, g, mode=mode)
+        tbank = tghost.tap_bank(tm, ta, tg, mode=mode)
+        jbank = jghost.tap_bank(jm, jnp.asarray(a), jnp.asarray(g), mode=mode)
+        assert tbank.keys() == jbank.keys(), (mode, tbank.keys(), jbank.keys())
+        for key, val in tbank.items():
+            np.testing.assert_allclose(val.numpy(), np.asarray(jbank[key]), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{kind} {mode} {key}")
+    tw = tghost.tap_weighted_grads(tm, ta, tg, torch.as_tensor(c), shape)
+    jw = jghost.tap_weighted_grads(jm, jnp.asarray(a), jnp.asarray(g), jnp.asarray(c), shape)
+    assert tw.keys() == jw.keys()
+    for path, val in tw.items():
+        np.testing.assert_allclose(val.numpy(), np.asarray(jw[path]), rtol=1e-5, atol=1e-6)

@@ -698,6 +698,35 @@ def test_reduced_mixtral_step_kernels_vs_plain(gen, mode):
     assert err <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("mode", ["mixed_ghost", "bk_mixed"])
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "xlstm-350m"])
+def test_reduced_recurrent_step_kernels_vs_plain(gen, name, mode):
+    """A reduced Jamba or xLSTM step (the dw_conv and scale_grouped banks in
+    the grouped psg launch, xLSTM's late wr tap booked) on the kernels
+    against the plain versions: norms and clipped sums within 1e-4."""
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.core.clipping import ClipConfig, dp_value_and_clipped_grad
+    from repro_torch.data.synthetic import synthetic_arch_batch
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = synthetic_arch_batch(cfg, batch=2, seq=32, device="cuda")  # ghost taps: 2T^2 < pD
+    fn = dp_value_and_clipped_grad(model.loss_with_ctx, ClipConfig(mode=mode))
+    launches.reset()
+    _, g_k, aux_k = fn(params, batch)
+    snap = launches.snapshot()
+    assert snap["embedding_ghost_norm_sq"]["cuda"] == 1
+    assert snap["ghost_norm_sq" if mode == "mixed_ghost" else "psg_contract"]["cuda"] > 0
+    assert all(v["torch"] == 0 for v in snap.values())
+    with dispatch.force_impl("torch"):
+        _, g_p, aux_p = fn(params, batch)
+    assert _rel(aux_k["per_sample_norms"], aux_p["per_sample_norms"]) < 1e-4
+    scale = max(float(v.abs().max()) for v in _leaves(g_p))
+    err = max(float((x - y).abs().max()) for x, y in zip(_leaves(g_k), _leaves(g_p)))
+    assert err <= 1e-4 * scale
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]

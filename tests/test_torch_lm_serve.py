@@ -3,7 +3,11 @@
 Reduced ``yi-6b`` (also with 2 KV heads for 4 query heads: the reduced
 config keeps 4 = 4, MHA) and ``codeqwen1.5-7b`` (MHA, QKV bias): 4 layers,
 d_model 64, vocab 128, fp32, the same numpy weights in both packages
-(``repro_torch.interop``).  Compared: ``DecoderLM.prefill`` and
+(``repro_torch.interop``).  The recurrent archs at their reduced period of
+8 layers: ``jamba-1.5-large-398b`` (Mamba and one attention layer, MoE on
+every other layer: paged KV for the attention layer, dense per-lane state
+for the Mamba layers) and ``xlstm-350m`` (sLSTM and mLSTM: no KV leaf, an
+empty page pool).  Compared: ``DecoderLM.prefill`` and
 ``decode_step`` logits within 1e-5 of the largest |logit| (fp32: the same
 math summed in another order), 2e-2 in bf16 compute (bf16 activations
 rounded at other places over 4 layers); the port's ``Engine`` against the
@@ -53,6 +57,8 @@ ARCH_CASES = {  # id -> (arch, KV heads override)
     "yi-6b": ("yi-6b", None),
     "yi-6b-gqa": ("yi-6b", 2),
     "codeqwen1.5-7b": ("codeqwen1.5-7b", None),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", None),
+    "xlstm-350m": ("xlstm-350m", None),
 }
 
 
@@ -89,6 +95,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("case,dtype,tol", [
     ("yi-6b", "float32", 1e-5), ("yi-6b-gqa", "float32", 1e-5),
     ("codeqwen1.5-7b", "float32", 1e-5), ("yi-6b-gqa", "bfloat16", 2e-2),
+    ("jamba-1.5-large-398b", "float32", 1e-5), ("xlstm-350m", "float32", 1e-5),
 ])
 def test_prefill_and_decode_logits_match_jax(case, dtype, tol):
     jmodel, tmodel, jparams, tparams = _pair(case, dtype)
@@ -154,19 +161,23 @@ def test_ring_prefill_matches_jax():
 
 
 def test_registry_refuses_what_is_not_ported():
+    """The dense, MoE, hybrid and SSM LMs build; the encoder-decoder and VLM
+    archs, and any prefix (VLM) config, are refused by name."""
     assert get_arch("yi_6b").name == "yi-6b"
     assert get_arch("mixtral_8x7b").name == "mixtral-8x7b"  # the MoE LMs are ported
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        get_arch("jamba-1.5-large-398b")
+    for name in ("jamba-1.5-large-398b", "xlstm-350m"):  # so are the recurrent ones
+        model = build_model(get_arch(name).reduced(), device="cpu")
+        assert model.cfg.name == name and model.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        get_arch("whisper-large-v3")
+    with pytest.raises(NotImplementedError, match="VLM"):
+        get_arch("phi-3-vision-4.2b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    hybrid = dataclasses.replace(get_arch("yi-6b").reduced(), family="hybrid",
-                                 block_pattern=("attn", "mamba"))
-    with pytest.raises(NotImplementedError):
-        build_model(hybrid, device="cpu")
-    moe_every_other = dataclasses.replace(get_arch("mixtral-8x7b").reduced(), moe_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        build_model(moe_every_other, device="cpu")
+    prefix = dataclasses.replace(get_arch("yi-6b").reduced(), family="vlm", prefix_tokens=4,
+                                 prefix_dim=16)
+    with pytest.raises(NotImplementedError, match="VLM"):
+        build_model(prefix, device="cpu")
 
 
 # -- the engine: the port's Engine == its sequential_decode == the JAX Engine
@@ -254,7 +265,8 @@ def test_engine_rejects_oversized_and_unsupported():
         build_model(vlm, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["yi-6b-gqa", "codeqwen1.5-7b"])
+@pytest.mark.parametrize("case", ["yi-6b-gqa", "codeqwen1.5-7b", "jamba-1.5-large-398b",
+                                  "xlstm-350m"])
 def test_engine_matches_jax_engine(case):
     jmodel, tmodel, jparams, tparams = _pair(case)
     prompts = _prompts([5, 9, 3], 128, seed=7)
