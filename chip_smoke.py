@@ -18,10 +18,15 @@ recurrent LMs at full width: Jamba-1.5-Large cut to a two-layer period
 (Mamba + MLP, attention + MoE with 2 of its 16 experts; 3.44B bf16
 parameters; sgd) at batch 2 x 4096 and xLSTM-350M cut to one period (one
 sLSTM and 7 mLSTMs; adamw) at batch 4 x 2048, bf16 compute, remat on;
+the frontend families at full width: Whisper-large-v3 (4 of its 32 encoder
+and 4 of its 32 decoder layers, 1500 stub frames) at batch 8 x 448 tokens
+and Phi-3-vision-4.2b (2 of 32 layers, 32 heads of 96) at batch 4 x (576
+prefix + 1472 text), bf16 compute, remat on, sgd;
 serving Yi-6B (16 of 32 layers, full width, bf16 compute with fp32
 parameters), Mixtral-8x7B (2 layers, fp32), the Jamba cut and the whole
-xLSTM-350M (fp32) through the continuous-batching engine; and the tuner
-CLI on Yi-6B.
+xLSTM-350M (fp32) through the continuous-batching engine, and Whisper and
+Phi-3-vision at full width and full depth as one fixed wave; and the
+tuner CLI on Yi-6B.
 Random weights from seed 0 throughout.  Phases, in order, each one's seconds printed; any
 failure exits non-zero and prints no result:
 
@@ -29,8 +34,8 @@ failure exits non-zero and prints no result:
 2. build    the CUDA kernels from src/repro_torch/csrc with nvcc (timed);
             cuobjdump -sass must show warpgroup MMAs (HGMMA) in the two
             wgmma flash_attention instances (bf16, head dims 64 and 128),
-            tensor-core instructions (HMMA or HGMMA) in the two mma.sync
-            ones (head dims 16 and 32), every book_weighted_grad instance
+            tensor-core instructions (HMMA or HGMMA) in the three mma.sync
+            ones (head dims 16, 32 and 96), every book_weighted_grad instance
             and every instance of the two ghost-norm Gram kernels, and
             asynchronous copies (LDGSTS for cp.async, or UBLKCP) in both
             instances of the embedding norm's segment kernel; their
@@ -49,7 +54,10 @@ failure exits non-zero and prints no result:
             Skv off the tiles, one query row at the end of the cache, a
             window, non-causal, MHA, hd 64, fp32; Mixtral's and Jamba's fp32
             serve prefills, timed against SDPA with the KV heads repeated
-            and the masks as one mask), with CUDA-event times
+            and the masks as one mask; the wave_serve calls in bf16 and
+            fp32: Phi-3-vision's prefill at hd 96, Whisper's self- and
+            cross-attention prefill and its cross-attention decode over
+            1500 frames), with CUDA-event times
             of the kernel (and, for the clipping kernels, its profiler
             device time), the plain version and one PyTorch library call
             that computes the same function (a yardstick the port never
@@ -62,8 +70,8 @@ failure exits non-zero and prints no result:
             yardsticks';
 4. slice    per training path, DP-SGD steps through make_train_step in
             non_private, mixed_ghost, bk_mixed, vmap (the Opacus analogue),
-            mixed_ghost_taps and bk_mixed_taps (BEiT-Large and the LMs: the
-            first three; the LMs LM_STEPS timed steps, Jamba and xLSTM
+            mixed_ghost_taps and bk_mixed_taps (BEiT-Large, the LMs, Whisper
+            and Phi-3-vision: the first three; the LMs LM_STEPS timed steps, Jamba and xLSTM
             RECURRENT_STEPS):
             loss, kernel launches per
             step against the taps' expectation (and no plain-version call),
@@ -88,7 +96,8 @@ failure exits non-zero and prints no result:
             bf16 readings reported beside (BEiT-Large: 8 samples, the fixed
             policy; the LMs in fp32 at a smaller cut: Yi-6B 2 layers, batch
             2, 512 tokens, Mixtral 1 layer, Jamba and xLSTM one period, batch
-            2, 256 tokens); VGG-19's
+            2, 256 tokens, Whisper 1 + 1 layers, batch 2, 1500 frames and 64
+            tokens, Phi-3-vision 1 layer, batch 2, 576 + 64 positions); VGG-19's
             fixed-policy modes also reported against vmap with cuDNN off and
             vmap in fp64 compute;
 7. accum    VGG-19: a logical batch of 512 as 4 microbatches of 128 through
@@ -155,7 +164,18 @@ failure exits non-zero and prints no result:
             xLSTM none (no KV leaf); the streams equal to
             sequential_decode's; Jamba's longest prefill's logits kernel
             against plain;
-14. tuner_cli  python -m repro_torch.tuner on Yi-6B's full config at batch 4 x
+14. wave_serve  Whisper-large-v3 (32 + 32 layers) and Phi-3-vision-4.2b (32
+            layers) at full width and depth through launch/serve's fixed
+            wave: 4 prompts of 32 tokens, 16 new tokens, no EOS.  fp32
+            compute gated: every step's logits against a teacher-forced
+            forward (1e-4), the tokens its greedy choices, the attention
+            launches per prefill and decode step as the code predicts
+            (Whisper 64 and 32, Phi-3-vision 32 and 0); bf16 compute: the
+            prefill logits kernel against plain (reported against
+            SERVE_LOGIT_TOL; gated: no further from the fp32 logits than
+            WAVE_BF16_WITNESS times the plain versions'); tok/s,
+            prefill and decode-step medians, peak memory each way;
+15. tuner_cli  python -m repro_torch.tuner on Yi-6B's full config at batch 4 x
             4096 (the max-batch search skipped), its table printed; the
             plan's step and the time rule's against the analytic step in
             fp32 compute on 2 samples.
@@ -199,14 +219,14 @@ GRAM_PRODUCTS = {"float32": 3, "bfloat16": 1}
 # kernels whose design rests on an instruction: (instances, the SASS
 # instructions one of which each instance must hold); the build prints their
 # registers and spills.  The bf16 attention: wgmma (HGMMA) for head dims 64
-# and 128, mma.sync for 16 and 32; the ghost-norm kernels: (a, g) dtypes x
+# and 128, mma.sync for 16, 32 and 96; the ghost-norm kernels: (a, g) dtypes x
 # (dense, conv) row sources, on the tensor cores; the embedding norm's
 # segment kernel (fp32 and bf16 g) gathers rows by asynchronous copies
 MMA = ("HMMA", "HGMMA")
 ASYNC_COPY = ("LDGSTS", "UBLKCP")
 SASS_OPS = MMA + ASYNC_COPY
 SASS_KERNELS = {"flash_attention_wgmma_kernel": (2, ("HGMMA",)),
-                "flash_attention_bf16_kernel": (2, MMA),
+                "flash_attention_bf16_kernel": (3, MMA),
                 "book_weighted_grad_kernel": (8, MMA),
                 "ghost_norm_tiles_kernel": (8, MMA), "ghost_norm_packed_kernel": (8, MMA),
                 "embedding_segment_kernel": (2, ASYNC_COPY)}
@@ -227,7 +247,8 @@ ORACLE_MODES = ("ghost", "fastgradclip", "mixed_ghost", "bk_mixed", "ghost_taps"
 GROUPED_MODES = ("mixed_ghost", "bk_mixed", "mixed_ghost_taps", "bk_mixed_taps")
 GROUP_PREFIXES = {"vgg19": ("conv", "gn"), "vit_base": ("layers", "patch_embed"),
                   "yi_6b": ("layers", "embed"), "mixtral": ("layers", "embed"),
-                  "jamba": ("layers", "embed"), "xlstm": ("layers", "embed")}
+                  "jamba": ("layers", "embed"), "xlstm": ("layers", "embed"),
+                  "whisper": ("decoder", "encoder"), "phi3v": ("layers", "embed")}
 # the accum phase: a logical batch of ACCUM_MICRO * ACCUM_STEPS samples
 ACCUM_MICRO, ACCUM_STEPS = 128, 4
 # the remat phase: these paths and modes with ScannedStack's remat on and
@@ -317,6 +338,34 @@ SERVE_LOGIT_TOL = 2e-2
 # layers 2-3: Mamba + MLP, then attention + MoE) with 2 of its 16 experts
 JAMBA_PERIOD = ("mamba", "attn")
 JAMBA_EXPERTS = 2
+# the whisper path's cut of Whisper-large-v3 (full width): this many of its
+# 32 encoder and of its 32 decoder layers; the phi3v path's of
+# Phi-3-vision's 32 layers
+WHISPER_LAYERS = 4
+PHI3V_LAYERS = 2
+# the wave_serve phase: both models at full width and full depth through
+# launch/serve._serve_wave, one wave of WAVE_SLOTS prompts of WAVE_PROMPT
+# tokens (after Phi-3-vision's 576-patch prefix, beside Whisper's 1500
+# frames), WAVE_NEW new tokens each, no EOS.  Each fp32 decode step's
+# logits against a teacher-forced forward of the same tokens, relative to
+# the largest |logit|: both sides compute the same fp32 function (the
+# kernel's fp32 instance and the plain serving form against the training
+# attention), so only summation order separates them, as in
+# SERVE_KERNEL_LOGIT_TOL
+WAVE_SLOTS, WAVE_PROMPT, WAVE_NEW = 4, 32, 16
+WAVE_LOGIT_TOL = 1e-4
+# bf16 compute: the prefill's logits on the kernel against the plain
+# versions are reported against SERVE_LOGIT_TOL.  Through 32 layers that
+# reading is bf16 rounding, not the kernel: Phi-3-vision read 2.86e-2 with
+# the hd-96 kernel within its 1e-2 row gate at the same shapes (the serve
+# phase's Yi-6B read 2.27e-2 at 32 layers).  The gate is a witness: the
+# kernel's bf16 logits may lie no further than WAVE_BF16_WITNESS times the
+# plain versions' bf16 logits from the fp32 logits of the same parameters
+# and inputs.  Both carry the same activation roundings; the kernel adds
+# its bf16 P, below one activation rounding a layer, so the two distances
+# are alike, where a wrong head or mask moves logits by their own size
+WAVE_BF16_WITNESS = 2.0
+WAVE_ARCHS = ("whisper-large-v3", "phi-3-vision-4.2b")
 
 KERNEL_INFO = {
     "ghost_norm_sq": ("src/repro_torch/csrc/ghost_norm.cu",
@@ -1122,9 +1171,16 @@ def _time_train_steps(model, path: dict, mode: str, batches: list, n_steps: int,
 
 def _path_batch(path: dict, b: int, step: int, device="cuda") -> dict:
     """Step ``step``'s synthetic batch of ``b`` samples: token sequences of
-    the path's length for an LM path, else class-conditional images."""
+    the path's length for an LM path (with Whisper's frames or
+    Phi-3-vision's patch prefix, in the config's bf16, from
+    ``synthetic_arch_batch``: ``seq`` counts the prefix), else
+    class-conditional images."""
+    from repro_torch.configs.registry import get_arch
     from repro_torch.data import synthetic
 
+    if "arch" in path:  # the frontend families: frames or a prefix beside the tokens
+        return synthetic.synthetic_arch_batch(get_arch(path["arch"]), batch=b, seq=path["seq"],
+                                              step=step, device=device)
     if "seq" in path:
         return synthetic.synthetic_lm_batch(
             synthetic.SyntheticLMConfig(vocab=path["vocab"], seq_len=path["seq"], batch=b),
@@ -2079,6 +2135,30 @@ FLASH_RAGGED = [
 ]
 
 
+def _wave_flash_specs() -> list:
+    """(name, spec, calls per wave) of the wave_serve phase's attention
+    calls: Phi-3-vision's prefill (576 + 32 positions, 32 heads of 96,
+    causal), Whisper's decoder self-attention prefill and its
+    cross-attention over the 1500 frames, a prefill's 32 queries and a
+    decode step's one (WAVE_NEW - 1 steps)."""
+    from repro_torch.configs.registry import get_arch
+
+    phi, wh = get_arch("phi-3-vision-4.2b"), get_arch("whisper-large-v3")
+    n = WAVE_SLOTS
+    p_len = phi.prefix_tokens + WAVE_PROMPT
+    return [
+        ("phi3v prefill", (n, p_len, p_len, phi.n_heads, phi.n_kv, phi.resolved_head_dim, True,
+                           None, 0), phi.n_layers),
+        ("whisper self prefill", (n, WAVE_PROMPT, WAVE_PROMPT, wh.n_heads, wh.n_kv,
+                                  wh.resolved_head_dim, True, None, 0), wh.n_layers),
+        ("whisper cross prefill", (n, WAVE_PROMPT, wh.encoder_seq, wh.n_heads, wh.n_kv,
+                                   wh.resolved_head_dim, False, None, 0), wh.n_layers),
+        ("whisper cross decode", (n, 1, wh.encoder_seq, wh.n_heads, wh.n_kv,
+                                  wh.resolved_head_dim, False, None, 0),
+         wh.n_layers * (WAVE_NEW - 1)),
+    ]
+
+
 def _live_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
     """The (query, key) pairs the masks leave, summed over the query rows."""
     import torch
@@ -2170,7 +2250,7 @@ def _flash_case(spec, dtype: str, gen, timed: bool, repeated_kv: bool = False) -
             case["library_ms"] = cuda_ms(lambda: _sdpa_repeated(q, k, v, causal, window), iters)
         else:
             case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
         case["bound_ms"], case["bound_by"] = _flash_bound(spec, dtype)
         b, sq, skv, h, _, hd, causal, window, q_offset = spec
         flops = 4 * b * h * hd * _live_pairs(sq, skv, causal, window, q_offset)
@@ -2191,7 +2271,9 @@ def phase_flash_kernel() -> list:
     attention layer per prompt; timed): Yi-6B's eight bf16 prefills, then
     the fp32 prefills of moe_serve (Mixtral, GQA 32/8, window 4096) and of
     hybrid_serve (the jamba path's one attention layer, GQA 64/8), with
-    the repeated-KV SDPA yardstick; then at the ragged shapes."""
+    the repeated-KV SDPA yardstick; then wave_serve's calls in bf16 and fp32
+    (``_wave_flash_specs``: the fp32 ones sum into the wave's row); then at
+    the ragged shapes."""
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -2233,6 +2315,26 @@ def phase_flash_kernel() -> list:
               f"{dev}), plain {total['plain_ms']:.3f}, sdpa (repeated KV) "
               f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f}")
         cases += rows
+    print("kernel flash_attention: wave_serve shapes (Whisper hd 64, Phi-3-vision hd 96; "
+          "calls per fp32 wave)")
+    rows = []
+    for name, spec, calls in _wave_flash_specs():
+        for dtype in ("bfloat16", "float32"):
+            case = _flash_case(spec, dtype, gen, timed=True)
+            case["case"] = name
+            if dtype == "float32":  # the gated wave's calls
+                case["path"], case["calls_per_step"] = "wave_serve", calls
+            rows.append(case)
+    for dtype in ("bfloat16", "float32"):
+        mine = [c for c in rows if c["dtypes"] == [dtype]]
+        calls = [c for _, _, c in _wave_flash_specs()]
+        total = {key: None if any(c[key] is None for c in mine)
+                 else sum(c[key] * n for c, n in zip(mine, calls))
+                 for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"flash_attention over one {dtype} wave of both models: kernel "
+              f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f}, sdpa "
+              f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f}")
+    cases += rows
     print("kernel flash_attention: ragged shapes")
     for spec, dtypes in FLASH_RAGGED:
         for dtype in dtypes:
@@ -2776,13 +2878,25 @@ def _lm_paths() -> dict:
     Jamba and xLSTM at one period, batch 2, 256 tokens.  fp32 compute (the
     compare and oracle gates) also takes fp32 parameters: a gradient
     rounded to Jamba's bf16 leaves would move by a bf16 step wherever two
-    fp32 sums straddle a rounding boundary."""
+    fp32 sums straddle a rounding boundary.
+    The frontend families at full width: Whisper-large-v3 (d_model 1280,
+    20 heads of 64, d_ff 5120, vocab 51866, LayerNorm/GELU, q/k/v biases)
+    cut to WHISPER_LAYERS of its 32 encoder and of its 32 decoder layers,
+    at batch 8 x 448 text tokens (its decoder's context) over 1500 stub
+    frames (B, 1500, 1280); Phi-3-vision-4.2b (d_model 3072, 32 heads of
+    96, d_ff 8192, vocab 32064) cut to PHI3V_LAYERS of its 32 layers, at
+    batch 4 x 2048 positions: the 576 x 1024 stub patch prefix (CLIP
+    ViT-L/14's 24 x 24 patches) and 1472 text tokens; both bf16 compute,
+    remat on, sgd.  Oracles in fp32: Whisper 1 + 1 layers, batch 2, 1500
+    frames, 64 tokens; Phi-3-vision 1 layer, batch 2, 576 + 64 positions."""
     from repro_torch.configs.registry import build_model, get_arch
     from repro_torch.optim import adamw, sgd
 
     def lm(name, layers, **fixed):
         def build(dtype=None, remat=True, n_layers=layers):
             over = {} if dtype is None else {"dtype": dtype, "param_dtype": dtype}
+            if get_arch(name).encoder_layers:  # Whisper: the encoder cut to the same depth
+                over["encoder_layers"] = n_layers
             cfg = dataclasses.replace(get_arch(name), n_layers=n_layers, remat=remat,
                                       **fixed, **over)
             return build_model(cfg, device="cuda")
@@ -2809,6 +2923,14 @@ def _lm_paths() -> dict:
                       compare_spread=False,
                       profile_host_ops=False,
                       recurrent=dict(heads=4, dk=512, dv=513, slstm_d=1024)),
+        "whisper": dict(build=lm("whisper-large-v3", WHISPER_LAYERS), arch="whisper-large-v3",
+                        batch=8, seq=448, vocab=51866, modes=LM_MODES, steps=LM_STEPS,
+                        optimizer=sgd, lr={"non_private": 1e-5, "dp": 1e-3}, compare_batch=2,
+                        oracle=dict(layers=1, batch=2, seq=64)),
+        "phi3v": dict(build=lm("phi-3-vision-4.2b", PHI3V_LAYERS), arch="phi-3-vision-4.2b",
+                      batch=4, seq=2048, vocab=32064, modes=LM_MODES, steps=LM_STEPS,
+                      optimizer=sgd, lr={"non_private": 1e-5, "dp": 1e-3}, compare_batch=2,
+                      oracle=dict(layers=1, batch=2, seq=576 + 64)),
     }
 
 
@@ -2974,6 +3096,145 @@ def phase_hybrid_serve() -> dict:
     return out
 
 
+def _wave_counts(model) -> list:
+    """Spy on ``model``'s prefill and decode_step: each call's kernel
+    launches (zeroed just before the call, read just after), in order."""
+    from repro_torch.kernels import launches
+
+    counts = []
+    for method in ("prefill", "decode_step"):
+        def spy(*args, _call=getattr(model, method), **kw):
+            launches.reset()
+            out = _call(*args, **kw)
+            counts.append(launches.snapshot())
+            return out
+        setattr(model, method, spy)
+    return counts
+
+
+def phase_wave_serve() -> dict:
+    """Whisper-large-v3 (32 + 32 layers) and Phi-3-vision-4.2b (32 layers) at
+    full width and full depth through ``launch/serve._serve_wave``: one wave
+    of WAVE_SLOTS prompts of WAVE_PROMPT tokens, WAVE_NEW greedy tokens, no
+    EOS.  In fp32 compute (after an untimed warm-up wave), gated: each
+    decode step's logits (and the prefill's last position) against one
+    teacher-forced ``forward_logits`` of the same tokens within
+    WAVE_LOGIT_TOL, the tokens equal to that forward's greedy choices, and
+    the attention kernel's launches per call equal to the code's count:
+    Whisper one per self- and one per cross-attention layer a prefill (64),
+    one per cross-attention layer a decode step (32: its self-attention
+    decodes through the plain serving form); Phi-3-vision one per layer a
+    prefill (32), none a decode step.  Then in bf16 compute (the same fp32
+    parameters): a timed wave, and the prefill's logits on the kernel
+    against force_impl("torch"), reported against SERVE_LOGIT_TOL and
+    gated through WAVE_BF16_WITNESS (both against the fp32 prefill of the
+    same inputs).  tok/s, the prefill's and the decode steps' median ms,
+    peak memory."""
+    import types
+
+    import torch
+
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import _serve_wave, wave_batch
+    from repro_torch.utils.tree import flatten_dict
+
+    args = types.SimpleNamespace(slots=WAVE_SLOTS, prompt_len=WAVE_PROMPT, max_new=WAVE_NEW,
+                                 eos=-1)
+    out = {"launches": dict.fromkeys(KERNEL_INFO, 0)}
+    for name in WAVE_ARCHS:
+        base = get_arch(name)
+        cross = base.n_layers if base.family == "audio" else 0
+        per_call = [base.n_layers + cross] + [cross] * (WAVE_NEW - 1)
+        row = {}
+        params = None
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            model = build_model(cfg, device="cuda")
+            if params is None:  # fp32 parameters, shared by both computes
+                params = model.init(torch.Generator(device="cuda").manual_seed(0))
+                row["n_params"] = sum(x.numel() for x in flatten_dict(params).values())
+            if dtype == "float32":
+                _serve_wave(model, cfg, params, args)  # warm-up, untimed
+            counts = _wave_counts(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            wave = _serve_wave(model, cfg, params, args, keep_logits=dtype == "float32")
+            peak = torch.cuda.max_memory_allocated()
+            flash = [c["flash_attention"]["cuda"] for c in counts]
+            plain = sum(v["torch"] for c in counts for v in c.values())
+            others = sum(v["cuda"] for c in counts for k, v in c.items()
+                         if k != "flash_attention")
+            for k in KERNEL_INFO:
+                out["launches"][k] += sum(c[k]["cuda"] for c in counts)
+            n, decode_s = wave["n_tokens"], wave["decode_s"]
+            stats = {
+                "tokens": n, "tok_per_s": n / (wave["prefill_s"] + decode_s),
+                "decode_tok_per_s": (n - WAVE_SLOTS) / decode_s,
+                "prefill_ms": wave["prefill_s"] * 1e3,
+                "decode_step_ms_median": statistics.median(wave["step_s"]) * 1e3,
+                "peak_bytes": peak, "flash_launches_per_call": flash,
+            }
+            print(f"wave_serve {name} ({cfg.n_layers} layers, {row['n_params']} parameters, "
+                  f"{dtype} compute): {n} tokens, {stats['tok_per_s']:.1f} tok/s (decode "
+                  f"{stats['decode_tok_per_s']:.1f}), prefill {stats['prefill_ms']:.1f} ms, "
+                  f"decode step median {stats['decode_step_ms_median']:.2f} ms, peak "
+                  f"{peak / 2**20:.1f} MiB; flash_attention launches per call {flash}")
+            require(n == WAVE_SLOTS * WAVE_NEW, f"wave_serve {name}: {n} tokens")
+            require(flash == per_call, f"wave_serve {name} {dtype}: flash_attention launches "
+                    f"per call {flash}, expected {per_call}")
+            require(plain == 0 and others == 0,
+                    f"wave_serve {name}: {plain} plain calls, {others} other kernel launches")
+            if dtype == "float32":  # the streams against a teacher-forced forward
+                batch = wave_batch(cfg, WAVE_SLOTS, WAVE_PROMPT, "cuda")
+                batch["tokens"] = torch.cat([batch["tokens"], wave["stepped"][:, :-1]], dim=1)
+                with torch.no_grad():
+                    want = model.forward_logits(params, batch)[:, WAVE_PROMPT - 1:]
+                got = torch.cat(wave["logits"], dim=1)
+                err = _max_rel(got, want)
+                greedy = bool(torch.equal(want.argmax(-1), wave["stepped"]))
+                print(f"compare wave_serve {name} decode vs teacher-forced forward (float32 "
+                      f"compute): logits rel err {err:.2e} (tol {WAVE_LOGIT_TOL:.0e}), "
+                      f"greedy tokens equal {greedy}")
+                require(err <= WAVE_LOGIT_TOL, f"wave_serve {name}: logits differ by {err:.3e}")
+                require(greedy, f"wave_serve {name}: a token differs from the forward's argmax")
+                stats.update(logit_rel_err=err, greedy_equal=greedy)
+                # the fp32 prefill of the bf16 wave's inputs: the bf16 readings' reference
+                batch = wave_batch(dataclasses.replace(cfg, dtype="bfloat16"), WAVE_SLOTS,
+                                   WAVE_PROMPT, "cuda")
+                state = model.init_state(WAVE_SLOTS, WAVE_PROMPT + WAVE_NEW + cfg.prefix_tokens)
+                with torch.no_grad():
+                    fp32_logits, _ = model.prefill(params, batch, state)
+                del want, got, batch, state
+            else:  # the prefill's logits, kernel against plain and both against fp32
+                batch = wave_batch(cfg, WAVE_SLOTS, WAVE_PROMPT, "cuda")
+                state = model.init_state(WAVE_SLOTS, WAVE_PROMPT + WAVE_NEW + cfg.prefix_tokens)
+                with torch.no_grad():
+                    kernel_logits, _ = model.prefill(params, batch, state)
+                    with dispatch.force_impl("torch"):
+                        plain_logits, _ = model.prefill(params, batch, state)
+                err = _max_rel(kernel_logits, plain_logits)
+                kernel_err = _max_rel(kernel_logits.float(), fp32_logits)
+                plain_err = _max_rel(plain_logits.float(), fp32_logits)
+                print(f"compare wave_serve {name} prefill kernel vs torch (bfloat16 compute): "
+                      f"logits rel err {err:.2e} (SERVE_LOGIT_TOL {SERVE_LOGIT_TOL:.0e}, "
+                      f"reported); against the fp32 prefill: kernel {kernel_err:.2e}, torch "
+                      f"{plain_err:.2e} (gate: kernel <= {WAVE_BF16_WITNESS:g} x torch)")
+                require(kernel_err <= WAVE_BF16_WITNESS * plain_err,
+                        f"wave_serve {name} bf16 prefill: the kernel's logits lie {kernel_err:.3e} "
+                        f"from fp32, the plain versions' {plain_err:.3e}")
+                stats.update(prefill_rel_err=err, prefill_vs_fp32=kernel_err,
+                             plain_prefill_vs_fp32=plain_err)
+                del state, batch, fp32_logits
+            row[dtype] = stats
+            del model, wave
+            _free()
+        out[name] = row
+        del params
+        _free()
+    return out
+
+
 def phase_tuner_cli(path: dict) -> dict:
     """``python -m repro_torch.tuner`` on Yi-6B's full configuration (32
     layers, 6.06B parameters) at the lm_train path's batch and length (the
@@ -3061,6 +3322,10 @@ def run() -> dict:
                        "float32"),
         "xlstm": phase("oracle xlstm", phase_oracle, "xlstm", _oracle_path(paths["xlstm"]),
                        "float32"),
+        "whisper": phase("oracle whisper", phase_oracle, "whisper",
+                         _oracle_path(paths["whisper"]), "float32"),
+        "phi3v": phase("oracle phi3v", phase_oracle, "phi3v", _oracle_path(paths["phi3v"]),
+                       "float32"),
     }
     accum = phase("accum", phase_accum, paths["vgg19"])
     remat = phase("remat", phase_remat, paths, slices)
@@ -3069,8 +3334,10 @@ def run() -> dict:
     serve = phase("serve", phase_serve)
     moe_serve = phase("moe_serve", phase_moe_serve)
     hybrid_serve = phase("hybrid_serve", phase_hybrid_serve)
+    wave_serve = phase("wave_serve", phase_wave_serve)
     tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
-    runs = {**slices, "serve": serve, "moe_serve": moe_serve, "hybrid_serve": hybrid_serve}
+    runs = {**slices, "serve": serve, "moe_serve": moe_serve, "hybrid_serve": hybrid_serve,
+            "wave_serve": wave_serve}
     summary = summary_line(kernels, runs)
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
@@ -3084,7 +3351,8 @@ def run() -> dict:
                   for tag, path in paths.items()},
         "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
         "accum": accum, "remat": remat, "tune": tune, "max_batch": max_batch, "serve": serve,
-        "moe_serve": moe_serve, "hybrid_serve": hybrid_serve, "tuner_cli": tuner_cli,
+        "moe_serve": moe_serve, "hybrid_serve": hybrid_serve, "wave_serve": wave_serve,
+        "tuner_cli": tuner_cli,
         "summary": summary, "per_path": per_path,
     }, indent=1, default=str))
     return {"summary": summary, "card": card}

@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution and model construction
-(port of ``configs/registry.py`` for the archs ported so far).
+(port of ``configs/registry.py``'s LM archs).
 
-``ARCHS`` holds the dense, MoE, hybrid and SSM decoder LMs, which train and
-serve.  The other archs of the JAX registry are known by name and raise
-``NotImplementedError`` naming the slice that brings them.
+``ARCHS`` holds every LM arch of the JAX registry: the dense, MoE, hybrid
+and SSM decoder LMs, the VLM (a decoder LM with a projected patch prefix)
+and the encoder-decoder (Whisper), all of which train and serve.
+``build_model`` sends the audio family to ``EncDecLM`` and the rest to
+``DecoderLM``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ from repro_torch.configs import (
     codeqwen1_5_7b,
     jamba_1_5_large,
     mixtral_8x7b,
+    phi_3_vision,
     qwen1_5_32b,
     qwen2_72b,
+    whisper_large_v3,
     xlstm_350m,
     yi_6b,
 )
@@ -25,34 +29,29 @@ from repro_torch.device import DeviceLike
 ARCHS: dict[str, ArchConfig] = {c.name: c for c in (
     yi_6b.CONFIG, codeqwen1_5_7b.CONFIG, qwen1_5_32b.CONFIG, qwen2_72b.CONFIG,
     mixtral_8x7b.CONFIG, arctic_480b.CONFIG, jamba_1_5_large.CONFIG, xlstm_350m.CONFIG,
+    phi_3_vision.CONFIG, whisper_large_v3.CONFIG,
 )}
-
-NOT_PORTED: dict[str, str] = {
-    "whisper-large-v3": "the encoder-decoder slice",
-    "phi-3-vision-4.2b": "the VLM slice",
-}
 
 
 def _canonical(name: str) -> str:
     key = name.strip()
     alt = key.replace("_", "-").replace(".", "-")
-    for known in (*ARCHS, *NOT_PORTED):
+    for known in ARCHS:
         if key == known or known.replace(".", "-") == alt:
             return known
-    raise KeyError(f"unknown arch {name!r}; have {sorted((*ARCHS, *NOT_PORTED))}")
+    raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
 
 
 def get_arch(name: str) -> ArchConfig:
-    key = _canonical(name)
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported yet: it comes with {NOT_PORTED[key]}"
-        )
-    return ARCHS[key]
+    return ARCHS[_canonical(name)]
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Any:
     """The model of ``cfg`` on ``device`` (the GPU unless asked otherwise)."""
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg, device=device)
     from repro_torch.models.lm import DecoderLM
 
     return DecoderLM(cfg, device=device)

@@ -48,12 +48,18 @@
 //   cudaGetDriverEntryPoint, no -lcuda).  Measured on the card and not
 //   kept: issuing the next tile's S with the previous P V inside one
 //   consumer (slower), and a third ring stage at hd 128 (no gain).
-// - bf16, head dims 16 and 32: mma.sync (namespace tc).  4 warps, each
+// - bf16, head dims 16, 32 and 96: mma.sync (namespace tc).  4 warps, each
 //   owning 16 query rows of a 64-row tile; Q's fragments stay in registers
 //   for the whole KV loop.  64-key K and V tiles are double-buffered in
 //   shared memory with cp.async.  S = Q K^T and O += P V are bf16
 //   mma.sync.m16n8k16 with fp32 accumulators (ldmatrix for Q and K,
-//   ldmatrix.trans for V); P is the A operand of P V directly.
+//   ldmatrix.trans for V); P is the A operand of P V directly.  Head dim 96
+//   (Phi-3-vision: 3072 / 32) is 6 k16 steps of Q K^T, 12 n8 tiles of the
+//   output row and 12 16-byte cp.async chunks a row; its 208-byte padded
+//   row keeps ldmatrix conflict-free.  It takes this instance because the
+//   wgmma layout cuts a row into 64-column swizzled regions (HD / 64); a
+//   wgmma instance at 96 (a 128-column map that TMA zero-fills past 96, or
+//   a 64 + 32-column split) is later work.
 // - Precision of both bf16 instances: Q K^T of bf16 inputs is exact
 //   products summed in fp32, as the Pallas kernel's fp32 dot; the row max
 //   and row sum live in the accumulator fragments and reduce over the four
@@ -804,15 +810,16 @@ LaunchFn for_head_dim(int hd) {
     case 16: return Pick<16>::fn;
     case 32: return Pick<32>::fn;
     case 64: return Pick<64>::fn;
+    case 96: return Pick<96>::fn;
     case 128: return Pick<128>::fn;
     default: return nullptr;
   }
 }
 
-// bf16: wgmma for head dims 64 and 128, mma.sync for 16 and 32
+// bf16: wgmma for head dims 64 and 128, mma.sync for 16, 32 and 96
 template <int HD>
 constexpr LaunchFn bf16_launch() {
-  if constexpr (HD >= 64) {
+  if constexpr (HD == 64 || HD == 128) {
     return wg::launch<HD>;
   } else {
     return tc::launch<HD>;

@@ -1,7 +1,8 @@
 """Deterministic synthetic batches (port of ``data/synthetic.py``): image
-blobs, and the LM token stream, a first-order Markov chain (token t+1 =
+blobs, the LM token stream, a first-order Markov chain (token t+1 =
 (31 t + 7) mod V, replaced by a uniform draw with probability ``noise``)
-whose loss falls under training.
+whose loss falls under training, and the VLM prefix and audio frames of
+the stub frontends.
 
 Batches come from explicit generators seeded by (seed, step, shard), so a
 step's batch is a pure function of those three numbers.  The image blobs
@@ -16,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.configs.base import torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -79,12 +81,28 @@ def synthetic_lm_batch(cfg: SyntheticLMConfig, step: int, shard: int = 0,
 
 def synthetic_arch_batch(cfg, *, batch: int, seq: int, step: int = 0, shard: int = 0,
                          device: DeviceLike = None) -> dict:
-    """The batch an ``ArchConfig``'s family trains on: tokens and labels for
-    the dense and MoE LMs (the tuner CLI profiles on it).  The VLM prefix
-    and the audio frames come with their slices."""
-    if cfg.family in ("vlm", "audio") or getattr(cfg, "prefix_tokens", 0):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): its frontend inputs come with the "
-            f"{'VLM' if cfg.family == 'vlm' else 'encoder-decoder'} slice")
-    return synthetic_lm_batch(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, batch=batch),
-                              step, shard, device=device)
+    """The batch an ``ArchConfig``'s family trains on (shared by the tuner
+    CLI and the examples, so both profile and train on the same shapes):
+    tokens and labels of ``seq - prefix_tokens`` positions, plus the stub
+    frontends' inputs in ``cfg.dtype``: a VLM's patch embeddings ``prefix``
+    (B, prefix_tokens, prefix_dim) and the audio family's frame embeddings
+    ``frames`` (B, encoder_seq, d_model), standard normal draws from
+    generators seeded by (77 or 78, step, shard), as the JAX package keys
+    them by 77 and 78 and the step."""
+    dev = resolve_device(device)
+    prefix_tokens = getattr(cfg, "prefix_tokens", 0) or 0
+    if seq <= prefix_tokens:
+        raise ValueError(f"{cfg.name}: seq {seq} leaves no text after {prefix_tokens} "
+                         "prefix positions")
+    b = synthetic_lm_batch(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq - prefix_tokens,
+                                             batch=batch), step, shard, device=dev)
+    dtype = torch_dtype(getattr(cfg, "dtype", "float32"))
+    if cfg.family == "vlm":
+        b["prefix"] = torch.randn((batch, cfg.prefix_tokens, cfg.prefix_dim),
+                                  generator=_generator(dev, 77, step, shard),
+                                  device=dev).to(dtype)
+    if cfg.family == "audio":
+        b["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                  generator=_generator(dev, 78, step, shard),
+                                  device=dev).to(dtype)
+    return b

@@ -8,8 +8,9 @@ masked KV tiles skipped.  It takes the JAX public layout, q (B, Sq, H, hd)
 and k/v (B, Skv, K, hd), and reads KV head ``h // (H / K)`` in place where
 the Pallas wrapper repeats K and V to H heads.  bf16 inputs run on the
 tensor cores (P rounded to bf16 before P.V, as the Pallas kernel does):
-head dims 64 and 128 through the warpgroup-MMA instance fed by TMA, 16 and
-32 through the mma.sync one; fp32 inputs run the fp32 SIMT instance.  The
+head dims 64 and 128 through the warpgroup-MMA instance fed by TMA, 16,
+32 and 96 (Phi-3-vision) through the mma.sync one; fp32 inputs run the
+fp32 SIMT instance.  Any other head dim raises: there is no fallback.  The
 TMA tensor maps need 16-byte-aligned rows, so a view at an odd offset is
 copied first.  It launches its kernel on
 CUDA tensors and raises on anything else; ``flash_attention_plain`` beside
@@ -26,7 +27,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention as flash_att
 
 __all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_plain"]
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
 _MAX_GRID_YZ = 65535
 
 

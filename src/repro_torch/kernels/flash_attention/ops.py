@@ -29,11 +29,11 @@ Which of the kernel and this version runs is decided by
 never forms the (Sq, Skv) scores, fp32 inside, the result in q's dtype; the
 residuals are q, k, v and the output in their own dtype and the fp32
 log-sum-exp, and the backward recomputes each tile's probabilities.  Sq and
-Skv are padded to the blocks as the JAX entry point pads them, padded keys
-masked.  The JAX package runs it outside any Pallas kernel, so it has no
+Skv are padded to their own blocks as the JAX entry point pads them,
+padded keys masked; Sq and Skv may differ (cross-attention, unmasked).  The JAX package runs it outside any Pallas kernel, so it has no
 CUDA kernel here either.  Tiles that every mask kills are skipped: they
 add exactly nothing to a row that has one live key, which every causal or
-windowed row of a self-attention has (a dead tile before the first live one
+windowed row of a self-attention and every unmasked row has (a dead tile before the first live one
 is wiped by ``alpha = 0`` in the reference), so the values are the
 reference's.  It is a ``torch.autograd.Function`` with ``setup_context``
 and ``generate_vmap_rule``, so the ``vmap`` oracle (``torch.func``) runs
@@ -263,17 +263,20 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_train(
-    q: torch.Tensor,  # (B, S, H, hd)
-    k: torch.Tensor,  # (B, S, K, hd)
-    v: torch.Tensor,  # (B, S, K, hd)
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, K, hd)
+    v: torch.Tensor,  # (B, Skv, K, hd)
     *,
     causal: bool = True,
     window: Optional[int] = None,
     block_q: int = 512,
     block_kv: int = 512,
 ) -> torch.Tensor:
-    """Differentiable self-attention, (B, S, H, hd) in q's dtype (the JAX
-    package's public ``flash_attention`` on its training path)."""
+    """Differentiable attention, (B, Sq, H, hd) in q's dtype (the JAX
+    package's public ``flash_attention`` on its training path): causal or
+    windowed self-attention (Sq = Skv), or with ``causal=False`` the
+    cross-attention of Sq queries over Skv keys, each padded to its own
+    block (the padded keys masked, the padded queries dropped)."""
     sq, h, hd = q.shape[1:]
     skv, kh = k.shape[1], k.shape[2]
     if h % kh:

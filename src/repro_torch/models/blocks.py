@@ -1,10 +1,15 @@
 """The pre-norm transformer block, the Mamba and xLSTM layer adapters, and
 the layer period (port of ``models/blocks.py``'s ``TransformerBlock``,
-``MambaWrap``, ``XLSTMWrap`` and ``build_period``, without cross-attention).
+``MambaWrap``, ``XLSTMWrap`` and ``build_period``).
 
-LayerNorm/GELU blocks for the ViT (bidirectional, no rotary embeddings),
-RMSNorm/SwiGLU blocks with rotary embeddings for the decoder LMs, as the
-JAX package picks them from the configuration; a block's feed-forward is an
+LayerNorm/GELU blocks for the ViT and Whisper (learned positions, no
+rotary embeddings), RMSNorm/SwiGLU blocks with rotary embeddings for the
+decoder LMs, as the JAX package picks them from the configuration; a
+block with ``cross=True`` (Whisper's decoder) adds ``x + xattn(nx(x))``
+over the encoder states ``enc_out`` after its self-attention, and its
+serving cache an ``xkv`` entry of the encoder's projections (B, enc_seq,
+K, hd), written by the prefill and read by every decode step; a block's
+feed-forward is an
 MLP or, with ``use_moe``, routed experts (``nn/moe.py``) plus Arctic's
 parallel dense-residual MLP (``moe_dense_ff``).  The decoder LMs train and
 serve through it (causal attention through ``flash_attention_train`` in
@@ -43,16 +48,18 @@ def _ffn(cfg: ArchConfig, name: str, d_ff: int, **common) -> Module:
 
 
 class TransformerBlock(Module):
-    """x + attn(n1(x)), then x + ffn(n2(x)) with ffn an MLP, or the experts
-    plus (Arctic) a parallel dense MLP on the same input."""
+    """x + attn(n1(x)), with ``cross`` then x + xattn(nx(x)) over the encoder
+    states, then x + ffn(n2(x)) with ffn an MLP, or the experts plus
+    (Arctic) a parallel dense MLP on the same input."""
 
     def __init__(self, name: str, cfg: ArchConfig, *, use_moe: bool = False,
-                 causal: bool = True, dtype=torch.float32, param_dtype=torch.float32,
-                 device: torch.device):
+                 cross: bool = False, causal: bool = True, dtype=torch.float32,
+                 param_dtype=torch.float32, device: torch.device):
         self.name = name
         self.cfg = cfg
         self.device = device
         self.use_moe = use_moe and cfg.moe_experts > 0
+        self.cross = cross
         d = cfg.d_model
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.n1 = _norm(cfg, "n1", d, **common)
@@ -62,6 +69,13 @@ class TransformerBlock(Module):
             rope_theta=cfg.rope_theta, causal=causal, window=cfg.window,
             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv, **common,
         )
+        if cross:
+            self.nx = _norm(cfg, "nx", d, **common)
+            self.xattn = Attention(
+                "xattn", d, cfg.n_heads, cfg.n_kv, head_dim=cfg.head_dim, use_rope=False,
+                causal=False, cross=True, block_q=cfg.attn_block_q,
+                block_kv=cfg.attn_block_kv, **common,
+            )
         self.n2 = _norm(cfg, "n2", d, **common)
         if self.use_moe:
             self.moe = MoE("moe", d, cfg.d_ff, cfg.moe_experts, cfg.moe_top_k,
@@ -74,6 +88,9 @@ class TransformerBlock(Module):
     def init(self, generator: torch.Generator) -> Params:
         p = {"n1": self.n1.init(generator), "attn": self.attn.init(generator),
              "n2": self.n2.init(generator)}
+        if self.cross:
+            p["nx"] = self.nx.init(generator)
+            p["xattn"] = self.xattn.init(generator)
         if self.use_moe:
             p["moe"] = self.moe.init(generator)
             if self.cfg.moe_dense_ff:
@@ -82,21 +99,36 @@ class TransformerBlock(Module):
             p["mlp"] = self.mlp.init(generator)
         return p
 
-    def init_cache(self, batch: int, dtype: torch.dtype, *, max_len: int) -> dict:
-        return {"kv": make_kv_cache(batch, max_len, self.attn.n_kv, self.attn.head_dim, dtype,
-                                    window=self.cfg.window, device=self.device)}
+    def init_cache(self, batch: int, dtype: torch.dtype, *, max_len: int,
+                   enc_seq: int = 0) -> dict:
+        c = {"kv": make_kv_cache(batch, max_len, self.attn.n_kv, self.attn.head_dim, dtype,
+                                 window=self.cfg.window, device=self.device)}
+        if self.cross:
+            shape = (batch, enc_seq, self.xattn.n_kv, self.xattn.head_dim)
+            c["xkv"] = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                        "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        return c
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
                  cache: Optional[dict] = None, positions: Optional[torch.Tensor] = None,
-                 dispatch: str = "per_sample"):
+                 enc_out: Optional[torch.Tensor] = None, dispatch: str = "per_sample"):
         """Without ``cache`` returns x; with it, (x, cache).  ``dispatch`` is
-        the experts' ("per_sample" in training, "global" in serving)."""
+        the experts' ("per_sample" in training, "global" in serving);
+        ``enc_out`` the encoder states of a cross block (None in a decode
+        step, which reads the cached projections)."""
         h = self.attn(params["attn"], self.n1(params["n1"], x, ctx.scope("n1")),
                       ctx.scope("attn"), positions=positions,
                       cache=None if cache is None else cache["kv"])
         if cache is not None:
             h, _ = h
         x = x + h
+        if self.cross:
+            h = self.xattn(params["xattn"], self.nx(params["nx"], x, ctx.scope("nx")),
+                           ctx.scope("xattn"), cache=None if cache is None else cache["xkv"],
+                           kv_src=enc_out)
+            if cache is not None:
+                h, _ = h
+            x = x + h
         h_in = self.n2(params["n2"], x, ctx.scope("n2"))
         if self.use_moe:
             h = self.moe(params["moe"], h_in, ctx.scope("moe"), dispatch=dispatch)
@@ -188,11 +220,14 @@ class XLSTMWrap(Module):
         return out if cache is None else (out[0], cache)
 
 
-def build_period(cfg: ArchConfig, *, causal: bool = True, dtype=torch.float32,
-                 param_dtype=torch.float32, device: torch.device) -> tuple[Module, int]:
+def build_period(cfg: ArchConfig, *, cross: bool = False, causal: bool = True,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device: torch.device) -> tuple[Module, int]:
     """The repeating period and its count: one block for the dense LMs and
     MoE on every layer, else a ``SequentialBlocks`` of ``moe_every``
-    transformer blocks or of the explicit pattern's blocks."""
+    transformer blocks or of the explicit pattern's blocks.  ``cross`` and
+    ``causal`` reach the transformer blocks of a pattern-free period (as in
+    the JAX package)."""
     common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
 
     def use_moe(i: int) -> bool:
@@ -201,7 +236,8 @@ def build_period(cfg: ArchConfig, *, causal: bool = True, dtype=torch.float32,
     pattern = cfg.block_pattern
     if not pattern:
         period = cfg.moe_every if cfg.moe_experts else 1
-        blocks = [TransformerBlock(f"b{i}", cfg, use_moe=use_moe(i), causal=causal, **common)
+        blocks = [TransformerBlock(f"b{i}", cfg, use_moe=use_moe(i), cross=cross,
+                                   causal=causal, **common)
                   for i in range(period)]
     else:
         period = len(pattern)

@@ -1,7 +1,8 @@
 """Decoder-only language model: the dense, MoE, hybrid (Jamba: Mamba and
-attention) and SSM (xLSTM) families (port of ``models/lm.py``).
+attention), SSM (xLSTM) and VLM (Phi-3-vision) families (port of
+``models/lm.py``).
 
-The entry points of the JAX package's ``DecoderLM``:
+The entry points of the JAX package's ``DecoderLM``, and one more:
 
 - ``loss_with_ctx(params, batch, ctx)``   per-sample losses (B,) with the
   DP taps threaded: the clipping engines' model function
@@ -11,6 +12,8 @@ The entry points of the JAX package's ``DecoderLM``:
 - ``prefill(params, batch, state)``       the prompt's forward + cache fill;
   the lm_head runs on the last position only
 - ``decode_step(params, tokens, state)``  one token per lane
+- ``forward_logits(params, batch)``       every text position's logits
+  with no cache, the teacher-forced reference of the two above
 
 Training dispatches the experts per sample (each sample's tokens fill its
 own capacity, so per-sample clipping stays exact) and ``prefill``
@@ -36,8 +39,15 @@ parameters in ``cfg.param_dtype``.
 
 A recurrent layer's state is the same at every position, so its cache
 does not grow with the prompt; the serving engine carries it in its dense
-per-lane state.  The prefix (VLM) and encoder-decoder families are refused
-here; they come with their slice.
+per-lane state.
+
+The VLM family (``cfg.prefix_tokens``): ``batch["prefix"]`` (B,
+prefix_tokens, prefix_dim) holds the image tower's patch embeddings (the
+JAX package's stub for CLIP ViT-L/14), which the ``prefix_proj`` Dense (a
+DP tap) maps to d_model and ``_trunk`` puts before the text tokens; the
+positions run over both.  ``loss_with_ctx`` drops the prefix positions
+before the head, and ``prefill`` counts them in ``pos``.  The
+encoder-decoder family is ``models/encdec.py``'s ``EncDecLM``.
 """
 from __future__ import annotations
 
@@ -58,11 +68,10 @@ from repro_torch.utils.tree import tree_map
 
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
-        if (cfg.family not in ("dense", "moe", "hybrid", "ssm") or cfg.prefix_tokens
-                or cfg.encoder_layers):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): the dense, MoE, hybrid and SSM decoder LMs "
-                "are ported; the VLM and encoder-decoder families come with a later slice"
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm", "vlm") or cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name} ({cfg.family}): DecoderLM builds the dense, MoE, hybrid, SSM and "
+                "VLM families; the encoder-decoder is EncDecLM"
             )
         self.cfg = cfg
         self.device = dev = resolve_device(device)
@@ -73,6 +82,8 @@ class DecoderLM:
         self.use_learned_pos = cfg.norm == "layernorm"
         if self.use_learned_pos:
             self.pos_embed = Embedding("pos_embed", max(cfg.encoder_seq, 32768), d, **common)
+        if cfg.prefix_tokens:
+            self.prefix_proj = Dense("prefix_proj", cfg.prefix_dim, d, use_bias=True, **common)
         period, n_periods = build_period(cfg, **common)
         self.layers = ScannedStack("layers", period, n_periods, remat=cfg.remat)
         norm_cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
@@ -90,14 +101,22 @@ class DecoderLM:
         }
         if self.use_learned_pos:
             p["pos_embed"] = self.pos_embed.init(generator)
+        if self.cfg.prefix_tokens:
+            p["prefix_proj"] = self.prefix_proj.init(generator)
         return p
 
     # -- shared trunk --------------------------------------------------------
-    def _trunk(self, params, tokens: torch.Tensor, ctx: Ctx, *, cache: Optional[dict] = None,
+    def _trunk(self, params, tokens: torch.Tensor, ctx: Ctx, *,
+               prefix: Optional[torch.Tensor] = None, cache: Optional[dict] = None,
                positions: Optional[torch.Tensor] = None, dispatch: str = "per_sample"):
-        """Embeddings, the layers and the final norm: (x, cache), the cache
-        None without one (training)."""
+        """Embeddings (the projected ``prefix`` first, where given), the
+        layers and the final norm: (x, cache), the cache None without one
+        (training)."""
         x = self.embed(params["embed"], tokens, ctx.scope("embed"))
+        if prefix is not None:
+            pe = self.prefix_proj(params["prefix_proj"], prefix.to(self.dtype),
+                                  ctx.scope("prefix_proj"))
+            x = torch.cat([pe, x], dim=1)
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device)
@@ -112,8 +131,12 @@ class DecoderLM:
     # -- training ------------------------------------------------------------
     def loss_with_ctx(self, params, batch, ctx: Ctx) -> torch.Tensor:
         """Per-sample mean token cross-entropy (B,): ``batch["tokens"]`` and
-        ``batch["labels"]`` (B, S), -100 ignored, an optional ``mask`` (B,)."""
-        x, _ = self._trunk(params, batch["tokens"], ctx)
+        ``batch["labels"]`` (B, S), -100 ignored, an optional ``mask`` (B,);
+        a VLM's ``prefix`` positions are dropped before the head."""
+        prefix = batch.get("prefix")
+        x, _ = self._trunk(params, batch["tokens"], ctx, prefix=prefix)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
 
         def head_loss(head_params, x_in):
             logits = self.lm_head(head_params, x_in, ctx.scope("lm_head"))
@@ -124,6 +147,16 @@ class DecoderLM:
                               preserve_rng_state=False)
         return head_loss(params["lm_head"], x)
 
+    def forward_logits(self, params, batch: dict) -> torch.Tensor:
+        """Logits (B, S, V) of every text position from one forward with no
+        cache (a VLM's ``prefix`` before the tokens): the teacher-forced
+        reference of ``prefill`` and ``decode_step``."""
+        prefix = batch.get("prefix")
+        x, _ = self._trunk(params, batch["tokens"], Ctx.disabled(), prefix=prefix)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
+        return self.lm_head(params["lm_head"], x, Ctx.disabled())
+
     # -- serving -------------------------------------------------------------
     def init_state(self, batch: int, max_len: int) -> dict:
         cache = self.layers.init_cache(batch, self.dtype, max_len=max_len)
@@ -131,14 +164,15 @@ class DecoderLM:
                                                    device=self.device)}
 
     def prefill(self, params, batch: dict, state: dict) -> tuple[torch.Tensor, dict]:
-        """Prompts ``batch["tokens"]`` (B, S) into an empty state: logits of
-        the last position (B, 1, V) and the filled state."""
-        tokens = batch["tokens"]
+        """Prompts ``batch["tokens"]`` (B, S), after a VLM's ``prefix``, into
+        an empty state: logits of the last position (B, 1, V) and the filled
+        state, whose ``pos`` counts the prefix."""
         state = tree_map(torch.clone, state)
-        x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"],
+        x, cache = self._trunk(params, batch["tokens"], Ctx.disabled(),
+                               prefix=batch.get("prefix"), cache=state["cache"],
                                dispatch="global")
         logits = self.lm_head(params["lm_head"], x[:, -1:], Ctx.disabled())
-        return logits, {"cache": cache, "pos": state["pos"] + tokens.shape[1]}
+        return logits, {"cache": cache, "pos": state["pos"] + x.shape[1]}
 
     def decode_step(self, params, tokens: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
         """``tokens`` (B, S) at each lane's next positions -> logits (B, S, V)."""

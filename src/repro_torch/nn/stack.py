@@ -43,6 +43,16 @@ saved and restored (``preserve_rng_state=False``: it would buy nothing and
 costs a device state copy per layer).  Under ``no_grad`` (serving,
 discovery) the plain loop runs.
 
+Keyword arguments reach every layer unchanged: ``positions``, the experts'
+``dispatch`` and Whisper's ``enc_out``, the encoder states that every
+decoder layer's cross-attention reads.  Under remat ``enc_out`` is closed
+over by each checkpointed layer, not passed as its input: non-reentrant
+checkpointing records the layer's graph as usual (only its saved tensors
+are dropped and recomputed), so the gradient reaches the encoder through
+every layer's recomputation, the same sums as without remat.  Its cross
+k/v taps are recorded once per layer by the first forward, like every
+other tap.
+
 ``SequentialBlocks`` runs a period of different blocks in order (Jamba's
 Mamba and attention layers, xLSTM's sLSTM and mLSTMs), its parameters and
 cache keyed by position (``"0"``, ``"1"``, ...) as in the JAX package.  A

@@ -23,9 +23,10 @@ batched against single-row matrix products (bit-identical on the CPU in
 the tests; on the card cuBLAS may pick other kernels for the two shapes).
 The engine's device state (``dense``, the pools) is written in place:
 ``_install`` and ``scatter_rows`` update one lane, where the JAX engine
-builds new arrays.  The obs metrics of each step are not ported, and the
-JAX engine's refusal of audio/VLM models is left to the port's model zoo,
-which builds token-prompt decoder LMs only.
+builds new arrays.  The obs metrics of each step are not ported.  As the JAX
+engine does, it refuses the encoder-frontend families (audio frames, a VLM
+prefix): its requests are token prompts, and those models serve as one
+fixed wave (``launch/serve.py``'s ``serve_wave``).
 
 Latency metrics per request (TTFT, per-token, end-to-end) feed the SLO
 admission model in ``repro_torch.serving.queue``; aggregate percentiles
@@ -114,6 +115,11 @@ class Engine:
         clock: Callable[[], float] = time.perf_counter,
     ):
         cfg = model.cfg
+        if cfg.family == "audio" or cfg.prefix_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves token-prompt decoder LMs; the "
+                "encoder-frontend families (audio frames, VLM prefixes) serve as a fixed wave"
+            )
         self.model = model
         self.params = params
         self.device = model.device

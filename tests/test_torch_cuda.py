@@ -429,6 +429,17 @@ FLASH_CASES = [
     (1, 777, 777, 8, 2, 64, True, 300, 0),
     (1, 90, 400, 8, 2, 128, True, None, 310),
     (2, 130, 250, 4, 2, 128, False, None, 0),
+    # head dim 96 (Phi-3-vision; the mma.sync bf16 instance, the SIMT fp32
+    # one): causal with Sq and Skv off the 64-row and 64-key tiles, a cross
+    # shape, q_offset into a longer cache, GQA, and a 608-token prefill
+    (1, 130, 130, 8, 8, 96, True, None, 0),
+    (2, 70, 45, 4, 4, 96, False, None, 0),
+    (1, 33, 150, 4, 2, 96, True, None, 117),
+    (1, 608, 608, 32, 32, 96, True, None, 0),
+    # Whisper's cross-attention at hd 64: 1500 keys (a ragged 128-key tail),
+    # a prefill's 32 queries and a decode step's one
+    (2, 32, 1500, 20, 20, 64, False, None, 0),
+    (2, 1, 1500, 20, 20, 64, False, None, 0),
 ]
 
 
@@ -731,3 +742,44 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+
+@pytest.mark.parametrize("name", ["whisper-large-v3", "phi-3-vision-4.2b"])
+def test_reduced_wave_on_the_card(gen, name):
+    """The reduced Whisper or Phi-3-vision served as one fixed wave on the
+    card in fp32: the attention kernel launches once per self- and
+    cross-attention layer a prefill and once per cross-attention layer a
+    decode step (the self-attention decode runs the plain serving form),
+    and every step's logits equal a teacher-forced forward's within 1e-4."""
+    import types
+
+    from repro_torch.configs.registry import build_model, get_arch
+    from repro_torch.launch.serve import _serve_wave
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    counts = []
+    for method in ("prefill", "decode_step"):
+        def spy(*a, _f=getattr(model, method), **kw):
+            launches.reset()
+            out = _f(*a, **kw)
+            counts.append(launches.snapshot()["flash_attention"])
+            return out
+        setattr(model, method, spy)
+    args = types.SimpleNamespace(slots=2, prompt_len=8, max_new=5, eos=-1)
+    wave = _serve_wave(model, cfg, params, args, keep_logits=True)
+    cross = cfg.n_layers if cfg.family == "audio" else 0
+    assert counts[0] == {"cuda": cfg.n_layers + cross, "torch": 0}
+    assert all(c == {"cuda": cross, "torch": 0} for c in counts[1:])
+    assert len(counts) == args.max_new
+    from repro_torch.launch.serve import wave_batch
+
+    batch = wave_batch(cfg, 2, 8, "cuda")
+    batch["tokens"] = torch.cat([batch["tokens"], wave["stepped"][:, :-1]], dim=1)
+    with torch.no_grad():
+        want = model.forward_logits(params, batch)[:, 7:]
+    got = torch.cat(wave["logits"], dim=1)
+    assert _rel(got, want) < 1e-4
+    assert torch.equal(got.argmax(-1), wave["stepped"])

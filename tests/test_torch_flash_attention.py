@@ -6,8 +6,9 @@ tests hold to it.  Here, on the CPU, it meets the JAX package's oracle
 (``ref.mha_reference``) and the Pallas kernel it replaces
 (``flash_attention_pallas`` in interpret mode) at the cases of
 ``tests/test_kernels.py::test_flash_pallas_vs_ref``, plus grouped KV heads
-and a window, within the JAX tests' own tolerances (2e-5 fp32, 5e-3
-bf16).  Against the Pallas kernel a bf16 output may also differ by one bf16
+and a window, and head dim 96 (Phi-3-vision) causal and at a
+cross-attention shape (Sq != Skv, no mask), within the JAX tests' own
+tolerances (2e-5 fp32, 5e-3 bf16).  Against the Pallas kernel a bf16 output may also differ by one bf16
 step of the output (``rtol`` 2^-7): the kernel rounds P to bf16 before P.V
 (``flash_attention.py:110``) where the plain version and the oracle keep it
 in fp32, and both outputs are rounded to bf16.  The serving form (per-lane
@@ -17,7 +18,8 @@ The training attention (``flash_attention_train``, the blocked attention
 with its own backward) meets the JAX ``flash_attention`` and its custom VJP:
 outputs and the gradients of q, k and v for one random cotangent, causal,
 windowed (window < S), GQA and MHA, S off the block (padded, padded keys
-masked) and blocks of one tile, within 2e-5 of the largest entry in fp32;
+masked) and blocks of one tile, within 2e-5 of the largest entry in fp32
+(cross-attention's Sq != Skv through the module: ``test_torch_encdec.py``);
 under ``torch.func.vmap`` of ``grad`` it equals the per-sample calls.
 """
 import jax.numpy as jnp
@@ -61,6 +63,10 @@ def _both(arrays, dtype):
         (1, 8, 2, 40, 40, 16, True, None, 0, "float32"),
         (2, 8, 2, 37, 37, 32, True, 9, 0, "bfloat16"),
         (1, 8, 2, 33, 70, 16, True, 20, 37, "float32"),
+        # head dim 96 (Phi-3-vision): causal MHA in fp32, a cross-attention
+        # shape (Sq != Skv, no mask) in bf16
+        (1, 4, 4, 40, 40, 96, True, None, 0, "float32"),
+        (1, 4, 4, 5, 45, 96, False, None, 0, "bfloat16"),
     ],
 )
 def test_plain_flash_attention_vs_jax_ref_and_pallas(

@@ -1,15 +1,10 @@
 """DP training of the hybrid LM (Jamba) in the port, held against the JAX
 package, and the recurrent archs' taps, parameters and memory.
 
-- ``jamba-1.5-large-398b`` at its ``.reduced()`` size (one period of 8
-  layers: Mamba, and attention at index 3; MoE on every other layer with 4
-  experts; d_model 64, SSM heads of 8 with d_state 8, chunk 8, vocab 128),
-  the same numpy parameters (``repro_torch.interop``) and batch (2 samples
-  of 32 tokens, some labels -100) in both packages on the CPU, in all ten
-  clipping modes: the loss, the per-sample norms and the clipped sums
-  within 1e-5, fp32.  The JAX package's ``*_taps`` reference runs with
-  ``remat=False`` (its explicit engine cannot trace its own checkpointed
-  head), as in ``tests/test_torch_lm_train.py``.
+- (``jamba-1.5-large-398b`` in all ten clipping modes against the JAX
+  package is ``tests/test_torch_jamba_modes.py``, on this file's
+  ``_pair`` and ``_batch``: a file of its own, so the workers take it
+  apart from the rest.)
 - Jamba's and xLSTM's taps and shape fingerprints against the JAX
   package's (the late ``wr`` taps, ``dw_conv``, ``bias``, ``scale_grouped``),
   and coverage of every leaf.
@@ -25,7 +20,6 @@ import gc
 import warnings
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -68,32 +62,6 @@ def _batch(seed: int, vocab: int = 128, b: int = 2, s: int = 32) -> dict:
     labels[1, -3:] = -100
     return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32), "labels": labels,
             "mask": np.ones((b,), np.float32)}
-
-
-@pytest.mark.parametrize("mode", tclip.MODES)
-def test_jamba_clipped_step_matches_jax(mode):
-    jmodel, jmodel_noremat, tmodel, np_params = _pair("jamba-1.5-large-398b")
-    batch = _batch(1)
-    jm = jmodel_noremat if mode.endswith("_taps") else jmodel
-    cfg = dict(mode=mode, clip_norm=0.3)
-    jloss, jg, jaux = jax.jit(jclip.dp_value_and_clipped_grad(
-        jm.loss_with_ctx, jclip.ClipConfig(**cfg)))(
-        jax.tree_util.tree_map(jnp.asarray, np_params), batch)
-    tparams = interop.params_from_jax(np_params, tmodel.conv_weights, device="cpu")
-    tloss, tg, taux = tclip.dp_value_and_clipped_grad(
-        tmodel.loss_with_ctx, tclip.ClipConfig(**cfg))(
-        tparams, interop.batch_from_numpy(batch, device="cpu"))
-    np.testing.assert_allclose(float(tloss), float(jloss), rtol=TOL)
-    jn, tn = np.asarray(jaux["per_sample_norms"]), taux["per_sample_norms"].numpy()
-    assert tn.shape == jn.shape == (2,)
-    if mode != "non_private":  # C_i = 1 there: no norms
-        assert float(np.abs(tn - jn).max()) <= TOL * float(np.abs(jn).max()), (tn, jn)
-    jflat = flatten_dict(jax.tree_util.tree_map(np.asarray, jg))
-    tflat = flatten_dict(interop.grads_to_jax_layout(tg, ()))
-    assert tflat.keys() == jflat.keys()
-    scale = max(float(np.abs(v).max()) for v in jflat.values())
-    err = max(float(np.abs(tflat[p] - w).max()) for p, w in jflat.items())
-    assert err <= TOL * scale, err / scale
 
 
 @pytest.mark.parametrize("name", RECURRENT)

@@ -114,3 +114,34 @@ def test_moe_lm_trees_cross_leaf_by_leaf(name):
         np.testing.assert_array_equal(back[path], leaf, err_msg=path)
         np.testing.assert_array_equal(flatten_dict(params)[path].numpy(), leaf,
                                       err_msg=path)
+
+
+@pytest.mark.parametrize("name", ["whisper-large-v3", "phi-3-vision-4.2b"])
+def test_encdec_and_vlm_trees_cross_leaf_by_leaf(name):
+    """Whisper's encoder and decoder stacks (cross-attention ``xattn``, its
+    norm ``nx``, the encoder positions ``enc_pos``) and Phi-3-vision's
+    ``prefix_proj`` cross unchanged, both ways."""
+    jmodel = jbuild(JARCHS[name].reduced())
+    tmodel = build_model(get_arch(name).reduced(), device="cpu")
+    tree = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    flat = flatten_dict(tree)
+    own = flatten_dict(tmodel.init(torch.Generator().manual_seed(0)))
+    assert own.keys() == flat.keys()
+    for path, leaf in flat.items():
+        assert tuple(own[path].shape) == leaf.shape, path
+    cfg = tmodel.cfg
+    if cfg.family == "audio":
+        d, layers = cfg.d_model, cfg.n_layers
+        assert flat["enc_pos/e"].shape == (cfg.encoder_seq, d)
+        assert flat["encoder/attn/q/w"].shape == (cfg.encoder_layers, d, d)
+        assert flat["encoder/attn/q/b"].shape == (cfg.encoder_layers, d)  # qkv_bias
+        assert flat["decoder/xattn/k/w"].shape == (layers, d, d)
+        assert "decoder/xattn/k/b" not in flat  # the cross projections have no bias
+        assert flat["decoder/nx/g"].shape == (layers, d)
+    else:
+        assert flat["prefix_proj/w"].shape == (cfg.prefix_dim, cfg.d_model)
+        assert flat["prefix_proj/b"].shape == (cfg.d_model,)
+    params = interop.params_from_jax(tree, tmodel.conv_weights, device="cpu")
+    back = flatten_dict(interop.grads_to_jax_layout(params, tmodel.conv_weights))
+    for path, leaf in flat.items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg=path)

@@ -54,7 +54,8 @@ def test_arch_train_and_serve_smoke(name):
     optimizer = adamw()
     state = make_train_state(model, 0, optimizer)
     batch = synthetic_arch_batch(cfg, batch=2, seq=32, step=1, device="cpu")
-    assert batch["tokens"].shape == batch["labels"].shape == (2, 32)
+    text = 32 - cfg.prefix_tokens  # a VLM's prefix takes the first positions
+    assert batch["tokens"].shape == batch["labels"].shape == (2, text)
     dp = DPTrainConfig(clipping_mode="mixed_ghost", clip_norm=1.0, noise_multiplier=0.5,
                        logical_batch=2)
     step = make_train_step(model, optimizer, warmup_cosine(1e-3, 2, 10), dp, device="cpu")
@@ -65,12 +66,14 @@ def test_arch_train_and_serve_smoke(name):
         assert not bool(torch.isnan(leaf).any()), path
     assert set(state2["opt"]) == {"m", "v"}
 
-    # serving: prefill 16 tokens then decode 2
+    # serving: prefill 16 tokens (and the family's frames or prefix) then decode 2
     with torch.no_grad():
-        tokens = synthetic_lm_batch(SyntheticLMConfig(vocab=cfg.vocab, seq_len=16, batch=2),
-                                    step=2, device="cpu")["tokens"]
-        logits, sstate = make_prefill_step(model)(state2["params"], {"tokens": tokens},
-                                                  model.init_state(2, 32))
+        prompt = synthetic_arch_batch(cfg, batch=2, seq=16 + cfg.prefix_tokens, step=2,
+                                      device="cpu")
+        prompt = {k: v for k, v in prompt.items() if k in ("tokens", "frames", "prefix")}
+        assert prompt["tokens"].shape == (2, 16)
+        logits, sstate = make_prefill_step(model)(state2["params"], prompt,
+                                                  model.init_state(2, 32 + cfg.prefix_tokens))
         assert logits.shape == (2, 1, cfg.vocab)
         decode = make_decode_step(model)
         tok = logits[:, -1:].argmax(dim=-1)
@@ -90,9 +93,11 @@ def test_synthetic_lm_batch_is_a_function_of_seed_step_shard():
     # the chain's rule holds wherever no noise draw replaced the token
     follows = (a["tokens"] * 31 + 7) % 50 == a["labels"]
     assert float(follows.float().mean()) > 0.7
-    vlm = dataclasses.replace(ARCHS["yi-6b"].reduced(), family="vlm", prefix_tokens=4)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        synthetic_arch_batch(vlm, batch=2, seq=8, device="cpu")
+    # a VLM's batch: the prefix takes the first positions, the text the rest
+    vlm = dataclasses.replace(ARCHS["yi-6b"].reduced(), family="vlm", prefix_tokens=4,
+                              prefix_dim=16)
+    b = synthetic_arch_batch(vlm, batch=2, seq=8, device="cpu")
+    assert b["tokens"].shape == (2, 4) and b["prefix"].shape == (2, 4, 16)
 
 
 class TorchStackModel(Module):

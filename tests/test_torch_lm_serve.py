@@ -160,24 +160,42 @@ def test_ring_prefill_matches_jax():
         assert _rel(tlog, jlog) < 1e-5
 
 
-def test_registry_refuses_what_is_not_ported():
-    """The dense, MoE, hybrid and SSM LMs build; the encoder-decoder and VLM
-    archs, and any prefix (VLM) config, are refused by name."""
+def test_registry_builds_every_lm_family():
+    """Every LM arch of the JAX registry builds: the dense, MoE, hybrid and
+    SSM LMs and the VLM as ``DecoderLM``, Whisper (audio) as ``EncDecLM``,
+    and the VLM and encoder-decoder prefill and decode; an unknown name
+    is a KeyError."""
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.lm import DecoderLM
+
     assert get_arch("yi_6b").name == "yi-6b"
-    assert get_arch("mixtral_8x7b").name == "mixtral-8x7b"  # the MoE LMs are ported
-    for name in ("jamba-1.5-large-398b", "xlstm-350m"):  # so are the recurrent ones
+    assert get_arch("mixtral_8x7b").name == "mixtral-8x7b"
+    lm_archs = {k for k, c in JAX_ARCHS.items() if c.family not in ("cnn", "vit")}
+    assert lm_archs <= set(ARCHS)
+    for name in ("jamba-1.5-large-398b", "xlstm-350m", "phi-3-vision-4.2b",
+                 "whisper-large-v3"):
         model = build_model(get_arch(name).reduced(), device="cpu")
         assert model.cfg.name == name and model.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        get_arch("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="VLM"):
-        get_arch("phi-3-vision-4.2b")
+        assert isinstance(model, EncDecLM if name == "whisper-large-v3" else DecoderLM)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+    # a prefix on a dense config builds a VLM that prefills and decodes
     prefix = dataclasses.replace(get_arch("yi-6b").reduced(), family="vlm", prefix_tokens=4,
                                  prefix_dim=16)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        build_model(prefix, device="cpu")
+    model = build_model(prefix, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits, state = model.prefill(params, {"tokens": torch.ones(2, 5, dtype=torch.long),
+                                               "prefix": torch.randn(2, 4, 16)},
+                                      model.init_state(2, 12))
+        assert state["pos"].tolist() == [9, 9]  # the prefix counts
+        logits, state = model.decode_step(params, logits.argmax(-1), state)
+    assert logits.shape == (2, 1, prefix.vocab) and state["pos"].tolist() == [10, 10]
+    with pytest.raises(ValueError, match="EncDecLM"):
+        DecoderLM(get_arch("whisper-large-v3").reduced(), device="cpu")
 
 
 # -- the engine: the port's Engine == its sequential_decode == the JAX Engine
@@ -257,12 +275,16 @@ def test_engine_rejects_oversized_and_unsupported():
         engine.submit(list(range(1, 14)), max_new=8)  # 13 + 7 > 16
     with pytest.raises(ValueError):
         engine.submit([], max_new=2)
-    # encoder-frontend families never reach the engine: the zoo refuses them
-    with pytest.raises(NotImplementedError, match="VLM slice"):
-        get_arch("phi-3-vision-4.2b")
+    # the encoder-frontend families build, and the engine refuses them (they
+    # serve as one fixed wave, launch/serve.py), as the JAX engine does
+    for name in ("phi-3-vision-4.2b", "whisper-large-v3"):
+        other = build_model(get_arch(name).reduced(), device="cpu")
+        with pytest.raises(NotImplementedError, match="fixed wave"):
+            Engine(other, other.init(torch.Generator().manual_seed(0)), n_slots=1)
     vlm = dataclasses.replace(model.cfg, family="vlm", prefix_tokens=4, prefix_dim=16)
+    vlm_model = build_model(vlm, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(vlm, device="cpu")
+        Engine(vlm_model, vlm_model.init(torch.Generator().manual_seed(0)), n_slots=1)
 
 
 @pytest.mark.parametrize("case", ["yi-6b-gqa", "codeqwen1.5-7b", "jamba-1.5-large-398b",
