@@ -25,8 +25,10 @@ prefix + 1472 text), bf16 compute, remat on, sgd;
 serving Yi-6B (16 of 32 layers, full width, bf16 compute with fp32
 parameters), Mixtral-8x7B (2 layers, fp32), the Jamba cut and the whole
 xLSTM-350M (fp32) through the continuous-batching engine, and Whisper and
-Phi-3-vision at full width and full depth as one fixed wave; and the
-tuner CLI on Yi-6B.
+Phi-3-vision at full width and full depth as one fixed wave; the
+tuner CLI on Yi-6B; and the train CLI (python -m repro_torch.launch.train)
+on Whisper-large-v3 at full width, 1 encoder + 1 decoder layer, with
+checkpoints, a crash and its auto-restart, a profile and the obs streams.
 Random weights from seed 0 throughout.  Phases, in order, each one's seconds printed; any
 failure exits non-zero and prints no result:
 
@@ -178,7 +180,22 @@ failure exits non-zero and prints no result:
 15. tuner_cli  python -m repro_torch.tuner on Yi-6B's full config at batch 4 x
             4096 (the max-batch search skipped), its table printed; the
             plan's step and the time rule's against the analytic step in
-            fp32 compute on 2 samples.
+            fp32 compute on 2 samples;
+16. train_cli  launch/train.py's main, in process, on Whisper-large-v3 at full
+            width (1 + 1 layers, batch 4 x 448 over 1500 frames, bf16, adam),
+            checkpoints in a temporary directory: a straight 6-step bk_mixed
+            run under the quantile policy and the same run crashed at step 5
+            and auto-restarted, their final checkpoints bit-identical leaf by
+            leaf (generator and policy state included) with equal epsilon;
+            every run's launches from the card's kernels only (the straight
+            and a mixed_ghost run's per step as the taps predict); a
+            mixed_ghost run with --profile-steps 2:3 (one step span per
+            profiled step in the trace, python -m repro_torch.obs renders
+            it); the synchronizing CUDA operations of a mixed_ghost step with
+            and without --obs-dir equal; reported: the loop's step times
+            beside the trace's, checkpoint bytes, snapshot, write and restore
+            seconds, the deterministic embedding gradient's cost, peak
+            memory, the four clipping kernels at this path's shapes.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -366,6 +383,19 @@ WAVE_LOGIT_TOL = 1e-4
 # are alike, where a wrong head or mask moves logits by their own size
 WAVE_BF16_WITNESS = 2.0
 WAVE_ARCHS = ("whisper-large-v3", "phi-3-vision-4.2b")
+# the train_cli phase: python -m repro_torch.launch.train's main, in process,
+# on Whisper-large-v3 at full width cut to 1 encoder + 1 decoder layer, at
+# batch 4 x 448 tokens over 1500 frames, bf16 compute, adam; TRAIN_CLI_STEPS
+# steps with a checkpoint every TRAIN_CLI_CKPT_EVERY; the restarted run
+# crashes at the start of step TRAIN_CLI_CRASH; the sync count compares
+# TRAIN_CLI_SYNC_STEPS steps with and without --obs-dir; the profiled run
+# takes TRAIN_CLI_PROFILE (inclusive) of TRAIN_CLI_PROFILE_STEPS steps
+TRAIN_CLI_ARCH = "whisper-large-v3"
+TRAIN_CLI_LAYERS = 1
+TRAIN_CLI_BATCH, TRAIN_CLI_SEQ = 4, 448
+TRAIN_CLI_STEPS, TRAIN_CLI_CKPT_EVERY, TRAIN_CLI_CRASH = 6, 3, 5
+TRAIN_CLI_SYNC_STEPS = 3
+TRAIN_CLI_PROFILE, TRAIN_CLI_PROFILE_STEPS = (2, 3), 4
 
 KERNEL_INFO = {
     "ghost_norm_sq": ("src/repro_torch/csrc/ghost_norm.cu",
@@ -3272,6 +3302,326 @@ def phase_tuner_cli(path: dict) -> dict:
             "bk_branches": plan.branch_map("bk_mixed"), "gate": gate}
 
 
+def _train_cli_cfg():
+    """Whisper-large-v3 at full width, TRAIN_CLI_LAYERS encoder and decoder
+    layers (the train CLI's ``arch`` keyword: no flag cuts depth)."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = dataclasses.replace(get_arch(TRAIN_CLI_ARCH), n_layers=TRAIN_CLI_LAYERS,
+                              encoder_layers=TRAIN_CLI_LAYERS)
+    require((cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab, cfg.encoder_seq)
+            == (1280, 20, 5120, 51866, 1500), f"train_cli: not Whisper's full width: {cfg}")
+    return cfg
+
+
+def _count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, with the
+    synchronizing CUDA operations of the calling thread (the data
+    pipeline's thread, which makes each batch, is not counted) split by the
+    train loop's steps: ``per_step`` counts those between one step's metrics
+    copy (``launch.train.host_metrics``, itself one sync) and the next's,
+    ``outside`` those before the first and after the last.  Each sync
+    outside the steps is named by its innermost frame of this repository."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    from repro_torch.launch import train
+
+    main, n, marks, where = threading.get_ident(), [0], [], []
+    real = train.host_metrics
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if threading.get_ident() == main and "synchroniz" in str(message):
+            n[0] += 1
+            frames = [f for f in traceback.extract_stack()[:-2] if "/src/repro_torch/" in f.filename]
+            where.append(f"{Path(frames[-1].filename).name}:{frames[-1].lineno}" if frames
+                         else "?")
+
+    def marked(metrics):
+        out = real(metrics)
+        marks.append(n[0])
+        return out
+
+    train.host_metrics = marked
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            train.host_metrics = real
+    require(bool(marks), "train_cli: the loop copied no metrics")
+    per_step = [b - a for a, b in zip(marks, marks[1:])]
+    first = marks[0] - 1  # the first step's own metrics copy counts as a step's
+    outside = where[:first] + where[marks[-1]:]
+    return out, {"total": n[0], "per_step": per_step, "outside": outside}
+
+
+def _train_cli_run(argv: list, arch) -> dict:
+    """One in-process ``launch.train.main(argv, arch=arch)``: its exit
+    code, the kernel launches it made (zeroed just before, read just after)
+    and its seconds."""
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train
+
+    print(f"train_cli: python -m repro_torch.launch.train {' '.join(argv)}")
+    launches.reset()
+    t0 = time.perf_counter()
+    rc = train.main(argv, arch=arch)
+    seconds = time.perf_counter() - t0
+    counts = launches.snapshot()
+    require(rc == 0, f"train_cli: exit code {rc} for {argv}")
+    return {"seconds": seconds, "cuda": {k: counts[k]["cuda"] for k in KERNEL_INFO},
+            "torch": {k: counts[k]["torch"] for k in KERNEL_INFO}}
+
+
+def _npz_leaves(path) -> dict:
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: np.array(z[k]) for k in z.files}
+
+
+def _step_stats(ms: list) -> dict:
+    q1, med, q3 = statistics.quantiles(ms, n=4) if len(ms) > 1 else (ms[0],) * 3
+    return {"ms": ms, "median_ms": statistics.median(ms), "q1_ms": q1, "q3_ms": q3}
+
+
+def _embedding_determinism(model, params, batch) -> list:
+    """The cost of the deterministic embedding gradient: at each embedding
+    tap of the path's step, the weighted gradient's scatter by
+    ``index_put_(accumulate=True)`` (sorted, what core.ghost runs) against
+    ``index_add_`` (float atomics), CUDA-event ms each, and whether each
+    gives the same bits again on the same inputs (index_add_ 20 times)."""
+    import torch
+
+    from repro_torch.core.clipping import discover_meta
+    from repro_torch.utils.tree import flatten_dict
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = flatten_dict(params)
+    ids_of = {"embed/e": batch["tokens"].reshape(-1)}
+    out = []
+    for name, m in discover_meta(model.loss_with_ctx, params, batch).items():
+        if m.kind != "embedding":
+            continue
+        v, d = flat[m.param_path].shape
+        ids = ids_of.get(m.param_path)
+        if ids is None:  # a learned position embedding: positions 0..T-1 per sample
+            ids = torch.arange(m.T, device="cuda").repeat(m.batch_size)
+        vals = torch.randn((ids.numel(), d), generator=gen, device="cuda")
+
+        def put():
+            return torch.zeros((v, d), device="cuda").index_put_((ids,), vals, accumulate=True)
+
+        def add():
+            return torch.zeros((v, d), device="cuda").index_add_(0, ids, vals)
+
+        row = {"tap": name, "param": m.param_path, "shape": [v, d], "rows": ids.numel(),
+               "repeats": ids.numel() - int(torch.unique(ids).numel()),
+               "index_put_ms": cuda_ms(put, 20), "index_add_ms": cuda_ms(add, 20),
+               "index_put_reproducible": bool(torch.equal(put(), put())),
+               "index_add_reproducible": all(torch.equal(add(), add()) for _ in range(20))}
+        print(f"train_cli: {name} ({v} x {d}, {row['rows']} rows, {row['repeats']} repeats): "
+              f"index_put_ {row['index_put_ms']:.4f} ms (bit-reproducible "
+              f"{row['index_put_reproducible']}), index_add_ {row['index_add_ms']:.4f} ms "
+              f"(bit-reproducible {row['index_add_reproducible']})")
+        require(row["index_put_reproducible"], f"train_cli: index_put_ at {name} not reproducible")
+        out.append(row)
+    return out
+
+
+def phase_train_cli() -> dict:
+    """The port's train CLI (``launch/train.py``'s ``main``, in process) on
+    Whisper-large-v3 at full width, 1 encoder + 1 decoder layer, batch 4 x
+    448 tokens over 1500 frames, bf16 compute, adam, checkpoints in a
+    temporary directory deleted at the end:
+
+    1. a straight TRAIN_CLI_STEPS-step bk_mixed run under the quantile
+       policy against the same run crashed at step TRAIN_CLI_CRASH and
+       auto-restarted: the final checkpoint bit-identical leaf by leaf (the
+       generator's and the policy's state included), the summaries'
+       epsilon, delta, logical batch, microbatch and accumulation equal;
+    2. the launch counters: every run launched the card's kernels, the
+       straight run and the mixed_ghost run as many per step as the path's
+       taps predict, and no run called a plain version;
+    3. a mixed_ghost run with --obs-dir and --profile-steps: the trace holds
+       one step span per profiled step, and python -m repro_torch.obs
+       renders the run; then mixed_ghost without and with --obs-dir
+       (TRAIN_CLI_SYNC_STEPS steps each): the synchronizing CUDA operations
+       of the loop's thread are as many either way;
+    4. reported: step times (the loop's own beside the trace's host and
+       device spans and the kernels' busy time inside them), checkpoint
+       bytes, snapshot, write and restore seconds, the deterministic
+       embedding gradient's cost, peak memory; the kernels at this path's
+       shapes (the kernel table's train_cli cell)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import build_model
+    from repro_torch.data.synthetic import synthetic_arch_batch
+    from repro_torch.obs import configure_run, read_jsonl
+    from repro_torch.obs.timeline import execution_spans, step_kernel_ms, step_wall_times_ms
+
+    cfg = _train_cli_cfg()
+    out = {"arch": TRAIN_CLI_ARCH, "layers": TRAIN_CLI_LAYERS, "batch": TRAIN_CLI_BATCH,
+           "seq": TRAIN_CLI_SEQ, "dtype": cfg.dtype}
+    # the path's taps (launches per step, kernel shapes), the embedding
+    # gradient's cost and the kernels at its shapes, on a model of its own
+    # that is freed before the CLI runs build theirs
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = synthetic_arch_batch(cfg, batch=TRAIN_CLI_BATCH, seq=TRAIN_CLI_SEQ, device="cuda")
+    shapes, expected, _ = main_path_shapes(model, params, batch)
+    out["embedding_determinism"] = _embedding_determinism(model, params, batch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for kernel in ("ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad",
+                   "psg_contract"):
+        cases[kernel] = []
+        for (shape, dtypes), calls in sorted(shapes[kernel].items()):
+            case = _kernel_case(kernel, shape, dtypes, gen, timed=True)
+            case["path"], case["calls_per_step"] = "train_cli", calls
+            cases[kernel].append(case)
+    out["kernel_cases"] = cases
+    del model, params, batch
+    _free()
+
+    base = ["--arch", TRAIN_CLI_ARCH, "--seq", str(TRAIN_CLI_SEQ), "--batch",
+            str(TRAIN_CLI_BATCH), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
+        tmp = Path(tmp)
+        free = shutil.disk_usage(tmp).free
+        print(f"train_cli: checkpoints under {tmp} ({free / 2**30:.1f} GiB free)")
+        resume = base + ["--steps", str(TRAIN_CLI_STEPS), "--ckpt-every",
+                         str(TRAIN_CLI_CKPT_EVERY), "--mode", "bk_mixed",
+                         "--clip-policy", "quantile"]
+        torch.cuda.reset_peak_memory_stats()
+        runs = {"straight": _train_cli_run(resume + ["--ckpt-dir", str(tmp / "a")], cfg)}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        final = f"step_{TRAIN_CLI_STEPS}.npz"
+        straight = _npz_leaves(tmp / "a" / final)
+        for p in (tmp / "a").glob("step_*.npz"):
+            if p.name != final:
+                p.unlink()
+        runs["restarted"] = _train_cli_run(
+            resume + ["--ckpt-dir", str(tmp / "b"), "--inject", f"crash@{TRAIN_CLI_CRASH}",
+                      "--auto-restart", "2"], cfg)
+        restarted = _npz_leaves(tmp / "b" / final)
+        require(sorted(straight) == sorted(restarted), "train_cli: the checkpoints' leaves differ")
+        require(any(k.startswith("policy/") for k in straight) and "rng" in straight,
+                "train_cli: no policy or generator state in the checkpoint")
+        diverged = [k for k in straight if straight[k].dtype != restarted[k].dtype
+                    or not (straight[k] == restarted[k]).all()]
+        require(not diverged, f"train_cli: restarted run diverged at {diverged[:8]}")
+        sums = [json.loads((tmp / d / "summary.json").read_text()) for d in ("a", "b")]
+        keys = ("epsilon", "delta", "logical_batch", "microbatch", "accumulation_steps", "step")
+        require(all(sums[0][k] == sums[1][k] for k in keys),
+                f"train_cli: summaries differ: {sums}")
+        out["summary"] = sums[0]
+        ckpt = {"bytes": (tmp / "a" / final).stat().st_size}
+        events = {d: read_jsonl(tmp / d / "events.jsonl") for d in ("a", "b")}
+        saved = [e for e in events["a"] + events["b"] if e["kind"] == "checkpoint_saved"]
+        restored = [e for e in events["b"] if e["kind"] == "checkpoint_restored"]
+        ckpt.update(snapshot_s=[e["snapshot_s"] for e in saved],
+                    write_s=[e["write_s"] for e in saved],
+                    restore_s=[e["restore_s"] for e in restored],
+                    restored_step=[e["step"] for e in restored])
+        out["checkpoint"] = ckpt
+        out["bk_mixed_step_s"] = {d: [m["step_s"] for m in read_jsonl(tmp / d / "metrics.jsonl")
+                                      if m["kind"] == "train_step"] for d in ("a", "b")}
+        print(f"train_cli: straight and restarted (crash at {TRAIN_CLI_CRASH}, restored step "
+              f"{ckpt['restored_step']}) bit-identical over {len(straight)} leaves; checkpoint "
+              f"{ckpt['bytes'] / 2**30:.2f} GiB, snapshot s {ckpt['snapshot_s']}, write s "
+              f"{ckpt['write_s']}, restore s {ckpt['restore_s']}; epsilon {sums[0]['epsilon']}")
+        shutil.rmtree(tmp / "a")
+        shutil.rmtree(tmp / "b")
+
+        first, last = TRAIN_CLI_PROFILE
+        prof_dir = tmp / "prof"
+        runs["profiled"] = _train_cli_run(
+            base + ["--steps", str(TRAIN_CLI_PROFILE_STEPS), "--mode", "mixed_ghost",
+                    "--obs-dir", str(prof_dir), "--profile-steps", f"{first}:{last}"], cfg)
+        traces = list((prof_dir / "profile").glob("*.trace.json"))
+        require(len(traces) == 1 and traces[0].stat().st_size > 0,
+                f"train_cli: no trace under {prof_dir / 'profile'}")
+        host = execution_spans(prof_dir / "profile")
+        n_prof = last - first + 1
+        require([h["name"] for h in host] == [f"train_step#{i}" for i in range(first, last + 1)],
+                f"train_cli: step spans {[h['name'] for h in host]}, expected {n_prof}")
+        device = step_kernel_ms(prof_dir / "profile")
+        loop = [m["step_s"] * 1e3 for m in read_jsonl(prof_dir / "metrics.jsonl")
+                if m["kind"] == "train_step"]
+        out["profile"] = {"trace_bytes": traces[0].stat().st_size,
+                          "host_span_ms": step_wall_times_ms(prof_dir / "profile"),
+                          "device": device, "loop_ms": loop}
+        print(f"train_cli: profiled steps {first}-{last}: loop ms "
+              f"{[round(x, 2) for x in loop[first:last + 1]]}, host spans ms "
+              f"{[round(x, 2) for x in out['profile']['host_span_ms']]}, device spans "
+              + (", ".join(f"{d['span_ms']:.2f} ms ({d['kernels']} kernels busy "
+                           f"{d['kernel_ms']:.2f} ms)" for d in device) or "not measured"))
+        # after the profiled run: the path's one-time set-up (a first call's
+        # sync) lands in neither count
+        sync = base + ["--steps", str(TRAIN_CLI_SYNC_STEPS), "--mode", "mixed_ghost"]
+        runs["plain"], syncs_plain = _count_syncs(lambda: _train_cli_run(sync, cfg))
+        runs["obs"], syncs_obs = _count_syncs(
+            lambda: _train_cli_run(sync + ["--obs-dir", str(tmp / "obs")], cfg))
+        out["syncs"] = {"plain": syncs_plain, "obs": syncs_obs}
+        print(f"train_cli: synchronizing CUDA ops of the loop's thread per mixed_ghost step "
+              f"after the first: {syncs_plain['per_step']} without obs, {syncs_obs['per_step']} "
+              f"with --obs-dir; outside the steps {syncs_plain['outside']} / "
+              f"{syncs_obs['outside']}")
+        require(syncs_plain["per_step"] == syncs_obs["per_step"],
+                f"train_cli: obs adds host syncs to a step: {syncs_plain} -> {syncs_obs}")
+
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        rendered = subprocess.run([sys.executable, "-m", "repro_torch.obs", str(prof_dir),
+                                   "--timeline"], capture_output=True, text=True, env=env,
+                                  timeout=120)
+        print(rendered.stdout.rstrip())
+        require(rendered.returncode == 0 and
+                f"train steps recorded: {TRAIN_CLI_PROFILE_STEPS}" in rendered.stdout,
+                f"train_cli: python -m repro_torch.obs failed: {rendered.stderr[-2000:]}")
+        out["rendered"] = rendered.stdout
+        steps_ms = {"bk_mixed": [x * 1e3 for x in out["bk_mixed_step_s"]["a"][1:]],
+                    "mixed_ghost": loop[1:]}
+        out["step_ms"] = {mode: _step_stats(ms) for mode, ms in steps_ms.items()}
+        for mode, st in out["step_ms"].items():
+            print(f"train_cli: {mode} step ms (the loop's, first step dropped) median "
+                  f"{st['median_ms']:.2f} (q1 {st['q1_ms']:.2f}, q3 {st['q3_ms']:.2f})")
+        configure_run(None)  # close the last run's streams before the directory goes
+
+    # the launch counters: kernels, never the plain versions
+    for name, run in runs.items():
+        require(not any(run["torch"].values()),
+                f"train_cli {name}: plain-version calls on the card {run['torch']}")
+        require(any(run["cuda"].values()), f"train_cli {name}: no kernel launched")
+    for name, mode, steps in (("straight", "bk_mixed", TRAIN_CLI_STEPS),
+                              ("plain", "mixed_ghost", TRAIN_CLI_SYNC_STEPS)):
+        per_step = {k: runs[name]["cuda"][k] / steps for k in KERNEL_INFO}
+        require(per_step == expected[mode],
+                f"train_cli {name}: launches per step {per_step}, expected {expected[mode]}")
+    for kernel in KERNEL_INFO:
+        wanted = expected["bk_mixed"][kernel] or expected["mixed_ghost"][kernel]
+        require(not wanted or runs["straight"]["cuda"][kernel] + runs["plain"]["cuda"][kernel],
+                f"train_cli: {kernel} was never launched")
+    out["runs"] = runs
+    out["expected"] = {m: expected[m] for m in ("mixed_ghost", "bk_mixed")}
+    out["launches"] = {k: sum(r["cuda"][k] for r in runs.values()) for k in KERNEL_INFO}
+    print(f"train_cli: launches per step, bk_mixed {expected['bk_mixed']}, mixed_ghost "
+          f"{expected['mixed_ghost']}; per run (seconds, launches) "
+          + "; ".join(f"{k} {r['seconds']:.1f} s {r['cuda']}" for k, r in runs.items()))
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -3336,8 +3686,11 @@ def run() -> dict:
     hybrid_serve = phase("hybrid_serve", phase_hybrid_serve)
     wave_serve = phase("wave_serve", phase_wave_serve)
     tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
+    train_cli = phase("train_cli", phase_train_cli)
+    for kernel, cases in train_cli.pop("kernel_cases").items():
+        kernels[kernel].extend(cases)
     runs = {**slices, "serve": serve, "moe_serve": moe_serve, "hybrid_serve": hybrid_serve,
-            "wave_serve": wave_serve}
+            "wave_serve": wave_serve, "train_cli": train_cli}
     summary = summary_line(kernels, runs)
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
@@ -3352,7 +3705,7 @@ def run() -> dict:
         "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
         "accum": accum, "remat": remat, "tune": tune, "max_batch": max_batch, "serve": serve,
         "moe_serve": moe_serve, "hybrid_serve": hybrid_serve, "wave_serve": wave_serve,
-        "tuner_cli": tuner_cli,
+        "tuner_cli": tuner_cli, "train_cli": train_cli,
         "summary": summary, "per_path": per_path,
     }, indent=1, default=str))
     return {"summary": summary, "card": card}

@@ -1,4 +1,5 @@
-"""Architecture configuration (a copy of ``configs/base.py``'s ``ArchConfig``).
+"""Architecture and shape configuration (a copy of ``configs/base.py``'s
+``ArchConfig`` and ``ShapeConfig``).
 
 Pure Python, kept here so the port never imports the JAX package.  The
 fields, their defaults and ``reduced()`` are the JAX package's, so a test
@@ -21,6 +22,22 @@ def torch_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclasses.dataclass(frozen=True)

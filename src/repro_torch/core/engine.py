@@ -18,7 +18,8 @@ branch decision per tap on the engine's device, certifies the largest
 physical batch under a memory budget by trial, and adopts (and by default
 caches) the ``ClipPlan``; ``use_plan`` adopts one, ``recertify_max_batch``
 searches again for the current mode and plan, and ``plan_event_fields`` is
-the record of what a step runs.  The fleet agreement (``tune``'s
+the record of what a step runs.  ``check_epsilon_alarm`` emits the one-shot
+``epsilon_budget_crossed`` event.  The fleet agreement (``tune``'s
 ``consensus=`` and ``gather_fn=``) comes with ``torch.distributed`` and
 raises ``NotImplementedError`` until then.
 """
@@ -47,8 +48,8 @@ log = logging.getLogger("repro_torch.engine")
 
 # the fleet agreement's refusal, shared by PrivacyEngine.tune and the tuner CLI
 CONSENSUS_LATER = ("fleet consensus comes with the port of tuner/consensus.py over "
-                   "torch.distributed, in the slice of the runtime around training "
-                   "(checkpoint, obs, runtime, parallel)")
+                   "torch.distributed, with parallel/, after the single-process "
+                   "runtime around training")
 
 
 @dataclasses.dataclass
@@ -99,6 +100,7 @@ class PrivacyEngine:
                 release_sigmas=self._release_sigmas(),
             )
         self.accountant = RDPAccountant()
+        self._eps_alarm_fired = False
         self._clip_cfg = ClipConfig(
             mode=self.mode,
             clip_norm=self.max_grad_norm,
@@ -313,6 +315,35 @@ class PrivacyEngine:
             self.accountant.step(q=self.sampling_rate, sigma=self.noise_multiplier, steps=1)
             for rs in self._release_sigmas():
                 self.accountant.step(q=self.sampling_rate, sigma=rs, steps=1)
+
+    def check_epsilon_alarm(self, fraction: float, step: Optional[int] = None) -> bool:
+        """One-shot budget alarm: emit ``epsilon_budget_crossed`` once the
+        accountant's spend passes ``fraction * target_epsilon``.
+
+        Returns True iff the alarm fired on THIS call: the latch keeps it to
+        one event per engine, so drivers may call this after every
+        ``record_step``.  A no-op when the run has no ``target_epsilon`` or
+        ``fraction <= 0``.
+        """
+        if self._eps_alarm_fired or self.target_epsilon is None or fraction <= 0:
+            return False
+        eps, delta = self.privacy_spent()
+        if eps < fraction * self.target_epsilon:
+            return False
+        self._eps_alarm_fired = True
+        from repro_torch.obs import events as obs
+
+        obs.emit_event(
+            "epsilon_budget_crossed",
+            step=step,
+            epsilon=float(eps),
+            delta=float(delta),
+            target_epsilon=float(self.target_epsilon),
+            fraction=float(fraction),
+        )
+        log.warning("privacy budget alarm: epsilon %.4f passed %.0f%% of target %.4f",
+                    eps, 100 * fraction, self.target_epsilon)
+        return True
 
     def privacy_spent(self, steps: Optional[int] = None) -> tuple[float, float]:
         if steps is not None:

@@ -347,8 +347,11 @@ def tap_weighted_grads(
     else:
         gw = g.float().reshape(lead, b, -1, meta.p) * cw[None, :, None, None]
         if meta.kind == "embedding":
+            # index_put_ with accumulate sums a row's repeats in one sorted
+            # order on the card, where index_add_ adds them with float
+            # atomics in any order: a replayed step gives the same bits
             w = torch.zeros(param_shape, dtype=torch.float32, device=g.device)
-            w = w.index_add_(0, a.reshape(-1), gw.reshape(-1, meta.p))
+            w = w.index_put_((a.reshape(-1),), gw.reshape(-1, meta.p), accumulate=True)
         elif meta.kind == "scale":
             w = (gw * a.float().reshape(gw.shape)).sum(dim=(1, 2)).reshape(param_shape)
         else:

@@ -16,8 +16,10 @@ Random weights from seed 0, random prompts from a ``torch.Generator`` seeded
 1 (ids 1..vocab-1, off the default EOS id 0), the wave's prefixes and frames
 (standard normal, in ``cfg.dtype``) from generators seeded 2 and 3, as the
 JAX CLI keys them.  It runs on the GPU unless ``--device cpu`` is given, and
-raises without a GPU.  The JAX CLI's ``--obs-dir`` is not ported (obs is
-not).
+raises without a GPU.  ``--obs-dir`` writes the observability streams there
+(``events.jsonl``: run_started, request_shed, run_finished;
+``metrics.jsonl``: the engine's serving_step records), read back with
+``python -m repro_torch.obs DIR``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.configs.registry import build_model, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step
+from repro_torch.obs import events as obs
 from repro_torch.serving import Engine, aggregate_metrics
+from repro_torch.utils.logging import reconfigure
 
 
 def make_prompts(n: int, length: int, vocab: int, seed: int, device) -> list[list[int]]:
@@ -134,9 +138,26 @@ def main(argv=None) -> int:
     ap.add_argument("--slo-ttft-ms", type=float, default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current GPU; 'cpu' must be asked for)")
+    ap.add_argument("--obs-dir", default=None,
+                    help="directory for the observability streams "
+                         "(events.jsonl/metrics.jsonl); request_shed events "
+                         "and per-step queue stats land here")
     args = ap.parse_args(argv)
+    reconfigure()
 
     device = resolve_device(args.device)
+    obs.configure_run(args.obs_dir)
+    obs.emit_event(
+        "run_started", arch=args.arch, reduced=bool(args.reduced),
+        slots=args.slots, requests=args.requests, max_new=args.max_new,
+        slo_ttft_ms=args.slo_ttft_ms,
+    )
+    rc = _serve(args, device)
+    obs.emit_event("run_finished", exit_code=rc)
+    return rc
+
+
+def _serve(args, device) -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

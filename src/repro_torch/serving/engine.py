@@ -23,7 +23,9 @@ batched against single-row matrix products (bit-identical on the CPU in
 the tests; on the card cuBLAS may pick other kernels for the two shapes).
 The engine's device state (``dense``, the pools) is written in place:
 ``_install`` and ``scatter_rows`` update one lane, where the JAX engine
-builds new arrays.  The obs metrics of each step are not ported.  As the JAX
+builds new arrays.  With the metrics stream on (``repro_torch.obs``), each
+step emits a ``serving_step`` record: slots, emitted tokens and the queue's
+admission state, all host values.  As the JAX
 engine does, it refuses the encoder-frontend families (audio frames, a VLM
 prefix): its requests are token prompts, and those models serve as one
 fixed wave (``launch/serve.py``'s ``serve_wave``).
@@ -41,6 +43,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.launch.steps import make_decode_step
+from repro_torch.obs.events import emit_metrics, metrics_active
 from repro_torch.serving.kv_pages import (
     PageAllocator,
     extract_kv,
@@ -225,6 +228,20 @@ class Engine:
         if self.scheduler.active_slots():
             emitted.extend(self._decode_once())
         self.steps += 1
+        if metrics_active():
+            emit_metrics(
+                dict(
+                    kind="serving_step",
+                    active_slots=len(self.scheduler.active_slots()),
+                    free_slots=len(self.scheduler.free_slots()),
+                    emitted=len(emitted),
+                    **self.queue.stats(
+                        free_slots=len(self.scheduler.free_slots()),
+                        active_remaining=self.scheduler.active_remaining(),
+                    ),
+                ),
+                step=self.steps,
+            )
         return emitted
 
     def drain(self, max_steps: Optional[int] = None) -> dict[int, Completion]:

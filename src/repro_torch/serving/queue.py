@@ -1,6 +1,5 @@
 """Request queue with SLO-aware admission for the decode engine (a copy of
-``serving/queue.py`` without its obs ``request_shed`` event: obs is not
-ported).
+``serving/queue.py``; a shed request is a ``request_shed`` event).
 
 A ``Request`` carries its prompt, a generation budget (``max_new``), and an
 optional time-to-first-token SLO.  Admission happens once, at ``submit``:
@@ -28,6 +27,7 @@ import dataclasses
 from collections import deque
 from typing import Optional
 
+from repro_torch.obs.events import emit_event
 
 
 @dataclasses.dataclass
@@ -138,6 +138,12 @@ class RequestQueue:
             )
             if projected * 1e3 > req.slo_ttft_ms:
                 self.shed.append(req)
+                emit_event(
+                    "request_shed", rid=req.rid, prompt_len=req.prompt_len,
+                    slo_ttft_ms=req.slo_ttft_ms,
+                    projected_ttft_ms=projected * 1e3,
+                    queue_depth=len(self._pending), free_slots=free_slots,
+                )
                 return False
         self._pending.append(req)
         return True

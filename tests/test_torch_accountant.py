@@ -5,6 +5,7 @@ import pytest
 
 from repro.core import accountant as jacc
 from repro_torch.core import accountant as tacc
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CASES = [
     dict(q=256 / 50_000, sigma=1.1, steps=1000, delta=1e-5),

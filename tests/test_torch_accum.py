@@ -38,6 +38,7 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.utils.tree import flatten_dict
 from test_torch_oracle import CPU, TINY_PLAN, pair
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 K, PHYSICAL = 3, 2  # microsteps of 2 samples: a logical batch of 6

@@ -29,6 +29,7 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.utils.tree import flatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 MODES = ["non_private", "mixed_ghost", "bk_mixed"]
 # the fused engine's fixed-branch modes share its code; held equal too

@@ -14,6 +14,7 @@ from repro_torch.core import functions as tfn
 from repro_torch.core import ghost as tghost
 from repro_torch.core.taps import TapMeta
 from repro_torch.optim import schedules as tsched
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(jfn.CLIP_FUNCTIONS))

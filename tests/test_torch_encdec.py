@@ -54,6 +54,7 @@ from torch_lm_family import (
     pair,
     run_port,
 )
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 NAME = "whisper-large-v3"
 ROOT = Path(__file__).resolve().parents[1]

@@ -33,6 +33,7 @@ from repro.kernels.flash_attention.ref import mha_reference
 from repro_torch.kernels import dispatch, launches
 from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_train
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 5e-3}

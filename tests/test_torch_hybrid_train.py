@@ -35,6 +35,7 @@ from repro_torch.data.synthetic import synthetic_arch_batch
 from repro_torch.policies import PerLayerPolicy
 from repro_torch.tuner.plan import shape_fingerprint as tfingerprint
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RECURRENT = ["jamba-1.5-large-398b", "xlstm-350m"]
 TOL = 1e-5

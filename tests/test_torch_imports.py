@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/``, nor
-``chip_smoke.py`` or the port's example, imports JAX or the JAX package, and
+"""The port stands alone: nothing under ``src/repro_torch/`` (its runtime
+subpackages ``checkpoint``, ``runtime`` and ``obs`` included), nor
+``chip_smoke.py`` or the port's examples, imports JAX or the JAX package, and
 ``triton`` is only ever imported inside the function that launches a kernel
 (the CPU tests import every module and have no ``triton``)."""
 import ast
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "dp_finetune_cnn_torch.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+RUNTIME_SUBPACKAGES = ("checkpoint", "runtime", "obs")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -33,6 +35,15 @@ def _imports(tree: ast.AST):
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").exists()
     assert len(PORT_FILES) > 20
+
+
+@pytest.mark.parametrize("sub", RUNTIME_SUBPACKAGES)
+def test_runtime_subpackages_are_checked(sub):
+    """The single-process runtime's subpackages are among the files the
+    import checks read, each with its ``__init__``."""
+    pkg = ROOT / "src" / "repro_torch" / sub
+    files = [p for p in PORT_FILES if pkg in p.parents]
+    assert pkg / "__init__.py" in files and len(files) >= 3
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -22,6 +22,7 @@ from repro_torch.configs.registry import build_model, get_arch
 from repro_torch.models import cnn as tcnn
 from repro_torch.models import vit as tvit
 from repro_torch.utils.tree import flatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 TINY_VGG = (8, "M", 16, "M")  # the VGG's conv<i> naming at a few channels

@@ -26,6 +26,7 @@ from repro_torch import interop
 from repro_torch.core import clipping as tclip
 from repro_torch.utils.tree import flatten_dict
 from test_torch_hybrid_train import TOL, _batch, _pair
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", tclip.MODES)

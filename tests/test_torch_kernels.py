@@ -26,6 +26,7 @@ from repro_torch.kernels import dispatch, launches
 from repro_torch.kernels.ghost_norm import ghost_norm as tgn
 from repro_torch.kernels.ghost_norm import ops as tgops
 from repro_torch.kernels.psg_contract import psg_contract as tpc
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL = 1e-5  # fp32, same inputs; only the summation order differs
 

@@ -42,6 +42,7 @@ from repro_torch.nn.stack import ScannedStack
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.utils.tree import flatten_dict
 from test_clipping_exactness import _StackModel as JaxStackModel
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]

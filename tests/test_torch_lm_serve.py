@@ -52,6 +52,7 @@ from repro_torch.serving.kv_pages import (
     strip_kv,
 )
 from repro_torch.utils.tree import flatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ARCH_CASES = {  # id -> (arch, KV heads override)
     "yi-6b": ("yi-6b", None),

@@ -41,6 +41,7 @@ from repro_torch.core import clipping as tclip
 from repro_torch.models.losses import per_sample_xent as txent
 from repro_torch.tuner.plan import shape_fingerprint as tfingerprint
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ARCHS = ["yi-6b", "codeqwen1.5-7b", "qwen1.5-32b", "qwen2-72b", "mixtral-8x7b",
          "arctic-480b"]

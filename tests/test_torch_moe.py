@@ -28,6 +28,7 @@ from repro_torch.configs.registry import build_model, get_arch
 from repro_torch.core.taps import Ctx
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.nn import moe as tmoe
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 E, K, D, F = 4, 2, 8, 12
 

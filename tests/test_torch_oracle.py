@@ -40,6 +40,7 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.models import vit as tvit
 from repro_torch.nn import module as tmod
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CLIP_NORM = 0.3
 TOL = 5e-5

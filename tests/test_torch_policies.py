@@ -32,6 +32,7 @@ from repro_torch.kernels import launches
 from repro_torch.models import cnn as tcnn
 from repro_torch.utils.tree import flatten_dict
 from test_torch_oracle import CPU, TINY_PLAN, assert_matches_vmap, pair, run_port
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 MASK = (1.0, 1.0, 0.0, 1.0)
 MODES = [m for m in tclip.MODES if m not in ("vmap", "non_private")]

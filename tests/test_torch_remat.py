@@ -30,6 +30,7 @@ from repro_torch.core import ghost as tghost
 from repro_torch.models import vit as tvit
 from repro_torch.policies import make_policy
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 IMAGE, PATCH, N_CLASSES, B = 16, 4, 10, 3
 CLIP_NORM = 0.3

@@ -52,6 +52,7 @@ from repro_torch.nn.module import Dense, Embedding
 from repro_torch.nn.xlstm import MLSTMBlock, SLSTMBlock, SLSTMScan, slstm_scan
 from repro_torch.policies import PerLayerPolicy
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-5
 

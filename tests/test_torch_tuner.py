@@ -65,6 +65,7 @@ from repro_torch.tuner import max_batch as tmb
 from repro_torch.tuner.measure import KERNEL_OPS_BY_KIND, measure_tap
 from repro_torch.tuner.plan import KERNEL_IMPLS, KERNEL_OPS, PLAN_VERSION, tap_signature
 from repro_torch.utils.tree import flatten_dict, tree_map, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CPU = torch.device("cpu")
 FAST = MeasureConfig(repeats=1, warmup=1)

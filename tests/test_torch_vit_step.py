@@ -35,6 +35,7 @@ from repro_torch.models import vit as tvit
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CLIP_MODES = ["non_private", "ghost", "fastgradclip", "mixed_ghost", "bk_mixed"]
 IMAGES = [(16, 4), (20, 4)]  # (image, patch): T = 16 and T = 25 patches

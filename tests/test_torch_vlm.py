@@ -51,6 +51,7 @@ from torch_lm_family import (
     port_params,
     run_port,
 )
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 NAME = "phi-3-vision-4.2b"
 ROOT = Path(__file__).resolve().parents[1]

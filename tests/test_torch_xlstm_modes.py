@@ -25,6 +25,7 @@ from repro_torch.configs.registry import build_model, get_arch
 from repro_torch.core import clipping as tclip
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 from test_torch_ssm import TOL, _rel
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 # -- the reduced xLSTM, all ten modes --------------------------------------------
