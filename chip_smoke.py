@@ -6,7 +6,7 @@
 The main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
 classes, GroupNorm, fp32) at batch 128, of ViT-Base/16 (12 layers, d_model
 768, 224x224, 10 classes) and of BEiT-Large/16 (full width, d_model 1024,
-12 of its 24 layers, 224x224, 1000 classes) at batch 32, both ViTs in bf16
+6 of its 24 layers, 224x224, 1000 classes) at batch 32, both ViTs in bf16
 compute with fp32 parameters and each layer rematerialised in the backward
 (the configs' remat); DP training of the decoder LMs at full width, depth
 cut: Yi-6B (2 of 32 layers, 8 until the recurrent LMs came; d_model 4096,
@@ -16,19 +16,22 @@ and Mixtral-8x7B (1 of 32 layers, 2 until then; 8 experts top 2, d_ff
 at 4096 tokens in bf16 compute with fp32 parameters, remat on; the
 recurrent LMs at full width: Jamba-1.5-Large cut to a two-layer period
 (Mamba + MLP, attention + MoE with 2 of its 16 experts; 3.44B bf16
-parameters; sgd) at batch 2 x 4096 and xLSTM-350M cut to one period (one
-sLSTM and 7 mLSTMs; adamw) at batch 4 x 2048, bf16 compute, remat on;
-the frontend families at full width: Whisper-large-v3 (4 of its 32 encoder
-and 4 of its 32 decoder layers, 1500 stub frames) at batch 8 x 448 tokens
-and Phi-3-vision-4.2b (2 of 32 layers, 32 heads of 96) at batch 4 x (576
+parameters; sgd) at batch 2 x 4096 and xLSTM-350M cut to a four-layer
+period (one sLSTM and 3 mLSTMs; adamw) at batch 4 x 2048, bf16 compute,
+remat on;
+the frontend families at full width: Whisper-large-v3 (2 of its 32 encoder
+and 2 of its 32 decoder layers, 1500 stub frames) at batch 8 x 448 tokens
+and Phi-3-vision-4.2b (1 of 32 layers, 32 heads of 96) at batch 4 x (576
 prefix + 1472 text), bf16 compute, remat on, sgd;
-serving Yi-6B (16 of 32 layers, full width, bf16 compute with fp32
+serving Yi-6B (8 of 32 layers, full width, bf16 compute with fp32
 parameters), Mixtral-8x7B (2 layers, fp32), the Jamba cut and the whole
 xLSTM-350M (fp32) through the continuous-batching engine, and Whisper and
 Phi-3-vision at full width and full depth as one fixed wave; the
 tuner CLI on Yi-6B; and the train CLI (python -m repro_torch.launch.train)
 on Whisper-large-v3 at full width, 1 encoder + 1 decoder layer, with
-checkpoints, a crash and its auto-restart, a profile and the obs streams.
+checkpoints, a crash and its auto-restart, a profile and the obs streams;
+and, last, the same cut as a data-parallel fleet of two ranks that share
+the card (gloo), with one NCCL rank.
 Random weights from seed 0 throughout.  Phases, in order, each one's seconds printed; any
 failure exits non-zero and prints no result:
 
@@ -195,7 +198,19 @@ failure exits non-zero and prints no result:
             and without --obs-dir equal; reported: the loop's step times
             beside the trace's, checkpoint bytes, snapshot, write and restore
             seconds, the deterministic embedding gradient's cost, peak
-            memory, the four clipping kernels at this path's shapes.
+            memory, the four clipping kernels at this path's shapes;
+17. dist     data-parallel + FSDP DP-SGD (parallel/, launch/steps with
+            shardings) on the train_cli cut, two gloo ranks spawned on the
+            one card: a step in non_private, ghost, fastgradclip,
+            mixed_ghost and bk_mixed and a quantile bk_mixed step with a
+            Poisson mask against the one-rank step (fp32, 1e-5: loss, norms,
+            factors, clipped sum, noised gradient, parameters after the
+            update), each
+            rank holding half of every sharded leaf, the launches and the
+            bytes gathered and reduce-scattered, bf16 reported; rank 0
+            alone in an NCCL group; the train CLI on both ranks with
+            --consensus (one plan hash) and a crash-restart bit-identical
+            to a straight run.  Ranks that share a card give no speed.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -252,11 +267,13 @@ MODES = ("non_private", "mixed_ghost", "bk_mixed", "vmap", "mixed_ghost_taps", "
 # BEiT-Large's timed modes: vmap would hold 304M x 32 per-sample gradients
 BEIT_MODES = ("non_private", "mixed_ghost", "bk_mixed")
 LM_MODES = BEIT_MODES
-LM_STEPS = 2  # timed steps per mode on the LM paths (seconds each; 3 before the
+LM_STEPS = 1  # timed steps per mode on the LM paths (seconds each; 3 before the
 # recurrent paths came, cut with STEPS, REMAT_STEPS and the LM depths for the
-# run's time)
-RECURRENT_STEPS = 2  # on the jamba and xlstm paths, cut for the run's time
-STEPS = 2  # timed steps per mode and path (10 until the LM paths came, then 6)
+# run's time; 2 until the dist phase came)
+RECURRENT_STEPS = 1  # on the jamba and xlstm paths, cut for the run's time (2
+# until the dist phase came)
+STEPS = 1  # timed steps per mode and path (10 until the LM paths came, then 6,
+# then 2 until the dist phase came)
 # the oracle phase: every mode against vmap under the fixed policy; the
 # grouped (per_layer: two prefixes and the catch-all) and automatic runs
 ORACLE_MODES = ("ghost", "fastgradclip", "mixed_ghost", "bk_mixed", "ghost_taps",
@@ -272,11 +289,11 @@ ACCUM_MICRO, ACCUM_STEPS = 128, 4
 # off, REMAT_ROUNDS rounds of REMAT_STEPS timed steps each way, interleaved;
 # their norms and clipped sums in fp32 compute within REMAT_TOL
 REMAT_PATHS = ("vit_base", "beit_large")
-# BEiT-Large at full width, 12 of its 24 layers (all 24 until the recurrent
-# LMs came: cut for the run's time)
-BEIT_LAYERS = 12
+# BEiT-Large at full width, 6 of its 24 layers (all 24 until the recurrent
+# LMs came, 12 until the dist phase came: cut for the run's time)
+BEIT_LAYERS = 6
 REMAT_MODES = ("non_private", "mixed_ghost", "bk_mixed")
-REMAT_ROUNDS, REMAT_STEPS = 2, 2
+REMAT_ROUNDS, REMAT_STEPS = 1, 2  # 2 rounds until the dist phase came
 REMAT_TOL = 1e-6
 # the tune phase: PrivacyEngine.tune on these paths (a logical batch of
 # TUNE_LOGICAL samples, whose accumulation the certified batch gives); a
@@ -297,7 +314,7 @@ MAX_BATCH_HI_CAP = 4096
 # slots, page 16, 8 requests of these prompt lengths with MAX_NEW new
 # tokens each (32 until then), max_len = the longest prompt + MAX_NEW
 SERVE_ARCH = "yi-6b"
-SERVE_LAYERS = 16
+SERVE_LAYERS = 8  # 16 until the dist phase came
 PROMPT_LENS = (2048, 131, 1000, 517, 1536, 250, 777, 2000)
 MAX_NEW = 16
 SLOTS = 4
@@ -355,11 +372,15 @@ SERVE_LOGIT_TOL = 2e-2
 # layers 2-3: Mamba + MLP, then attention + MoE) with 2 of its 16 experts
 JAMBA_PERIOD = ("mamba", "attn")
 JAMBA_EXPERTS = 2
+# the xlstm path's cut of xLSTM-350M: its period's sLSTM and 3 of its 7
+# mLSTMs (the whole period of 8 until the dist phase came: cut for the
+# run's time)
+XLSTM_PERIOD = ("slstm",) + ("mlstm",) * 3
 # the whisper path's cut of Whisper-large-v3 (full width): this many of its
 # 32 encoder and of its 32 decoder layers; the phi3v path's of
-# Phi-3-vision's 32 layers
-WHISPER_LAYERS = 4
-PHI3V_LAYERS = 2
+# Phi-3-vision's 32 layers (4 and 2 until the dist phase came)
+WHISPER_LAYERS = 2
+PHI3V_LAYERS = 1
 # the wave_serve phase: both models at full width and full depth through
 # launch/serve._serve_wave, one wave of WAVE_SLOTS prompts of WAVE_PROMPT
 # tokens (after Phi-3-vision's 576-patch prefix, beside Whisper's 1500
@@ -1184,7 +1205,7 @@ def _time_train_steps(model, path: dict, mode: str, batches: list, n_steps: int,
     after = launches.snapshot()
     peak = torch.cuda.max_memory_allocated()
     median = statistics.median(times)
-    q1, _, q3 = statistics.quantiles(times, n=4)
+    q1, _, q3 = statistics.quantiles(times, n=4) if len(times) > 1 else (times[0],) * 3
     trace = (_profiled(lambda: step(state, batches[0]), median,
                        host_ops=path.get("profile_host_ops", True)) if profiled else None)
     n_params = sum(x.numel() for x in flatten_dict(state["params"]).values())
@@ -2087,8 +2108,10 @@ def phase_max_batch(paths: dict, tune: dict) -> dict:
             require(got > 0, f"max_batch {tag} {mode}: nothing fits")
             with mb._memory_fraction(model.device, cap):
                 holds = mb.trial_survives(runner, got, attempts=2)
+                # one attempt: the reading is reported, not gated (two until
+                # the dist phase came)
                 next_fails = (None if got >= MAX_BATCH_HI_CAP
-                              else not mb.trial_survives(runner, got + 1, attempts=2))
+                              else not mb.trial_survives(runner, got + 1, attempts=1))
             require(holds, f"max_batch {tag} {mode}: the certified batch {got} no longer runs "
                     "under the cap")
             check = None
@@ -2898,9 +2921,9 @@ def _lm_paths() -> dict:
     SwiGLU MLP, layer 1 attention + MoE, as Jamba's layers 2-3 are) and 2 of
     its 16 experts (top 2, each at full width): 3.44B parameters in the
     config's bf16, at batch 2 x 4096, sgd; and xLSTM-350M at full width
-    (d_model 1024, 4 heads, mLSTM d_inner 2048, vocab 50304) cut to one
-    period of its three (8 layers: one sLSTM, then 7 mLSTMs) at batch 4 x
-    2048, adamw; both bf16 compute, remat on, RECURRENT_STEPS timed steps.
+    (d_model 1024, 4 heads, mLSTM d_inner 2048, vocab 50304) cut to
+    XLSTM_PERIOD (4 layers: one sLSTM, then 3 mLSTMs) at batch 4 x 2048,
+    adamw; both bf16 compute, remat on, RECURRENT_STEPS timed steps.
     The xLSTM's depth and both paths' steps are cut for the run's time: the
     sLSTM's time loop is host-bound (~20 small launches a token a layer).
     Each path's oracle runs a smaller cut in fp32 compute: Yi-6B at 2
@@ -2946,10 +2969,12 @@ def _lm_paths() -> dict:
                       optimizer=sgd, lr={"non_private": 1e-5, "dp": 1e-3}, compare_batch=2,
                       compare_on_host=True, oracle=dict(layers=2, batch=2, seq=256),
                       recurrent=dict(heads=256, dk=64, dv=64, shared_qk=True)),
-        "xlstm": dict(build=lm("xlstm-350m", 8), batch=4, seq=2048, vocab=50304,
+        "xlstm": dict(build=lm("xlstm-350m", len(XLSTM_PERIOD), block_pattern=XLSTM_PERIOD),
+                      batch=4, seq=2048, vocab=50304,
                       modes=LM_MODES, steps=RECURRENT_STEPS, optimizer=adamw,
                       lr={"non_private": 1e-4, "dp": 1e-4}, compare_batch=2,
-                      oracle=dict(layers=8, batch=2, seq=256), profile_modes=("mixed_ghost",),
+                      oracle=dict(layers=len(XLSTM_PERIOD), batch=2, seq=256),
+                      profile_modes=("mixed_ghost",),
                       compare_spread=False,
                       profile_host_ops=False,
                       recurrent=dict(heads=4, dk=512, dv=513, slstm_d=1024)),
@@ -3622,6 +3647,413 @@ def phase_train_cli() -> dict:
     return out
 
 
+# the dist phase: data-parallel + FSDP DP-SGD over torch.distributed, two
+# gloo ranks on the one card (NCCL refuses two ranks on one GPU), Whisper at
+# the train_cli cut
+DIST_RANKS = 2
+DIST_MODES = ("non_private", "ghost", "fastgradclip", "mixed_ghost", "bk_mixed")
+DIST_BF16_MODES = ("bk_mixed",)
+DIST_TOL = 1e-5  # fp32 gates: the same sums in another order
+DIST_CLI_STEPS, DIST_CLI_CKPT_EVERY, DIST_CLI_CRASH = 2, 2, 1
+DIST_TIMEOUT_S = 600
+
+
+def _dist_policy(name: str):
+    """The train CLI's policy for ``--clip-policy name`` at its defaults."""
+    from repro_torch.policies import make_policy
+
+    return make_policy(name, clip_norm=1.0, init_clip_norm=1.0, gamma=0.01,
+                       target_quantile=0.5, lr=0.2, release_sigma=1.0, groups=())
+
+
+def _rel_tree(got: dict, want: dict, layout) -> float:
+    """Max over leaves of |got - want| over the leaf's largest |want| (a
+    leaf zero up to rounding, under 1e-6 of the tree's largest entry, as the
+    attention key biases the softmax ignores, over the tree's largest);
+    ``got`` holds this rank's shards, ``want`` full leaves."""
+    top = max(float(v.abs().max()) for v in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        leaf = float(w.abs().max())
+        scale = leaf if leaf >= 1e-6 * top else top
+        mine = layout.local(k, w)
+        worst = max(worst, float((got[k].float() - mine.float()).abs().max()) / scale)
+    return worst
+
+
+def _dist_case(cfg, mode: str, policy_name: str, poisson: bool, mesh, rank: int) -> dict:
+    """One clipped call plus the noise-and-update tail (``make_noise_finalize``,
+    the tail of ``make_train_step``) on the sharded state, and on each rank
+    the same on one rank: norms, factors, the clipped gradient sum before
+    the noise (gated on its own: the noise's scale would hide its error),
+    the noised gradient and the parameters after the update (each rank's
+    shards against the same slices of the one-rank tensors: the gathered
+    comparison without moving a byte), with the launches, collective bytes
+    and ms of the sharded call.  The update is SGD with momentum (its
+    moment is sharded like Adam's): linear in the gradient, so the
+    parameters inherit the gradient's tolerance.  Adam's first step divides
+    each entry by its own magnitude, so where a gradient is zero up to
+    rounding (the attention key biases, without noise under non_private)
+    it moves by +-lr either way; the CLI runs Adam."""
+    import torch
+
+    from repro_torch.configs.registry import build_model
+    from repro_torch.core.noise import add_dp_noise
+    from repro_torch.data.poisson import poisson_sample_mask
+    from repro_torch.data.synthetic import synthetic_arch_batch
+    from repro_torch.kernels import launches
+    from repro_torch.launch.steps import (
+        DPTrainConfig,
+        make_clipped_microstep,
+        make_noise_finalize,
+        make_train_state,
+    )
+    from repro_torch.optim import constant, sgd
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.fsdp import ShardLayout, sharded_fraction
+    from repro_torch.parallel.reshard import use_reshard_rules
+    from repro_torch.parallel.sharding import state_shardings
+    from repro_torch.utils.tree import flatten_dict
+
+    model = build_model(cfg, device="cuda")
+    policy = _dist_policy(policy_name)
+    opt = sgd(momentum=0.9)
+    dp = DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
+                       logical_batch=TRAIN_CLI_BATCH, policy=policy)
+    batch = synthetic_arch_batch(cfg, batch=TRAIN_CLI_BATCH, seq=TRAIN_CLI_SEQ, device="cuda")
+    if poisson:
+        batch["mask"] = poisson_sample_mask(torch.Generator(device="cuda").manual_seed(11),
+                                            TRAIN_CLI_BATCH, 0.5)
+    sched = constant(1e-3)
+    std = dp.noise_multiplier * policy.sensitivity(policy.init_state(device="cuda"))
+
+    def run(state, shardings=None, layout=None):
+        pstate = state["policy"]
+        loss, g, aux = make_clipped_microstep(model, dp, shardings)(state["params"], batch,
+                                                                    pstate)
+        noised = add_dp_noise(g, torch.Generator(device="cuda").manual_seed(5), std,
+                              layout=layout)
+        new = make_noise_finalize(opt, sched, dp, shardings=shardings)(
+            state, g, aux["per_sample_norms"], batch.get("mask"))
+        return loss, g, aux, noised, new
+
+    out = {"mode": mode, "policy": policy_name, "dtype": cfg.dtype, "poisson": poisson}
+    # the one-rank step, on every rank, outside any collective
+    loss, g, aux, noised, new = run(make_train_state(model, 0, opt, policy))
+    ref = {"loss": float(loss), "norms": aux["per_sample_norms"],
+           "factors": aux["clip_factors"], "grads": flatten_dict(g),
+           "noised": flatten_dict(noised), "params": flatten_dict(new["params"])}
+    del g, noised, new
+    state = make_train_state(model, 0, opt, policy)
+    shardings = state_shardings(model, mesh, cfg, state)
+    layout = ShardLayout(mesh, shardings["params"])
+    trees = ("params", "m")
+    full = {k: layout.local_bytes(state[k] if k == "params" else state["opt"][k]) for k in trees}
+    state = layout.shard_state(state)
+    frac = {k: sharded_fraction(layout, state[k] if k == "params" else state["opt"][k])
+            for k in trees}
+    sharded = [k for k, d in layout.dims.items() if d is not None]
+    require(sharded and all(frac[t][k] == 1 / layout.n for t in frac for k in sharded)
+            and all(frac[t][k] == 1.0 for t in frac for k in layout.dims if k not in sharded),
+            f"dist: rank {rank} does not hold 1/{layout.n} of every sharded leaf")
+    out["stored_fraction"] = {
+        k: layout.local_bytes(state[k] if k == "params" else state["opt"][k]) / full[k]
+        for k in trees}
+    out["sharded_leaves"], out["leaves"] = len(sharded), len(layout.dims)
+    with use_reshard_rules(mesh, cfg):
+        torch.cuda.synchronize()
+        torch.distributed.barrier(group=mesh.group("data"))  # every reference is done
+        launches.reset()
+        collectives.reset_bytes()
+        t0 = time.perf_counter()
+        loss, g, aux, noised, new = run(state, shardings, layout)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        counts = launches.snapshot()
+        out["bytes"] = dict(collectives.BYTES)
+        out["launches"] = {k: counts[k]["cuda"] for k in KERNEL_INFO}
+        out["plain_calls"] = sum(counts[k]["torch"] for k in KERNEL_INFO)
+    out["err"] = {
+        "loss": abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+        "norms": float((aux["per_sample_norms"] - ref["norms"]).abs().max()
+                       / ref["norms"].abs().max()) if mode != "non_private" else 0.0,
+        "factors": float((aux["clip_factors"] - ref["factors"]).abs().max()
+                         / ref["factors"].abs().max()),
+        "grads": _rel_tree(flatten_dict(g), ref["grads"], layout),
+        "noised_grad": _rel_tree(flatten_dict(noised), ref["noised"], layout),
+        "params": _rel_tree(flatten_dict(new["params"]), ref["params"], layout),
+    }
+    del model, state, g, new, noised, ref
+    _free()
+    return out
+
+
+def _dist_nccl(cfg, rank: int) -> dict:
+    """Rank 0 alone in an NCCL group: one bk_mixed step through the sharded
+    path on a one-rank data axis, so its collectives run on NCCL; held
+    against the step without a process group (equal up to summation order:
+    NCCL's one-rank reductions copy)."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import collectives
+    from repro_torch.tuner.plan import device_string
+
+    dist = torch.distributed
+    group = dist.new_group(ranks=[0], backend="nccl")
+    if rank != 0:
+        return {}
+    mesh = Mesh(("data", "model"), (1, 1), hosts=1, device_kinds=(device_string("cuda"),),
+                groups={"data": group}, coords={"data": 0, "model": 0})
+    out = _dist_case(cfg, "bk_mixed", "fixed", False, mesh, rank)
+    require(collectives.backend_of(group) == "nccl" and sum(out["bytes"].values()) > 0,
+            f"dist nccl: no NCCL collective ran ({out['bytes']})")
+    return out
+
+
+def _dist_cli(rank: int, plan_path: str, tmp: Path) -> dict:
+    """The train CLI in this rank's process (``train.main(argv, arch=cfg)``,
+    the group the environment described already joined): a straight run and
+    one crashed at DIST_CLI_CRASH and auto-restarted, both with --consensus
+    on the parent's plan."""
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train
+    from repro_torch.obs import configure_run, read_jsonl
+
+    cfg = _train_cli_cfg()
+    base = ["--arch", TRAIN_CLI_ARCH, "--seq", str(TRAIN_CLI_SEQ), "--batch",
+            str(TRAIN_CLI_BATCH), "--steps", str(DIST_CLI_STEPS), "--ckpt-every",
+            str(DIST_CLI_CKPT_EVERY), "--mode", "bk_mixed", "--clip-policy", "quantile",
+            "--poisson", "--sample-size", "8", "--consensus", "--plan", plan_path,
+            "--log-every", "1"]
+    out = {}
+    for name, extra in (("straight", []),
+                        ("restarted", ["--inject", f"crash@{DIST_CLI_CRASH}",
+                                       "--auto-restart", "1"])):
+        launches.reset()
+        t0 = time.perf_counter()
+        rc = train.main(base + ["--ckpt-dir", str(tmp / name)] + extra, arch=cfg)
+        counts = launches.snapshot()
+        require(rc == 0, f"dist cli {name}: exit code {rc}")
+        events = read_jsonl(tmp / name / "events.jsonl")
+        out[name] = {
+            "seconds": time.perf_counter() - t0,
+            "cuda": {k: counts[k]["cuda"] for k in KERNEL_INFO},
+            "torch": {k: counts[k]["torch"] for k in KERNEL_INFO},
+            "hashes": sorted({e.get("consensus_hash") for e in events
+                              if e["kind"] == "plan_adopted" and e["rank"] == rank}),
+            "step_s": [m["step_s"] for m in read_jsonl(tmp / name / "metrics.jsonl")
+                       if m["kind"] == "train_step" and m["rank"] == rank],
+        }
+    configure_run(None)
+    return out
+
+
+def _dist_rank(rank: int, n: int, port: int, queue, plan_path: str, tmp: str) -> None:
+    """One rank of the dist phase, in a process of its own (spawn): join the
+    group as ``torch.distributed.run`` would have it join (the CLI's
+    ``init_distributed``), then the sharded steps, the NCCL rank, the CLI."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, str(SRC))
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.launch import train
+        from repro_torch.launch.mesh import make_host_mesh
+
+        res = {"rank": rank, "backend": train.init_distributed()}
+        require(res["backend"] == "gloo", f"dist: {n} ranks on one card chose {res['backend']}")
+        mesh = make_host_mesh("cuda")
+        cfg32 = dataclasses.replace(_train_cli_cfg(), dtype="float32")
+        cfg16 = _train_cli_cfg()
+        cases = [(cfg32, m, "fixed", False) for m in DIST_MODES]
+        cases += [(cfg32, "bk_mixed", "quantile", True)]
+        cases += [(cfg16, m, "fixed", False) for m in DIST_BF16_MODES]
+        res["steps"] = [_dist_case(*c, mesh, rank) for c in cases]
+        res["nccl"] = _dist_nccl(cfg32, rank)
+        res["cli"] = _dist_cli(rank, plan_path, Path(tmp))
+        queue.put((rank, "ok", res))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        import torch
+
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _dist_plan(path: Path) -> str:
+    """The plan both ranks adopt: measured here on one process at the
+    per-rank batch (no batch certificate; the agreement's hash is what the
+    gate reads)."""
+    import torch
+
+    from repro_torch.configs.registry import build_model
+    from repro_torch.core.clipping import discover_meta
+    from repro_torch.data.synthetic import synthetic_arch_batch
+    from repro_torch.tuner.measure import MeasureConfig, build_plan
+
+    cfg = _train_cli_cfg()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    probe = synthetic_arch_batch(cfg, batch=TRAIN_CLI_BATCH // DIST_RANKS, seq=TRAIN_CLI_SEQ,
+                                 device="cuda")
+    metas = discover_meta(model.loss_with_ctx, params, probe)
+    plan = build_plan(metas, measure=MeasureConfig(repeats=1, warmup=1, max_rows=1024),
+                      arch=cfg.name, device="cuda")
+    plan.save(str(path))
+    del model, params, probe
+    _free()
+    return plan.consensus_hash()
+
+
+def phase_dist() -> dict:
+    """Data-parallel + FSDP DP-SGD (``launch.steps`` with ``shardings``,
+    ``parallel/``) on Whisper-large-v3 at full width, 1 + 1 layers, global
+    batch 4 x 448 over 1500 frames, by DIST_RANKS gloo ranks sharing the
+    card (spawned processes; the CLI's backend rule picks gloo):
+
+    1. one sharded step in each of DIST_MODES and one bk_mixed step under
+       the quantile policy with a Poisson mask, fp32 compute, TF32 off,
+       held against the one-rank step on the same inputs and generator
+       state: loss, per-sample norms and clip factors, the clipped gradient
+       sum before the noise and the noised gradient (every rank's shards
+       against the one-rank tensors' slices) and the parameters after an
+       SGD-with-momentum update, at DIST_TOL; each
+       rank holds 1/n of every sharded leaf, params and momentum; the
+       kernels launched (no plain call) and the bytes the step gathers,
+       reduce-scatters and all-reduces; bf16 compute in DIST_BF16_MODES
+       reported against the bf16 one-rank step, ungated;
+    2. rank 0 alone in an NCCL group: a bk_mixed step whose collectives run
+       on NCCL, against the one-rank step;
+    3. the train CLI on both ranks (bf16, remat, bk_mixed, quantile,
+       Poisson, --consensus on a plan measured here): both ranks adopt the
+       plan's hash, a run crashed at DIST_CLI_CRASH and auto-restarted lands
+       bit-identical to the straight run, and the checkpoint holds the
+       one-rank state's leaf names and shapes.
+    Timings of ranks that share a card are not a speed figure."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.configs.registry import build_model
+    from repro_torch.launch.steps import make_train_state
+    from repro_torch.optim import adam
+    from repro_torch.checkpoint.checkpointer import snapshot_state
+    from repro_torch.utils.tree import flatten_dict
+
+    out = {"ranks": DIST_RANKS, "arch": TRAIN_CLI_ARCH, "layers": TRAIN_CLI_LAYERS,
+           "batch": TRAIN_CLI_BATCH, "seq": TRAIN_CLI_SEQ}
+    with tempfile.TemporaryDirectory(prefix="dist_") as tmp:
+        tmp = Path(tmp)
+        plan_hash = _dist_plan(tmp / "plan.json")
+        cfg = _train_cli_cfg()
+        model = build_model(cfg, device="cuda")
+        state = make_train_state(model, 0, adam(state_dtype=torch_dtype(cfg.opt_state_dtype)),
+                                 _dist_policy("quantile"))
+        one_rank = {k: tuple(getattr(v, "shape", ()))
+                    for k, v in flatten_dict(snapshot_state(state)).items()}
+        del state
+        del model
+        _free()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, port, queue,
+                                                      str(tmp / "plan.json"), str(tmp)))
+                 for r in range(DIST_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        results, errors = {}, []
+        try:
+            for _ in procs:
+                rank, status, value = queue.get(timeout=DIST_TIMEOUT_S)
+                (results.__setitem__(rank, value) if status == "ok"
+                 else errors.append(f"rank {rank}:\n{value}"))
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        out["seconds"] = time.perf_counter() - t0
+        require(not errors, "dist: " + "\n".join(errors))
+        final = f"step_{DIST_CLI_STEPS}.npz"
+        straight = _npz_leaves(tmp / "straight" / final)
+        restarted = _npz_leaves(tmp / "restarted" / final)
+        diverged = [k for k in straight if not (straight[k] == restarted[k]).all()]
+        require(sorted(straight) == sorted(restarted) and not diverged,
+                f"dist cli: restarted run diverged at {diverged[:8]}")
+        shapes = {k: tuple(v.shape) for k, v in straight.items()}
+        require(shapes == one_rank, "dist cli: checkpoint leaves differ from the one-rank "
+                f"state's: {sorted(set(shapes.items()) ^ set(one_rank.items()))[:8]}")
+        out["checkpoint_leaves"] = len(shapes)
+        shutil.rmtree(tmp / "straight")
+        shutil.rmtree(tmp / "restarted")
+    r0 = results[0]
+    for res in results.values():
+        for name, run in res["cli"].items():
+            require(run["hashes"] == [plan_hash], f"dist cli {name} rank {res['rank']}: "
+                    f"adopted {run['hashes']}, the plan is {plan_hash}")
+            require(not any(run["torch"].values()) and any(run["cuda"].values()),
+                    f"dist cli {name} rank {res['rank']}: launches {run}")
+        for st in res["steps"]:
+            require(st["plain_calls"] == 0, f"dist rank {res['rank']}: plain calls in {st}")
+    for i, st in enumerate(r0["steps"]):  # every rank's shards: the gathered comparison
+        st["err"] = {k: max(res["steps"][i]["err"][k] for res in results.values())
+                     for k in st["err"]}
+    bad = []
+    for st in r0["steps"] + [r0["nccl"]]:
+        gated = st["dtype"] == "float32"
+        line = ", ".join(f"{k} {v:.3g}" for k, v in st["err"].items())
+        print(f"dist: {st['mode']} {st['policy']}{' poisson' if st['poisson'] else ''} "
+              f"{st['dtype']}{' nccl' if st is r0['nccl'] else ''}: vs one rank {line} "
+              f"({'gated' if gated else 'reported'}); rank 0 {st['ms']:.1f} ms (ranks share "
+              f"the card), gathers {st['bytes']['all_gather'] / 2**20:.1f} MiB, "
+              f"reduce-scatters {st['bytes']['reduce_scatter'] / 2**20:.1f} MiB, all-reduces "
+              f"{st['bytes']['all_reduce'] / 2**20:.1f} MiB; launches {st['launches']}")
+        if gated:
+            bad += [(st["mode"], st["policy"], k, v) for k, v in st["err"].items()
+                    if not v <= DIST_TOL]
+    require(not bad, f"dist: off the one-rank step at {DIST_TOL}: {bad}")
+    main = {k: sum(res["steps"][i]["launches"][k] for res in results.values()
+                   for i in range(len(DIST_MODES) + 1)) for k in KERNEL_INFO}
+    require(all(main[k] for k in ("ghost_norm_sq", "embedding_ghost_norm_sq",
+                                  "book_weighted_grad", "psg_contract")),
+            f"dist: a clipping kernel never launched on the sharded path: {main}")
+    st = r0["steps"][0]
+    print(f"dist: each rank stores {st['sharded_leaves']} of {st['leaves']} leaves sharded: "
+          f"params {st['stored_fraction']['params']:.4f}, momentum "
+          f"{st['stored_fraction']['m']:.4f} of one rank's bytes; launches on the fp32 main "
+          f"path per rank "
+          + "; ".join(f"rank {r} " + str({k: sum(s['launches'][k] for s in res['steps'][:6])
+                                          for k in KERNEL_INFO})
+                      for r, res in sorted(results.items())))
+    for name in ("straight", "restarted"):
+        run = r0["cli"][name]
+        print(f"dist cli {name}: both ranks adopted {plan_hash}; rank 0 {run['seconds']:.1f} s, "
+              f"step s {[round(x, 3) for x in run['step_s']]}")
+    print(f"dist cli: straight and restarted (crash at step {DIST_CLI_CRASH}) bit-identical over "
+          f"{out['checkpoint_leaves']} leaves, the one-rank state's names and shapes; phase "
+          f"processes {out['seconds']:.1f} s")
+    out["results"] = results
+    out["plan_hash"] = plan_hash
+    out["launches"] = main
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -3687,10 +4119,12 @@ def run() -> dict:
     wave_serve = phase("wave_serve", phase_wave_serve)
     tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
     train_cli = phase("train_cli", phase_train_cli)
+    dist = phase("dist", phase_dist)
     for kernel, cases in train_cli.pop("kernel_cases").items():
         kernels[kernel].extend(cases)
     runs = {**slices, "serve": serve, "moe_serve": moe_serve, "hybrid_serve": hybrid_serve,
-            "wave_serve": wave_serve, "train_cli": train_cli}
+            "wave_serve": wave_serve, "train_cli": train_cli,
+            "dist": {"launches": dist["launches"]}}
     summary = summary_line(kernels, runs)
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
@@ -3705,7 +4139,7 @@ def run() -> dict:
         "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
         "accum": accum, "remat": remat, "tune": tune, "max_batch": max_batch, "serve": serve,
         "moe_serve": moe_serve, "hybrid_serve": hybrid_serve, "wave_serve": wave_serve,
-        "tuner_cli": tuner_cli, "train_cli": train_cli,
+        "tuner_cli": tuner_cli, "train_cli": train_cli, "dist": dist,
         "summary": summary, "per_path": per_path,
     }, indent=1, default=str))
     return {"summary": summary, "card": card}

@@ -23,6 +23,12 @@ carries a save's snapshot and write seconds and its bytes, the
 A step this manager has already saved is not written again: the loop's
 exit save after a checkpoint step (or a preemption save) would rewrite the
 same state, and at full width that costs seconds of disk.
+
+On a fleet whose state is sharded, every rank keeps a manager over the
+same directory: ``gather`` turns the rank's shards into full leaves on the
+calling thread (collectives, issued by every rank at the same steps and in
+the same order; the writer thread issues none), and only rank 0 writes,
+so the file is the one a one-process run writes.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import time
 import zlib
 import zipfile
 from typing import Any, Callable, Optional
+
+import torch
 
 from repro_torch.checkpoint.checkpointer import (
     latest_step,
@@ -69,6 +77,7 @@ class CheckpointManager:
         keep: int = 3,
         async_save: bool = True,
         on_saved: Optional[Callable[[int, pathlib.Path], None]] = None,
+        gather: Optional[Callable[[Any], Any]] = None,
     ):
         self.dir = pathlib.Path(directory)
         self.save_every = save_every
@@ -77,6 +86,7 @@ class CheckpointManager:
         # test/CI seam (runtime.inject): called with (step, npz_path) after
         # the write + rotation complete — on the writer thread when async
         self.on_saved = on_saved
+        self.gather = gather
         self._pending: Optional[threading.Thread] = None
         # serializes directory mutation (write+rotate, possibly on the
         # writer thread) against scans (latest/restore/available_steps)
@@ -90,9 +100,13 @@ class CheckpointManager:
         if step == self._last_saved or not (force or self.should_save(step)):
             return
         self._last_saved = step
+        t0 = time.perf_counter()
+        if self.gather is not None:
+            state = self.gather(state)
+        if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+            return
         # Snapshot to host BEFORE handing to the writer thread: the next
         # step writes the parameters and optimizer state in place.
-        t0 = time.perf_counter()
         host_state = snapshot_state(state)
         snapshot_s = time.perf_counter() - t0
         self.wait()

@@ -74,6 +74,7 @@ import torch
 from repro_torch.core import ghost
 from repro_torch.core.taps import ClipRuntime, Ctx, TapMeta, bank_keys
 from repro_torch.kernels import dispatch
+from repro_torch.parallel import reshard
 from repro_torch.policies.base import GroupedFactors, group_index
 from repro_torch.utils.tree import flatten_dict, tree_map, unflatten_dict
 
@@ -277,6 +278,8 @@ class _NormState:
     # grouped policies: {param_path: (B,)} squared-norm contributions,
     # summing to norms2
     path_norms2: Optional[dict[str, torch.Tensor]] = None
+    # the sharded step: {param_path: full shape}, the leaves being shards
+    shapes: Optional[dict[str, tuple]] = None
     # explicit engine: the plan's per-tap kernel choices, for the books
     kernels: Optional[dict[str, dict[str, str]]] = None
 
@@ -288,6 +291,11 @@ class ClipExecutor:
     aux)`` with aux = {"per_sample_norms": (B,), "clip_factors": (B,)} (a
     grouped policy reports its smallest factor per sample).  Noise is added
     downstream by the privacy engine.
+
+    The sharded step passes ``shapes`` ({path: full shape}), its
+    ``params`` being this rank's shards: the book-keeping sums are built at
+    the full shapes (the step reduce-scatters them), every other gradient
+    at the stored leaf's.
     """
 
     def __init__(self, loss_with_ctx: LossFn, cfg: ClipConfig):
@@ -325,6 +333,13 @@ class ClipExecutor:
             inst_block_d=cfg.inst_block_d, override=overrides.get(name),
             kernels=kernels.get(name))
 
+    @staticmethod
+    def _shape(st: "_NormState", path: str, flat_params: dict[str, torch.Tensor]) -> tuple:
+        """A leaf's full shape (its stored shape outside a sharded step)."""
+        if st.shapes is not None:
+            return tuple(st.shapes[path])
+        return tuple(flat_params[path].shape)
+
     def _validate_groups(self, meta: dict[str, TapMeta]) -> None:
         """A group boundary must not split a tap's (weight, bias) pair: their
         per-sample norm is computed jointly."""
@@ -350,9 +365,10 @@ class ClipExecutor:
     def _weighted_grads(self, st: _NormState, c, params) -> Any:
         raise NotImplementedError
 
-    def __call__(self, params, batch, policy_state=None):
+    def __call__(self, params, batch, policy_state=None, *, shapes=None):
         mask = _batch_mask(batch)
         st = self._norm_state(params, batch)
+        st.shapes = shapes
         norms = torch.sqrt(st.norms2)
         pstate = (policy_state if policy_state is not None
                   else self.policy.init_state(device=norms.device))
@@ -361,6 +377,11 @@ class ClipExecutor:
         loss = st.losses.detach().sum() / st.losses.shape[0]
         rep = c.representative if isinstance(c, GroupedFactors) else c
         return loss, grads, {"per_sample_norms": norms, "clip_factors": rep}
+
+
+class VmapUnderShardingError(NotImplementedError):
+    """The ``vmap`` oracle under a data axis of more than one rank:
+    ``torch.func``'s transforms cannot issue the weight gathers."""
 
 
 class NonPrivateExecutor(ClipExecutor):
@@ -395,6 +416,11 @@ class VmapExecutor(ClipExecutor):
 
     def _norm_state(self, params, batch) -> _NormState:
         from torch.func import grad_and_value, vmap
+
+        if reshard.data_size() > 1:
+            raise VmapUnderShardingError(
+                "the vmap oracle cannot issue collectives: run it on one rank "
+                f"(the data axis has {reshard.data_size()})")
 
         def single(p, ex):
             # torch.func refuses checkpointing's saved-tensor hooks: no remat
@@ -490,7 +516,7 @@ class FusedExecutor(ClipExecutor):
         kernels = st.runtime.kernels
         parts, segments, psg_taps = [], [], []
         for name, m in st.meta.items():
-            shape = tuple(flat_params[m.param_path].shape)
+            shape = self._shape(st, m.param_path, flat_params)
             if m.late:  # the explicit channel: a book contraction
                 cw = c.for_path(m.param_path) if grouped else c
                 parts.append(ghost.tap_weighted_grads(m, st.acts[name], st.gs[name], cw, shape,
@@ -593,7 +619,7 @@ class TapsExecutor(ClipExecutor):
         return _assemble_bk_grads(params, (
             ghost.tap_weighted_grads(m, st.acts[name], st.gs[name],
                                      c.for_path(m.param_path) if grouped else c,
-                                     tuple(flat_params[m.param_path].shape),
+                                     self._shape(st, m.param_path, flat_params),
                                      kernels=st.kernels.get(name))
             for name, m in st.meta.items()
         ))

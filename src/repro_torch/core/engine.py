@@ -19,9 +19,10 @@ physical batch under a memory budget by trial, and adopts (and by default
 caches) the ``ClipPlan``; ``use_plan`` adopts one, ``recertify_max_batch``
 searches again for the current mode and plan, and ``plan_event_fields`` is
 the record of what a step runs.  ``check_epsilon_alarm`` emits the one-shot
-``epsilon_budget_crossed`` event.  The fleet agreement (``tune``'s
-``consensus=`` and ``gather_fn=``) comes with ``torch.distributed`` and
-raises ``NotImplementedError`` until then.
+``epsilon_budget_crossed`` event.  ``tune(consensus=True)`` runs the fleet
+agreement (``repro_torch.tuner.consensus``): one leader per device kind
+measures and every rank adopts the byte-identical plan; ``gather_fn``
+injects the all-gather (tests simulate fleets with it).
 """
 from __future__ import annotations
 
@@ -45,12 +46,6 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import tree_map
 
 log = logging.getLogger("repro_torch.engine")
-
-# the fleet agreement's refusal, shared by PrivacyEngine.tune and the tuner CLI
-CONSENSUS_LATER = ("fleet consensus comes with the port of tuner/consensus.py over "
-                   "torch.distributed, with parallel/, after the single-process "
-                   "runtime around training")
-
 
 @dataclasses.dataclass
 class PrivacyEngine:
@@ -184,16 +179,28 @@ class PrivacyEngine:
         fresh one).  ``plan_path="auto"`` writes to the tuner's cache
         directory, ``None`` writes nothing.  The clipped gradients under the
         plan equal the analytic decision's: a plan moves cost, never math.
+
+        ``consensus=True`` makes tuning fleet-safe (``tuner.consensus``):
+        only the elected leader of each device kind measures; every rank
+        then adopts the byte-identical fleet-agreed plan, or raises
+        ``PlanConsensusError`` before any step.  On one process it is a
+        cheap agreement that stamps the plan's provenance.  ``gather_fn``
+        injects the all-gather primitive.  On a fleet, pass a ``batch``
+        already cut to the per-host share (``parallel.sharding
+        .per_host_batch``): the max-batch certificate describes one card.
         """
-        if consensus or gather_fn is not None:
-            raise NotImplementedError(CONSENSUS_LATER)
         from repro_torch.tuner import max_batch as _mb
         from repro_torch.tuner.measure import (
             MeasureConfig,
             build_plan,
             close_physical_batch_loop,
         )
-        from repro_torch.tuner.plan import ClipPlan, default_plan_path, load_cached_plan
+        from repro_torch.tuner.plan import (
+            ClipPlan,
+            default_plan_path,
+            device_string,
+            load_cached_plan,
+        )
 
         budget = _mb.DEFAULT_BUDGET_BYTES if budget_bytes is None else budget_bytes
         meta = discover_meta(self.loss_with_ctx, params, batch)
@@ -208,6 +215,31 @@ class PrivacyEngine:
                                                          "agreed_ranks": None}
             return dataclasses.replace(p, policy_fingerprint=policy_fp, **cleared)
 
+        dev = device_string(self.device)
+
+        def agree_and_save(measured):
+            # one agreement path for every consensus branch: submit this
+            # rank's measurement (None on non-leaders), persist what the
+            # fleet adopted, never the rank-local measurement
+            from repro_torch.tuner import consensus as _cons
+
+            adopted = _cons.fleet_agree(stamp(measured), meta, gather_fn=gather_fn,
+                                        device=dev, policy_fingerprint=policy_fp)
+            if plan_path is not None:
+                adopted.save(default_plan_path(arch, adopted.fingerprint)
+                             if plan_path == "auto" else plan_path)
+            return adopted
+
+        if consensus:
+            from repro_torch.tuner import consensus as _cons
+
+            roles = _cons.fleet_roles(gather_fn=gather_fn, device=dev)
+            if not roles.is_leader:
+                # one measurement per device kind: non-leaders adopt (and
+                # cache) the leader's plan
+                adopted = agree_and_save(None)
+                self.use_plan(adopted)
+                return adopted
         if use_cache:
             cached = None
             if plan_path == "auto":
@@ -220,8 +252,16 @@ class PrivacyEngine:
             # a cached max batch holds for the budget it was searched under
             budget_ok = not search_max_batch or (
                 cached is not None and cached.budget_bytes == budget)
+            if consensus and cached is not None and cached.device != dev:
+                # a plan this kind merely ratified in an earlier fleet is not
+                # a measurement of this hardware: re-measure for the agreement
+                log.info("cached plan was measured on %s, not this %s; re-measuring "
+                         "for the fleet agreement", cached.device, dev)
+                cached = None
             if cached is not None and budget_ok and cached.matches(meta, self.device):
                 cached = stamp(cached)
+                if consensus:
+                    cached = agree_and_save(cached)
                 self.use_plan(cached)
                 return cached
         measure_cfg = measure or MeasureConfig()
@@ -248,7 +288,11 @@ class PrivacyEngine:
                     plan = close_physical_batch_loop(
                         plan, meta, search, self.batch_size, budget, measure_cfg,
                         device=self.device)
-        if plan_path is not None:
+        if consensus:
+            # the fleet-adopted plan (possibly another kind's) is what is
+            # cached and used
+            plan = agree_and_save(plan)
+        elif plan_path is not None:
             plan.save(default_plan_path(arch, plan.fingerprint)
                       if plan_path == "auto" else plan_path)
         self.use_plan(plan)

@@ -19,6 +19,22 @@ one clipped call.  Where the JAX
 package donates its accumulator through jitted programs, the port writes
 into the same tensors.  ``make_prefill_step`` and ``make_decode_step`` are
 the serving steps (the decode greedy).
+
+The sharded step (data parallelism with FSDP of the parameters and the
+optimizer moments): every train-step builder takes ``shardings``, the
+state's placements (``parallel.sharding.state_shardings``), as the JAX
+package's jitted step takes them as ``in_shardings``, and then runs inside
+``parallel.reshard.use_reshard_rules`` on a live mesh.  The state holds
+this rank's shards of the parameters and moments (``parallel.fsdp``); the
+step counter, the policy state and the generator are replicated.  Every
+rank is given the same global batch and keeps its rows.  The per-sample
+norms and clip factors are computed locally, since the gathered weights
+put each sample's whole gradient on one rank; they are all-gathered, with
+the loss, so the replicated policy update and the metrics see the global
+batch.  The gradient sum comes back reduce-scattered (``fsdp.ShardLayout
+.reduce_grads``); the noise is drawn full-size from the replicated
+generator and each rank keeps its slice, so it equals the one-rank step's;
+the optimizer updates the shards.
 """
 from __future__ import annotations
 
@@ -31,6 +47,8 @@ from repro_torch.core.clipping import ClipConfig, _batch_mask, dp_value_and_clip
 from repro_torch.core.noise import add_dp_noise
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.parallel import reshard
+from repro_torch.parallel.fsdp import ShardLayout
 from repro_torch.utils.tree import flatten_dict, tree_map
 
 
@@ -58,6 +76,17 @@ def _policy_for(dp: DPTrainConfig):
     return FixedPolicy(clip_norm=dp.clip_norm, clip_fn=dp.clip_fn)
 
 
+def _layout(shardings: Any) -> Optional[ShardLayout]:
+    """The data-axis layout of a sharded step (None: the one-process step)."""
+    if shardings is None:
+        return None
+    mesh = reshard.active_mesh()
+    if mesh is None or not mesh.live:
+        raise ValueError("a sharded step runs inside use_reshard_rules(mesh) on a live mesh "
+                         "(launch.mesh.make_host_mesh)")
+    return ShardLayout(mesh, shardings["params"])
+
+
 def make_train_state(model, seed: int, optimizer: Optimizer, policy: Any = None) -> dict:
     """Parameters from ``seed`` on the model's device, optimizer state, the
     step counter, and the generator the step draws its noise from."""
@@ -82,23 +111,20 @@ def make_train_step(
     schedule: Callable[[int], float],
     dp: DPTrainConfig,
     device: DeviceLike = None,
+    shardings: Any = None,
 ) -> Callable:
     """Full DP step: clip (policy factors) -> noise -> optimizer update.
 
     ``device`` is where the step runs (None: the GPU); it must be the
     model's.  The noise std uses the pre-update policy state, then the
-    policy update runs.
+    policy update runs.  ``shardings``: the sharded step (module docstring).
     """
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(f"train step on {dev} but the model lives on {model.device}")
     policy = _policy_for(dp)
-    clip_cfg = ClipConfig(
-        mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn,
-        plan=dp.plan, policy=policy,
-    )
-    grad_fn = dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
-    finalize = make_noise_finalize(optimizer, schedule, dp)
+    grad_fn = make_clipped_microstep(model, dp, shardings=shardings)
+    finalize = make_noise_finalize(optimizer, schedule, dp, shardings=shardings)
 
     def train_step(state: dict, batch: Any) -> tuple[dict, dict]:
         for name, x in flatten_dict(batch).items():
@@ -106,14 +132,14 @@ def make_train_step(
                 raise ValueError(f"batch[{name!r}] on {x.device}, the step runs on {dev}")
         pstate = state.get("policy", policy.init_state(device=dev))
         loss, grad_sum, aux = grad_fn(state["params"], batch, pstate)
-        new_state = finalize(state, grad_sum, aux["per_sample_norms"], _batch_mask(batch))
-        norms = aux["per_sample_norms"]
+        norms, factors = aux["per_sample_norms"], aux["clip_factors"]
+        new_state = finalize(state, grad_sum, norms, _batch_mask(batch))
         metrics = {
             "loss": loss,
             "lr": schedule(state["step"]),
             "norm_mean": norms.mean(),
             "norm_max": norms.max(),
-            "clip_frac": (aux["clip_factors"] < 1.0).float().mean(),
+            "clip_frac": (factors < 1.0).float().mean(),
             "clip_norm": policy.sensitivity(pstate),
         }
         return new_state, metrics
@@ -121,16 +147,34 @@ def make_train_step(
     return train_step
 
 
-def make_clipped_microstep(model, dp: DPTrainConfig) -> Callable:
+def make_clipped_microstep(model, dp: DPTrainConfig, shardings: Any = None) -> Callable:
     """Gradient-accumulation half: (params, batch, policy_state) -> (loss,
     clipped grad SUM, aux).  Every microstep of a logical batch runs under
     the same policy state; ``make_noise_finalize`` adds the noise and runs
-    the one policy update."""
+    the one policy update.
+
+    With ``shardings`` it takes the global batch and this rank's parameter
+    shards and clips this rank's rows; it returns the global mean loss,
+    this rank's shards of the fleet's gradient sum, and the global batch's
+    per-sample norms and clip factors (all-gathered in rank order)."""
     clip_cfg = ClipConfig(
         mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn,
         plan=dp.plan, policy=_policy_for(dp),
     )
-    return dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
+    grad_fn = dp_value_and_clipped_grad(model.loss_with_ctx, clip_cfg)
+    if shardings is None:
+        return grad_fn
+
+    def sharded(params, batch, policy_state=None):
+        layout = _layout(shardings)
+        loss, g, aux = grad_fn(params, layout.local_rows(batch), policy_state,
+                               shapes=layout.full_shapes(params))
+        return layout.mean(loss), layout.reduce_grads(g, params), {
+            "per_sample_norms": layout.gather_rows(aux["per_sample_norms"]),
+            "clip_factors": layout.gather_rows(aux["clip_factors"]),
+        }
+
+    return sharded
 
 
 def make_accum_init(grad_spec: Any, n_samples: int) -> Callable:
@@ -158,19 +202,22 @@ def make_accum_init(grad_spec: Any, n_samples: int) -> Callable:
     return init
 
 
-def make_accum_microstep(model, dp: DPTrainConfig) -> Callable:
+def make_accum_microstep(model, dp: DPTrainConfig, shardings: Any = None) -> Callable:
     """Accumulating microstep: (params, policy_state, acc, batch, idx) -> acc.
 
     Clips one microbatch and folds it into the logical-batch accumulator in
     place: the gradient sum, the loss and clip-hit counters, and the
     per-sample norms and Poisson mask copied in at microstep ``idx``'s
-    offset.  It enqueues device work only: no host sync.
+    offset.  It enqueues device work only: no host sync.  ``shardings``:
+    the sharded microstep, whose gradient sum is reduced each microstep
+    (the accumulator holds shards) and whose norms are the global
+    microbatch's.
     """
-    grad_fn = make_clipped_microstep(model, dp)
+    grad_fn = make_clipped_microstep(model, dp, shardings=shardings)
 
     def micro(params, policy_state, acc: dict, batch: Any, idx: int) -> dict:
         loss, g, aux = grad_fn(params, batch, policy_state)
-        norms = aux["per_sample_norms"]
+        norms, factors = aux["per_sample_norms"], aux["clip_factors"]
         physical = norms.shape[0]
         rows = slice(idx * physical, (idx + 1) * physical)
         flat_g = flatten_dict(g)
@@ -178,7 +225,7 @@ def make_accum_microstep(model, dp: DPTrainConfig) -> Callable:
             for path, buf in flatten_dict(acc["grads"]).items():
                 buf.add_(flat_g[path])
             acc["loss"].add_(loss)
-            acc["clip_hits"].add_((aux["clip_factors"] < 1.0).float().sum())
+            acc["clip_hits"].add_((factors < 1.0).float().sum())
             acc["norms"][rows].copy_(norms)
             m = _batch_mask(batch)
             if m is None:
@@ -191,12 +238,13 @@ def make_accum_microstep(model, dp: DPTrainConfig) -> Callable:
 
 
 def make_accum_finalize(
-    optimizer: Optimizer, schedule: Callable[[int], float], dp: DPTrainConfig
+    optimizer: Optimizer, schedule: Callable[[int], float], dp: DPTrainConfig,
+    shardings: Any = None,
 ) -> Callable:
     """Logical-batch finalize over the accumulator: (state, acc) -> (state,
     metrics).  The metrics are device tensors over the whole logical batch;
     reading one is the only sync, once per logical batch."""
-    base = make_noise_finalize(optimizer, schedule, dp)
+    base = make_noise_finalize(optimizer, schedule, dp, shardings=shardings)
 
     def finalize(state: dict, acc: dict) -> tuple[dict, dict]:
         metrics = {
@@ -213,7 +261,8 @@ def make_accum_finalize(
 
 
 def make_noise_finalize(
-    optimizer: Optimizer, schedule: Callable[[int], float], dp: DPTrainConfig
+    optimizer: Optimizer, schedule: Callable[[int], float], dp: DPTrainConfig,
+    shardings: Any = None,
 ) -> Callable:
     """Noise + update once per logical batch: (state, grad_sum, norms=None,
     mask=None) -> state.
@@ -223,7 +272,9 @@ def make_noise_finalize(
     addition, so the quantile policy spends exactly once per accounted step.
     The noise is drawn first, then the update, both from ``state["rng"]``;
     ``make_train_step`` calls this after its clipped call, so the two share
-    one noise-then-update order.  ``norms=None`` skips the update.
+    one noise-then-update order.  ``norms=None`` skips the update.  With
+    ``shardings`` the gradient and state hold this rank's shards, and each
+    leaf's noise is this rank's slice of the full-size draw.
     """
     policy = _policy_for(dp)
 
@@ -236,7 +287,7 @@ def make_noise_finalize(
             new_pstate = pstate
         else:
             std = dp.noise_multiplier * policy.sensitivity(pstate)
-            noisy = add_dp_noise(grad_sum, state["rng"], std)
+            noisy = add_dp_noise(grad_sum, state["rng"], std, layout=_layout(shardings))
             # the noisy tree is this call's own: divided in place, the update
             # holds one model-sized tree fewer at its peak
             grads = tree_map(lambda g: g.float().div_(dp.logical_batch), noisy)

@@ -1,8 +1,9 @@
 """DP training driver (port of ``launch/train.py``).
 
-Full loop on one process: data pipeline -> mixed-ghost (or book-keeping)
-clipped grads, with gradient accumulation -> Gaussian noise -> optimizer ->
-checkpoint manager -> privacy accountant, with the straggler watchdog,
+Full loop on one process or a data-parallel fleet: data pipeline ->
+mixed-ghost (or book-keeping) clipped grads, with gradient accumulation ->
+Gaussian noise -> optimizer -> checkpoint manager -> privacy accountant,
+with the straggler watchdog,
 preemption-to-checkpoint, and an ``--auto-restart`` supervision loop that
 resumes from the latest checkpoint after a crash (fault injection through
 ``--inject`` / ``$REPRO_FAULT_INJECT`` or ``--fail-at-step``).  The flags
@@ -18,12 +19,29 @@ certified physical batch is below ``--batch``; ``--obs-dir`` (default: the
 checkpoint directory) receives the event and metrics streams and, with
 ``--profile-steps N:M``, a ``torch.profiler`` trace of steps N..M.
 
-Where the JAX CLI shards the state and the batch over a host mesh
-(``make_host_mesh``, ``state_shardings``, ``per_host_batch``), this one runs
-on one process: the per-host batch is the batch, and ``--data-shards`` /
-``$REPRO_ELASTIC_SHARDS`` turns shards into accumulation microsteps of the
-same per-shard microbatch, as on one JAX host.  ``--consensus`` raises: the
-fleet agreement comes with ``parallel/``.
+Several processes run it as one data-parallel fleet under
+``python -m torch.distributed.run`` (``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK`` and the rendezvous in the environment)::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch yi-6b --reduced --device cpu --steps 6 --batch 4 --consensus
+
+``init_distributed`` joins the group, on ``gloo`` for CPU ranks and for
+ranks that share a card (more local ranks than visible devices), on
+``nccl`` with one rank per card, and logs the choice.  The mesh is
+``make_host_mesh`` (world, 1); the parameters and Adam moments are stored
+sharded by ``state_shardings`` (``parallel.fsdp``) and the step runs inside
+``use_reshard_rules``: every rank builds the same global batch and Poisson
+mask and clips its rows (``launch.steps``).  The memory certificates of
+``--tune`` and ``--mode auto`` are taken at ``per_host_batch``.
+``--consensus`` runs the fleet agreement (``tuner.consensus``) on the
+tuned or loaded plan and certifies the adopted mode, batch layout and
+policy on every rank.  Checkpoints gather the shards to full leaves on the
+loop's thread and rank 0 writes the file a one-process run writes; every
+rank restores it and keeps its shard; rank 0 alone writes
+``summary.json``.  ``--data-shards`` / ``$REPRO_ELASTIC_SHARDS`` keeps its
+role: shards beyond the processes become accumulation microsteps of the
+same per-shard microbatch.
 
 Each logical step ends in one host sync, the copy of its metrics to the
 host: it bounds the queue of enqueued work, makes the watchdog time executed
@@ -42,6 +60,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import sys
 import time
@@ -52,11 +71,12 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.configs.registry import build_model, get_arch
-from repro_torch.core.engine import CONSENSUS_LATER, PrivacyEngine
+from repro_torch.core.engine import PrivacyEngine
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.poisson import poisson_sample_mask
 from repro_torch.data.synthetic import synthetic_arch_batch
-from repro_torch.device import resolve_device
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (
     DPTrainConfig,
     make_accum_finalize,
@@ -68,6 +88,9 @@ from repro_torch.launch.steps import (
 from repro_torch.obs import events as obs
 from repro_torch.obs.profile import ProfileWindow
 from repro_torch.optim import adam, warmup_cosine
+from repro_torch.parallel.fsdp import ShardLayout
+from repro_torch.parallel.reshard import use_reshard_rules
+from repro_torch.parallel.sharding import per_host_batch, state_shardings
 from repro_torch.runtime.elastic import current_data_shards, elastic_plan
 from repro_torch.runtime.fault import PreemptionHandler, StepWatchdog
 from repro_torch.runtime.inject import InjectionPlan
@@ -154,7 +177,8 @@ def parse_args(argv=None):
                     help="profile ghost-vs-instantiate per tap and search the "
                          "max physical microbatch before training")
     ap.add_argument("--consensus", action="store_true",
-                    help="fleet-safe tuning/plan adoption (not in this port yet: raises)")
+                    help="fleet-safe tuning/plan adoption: every rank adopts one "
+                         "byte-identical plan (tuner.consensus)")
     ap.add_argument("--plan", default=None,
                     help="ClipPlan JSON to load (or, with --tune, to write)")
     ap.add_argument("--tune-budget-gb", type=float, default=16.0,
@@ -188,6 +212,43 @@ def _process_count() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def init_distributed(device: DeviceLike = None) -> Optional[str]:
+    """Join the process group the environment describes (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``, as
+    ``torch.distributed.run`` sets them); returns its backend, or None with
+    no such environment.
+
+    The backend rule: ``gloo`` for CPU ranks and for ranks that share a card
+    (``LOCAL_WORLD_SIZE`` above the visible devices: NCCL refuses two ranks
+    on one GPU; on CUDA tensors gloo runs all_reduce and broadcast and the
+    collectives stage the rest through the host, ``parallel.collectives``),
+    ``nccl`` with one rank per card, each on ``cuda:LOCAL_RANK``.
+    """
+    dist = torch.distributed
+    if dist.is_initialized():
+        return str(dist.get_backend())
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    on_cuda = device is None or torch.device(device).type == "cuda"
+    if on_cuda and torch.cuda.is_available() and local_world <= torch.cuda.device_count():
+        backend = "nccl"
+        torch.cuda.set_device(local_rank)
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://")
+    log.info("process group: rank %d of %d on %s (%s)", dist.get_rank(), world, backend,
+             "CPU ranks" if not on_cuda else
+             f"{local_world} local rank(s) on {torch.cuda.device_count()} visible card(s)")
+    return backend
+
+
+def _is_writer() -> bool:
+    return not (torch.distributed.is_initialized() and torch.distributed.get_rank() != 0)
+
+
 def poisson_generator(device: torch.device, step: int) -> torch.Generator:
     """The generator of step ``step``'s Poisson mask: seeded by the step
     alone, so a resumed run redraws the masks of the uninterrupted one."""
@@ -205,10 +266,9 @@ def host_metrics(metrics: dict) -> dict:
 
 def run_once(args, injection: Optional[InjectionPlan] = None, *,
              arch: Optional[ArchConfig] = None) -> int:
-    if args.consensus:
-        raise NotImplementedError(CONSENSUS_LATER)
     if injection is None:
         injection = _injection_for(args)
+    backend = init_distributed(args.device)
     device = resolve_device(args.device)
     # observability streams live next to the checkpoints unless redirected;
     # configure_run(None) resets any sinks a previous in-process run left
@@ -220,7 +280,8 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
         "run_started", arch=args.arch, reduced=bool(args.reduced),
         steps=args.steps, logical_batch=args.batch, seq_len=args.seq,
         mode=args.mode, policy=args.clip_policy, resume=bool(args.resume),
-        ckpt_dir=args.ckpt_dir, device=str(device),
+        ckpt_dir=args.ckpt_dir, device=str(device), processes=_process_count(),
+        backend=backend,
     )
     profile = None
     if args.profile_steps:
@@ -233,6 +294,7 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, device=device)
+    mesh = make_host_mesh(device)
 
     # clipping policy (repro_torch.policies): make_policy filters the kwarg
     # union down to what the chosen policy's __init__ actually takes
@@ -281,9 +343,13 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
     state = make_train_state(model, 0, optimizer, policy)
 
     # measured-cost autotuning: load a cached ClipPlan or profile one now.
-    # One process: the memory certificates run at the whole batch
+    # The memory certificates run at the per-host share of the batch: on a
+    # fleet no one card holds the global batch
     seq = args.seq if (args.reduced or arch is not None) else 4096
-    probe_batch = args.batch
+    probe_batch = per_host_batch(args.batch, mesh, cfg)
+    if probe_batch != args.batch:
+        log.info("fleet: memory certificates at the per-host batch share %d (global %d)",
+                 probe_batch, args.batch)
     plan = None
     if args.plan and not args.tune:
         from repro_torch.core.clipping import discover_meta
@@ -291,19 +357,30 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
 
         probe = synthetic_arch_batch(cfg, batch=probe_batch, seq=seq, device=device)
         metas = discover_meta(model.loss_with_ctx, state["params"], probe)
-        try:
+        if args.consensus:
+            # fleet import: a stale plan on one rank would run other branches
+            # than its peers, so abort before any step; the certify phase
+            # checks that every rank loaded the same bytes
+            from repro_torch.tuner.consensus import certify_fleet_hash, verify_adopted
+
             plan = ClipPlan.load(args.plan)
-        except (ValueError, KeyError) as e:
-            # e.g. a pre-three-way (v1) artifact: unreadable == stale
-            log.warning("unreadable ClipPlan %s (%s); falling back to the "
-                        "analytic decision", args.plan, e)
-            plan = None
-        if plan is not None and not plan.matches(metas, device):
-            # a stale plan must not drive anything — neither the branch
-            # overrides nor the microbatch geometry it measured elsewhere
-            log.warning("ClipPlan %s is stale for this arch/device; "
-                        "falling back to the analytic decision", args.plan)
-            plan = None
+            verify_adopted(plan, metas, device=device,
+                           policy_fingerprint=policy.fingerprint())
+            certify_fleet_hash(plan)
+        else:
+            try:
+                plan = ClipPlan.load(args.plan)
+            except (ValueError, KeyError) as e:
+                # e.g. a pre-three-way (v1) artifact: unreadable == stale
+                log.warning("unreadable ClipPlan %s (%s); falling back to the "
+                            "analytic decision", args.plan, e)
+                plan = None
+            if plan is not None and not plan.matches(metas, device):
+                # a stale plan must not drive anything — neither the branch
+                # overrides nor the microbatch geometry it measured elsewhere
+                log.warning("ClipPlan %s is stale for this arch/device; "
+                            "falling back to the analytic decision", args.plan)
+                plan = None
         if plan is not None:
             engine.use_plan(plan)
             log.info("loaded ClipPlan %s (device %s, %d branch overrides)",
@@ -315,6 +392,7 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
             budget_bytes=int(args.tune_budget_gb * 1024**3),
             hi_cap=args.tune_hi_cap,
             plan_path=args.plan if args.plan else "auto",
+            consensus=args.consensus,
         )
         log.info("tuned %d taps; max physical batch=%s", len(plan.branches),
                  plan.physical_batch)
@@ -341,6 +419,24 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
                     replan = candidate.recertify_max_batch(
                         state["params"], probe, hi_cap=args.tune_hi_cap
                     )
+                    if args.consensus:
+                        # re-certified on THIS rank's card: the fleet adopts
+                        # the mode only if every rank fits it, at the minimum
+                        # batch any rank certified
+                        from repro_torch.tuner.consensus import reconcile_recertification
+
+                        fits, fleet_mb = reconcile_recertification(
+                            replan is not None,
+                            replan.physical_batch if replan is not None else None)
+                        if not fits:
+                            replan = None
+                        elif fleet_mb and fleet_mb != replan.physical_batch:
+                            log.info("fleet minimum re-certified batch %d (this rank fit "
+                                     "%d)", fleet_mb, replan.physical_batch)
+                            replan = replan.replace_batch(
+                                physical_batch=fleet_mb, logical_batch=replan.logical_batch,
+                                accumulation_steps=None, budget_bytes=replan.budget_bytes)
+                            candidate.use_plan(replan)
                     if replan is None:
                         log.warning(
                             "no batch fits the budget under %s; staying on "
@@ -399,6 +495,17 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
             eplan.accumulation_steps, physical, accum, logical_eff,
         )
 
+    if args.consensus:
+        # the decisions each rank derives after adopting the plan (the --mode
+        # auto re-certification, the accumulation split) must agree too
+        from repro_torch.tuner.consensus import certify_fleet_value
+
+        certify_fleet_value(
+            "adopted mode/batch/policy",
+            f"{clip_mode}:{physical}:{accum}:{policy.fingerprint()}:"
+            f"{plan.consensus_hash() if plan is not None else '-'}",
+        )
+
     # the adopted configuration, as actually run: per-tap branch map +
     # kernel winners from the plan (or the analytic rule), plus the executed
     # batch layout (which the elastic replan may have reshaped past the
@@ -429,12 +536,20 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
                                             engine.sampling_rate)
         return b
 
+    # the fleet's layout: parameters and moments stored sharded over the
+    # data axis, the rest replicated (a one-process run has no live mesh)
+    shardings = layout = None
+    if mesh.live:
+        shardings = state_shardings(model, mesh, cfg, state)
+        layout = ShardLayout(mesh, shardings["params"])
+
     start_step = 0
     manager = None
     if args.ckpt_dir:
         manager = CheckpointManager(
             args.ckpt_dir, save_every=args.ckpt_every,
             on_saved=injection.on_checkpoint_saved if injection else None,
+            gather=None if layout is None else layout.gather_state,
         )
         if args.resume and manager.latest() is not None:
             # every leaf back as the fresh state holds it (device, dtype,
@@ -442,18 +557,25 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
             start_step, state = manager.restore(cast_to=state, fill=("policy",))
             log.info("resumed from step %d", start_step)
             engine.record_step(start_step)
+    if layout is not None:
+        state = layout.shard_state(state)
 
-    pipeline = DataPipeline(batch_fn, start_step=start_step * accum).start()
+    # every rank makes the same global batch (shard 0, as one process does)
+    # and the sharded step keeps its rows
+    pipeline = DataPipeline(batch_fn, start_step=start_step * accum, shard=0).start()
     if accum == 1:
-        step_fn = make_train_step(model, optimizer, schedule, dp, device=device)
+        step_fn = make_train_step(model, optimizer, schedule, dp, device=device,
+                                  shardings=shardings)
     else:
         # virtual-step pattern: accumulate clipped grad sums over physical
         # microbatches in place, then noise + update once per logical step;
         # the policy update runs once per LOGICAL batch, over the per-sample
         # norms (and Poisson mask) of every microstep
         init_fn = make_accum_init(state["params"], physical * accum)
-        micro_fn = make_accum_microstep(model, dp)
-        fin_fn = make_accum_finalize(optimizer, schedule, dp)
+        micro_fn = make_accum_microstep(model, dp, shardings=shardings)
+        fin_fn = make_accum_finalize(optimizer, schedule, dp, shardings=shardings)
+    def reshard():
+        return use_reshard_rules(mesh, cfg) if mesh.live else contextlib.nullcontext()
 
     watchdog = StepWatchdog()
     preempt = PreemptionHandler().install()
@@ -474,7 +596,8 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
             # a failure inside the step may have drawn noise from the
             # generator in place: the exit checkpoint rewinds it
             rng_at_step, in_step = state["rng"].get_state(), True
-            with profile.span(step_idx) if profile is not None else contextlib.nullcontext():
+            with reshard(), (profile.span(step_idx) if profile is not None
+                             else contextlib.nullcontext()):
                 if accum == 1:
                     state, metrics = step_fn(state, batch)
                 else:
@@ -533,10 +656,13 @@ def run_once(args, injection: Optional[InjectionPlan] = None, *,
                 state["rng"].set_state(rng_at_step)
             manager.save(step, state, force=True)
             manager.wait()
+        if torch.distributed.is_initialized():
+            # a restarted attempt reads the exit checkpoint on every rank
+            torch.distributed.barrier()
     eps, delta = engine.privacy_spent()
     log.info("done: %d steps, privacy spent (eps=%.3f, delta=%.1e)", step, eps, delta)
     obs.emit_event("run_finished", step=step, epsilon=eps, delta=delta)
-    if args.ckpt_dir:
+    if args.ckpt_dir and _is_writer():
         _write_summary(
             args.ckpt_dir, step=step, epsilon=eps, delta=delta,
             logical_batch=logical_eff, microbatch=physical,
@@ -561,8 +687,11 @@ _NON_RETRYABLE = (
 
 def is_retryable_failure(exc: BaseException) -> bool:
     """Should the --auto-restart supervisor retry after ``exc``?  Not after
-    the config-error types above (``--consensus``'s refusal included)."""
-    return not isinstance(exc, _NON_RETRYABLE)
+    the config-error types above, nor after a failed fleet agreement: every
+    restart would derive the same divergence."""
+    from repro_torch.tuner.consensus import PlanConsensusError
+
+    return not isinstance(exc, _NON_RETRYABLE + (PlanConsensusError,))
 
 
 def main(argv=None, *, arch: Optional[ArchConfig] = None) -> int:

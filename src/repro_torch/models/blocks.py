@@ -30,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.attention import Attention, make_kv_cache
 from repro_torch.nn.mlp import MLP, GatedMLP
-from repro_torch.nn.module import LayerNorm, Module, Params, RMSNorm
+from repro_torch.nn.module import AxesTree, LayerNorm, Module, Params, RMSNorm
 from repro_torch.nn.mamba import MambaBlock
 from repro_torch.nn.moe import MoE
 from repro_torch.nn.stack import SequentialBlocks
@@ -98,6 +98,19 @@ class TransformerBlock(Module):
         else:
             p["mlp"] = self.mlp.init(generator)
         return p
+
+    def axes(self) -> AxesTree:
+        a = {"n1": self.n1.axes(), "attn": self.attn.axes(), "n2": self.n2.axes()}
+        if self.cross:
+            a["nx"] = self.nx.axes()
+            a["xattn"] = self.xattn.axes()
+        if self.use_moe:
+            a["moe"] = self.moe.axes()
+            if self.cfg.moe_dense_ff:
+                a["dense_mlp"] = self.dense_mlp.axes()
+        else:
+            a["mlp"] = self.mlp.axes()
+        return a
 
     def init_cache(self, batch: int, dtype: torch.dtype, *, max_len: int,
                    enc_seq: int = 0) -> dict:
@@ -170,6 +183,14 @@ class MambaWrap(Module):
             p["mlp"] = self.mlp.init(generator)
         return p
 
+    def axes(self) -> AxesTree:
+        a = {"n1": self.n1.axes(), "mamba": self.mamba.axes(), "n2": self.n2.axes()}
+        if self.use_moe:
+            a["moe"] = self.moe.axes()
+        else:
+            a["mlp"] = self.mlp.axes()
+        return a
+
     def init_cache(self, batch: int, dtype: torch.dtype, **kw) -> dict:
         return {"mamba": self.mamba.init_cache(batch, dtype)}
 
@@ -207,6 +228,9 @@ class XLSTMWrap(Module):
 
     def init(self, generator: torch.Generator) -> Params:
         return {"b": self.block.init(generator)}
+
+    def axes(self) -> AxesTree:
+        return {"b": self.block.axes()}
 
     def init_cache(self, batch: int, dtype: torch.dtype, **kw) -> dict:
         return {"b": self.block.init_cache(batch, dtype)}

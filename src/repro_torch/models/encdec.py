@@ -57,16 +57,17 @@ class EncDecLM:
         self.dtype = dtype = torch_dtype(cfg.dtype)
         common = dict(dtype=dtype, param_dtype=torch_dtype(cfg.param_dtype), device=dev)
         d = cfg.d_model
-        self.enc_pos = Embedding("enc_pos", cfg.encoder_seq, d, **common)
+        self.enc_pos = Embedding("enc_pos", cfg.encoder_seq, d, axes_=(None, "embed"), **common)
         enc_block = TransformerBlock("eb", cfg, cross=False, causal=False, **common)
         self.encoder = ScannedStack("encoder", enc_block, cfg.encoder_layers, remat=cfg.remat)
         self.enc_norm = LayerNorm("enc_norm", d, **common)
         self.embed = Embedding("embed", cfg.vocab, d, **common)
-        self.pos_embed = Embedding("pos_embed", 32768, d, **common)
+        self.pos_embed = Embedding("pos_embed", 32768, d, axes_=(None, "embed"), **common)
         dec_block = TransformerBlock("db", cfg, cross=True, causal=True, **common)
         self.decoder = ScannedStack("decoder", dec_block, cfg.n_layers, remat=cfg.remat)
         self.dec_norm = LayerNorm("dec_norm", d, **common)
-        self.lm_head = Dense("lm_head", d, cfg.vocab, use_bias=False, **common)
+        self.lm_head = Dense("lm_head", d, cfg.vocab, use_bias=False,
+                             w_axes=("embed", "vocab"), **common)
         self.conv_weights: tuple[str, ...] = ()  # no conv layer
 
     def init(self, generator: torch.Generator) -> dict:
@@ -79,6 +80,18 @@ class EncDecLM:
             "decoder": self.decoder.init(generator),
             "dec_norm": self.dec_norm.init(generator),
             "lm_head": self.lm_head.init(generator),
+        }
+
+    def axes(self) -> dict:
+        return {
+            "enc_pos": self.enc_pos.axes(),
+            "encoder": self.encoder.axes(),
+            "enc_norm": self.enc_norm.axes(),
+            "embed": self.embed.axes(),
+            "pos_embed": self.pos_embed.axes(),
+            "decoder": self.decoder.axes(),
+            "dec_norm": self.dec_norm.axes(),
+            "lm_head": self.lm_head.axes(),
         }
 
     def _encode(self, params, frames: torch.Tensor, ctx: Ctx) -> torch.Tensor:

@@ -81,14 +81,17 @@ class DecoderLM:
         self.embed = Embedding("embed", cfg.vocab, d, **common)
         self.use_learned_pos = cfg.norm == "layernorm"
         if self.use_learned_pos:
-            self.pos_embed = Embedding("pos_embed", max(cfg.encoder_seq, 32768), d, **common)
+            self.pos_embed = Embedding("pos_embed", max(cfg.encoder_seq, 32768), d,
+                                       axes_=(None, "embed"), **common)
         if cfg.prefix_tokens:
-            self.prefix_proj = Dense("prefix_proj", cfg.prefix_dim, d, use_bias=True, **common)
+            self.prefix_proj = Dense("prefix_proj", cfg.prefix_dim, d, use_bias=True,
+                                     w_axes=(None, "embed"), **common)
         period, n_periods = build_period(cfg, **common)
         self.layers = ScannedStack("layers", period, n_periods, remat=cfg.remat)
         norm_cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
         self.norm_f = norm_cls("norm_f", d, **common)
-        self.lm_head = Dense("lm_head", d, cfg.vocab, use_bias=False, **common)
+        self.lm_head = Dense("lm_head", d, cfg.vocab, use_bias=False,
+                             w_axes=("embed", "vocab"), **common)
         self.conv_weights: tuple[str, ...] = ()  # no conv layer
 
     # -- params ------------------------------------------------------------
@@ -104,6 +107,19 @@ class DecoderLM:
         if self.cfg.prefix_tokens:
             p["prefix_proj"] = self.prefix_proj.init(generator)
         return p
+
+    def axes(self) -> dict:
+        a = {
+            "embed": self.embed.axes(),
+            "layers": self.layers.axes(),
+            "norm_f": self.norm_f.axes(),
+            "lm_head": self.lm_head.axes(),
+        }
+        if self.use_learned_pos:
+            a["pos_embed"] = self.pos_embed.axes()
+        if self.cfg.prefix_tokens:
+            a["prefix_proj"] = self.prefix_proj.axes()
+        return a
 
     # -- shared trunk --------------------------------------------------------
     def _trunk(self, params, tokens: torch.Tensor, ctx: Ctx, *,

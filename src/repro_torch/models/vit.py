@@ -39,7 +39,8 @@ class ViT:
         self.n_patches = (image_size // patch) ** 2
         self.patch_embed = Conv2d("patch_embed", in_ch, cfg.d_model, (patch, patch),
                                   strides=(patch, patch), padding="VALID", **common)
-        self.pos_embed = Embedding("pos_embed", self.n_patches, cfg.d_model, **common)
+        self.pos_embed = Embedding("pos_embed", self.n_patches, cfg.d_model,
+                                   axes_=(None, "embed"), **common)
         block = TransformerBlock(
             "vb", dataclasses.replace(cfg, norm="layernorm", act="gelu"), causal=False,
             **common,
@@ -56,6 +57,15 @@ class ViT:
             "layers": self.layers.init(generator),
             "norm_f": self.norm_f.init(generator),
             "head": self.head.init(generator),
+        }
+
+    def axes(self) -> dict:
+        return {
+            "patch_embed": self.patch_embed.axes(),
+            "pos_embed": self.pos_embed.axes(),
+            "layers": self.layers.axes(),
+            "norm_f": self.norm_f.axes(),
+            "head": self.head.axes(),
         }
 
     def logits(self, params, image, ctx: Ctx) -> torch.Tensor:

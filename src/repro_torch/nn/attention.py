@@ -60,7 +60,7 @@ import torch
 from repro_torch.core.taps import Ctx
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import flash_attention_train
-from repro_torch.nn.module import Dense, Module, Params
+from repro_torch.nn.module import AxesTree, Dense, Module, Params
 from repro_torch.nn.rotary import apply_rope
 
 
@@ -167,13 +167,13 @@ class Attention(Module):
         self.cp_blocks = cp_blocks
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.wq = Dense(f"{name}.q", d_model, n_heads * self.head_dim, use_bias=qkv_bias,
-                        **common)
+                        w_axes=("embed", "heads"), **common)
         self.wk = Dense(f"{name}.k", d_model, n_kv * self.head_dim, use_bias=qkv_bias,
-                        **common)
+                        w_axes=("embed", "kv_heads"), **common)
         self.wv = Dense(f"{name}.v", d_model, n_kv * self.head_dim, use_bias=qkv_bias,
-                        **common)
+                        w_axes=("embed", "kv_heads"), **common)
         self.wo = Dense(f"{name}.o", n_heads * self.head_dim, d_model, use_bias=False,
-                        **common)
+                        w_axes=("heads", "embed"), **common)
 
     def init(self, generator: torch.Generator) -> Params:
         return {
@@ -182,6 +182,10 @@ class Attention(Module):
             "v": self.wv.init(generator),
             "o": self.wo.init(generator),
         }
+
+    def axes(self) -> AxesTree:
+        return {"q": self.wq.axes(), "k": self.wk.axes(), "v": self.wv.axes(),
+                "o": self.wo.axes()}
 
     def __call__(
         self, params: Params, x: torch.Tensor, ctx: Ctx, *,

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import ConvInfo, Ctx
-from repro_torch.nn.module import Module, Params, normal_init
+from repro_torch.parallel.reshard import reshard_param
+from repro_torch.nn.module import AxesTree, Module, Params, normal_init
 
 
 def same_padding(size: int, k: int, stride: int, dilation: int = 1) -> tuple[int, int]:
@@ -104,15 +105,25 @@ class Conv2d(Module):
             p["b"] = torch.zeros((self.d_out,), dtype=self.param_dtype, device=self.device)
         return p
 
+    # the JAX package's HWIO (None, None, "embed", "mlp") in this OIHW layout
+    W_AXES = ("mlp", "embed", None, None)
+
+    def axes(self) -> AxesTree:
+        a = {"w": self.W_AXES}
+        if self.use_bias:
+            a["b"] = ("mlp",)
+        return a
+
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        w = reshard_param(params["w"].to(self.dtype), self.W_AXES,
+                          (self.d_out, self.d_in, *self.kernel))
         x = x.to(self.dtype)
         pads = conv_padding(self.padding, x.shape[1:3], self.kernel, self.strides)
         xc = x.permute(0, 3, 1, 2)
         if all(lo == hi for lo, hi in pads):
-            s = F.conv2d(xc, params["w"].to(self.dtype), stride=self.strides,
-                         padding=tuple(lo for lo, _ in pads))
+            s = F.conv2d(xc, w, stride=self.strides, padding=tuple(lo for lo, _ in pads))
         else:
-            s = F.conv2d(pad_nchw(xc, pads), params["w"].to(self.dtype), stride=self.strides)
+            s = F.conv2d(pad_nchw(xc, pads), w, stride=self.strides)
         s = s.permute(0, 2, 3, 1)  # back to (B, H_out, W_out, p)
         if self.use_bias:
             s = s + params["b"].to(self.dtype)
@@ -150,6 +161,12 @@ class DepthwiseConv1d(Module):
             p["b"] = torch.zeros((self.d,), dtype=self.param_dtype, device=self.device)
         return p
 
+    def axes(self) -> AxesTree:
+        a = {"w": (None, "mlp")}
+        if self.use_bias:
+            a["b"] = ("mlp",)
+        return a
+
     def padded(self, x: torch.Tensor, state: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T + k - 1, d): the carried state (zeros without one), then x."""
         if state is None:
@@ -165,7 +182,8 @@ class DepthwiseConv1d(Module):
         x = x.to(self.dtype)
         xp = self.padded(x, state)
         unf = xp.unfold(1, self.k, 1).transpose(2, 3)  # (B, T, k, d), a view
-        s = torch.einsum("btkd,kd->btd", unf, params["w"].to(self.dtype))
+        w = reshard_param(params["w"].to(self.dtype), (None, "mlp"), (self.k, self.d))
+        s = torch.einsum("btkd,kd->btd", unf, w)
         if self.use_bias:
             s = s + params["b"].to(self.dtype)
         if ctx.collect:

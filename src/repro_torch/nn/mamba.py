@@ -30,8 +30,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.conv import DepthwiseConv1d
-from repro_torch.nn.module import Dense, Module, Params, RMSNorm
+from repro_torch.nn.module import AxesTree, Dense, Module, Params, RMSNorm
 from repro_torch.nn.ssm_scan import chunked_ssm, ssm_decode_step
+from repro_torch.parallel.reshard import shard_heads
 
 
 class MambaBlock(Module):
@@ -55,15 +56,17 @@ class MambaBlock(Module):
         self.device = device
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         # separate projections: z (d_inner), x (d_inner), B, C and dt (2 * d_state + H)
-        self.in_z = Dense(f"{name}.in_z", d_model, self.d_inner, use_bias=False, **common)
-        self.in_x = Dense(f"{name}.in_x", d_model, self.d_inner, use_bias=False, **common)
+        self.in_z = Dense(f"{name}.in_z", d_model, self.d_inner, use_bias=False,
+                          w_axes=("embed", "mlp"), **common)
+        self.in_x = Dense(f"{name}.in_x", d_model, self.d_inner, use_bias=False,
+                          w_axes=("embed", "mlp"), **common)
         self.in_bcdt = Dense(f"{name}.in_bcdt", d_model, 2 * d_state + self.n_heads,
-                             use_bias=False, **common)
+                             use_bias=False, w_axes=("embed", None), **common)
         self.conv = DepthwiseConv1d(f"{name}.conv", self.d_inner, conv_k, use_bias=True,
                                     **common)
         self.norm = RMSNorm(f"{name}.norm", self.d_inner, **common)
         self.out_proj = Dense(f"{name}.out_proj", self.d_inner, d_model, use_bias=False,
-                              **common)
+                              w_axes=("mlp", "embed"), **common)
 
     def init(self, generator: torch.Generator) -> Params:
         h, dev = self.n_heads, self.device
@@ -81,6 +84,19 @@ class MambaBlock(Module):
             "dt_bias": dt_bias.to(self.param_dtype),
             "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)).to(self.param_dtype),
             "D": torch.ones((h,), dtype=self.param_dtype, device=dev),
+        }
+
+    def axes(self) -> AxesTree:
+        return {
+            "in_z": self.in_z.axes(),
+            "in_x": self.in_x.axes(),
+            "in_bcdt": self.in_bcdt.axes(),
+            "conv": self.conv.axes(),
+            "out_proj": self.out_proj.axes(),
+            "norm": self.norm.axes(),
+            "dt_bias": (None,),
+            "A_log": (None,),
+            "D": (None,),
         }
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
@@ -112,6 +128,9 @@ class MambaBlock(Module):
         v = xs.reshape(bsz, t, h, dh) * delta[..., None].to(xs.dtype)
         q = c_in[:, :, None, :].expand(bsz, t, h, ds)  # B and C are shared by the heads
         k = b_in[:, :, None, :].expand(bsz, t, h, ds)
+        if t > 1:  # decode (t = 1) tensors are tiny; the constraints would only reshard
+            v, q, k = shard_heads(v), shard_heads(q), shard_heads(k)
+            log_a = shard_heads(log_a, axis=2) if log_a.ndim > 2 else log_a
         if cache is not None and t == 1:
             y, ssm_state = ssm_decode_step(q, k, v, log_a, cache["ssm"])
         else:

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
-from repro_torch.nn.module import Dense, Module, Params
+from repro_torch.nn.module import AxesTree, Dense, Module, Params
 
 
 class MLP(Module):
@@ -23,11 +23,14 @@ class MLP(Module):
     ):
         self.name = name
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.wi = Dense(f"{name}.wi", d_model, d_ff, **common)
-        self.wo = Dense(f"{name}.wo", d_ff, d_model, **common)
+        self.wi = Dense(f"{name}.wi", d_model, d_ff, w_axes=("embed", "mlp"), **common)
+        self.wo = Dense(f"{name}.wo", d_ff, d_model, w_axes=("mlp", "embed"), **common)
 
     def init(self, generator: torch.Generator) -> Params:
         return {"wi": self.wi.init(generator), "wo": self.wo.init(generator)}
+
+    def axes(self) -> AxesTree:
+        return {"wi": self.wi.axes(), "wo": self.wo.axes()}
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         h = F.gelu(self.wi(params["wi"], x, ctx.scope("wi")), approximate="tanh")
@@ -43,13 +46,16 @@ class GatedMLP(Module):
     ):
         self.name = name
         common = dict(use_bias=False, dtype=dtype, param_dtype=param_dtype, device=device)
-        self.wg = Dense(f"{name}.wg", d_model, d_ff, **common)
-        self.wu = Dense(f"{name}.wu", d_model, d_ff, **common)
-        self.wo = Dense(f"{name}.wo", d_ff, d_model, **common)
+        self.wg = Dense(f"{name}.wg", d_model, d_ff, w_axes=("embed", "mlp"), **common)
+        self.wu = Dense(f"{name}.wu", d_model, d_ff, w_axes=("embed", "mlp"), **common)
+        self.wo = Dense(f"{name}.wo", d_ff, d_model, w_axes=("mlp", "embed"), **common)
 
     def init(self, generator: torch.Generator) -> Params:
         return {"wg": self.wg.init(generator), "wu": self.wu.init(generator),
                 "wo": self.wo.init(generator)}
+
+    def axes(self) -> AxesTree:
+        return {"wg": self.wg.axes(), "wu": self.wu.axes(), "wo": self.wo.axes()}
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         gate = self.wg(params["wg"], x, ctx.scope("wg"))

@@ -5,11 +5,16 @@ A module is a configuration holder with
 - ``init(generator) -> params``   a nested dict of tensors on ``self.device``
 - ``__call__(params, x, ctx)``    the forward; ``ctx`` threads the DP taps
 
+- ``axes() -> axes_tree``        the logical sharding axes mirroring ``init``
+
 Parameters stay plain tensors keyed by the JAX package's paths, so the
 clipping engine can map every tap to its parameter leaf by name.  The
-JAX package's ``reshard_param`` has no counterpart: one device needs none.
-A module keeps its parameters in ``param_dtype`` and computes in ``dtype``
-(fp32 parameters under bf16 compute, as the transformer configs declare).
+logical axis names are the JAX package's; ``repro_torch.parallel.sharding``
+resolves them to mesh axes.  Where a weight is used, ``reshard_param``
+gathers the dims a sharded train state stores over the data axis (a no-op
+on one process), after the cast to the compute dtype.  A module keeps its
+parameters in ``param_dtype`` and computes in ``dtype`` (fp32 parameters
+under bf16 compute, as the transformer configs declare).
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
+from repro_torch.parallel.reshard import reshard_param
 
 NORM_EPS = 1e-5  # GroupNorm and LayerNorm, as the JAX package's defaults
 RMS_EPS = 1e-6  # RMSNorm, as the JAX package's default
 
 Params = Any
+AxesTree = Any
 
 
 class Module:
@@ -34,6 +41,9 @@ class Module:
     device: torch.device
 
     def init(self, generator: torch.Generator) -> Params:
+        raise NotImplementedError
+
+    def axes(self) -> AxesTree:
         raise NotImplementedError
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx):
@@ -56,12 +66,14 @@ class Dense(Module):
 
     def __init__(
         self, name: str, d_in: int, d_out: int, *, use_bias: bool = True,
-        dtype=torch.float32, param_dtype=torch.float32, device: torch.device,
+        w_axes: tuple = ("embed", "mlp"), dtype=torch.float32, param_dtype=torch.float32,
+        device: torch.device,
     ):
         self.name = name
         self.d_in = d_in
         self.d_out = d_out
         self.use_bias = use_bias
+        self.w_axes = w_axes
         self.dtype = dtype
         self.param_dtype = param_dtype
         self.device = device
@@ -75,11 +87,18 @@ class Dense(Module):
             p["b"] = torch.zeros((self.d_out,), dtype=self.param_dtype, device=self.device)
         return p
 
-    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        x = x.to(self.dtype)
-        s = x @ params["w"].to(self.dtype)
+    def axes(self) -> AxesTree:
+        a = {"w": self.w_axes}
         if self.use_bias:
-            s = s + params["b"].to(self.dtype)
+            a["b"] = (self.w_axes[-1],)
+        return a
+
+    def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        w = reshard_param(params["w"].to(self.dtype), self.w_axes, (self.d_in, self.d_out))
+        x = x.to(self.dtype)
+        s = x @ w
+        if self.use_bias:
+            s = s + reshard_param(params["b"].to(self.dtype), self.w_axes[-1:], (self.d_out,))
         if ctx.collect:
             batch = x.shape[0]
             t = int(math.prod(x.shape[1:-1])) if x.ndim > 2 else 1
@@ -118,6 +137,9 @@ class GroupNorm(Module):
             "b": torch.zeros((self.d,), dtype=self.dtype, device=self.device),
         }
 
+    def axes(self) -> AxesTree:
+        return {"g": (None,), "b": (None,)}
+
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         # x: (B, *spatial, d)
         batch = x.shape[0]
@@ -146,12 +168,13 @@ class Embedding(Module):
     """
 
     def __init__(
-        self, name: str, vocab: int, d: int, *, dtype=torch.float32,
-        param_dtype=torch.float32, device: torch.device,
+        self, name: str, vocab: int, d: int, *, axes_: tuple = ("vocab", "embed"),
+        dtype=torch.float32, param_dtype=torch.float32, device: torch.device,
     ):
         self.name = name
         self.vocab = vocab
         self.d = d
+        self.axes_ = axes_
         self.dtype = dtype
         self.param_dtype = param_dtype
         self.device = device
@@ -161,8 +184,12 @@ class Embedding(Module):
             generator, (self.vocab, self.d), 0.02, self.param_dtype, self.device
         )}
 
+    def axes(self) -> AxesTree:
+        return {"e": self.axes_}
+
     def __call__(self, params: Params, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        s = F.embedding(ids, params["e"].to(self.dtype))
+        e = reshard_param(params["e"].to(self.dtype), self.axes_, (self.vocab, self.d))
+        s = F.embedding(ids, e)
         if ctx.collect:
             batch, t = ids.shape[0], int(math.prod(ids.shape[1:]))
             s = ctx.tap(
@@ -194,6 +221,9 @@ class LayerNorm(Module):
             "g": torch.ones((self.d,), dtype=self.param_dtype, device=self.device),
             "b": torch.zeros((self.d,), dtype=self.param_dtype, device=self.device),
         }
+
+    def axes(self) -> AxesTree:
+        return {"g": (None,), "b": (None,)}
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         xf = x.float()
@@ -233,6 +263,9 @@ class RMSNorm(Module):
     def init(self, generator: torch.Generator) -> Params:
         del generator
         return {"g": torch.ones((self.d,), dtype=self.param_dtype, device=self.device)}
+
+    def axes(self) -> AxesTree:
+        return {"g": (None,)}
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         xf = x.float()

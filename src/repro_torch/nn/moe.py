@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
-from repro_torch.nn.module import Dense, Module, Params, normal_init
+from repro_torch.nn.module import AxesTree, Dense, Module, Params, normal_init
+from repro_torch.parallel.reshard import reshard_param
 
 
 def dispatch_tables(logits: torch.Tensor, top_k: int, capacity: int):
@@ -93,7 +94,8 @@ class MoE(Module):
         self.param_dtype = param_dtype
         self.device = device
         self.router = Dense(f"{name}.router", d_model, n_experts, use_bias=False,
-                            dtype=torch.float32, param_dtype=torch.float32, device=device)
+                            w_axes=("embed", None), dtype=torch.float32,
+                            param_dtype=torch.float32, device=device)
 
     def init(self, generator: torch.Generator) -> Params:
         e, d, f = self.n_experts, self.d_model, self.d_ff
@@ -103,6 +105,14 @@ class MoE(Module):
             "wg": normal_init(generator, (e, d, f), 1.0 / math.sqrt(d), **common),
             "wu": normal_init(generator, (e, d, f), 1.0 / math.sqrt(d), **common),
             "wo": normal_init(generator, (e, f, d), 1.0 / math.sqrt(f), **common),
+        }
+
+    def axes(self) -> AxesTree:
+        return {
+            "router": self.router.axes(),
+            "wg": ("expert", "embed", "moe_mlp"),
+            "wu": ("expert", "embed", "moe_mlp"),
+            "wo": ("expert", "moe_mlp", "embed"),
         }
 
     def capacity(self, tokens_per_dispatch: int) -> int:
@@ -124,14 +134,18 @@ class MoE(Module):
         table, idx, slot, gates, keep = dispatch_tables(logits, self.top_k, cap)
         xe = dispatch_tokens(x, table).to(self.dtype)  # (B, E, C, d)
         f, e = self.d_ff, self.n_experts
-        gate = torch.matmul(xe, params["wg"].to(self.dtype))
-        up = torch.matmul(xe, params["wu"].to(self.dtype))
+        up_axes, down_axes = ("expert", "embed", "moe_mlp"), ("expert", "moe_mlp", "embed")
+        wg = reshard_param(params["wg"].to(self.dtype), up_axes, (e, d, f))
+        wu = reshard_param(params["wu"].to(self.dtype), up_axes, (e, d, f))
+        wo = reshard_param(params["wo"].to(self.dtype), down_axes, (e, f, d))
+        gate = torch.matmul(xe, wg)
+        up = torch.matmul(xe, wu)
         if ctx.collect:
             tap = dict(kind="matmul", a=xe, T=cap, D=d, p=f, n_groups=e)
             gate = ctx.tap("wg@out", gate, param_path="wg", **tap)
             up = ctx.tap("wu@out", up, param_path="wu", **tap)
         act = F.silu(gate) * up
-        ye = torch.matmul(act, params["wo"].to(self.dtype))
+        ye = torch.matmul(act, wo)
         if ctx.collect:
             ye = ctx.tap("wo@out", ye, kind="matmul", a=act, T=cap, D=f, p=d, n_groups=e,
                          param_path="wo")

@@ -68,7 +68,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.taps import Ctx
-from repro_torch.nn.module import Module, Params
+from repro_torch.nn.module import AxesTree, Module, Params
+from repro_torch.parallel.reshard import shard_seq
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 
@@ -81,6 +82,9 @@ class SequentialBlocks(Module):
 
     def init(self, generator: torch.Generator) -> Params:
         return {str(i): b.init(generator) for i, b in enumerate(self.blocks)}
+
+    def axes(self) -> AxesTree:
+        return {str(i): b.axes() for i, b in enumerate(self.blocks)}
 
     def init_cache(self, batch: int, dtype: torch.dtype, **kw) -> dict:
         return {str(i): b.init_cache(batch, dtype, **kw) for i, b in enumerate(self.blocks)}
@@ -120,6 +124,13 @@ class ScannedStack(Module):
             del layer
         return unflatten_dict(out)
 
+    def axes(self) -> AxesTree:
+        """The block's axes with "stack" in front of every leaf."""
+        from repro_torch.parallel.sharding import _flat_axes
+
+        return unflatten_dict({k: ("stack",) + tuple(a)
+                               for k, a in _flat_axes(self.block.axes()).items()})
+
     def init_cache(self, batch: int, dtype: torch.dtype, **kw) -> Any:
         """The block's cache with a leading layer dim: every leaf (L, B, ...)."""
         one = flatten_dict(self.block.init_cache(batch, dtype, **kw))
@@ -141,7 +152,8 @@ class ScannedStack(Module):
                 lctx = ctx.layer(index, self.n)
 
                 def layer(h, *ls, lctx=lctx):
-                    return self.block(unflatten_dict(dict(zip(flat, ls))), h, lctx, **kw)
+                    return shard_seq(
+                        self.block(unflatten_dict(dict(zip(flat, ls))), h, lctx, **kw))
 
                 if remat:
                     x = checkpoint(layer, x, *leaves, use_reentrant=False,
@@ -154,4 +166,5 @@ class ScannedStack(Module):
             layer_cache = unflatten_dict({k: v[index] for k, v in flat_cache.items()})
             x, _ = self.block(unflatten_dict(dict(zip(flat, leaves))), x,
                               ctx.layer(index, self.n), cache=layer_cache, **kw)
+            x = shard_seq(x)
         return x, cache

@@ -44,8 +44,9 @@ import torch.nn.functional as F
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.conv import DepthwiseConv1d
 from repro_torch.nn.mlp import GatedMLP
-from repro_torch.nn.module import Dense, Module, Params, RMSNorm
+from repro_torch.nn.module import AxesTree, Dense, Module, Params, RMSNorm
 from repro_torch.nn.ssm_scan import chunked_ssm, ssm_decode_step
+from repro_torch.parallel.reshard import reshard_param
 
 M_INIT = -1e30  # the sLSTM stabiliser's start: exp(m_prev - m) is 0 at the first step
 
@@ -157,14 +158,18 @@ class MLSTMBlock(Module):
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         di = self.d_inner
         self.norm = RMSNorm(f"{name}.norm", d_model, **common)
-        self.in_x = Dense(f"{name}.in_x", d_model, di, use_bias=False, **common)
-        self.in_z = Dense(f"{name}.in_z", d_model, di, use_bias=False, **common)
+        self.in_x = Dense(f"{name}.in_x", d_model, di, use_bias=False,
+                          w_axes=("embed", "mlp"), **common)
+        self.in_z = Dense(f"{name}.in_z", d_model, di, use_bias=False,
+                          w_axes=("embed", "mlp"), **common)
         self.conv = DepthwiseConv1d(f"{name}.conv", di, conv_k, **common)
-        self.wq = Dense(f"{name}.q", di, di, use_bias=False, **common)
-        self.wk = Dense(f"{name}.k", di, di, use_bias=False, **common)
-        self.gates = Dense(f"{name}.gates", di, 2 * n_heads, use_bias=True, **common)
+        self.wq = Dense(f"{name}.q", di, di, use_bias=False, w_axes=("mlp", "heads"), **common)
+        self.wk = Dense(f"{name}.k", di, di, use_bias=False, w_axes=("mlp", "heads"), **common)
+        self.gates = Dense(f"{name}.gates", di, 2 * n_heads, use_bias=True,
+                           w_axes=("mlp", None), **common)
         self.out_norm = RMSNorm(f"{name}.out_norm", di, **common)
-        self.out_proj = Dense(f"{name}.out_proj", di, d_model, use_bias=False, **common)
+        self.out_proj = Dense(f"{name}.out_proj", di, d_model, use_bias=False,
+                              w_axes=("mlp", "embed"), **common)
 
     def init(self, generator: torch.Generator) -> Params:
         p = {
@@ -180,6 +185,19 @@ class MLSTMBlock(Module):
         }
         p["gates"]["b"][self.n_heads:] = 3.0  # forget-gate bias: long memory at init
         return p
+
+    def axes(self) -> AxesTree:
+        return {
+            "norm": self.norm.axes(),
+            "in_x": self.in_x.axes(),
+            "in_z": self.in_z.axes(),
+            "conv": self.conv.axes(),
+            "q": self.wq.axes(),
+            "k": self.wk.axes(),
+            "gates": self.gates.axes(),
+            "out_norm": self.out_norm.axes(),
+            "out_proj": self.out_proj.axes(),
+        }
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
                  cache: Optional[dict] = None):
@@ -248,8 +266,10 @@ class SLSTMBlock(Module):
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.norm = RMSNorm(f"{name}.norm", d_model, **common)
         self.conv = DepthwiseConv1d(f"{name}.conv", d_model, conv_k, **common)
-        self.wx = Dense(f"{name}.wx", d_model, 4 * d_model, use_bias=True, **common)
-        self.wr = Dense(f"{name}.wr", d_model, 4 * d_model, use_bias=False, **common)
+        self.wx = Dense(f"{name}.wx", d_model, 4 * d_model, use_bias=True,
+                        w_axes=("embed", "mlp"), **common)
+        self.wr = Dense(f"{name}.wr", d_model, 4 * d_model, use_bias=False,
+                        w_axes=("embed", "mlp"), **common)
         self.out_norm = RMSNorm(f"{name}.out_norm", d_model, **common)
         self.ffn_norm = RMSNorm(f"{name}.ffn_norm", d_model, **common)
         self.ffn = GatedMLP(f"{name}.ffn", d_model, d_ff, **common)
@@ -268,6 +288,17 @@ class SLSTMBlock(Module):
         p["wx"]["b"][d:2 * d] = 3.0  # forget-gate bias
         return p
 
+    def axes(self) -> AxesTree:
+        return {
+            "norm": self.norm.axes(),
+            "conv": self.conv.axes(),
+            "wx": self.wx.axes(),
+            "wr": self.wr.axes(),
+            "out_norm": self.out_norm.axes(),
+            "ffn_norm": self.ffn_norm.axes(),
+            "ffn": self.ffn.axes(),
+        }
+
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx, *,
                  cache: Optional[dict] = None):
         """Without ``cache`` returns the block's output; with it, (output,
@@ -282,7 +313,7 @@ class SLSTMBlock(Module):
         if ctx.collect:  # the recurrent weight's tap rides on the input stream
             pre = ctx.tap("wr@out", pre, kind="matmul", T=t, D=d, p=4 * d,
                           param_path="wr/w", late=True)
-        wr = params["wr"]["w"].to(pre.dtype)
+        wr = reshard_param(params["wr"]["w"].to(pre.dtype), self.wr.w_axes, (d, 4 * d))
         if cache is not None:
             h, c, n, m = cache["h"], cache["c"], cache["n"], cache["m"]
         else:

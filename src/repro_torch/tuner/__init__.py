@@ -7,7 +7,8 @@ and certifies the largest physical microbatch under a memory budget by
 trial (max_batch.py).  Consumed by ``ClipConfig(plan=...)``,
 ``DPTrainConfig(plan=...)`` and ``PrivacyEngine.tune``; the CLI
 (``python -m repro_torch.tuner``, cli.py) profiles a registry arch.  The
-fleet consensus comes with ``torch.distributed``.
+fleet agreement (consensus.py) gives every rank of a ``torch.distributed``
+fleet one byte-identical plan.
 """
 from repro_torch.tuner.max_batch import (
     certify_max_batch,

@@ -18,8 +18,12 @@ and which mode (mixed_ghost or bk_mixed) the measurements recommend.
 - ``--import-plan in.json``: skip measuring; load the plan and verify it
   strictly against this model and device (``tuner.plan.verify_plan``),
   exiting 1 on any mismatch;
-- ``--consensus``: the fleet agreement, which comes with the runtime
-  slice's ``tuner/consensus.py``; refused until then.
+- ``--consensus``: the fleet agreement (``tuner.consensus``) after
+  measuring: one leader per device kind measures, every rank adopts the
+  byte-identical agreed plan (on one process it stamps the plan's
+  consensus provenance).  Run it on every rank of the fleet, e.g. under
+  ``python -m torch.distributed.run``; the process group comes from that
+  environment (``launch.train.init_distributed``).
 """
 from __future__ import annotations
 
@@ -33,12 +37,11 @@ import torch
 from repro_torch.configs.registry import build_model, get_arch
 from repro_torch.core.clipping import ClipConfig, discover_meta, dp_value_and_clipped_grad
 from repro_torch.core.decision import decide
-from repro_torch.core.engine import CONSENSUS_LATER
 from repro_torch.data.synthetic import synthetic_arch_batch
 from repro_torch.device import resolve_device
 from repro_torch.tuner import max_batch as mb
 from repro_torch.tuner.measure import MeasureConfig, build_plan, close_physical_batch_loop
-from repro_torch.tuner.plan import ClipPlan, default_plan_path, verify_plan
+from repro_torch.tuner.plan import ClipPlan, default_plan_path, device_string, verify_plan
 
 log = logging.getLogger("repro_torch.tuner")
 
@@ -70,7 +73,8 @@ def parse_args(argv=None):
     ap.add_argument("--mode", default="mixed_ghost",
                     help="clipping mode the max-batch search runs")
     ap.add_argument("--consensus", action="store_true",
-                    help="fleet agreement after measuring (not ported yet)")
+                    help="fleet agreement after measuring: adopt the byte-identical "
+                         "plan on every rank")
     ap.add_argument("--export-plan", default=None,
                     help="also write the adopted plan here (offline fleets)")
     ap.add_argument("--import-plan", default=None,
@@ -150,9 +154,11 @@ def _print_table(cfg, plan: ClipPlan, metas, path: str) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.consensus:
-        raise NotImplementedError(CONSENSUS_LATER)
     device = resolve_device(args.device)
+    if args.consensus:
+        from repro_torch.launch.train import init_distributed
+
+        init_distributed(device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -165,6 +171,22 @@ def main(argv=None) -> int:
              sum(1 for m in metas.values() if m.kind == "matmul"), device)
     if args.import_plan:
         return _import(args, cfg, metas, device)
+
+    if args.consensus:
+        # one measurement per device kind: a non-leader rank measures
+        # nothing and adopts the fleet plan
+        from repro_torch.tuner.consensus import fleet_agree, fleet_roles
+
+        roles = fleet_roles(device=device_string(device))
+        if not roles.is_leader:
+            plan = fleet_agree(None, metas, device=roles.device)
+            plan.save(args.plan or default_plan_path(cfg.name, plan.fingerprint))
+            if args.export_plan:
+                plan.save(args.export_plan)
+            print(f"process {roles.process_index} ({roles.device}): adopted the fleet plan "
+                  f"measured by process {plan.leader_process} (hash {plan.agreed_hash}, "
+                  f"{plan.agreed_ranks} ranks)")
+            return 0
 
     measure = MeasureConfig(repeats=args.repeats, warmup=args.warmup,
                             max_rows=args.max_rows or None)
@@ -188,6 +210,11 @@ def main(argv=None) -> int:
                 # there, re-certifying the batch if a branch flips
                 plan = close_physical_batch_loop(plan, metas, search, logical, budget,
                                                  measure, device=device)
+
+    if args.consensus:
+        from repro_torch.tuner.consensus import fleet_agree
+
+        plan = fleet_agree(plan, metas, device=device_string(device))
 
     path = args.plan or default_plan_path(cfg.name, plan.fingerprint)
     plan.save(path)

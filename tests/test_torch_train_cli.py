@@ -38,6 +38,7 @@ from repro_torch.checkpoint import latest_step
 from repro_torch.launch import train
 from repro_torch.obs import read_jsonl
 from repro_torch.runtime.inject import InjectedCrash
+from repro_torch.tuner.consensus import PlanConsensusError
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ARCH = ["--arch", "yi-6b", "--reduced", "--device", "cpu", "--seq", "16", "--log-every", "4"]
@@ -220,7 +221,7 @@ def test_retry_classification():
     assert train.is_retryable_failure(OSError("storage blip"))
     assert not train.is_retryable_failure(ValueError("bad config"))
     assert not train.is_retryable_failure(AssertionError("invariant"))
-    assert not train.is_retryable_failure(NotImplementedError(train.CONSENSUS_LATER))
+    assert not train.is_retryable_failure(PlanConsensusError("ranks diverge"))
 
 
 def test_config_error_burns_no_restart_and_consensus_refused(tmp_path, monkeypatch):
@@ -236,9 +237,23 @@ def test_config_error_burns_no_restart_and_consensus_refused(tmp_path, monkeypat
         train.main(ARCH + ["--steps", "4", "--batch", "4", "--data-shards", "3",
                            "--auto-restart", "5", "--ckpt-dir", str(tmp_path / "cfg")])
     assert len(calls) == 1
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        train.main(ARCH + ["--steps", "1", "--consensus", "--auto-restart", "3"])
-    assert len(calls) == 2
+    # --consensus runs (a one-process fleet agreement) and a plan that fails
+    # the fleet's validity gate is a config error: no restart burned either
+    assert train.main(ARCH + ["--steps", "1", "--consensus"]) == 0
+    stale = tmp_path / "stale.json"
+    stale.write_text(_stale_plan_json())
+    calls.clear()
+    with pytest.raises(PlanConsensusError, match="fingerprint"):
+        train.main(ARCH + ["--steps", "2", "--consensus", "--plan", str(stale),
+                           "--auto-restart", "3", "--ckpt-dir", str(tmp_path / "stale")])
+    assert len(calls) == 1
+
+
+def _stale_plan_json() -> str:
+    from repro_torch.tuner.plan import ClipPlan
+
+    return ClipPlan(fingerprint="another-model", device="cpu:cpu", branches=(),
+                    bk_branches=(), timings=(), arch="yi-6b").to_json()
 
 
 def test_gpu_by_default():

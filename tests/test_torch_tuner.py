@@ -462,8 +462,15 @@ def test_engine_tune_remeasures_at_tuned_batch(tmp_path, monkeypatch):
     assert fields["source"] == "plan" and fields["physical_batch"] == 16
     assert fields["branches"] == plan.branch_map("mixed_ghost")
     assert _engine(model).plan_event_fields()["source"] == "analytic"
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        eng.tune(params, batch, consensus=True)
+    # one process: consensus=True adopts the plan stamped by a one-rank fleet
+    # (the JAX test_engine_tune_consensus_single_process)
+    agreed = eng.tune(params, batch, arch="twolayer", plan_path=None, use_cache=False,
+                      search_max_batch=False, measure=FAST, consensus=True)
+    assert (agreed.agreed_ranks, agreed.leader_process, agreed.devices) == (1, 0, ("cpu:cpu",))
+    assert agreed.agreed_hash == agreed.consensus_hash() and eng.plan == agreed
+    from repro_torch.tuner.consensus import verify_adopted
+
+    verify_adopted(agreed, discover_meta(model.loss_with_ctx, params, batch), device=CPU)
 
 
 def test_engine_tune_cache_hit(tmp_path, monkeypatch):
@@ -833,8 +840,15 @@ def test_cli_import_rejects_a_tampered_plan(cli_plan, tmp_path, field, value):
     assert cli.main(["--arch", "mixtral-8x7b", *CLI_FAST, "--import-plan", str(path)]) == 1
 
 
-def test_cli_refuses_consensus():
+def test_cli_refuses_consensus(tmp_path):
+    """``--consensus`` now runs: on one process the written plan is the
+    one-rank fleet's, stamped with its provenance (the name stays from
+    when the port refused the flag)."""
     from repro_torch.tuner import cli
 
-    with pytest.raises(NotImplementedError, match="runtime around training"):
-        cli.main(["--arch", "yi-6b", *CLI_FAST, "--consensus"])
+    out = tmp_path / "agreed.json"
+    assert cli.main(["--arch", "yi-6b", *CLI_FAST, "--skip-max-batch", "--consensus",
+                     "--plan", str(out)]) == 0
+    plan = ClipPlan.load(str(out))
+    assert (plan.agreed_ranks, plan.leader_process, plan.devices) == (1, 0, ("cpu:cpu",))
+    assert plan.agreed_hash == plan.consensus_hash()
