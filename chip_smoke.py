@@ -9,21 +9,24 @@ classes, GroupNorm, fp32) at batch 128, of ViT-Base/16 (12 layers, d_model
 6 of its 24 layers, 224x224, 1000 classes) at batch 32, both ViTs in bf16
 compute with fp32 parameters and each layer rematerialised in the backward
 (the configs' remat); DP training of the decoder LMs at full width, depth
-cut: Yi-6B (2 of 32 layers, 8 until the recurrent LMs came; d_model 4096,
+cut: Yi-6B (1 of 32 layers since the tp part, 2 before, 8 until the
+recurrent LMs came; d_model 4096,
 32 query heads over 4 KV heads, d_ff 11008, vocab 64000; adamw) at batch 4
 and Mixtral-8x7B (1 of 32 layers, 2 until then; 8 experts top 2, d_ff
 14336, window 4096; sgd) at batch 2, both
 at 4096 tokens in bf16 compute with fp32 parameters, remat on; the
 recurrent LMs at full width: Jamba-1.5-Large cut to a two-layer period
 (Mamba + MLP, attention + MoE with 2 of its 16 experts; 3.44B bf16
-parameters; sgd) at batch 2 x 4096 and xLSTM-350M cut to a four-layer
-period (one sLSTM and 3 mLSTMs; adamw) at batch 4 x 2048, bf16 compute,
+parameters; sgd) at batch 2 x 2048 (2 x 4096 until the tp part came) and
+xLSTM-350M cut to a two-layer
+period (one sLSTM and one mLSTM; adamw) at batch 4 x 1024 (2048 until the
+tp part came), bf16 compute,
 remat on;
-the frontend families at full width: Whisper-large-v3 (2 of its 32 encoder
-and 2 of its 32 decoder layers, 1500 stub frames) at batch 8 x 448 tokens
+the frontend families at full width: Whisper-large-v3 (1 of its 32 encoder
+and 1 of its 32 decoder layers, 1500 stub frames) at batch 8 x 448 tokens
 and Phi-3-vision-4.2b (1 of 32 layers, 32 heads of 96) at batch 4 x (576
 prefix + 1472 text), bf16 compute, remat on, sgd;
-serving Yi-6B (8 of 32 layers, full width, bf16 compute with fp32
+serving Yi-6B (4 of 32 layers, full width, bf16 compute with fp32
 parameters), Mixtral-8x7B (2 layers, fp32), the Jamba cut and the whole
 xLSTM-350M (fp32) through the continuous-batching engine, and Whisper and
 Phi-3-vision at full width and full depth as one fixed wave; the
@@ -31,7 +34,9 @@ tuner CLI on Yi-6B; and the train CLI (python -m repro_torch.launch.train)
 on Whisper-large-v3 at full width, 1 encoder + 1 decoder layer, with
 checkpoints, a crash and its auto-restart, a profile and the obs streams;
 and, last, the same cut as a data-parallel fleet of two ranks that share
-the card (gloo), with one NCCL rank.
+the card (gloo), with one NCCL rank, then Mixtral-8x7B at full width (1
+layer) on a (1, 2) mesh of the same two ranks: tensor, expert and
+sequence parallelism (the model axis).
 Random weights from seed 0 throughout.  Phases, in order, each one's seconds printed; any
 failure exits non-zero and prints no result:
 
@@ -210,7 +215,17 @@ failure exits non-zero and prints no result:
             bytes gathered and reduce-scattered, bf16 reported; rank 0
             alone in an NCCL group; the train CLI on both ranks with
             --consensus (one plan hash) and a crash-restart bit-identical
-            to a straight run.  Ranks that share a card give no speed.
+            to a straight run; then the tp part, the model axis on a (1, 2)
+            mesh of the same ranks: Mixtral-8x7B at full width, 1 layer
+            (4 experts, half the heads' columns and of the vocabulary a
+            rank), non_private, mixed_ghost and bk_mixed in fp32 at 2 x
+            1024 against the one-rank step at 1e-5 (loss, norms, factors,
+            clipped sum, parameters after an SGD + momentum update),
+            mixed_ghost and bk_mixed in bf16 at 2 x 4096 reported; the
+            bytes all-reduced, each rank's stored share and peak, and the
+            four clipping kernels against their plain versions at the
+            shapes a rank gives them.  Ranks that share a card give no
+            speed.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -239,11 +254,12 @@ OUT_DIR = ROOT / "chiprun_out"
 # the peak rate of their operands' type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-# bf16 tensor-core products per multiply-add of the book contraction, the
-# cheapest split that meets its 1e-4 gate: w * g (fp32) is always split in
-# two bf16 terms (one bf16 product of it misses the gate), a bf16 activation
-# is exact, an fp32 one is split too and its lo * lo term dropped (bf16x3)
-BOOK_PRODUCTS = {("float32", "float32"): 3, ("float32", "bfloat16"): 3,
+# bf16 tensor-core products per multiply-add of the book contraction: w * g
+# (fp32) is split in two bf16 terms beside a bf16 activation, which is exact
+# (one bf16 product of it misses the 1e-4 gate); an fp32 activation and w * g
+# are split in three each, six products (bf16x6: bf16x3 misses the fp32
+# gates between equivalent steps, 1e-5, on a sum one product dominates)
+BOOK_PRODUCTS = {("float32", "float32"): 6, ("float32", "bfloat16"): 6,
                  ("bfloat16", "float32"): 2, ("bfloat16", "bfloat16"): 2}
 # bf16 tensor-core products per multiply-add of a ghost-norm Gram: a bf16
 # operand is exact, an fp32 one is split (bf16x3, lo * lo dropped)
@@ -301,6 +317,10 @@ REMAT_TOL = 1e-6
 # analytic step within PLAN_TOL (a plan moves cost, never the math)
 TUNE_PATHS = ("vgg19", "vit_base")
 TUNE_LOGICAL = 1024
+# the tune phase's per-tap timings: 3 timed calls after 1 warm-up (the
+# MeasureConfig defaults, 5 after 2, until the tp part came: cut for the
+# run's time)
+TUNE_MEASURE_REPEATS, TUNE_MEASURE_WARMUP = 3, 1
 PLAN_TOL = 1e-4
 # the max_batch phase (the paper's Table 7): the largest physical batch
 # under the paper's 16 GB budget, by trial, per model and mode
@@ -314,7 +334,7 @@ MAX_BATCH_HI_CAP = 4096
 # slots, page 16, 8 requests of these prompt lengths with MAX_NEW new
 # tokens each (32 until then), max_len = the longest prompt + MAX_NEW
 SERVE_ARCH = "yi-6b"
-SERVE_LAYERS = 8  # 16 until the dist phase came
+SERVE_LAYERS = 4  # 8 until the tp part came, 16 until the dist phase
 PROMPT_LENS = (2048, 131, 1000, 517, 1536, 250, 777, 2000)
 MAX_NEW = 16
 SLOTS = 4
@@ -372,14 +392,15 @@ SERVE_LOGIT_TOL = 2e-2
 # layers 2-3: Mamba + MLP, then attention + MoE) with 2 of its 16 experts
 JAMBA_PERIOD = ("mamba", "attn")
 JAMBA_EXPERTS = 2
-# the xlstm path's cut of xLSTM-350M: its period's sLSTM and 3 of its 7
-# mLSTMs (the whole period of 8 until the dist phase came: cut for the
-# run's time)
-XLSTM_PERIOD = ("slstm",) + ("mlstm",) * 3
+# the xlstm path's cut of xLSTM-350M: its period's sLSTM and 1 of its 7
+# mLSTMs (3 until the tp part came, the whole period of 8 until the dist
+# phase: cut for the run's time)
+XLSTM_PERIOD = ("slstm", "mlstm")
 # the whisper path's cut of Whisper-large-v3 (full width): this many of its
 # 32 encoder and of its 32 decoder layers; the phi3v path's of
-# Phi-3-vision's 32 layers (4 and 2 until the dist phase came)
-WHISPER_LAYERS = 2
+# Phi-3-vision's 32 layers (4 and 2 until the dist phase came; Whisper 2
+# until the tp part came)
+WHISPER_LAYERS = 1
 PHI3V_LAYERS = 1
 # the wave_serve phase: both models at full width and full depth through
 # launch/serve._serve_wave, one wave of WAVE_SLOTS prompts of WAVE_PROMPT
@@ -1935,7 +1956,7 @@ class _TrialCounter:
         return False
 
 
-def _plan_step_gate(tag: str, model, params, batch, plan, label: str, n: int = 5) -> dict:
+def _plan_step_gate(tag: str, model, params, batch, plan, label: str, n: int = 3) -> dict:
     """A clipped step under ``plan`` (mixed_ghost and bk_mixed, each reading
     its own map) and one under the time rule, against the analytic step:
     norms and clipped sums within PLAN_TOL; each timed over ``n`` calls
@@ -1976,7 +1997,7 @@ def _plan_step_gate(tag: str, model, params, batch, plan, label: str, n: int = 5
 
 def phase_tune(paths: dict) -> dict:
     """PrivacyEngine.tune on TUNE_PATHS (mixed_ghost, a logical batch of
-    TUNE_LOGICAL, the default MeasureConfig and 16 GB budget, no cache, the
+    TUNE_LOGICAL, TUNE_MEASURE_* timed calls a branch, the 16 GB budget, no cache, the
     plan written to a temporary directory): per tap the five timings and
     where the measured winner differs from the analytic rule (both maps);
     the recommended mode, the certified physical batch and its
@@ -1992,6 +2013,7 @@ def phase_tune(paths: dict) -> dict:
     from repro_torch.core.decision import decide
     from repro_torch.core.engine import PrivacyEngine
     from repro_torch.tuner import shape_fingerprint
+    from repro_torch.tuner.measure import MeasureConfig
 
     out = {}
     for tag in TUNE_PATHS:
@@ -2004,7 +2026,9 @@ def phase_tune(paths: dict) -> dict:
             t0 = time.perf_counter()
             plan = engine.tune(params, batch, arch=tag, use_cache=False,
                                plan_path=os.path.join(tmp, f"{tag}.json"),
-                               hi_cap=MAX_BATCH_HI_CAP)
+                               hi_cap=MAX_BATCH_HI_CAP,
+                               measure=MeasureConfig(repeats=TUNE_MEASURE_REPEATS,
+                                                     warmup=TUNE_MEASURE_WARMUP))
             seconds = time.perf_counter() - t0
             require(os.path.exists(os.path.join(tmp, f"{tag}.json")), f"tune {tag}: no plan file")
         meta = discover_meta(model.loss_with_ctx, params, batch)
@@ -2066,9 +2090,9 @@ def phase_max_batch(paths: dict, tune: dict) -> dict:
     allocator capped by ``set_per_process_memory_fraction``).  mixed_ghost
     on the tuned paths reuses the tune phase's certificate.  Each
     certificate is checked: the certified batch runs again under the same
-    cap (gated; whether the next batch fails is reported, since within
-    about a percent of the answer a trial's outcome also turns on the
-    allocator's state), and at the certified batch the kernels' step matches
+    cap (gated; whether the next batch fails was reported until the tp part
+    came: within about a percent of the answer a trial's outcome also turns
+    on the allocator's state), and at the certified batch the kernels' step matches
     force_impl("torch")'s (norms NORM_TOL, sums KERNEL_GRAD_TOL; uncapped)
     so no kernel's index range breaks below it; the launch counters show
     the kernel side launched kernels only and the plain side none (the
@@ -2108,10 +2132,6 @@ def phase_max_batch(paths: dict, tune: dict) -> dict:
             require(got > 0, f"max_batch {tag} {mode}: nothing fits")
             with mb._memory_fraction(model.device, cap):
                 holds = mb.trial_survives(runner, got, attempts=2)
-                # one attempt: the reading is reported, not gated (two until
-                # the dist phase came)
-                next_fails = (None if got >= MAX_BATCH_HI_CAP
-                              else not mb.trial_survives(runner, got + 1, attempts=1))
             require(holds, f"max_batch {tag} {mode}: the certified batch {got} no longer runs "
                     "under the cap")
             check = None
@@ -2142,10 +2162,9 @@ def phase_max_batch(paths: dict, tune: dict) -> dict:
             _free()
             sec = "" if seconds is None else f" in {seconds:.1f} s"
             print(f"max_batch {tag} {mode}: {got} ({source}: {n} trials{sec}); runs again under "
-                  f"the cap {holds}; the next batch fails {next_fails} (reported: the edge is "
-                  f"not sharp); kernels vs plain at it {check}")
+                  f"the cap {holds}; kernels vs plain at it {check}")
             rows[mode] = {"max_batch": got, "trials": n, "seconds": seconds, "source": source,
-                          "holds": holds, "next_fails": next_fails, "kernel_check": check}
+                          "holds": holds, "kernel_check": check}
         for base in ("vmap", "non_private"):
             if base in rows:
                 ratios = {m: r["max_batch"] / rows[base]["max_batch"] for m, r in rows.items()
@@ -2904,9 +2923,9 @@ def _paths() -> dict:
 
 
 def _lm_paths() -> dict:
-    """DP training of the decoder LMs at full width, depth cut: Yi-6B (2 of
-    32 layers, 8 until the recurrent paths came and the run's time needed
-    the cut; d_model 4096, 32 query heads over 4 KV heads, d_ff 11008,
+    """DP training of the decoder LMs at full width, depth cut: Yi-6B (1 of
+    32 layers since the tp part came, 2 before, 8 until the recurrent paths
+    came and the run's time needed the cut; d_model 4096, 32 query heads over 4 KV heads, d_ff 11008,
     vocab 64000) at batch 4 and Mixtral-8x7B (1 of 32 layers, 2 before the
     same cut; 8 experts top 2, d_ff 14336, 8 KV heads, window 4096, vocab
     32000) at batch 2, both at 4096 tokens (the registry's train_4k
@@ -2920,9 +2939,11 @@ def _lm_paths() -> dict:
     period ("mamba", "attn") with MoE on every other layer (layer 0 Mamba +
     SwiGLU MLP, layer 1 attention + MoE, as Jamba's layers 2-3 are) and 2 of
     its 16 experts (top 2, each at full width): 3.44B parameters in the
-    config's bf16, at batch 2 x 4096, sgd; and xLSTM-350M at full width
+    config's bf16, at batch 2 x 2048 (2 x 4096 until the tp part came: cut
+    for the run's time), sgd; and xLSTM-350M at full width
     (d_model 1024, 4 heads, mLSTM d_inner 2048, vocab 50304) cut to
-    XLSTM_PERIOD (4 layers: one sLSTM, then 3 mLSTMs) at batch 4 x 2048,
+    XLSTM_PERIOD (2 layers: one sLSTM, then one mLSTM) at batch 4 x 1024
+    (4 x 2048 until the tp part came: the sLSTM's loop runs a token at a time),
     adamw; both bf16 compute, remat on, RECURRENT_STEPS timed steps.
     The xLSTM's depth and both paths' steps are cut for the run's time: the
     sLSTM's time loop is host-bound (~20 small launches a token a layer).
@@ -2956,7 +2977,7 @@ def _lm_paths() -> dict:
         return build
 
     return {
-        "yi_6b": dict(build=lm("yi-6b", 2), batch=4, seq=4096, vocab=64000, modes=LM_MODES,
+        "yi_6b": dict(build=lm("yi-6b", 1), batch=4, seq=4096, vocab=64000, modes=LM_MODES,
                       steps=LM_STEPS, optimizer=adamw, lr={"non_private": 1e-4, "dp": 1e-4},
                       compare_batch=2, oracle=dict(layers=2, batch=2, seq=512)),
         "mixtral": dict(build=lm("mixtral-8x7b", 1), batch=2, seq=4096, vocab=32000,
@@ -2965,12 +2986,12 @@ def _lm_paths() -> dict:
                         oracle=dict(layers=1, batch=2, seq=256)),
         "jamba": dict(build=lm("jamba-1.5-large-398b", 2, block_pattern=JAMBA_PERIOD,
                                moe_experts=JAMBA_EXPERTS),
-                      batch=2, seq=4096, vocab=65536, modes=LM_MODES, steps=RECURRENT_STEPS,
+                      batch=2, seq=2048, vocab=65536, modes=LM_MODES, steps=RECURRENT_STEPS,
                       optimizer=sgd, lr={"non_private": 1e-5, "dp": 1e-3}, compare_batch=2,
                       compare_on_host=True, oracle=dict(layers=2, batch=2, seq=256),
                       recurrent=dict(heads=256, dk=64, dv=64, shared_qk=True)),
         "xlstm": dict(build=lm("xlstm-350m", len(XLSTM_PERIOD), block_pattern=XLSTM_PERIOD),
-                      batch=4, seq=2048, vocab=50304,
+                      batch=4, seq=1024, vocab=50304,
                       modes=LM_MODES, steps=RECURRENT_STEPS, optimizer=adamw,
                       lr={"non_private": 1e-4, "dp": 1e-4}, compare_batch=2,
                       oracle=dict(layers=len(XLSTM_PERIOD), batch=2, seq=256),
@@ -3294,10 +3315,10 @@ def phase_tuner_cli(path: dict) -> dict:
     """``python -m repro_torch.tuner`` on Yi-6B's full configuration (32
     layers, 6.06B parameters) at the lm_train path's batch and length (the
     max-batch search skipped), its table printed; the plan's step (and the
-    time rule's) against the analytic step on the lm_train model (2 layers)
+    time rule's) against the analytic step on the lm_train model (1 layer)
     in fp32 compute on TUNER_GATE_BATCH samples (_plan_step_gate, untimed:
     the slice phase times the steps; the plan restamped to that model's
-    fp32 fingerprint: its taps are the full model's, stacked 2 deep)."""
+    fp32 fingerprint: its taps are the full model's, stacked 1 deep)."""
     import contextlib
     import io
 
@@ -3849,6 +3870,202 @@ def _dist_cli(rank: int, plan_path: str, tmp: Path) -> dict:
     return out
 
 
+# the dist phase's tp part: the model axis (tensor, expert and sequence
+# parallelism) on a (1, 2) mesh of the same two gloo ranks, Mixtral-8x7B at
+# full width, TP_LAYERS of its 32 layers, remat on
+TP_ARCH = "mixtral-8x7b"
+TP_LAYERS = 1
+TP_MESH = (1, DIST_RANKS)
+TP_MODES = ("non_private", "mixed_ghost", "bk_mixed")  # fp32, gated at DIST_TOL
+TP_BATCH, TP_SEQ = 2, 1024
+TP_BF16_MODES = ("mixed_ghost", "bk_mixed")  # reported
+TP_BF16_SEQ = 4096  # the mixtral path's length
+# the kernels' wrappers whose calls the tp part records: (module attribute of
+# kernels.dispatch, kernel, the mode whose step gives its main-path shapes)
+TP_SPY = (("ghost_norm_sq", "ghost_norm_sq", "mixed_ghost"),
+          ("embedding_ghost_norm_sq", "embedding_ghost_norm_sq", "mixed_ghost"),
+          ("book_weighted_grad", "book_weighted_grad", "bk_mixed"),
+          ("psg_contract_grouped", "psg_contract", "bk_mixed"))
+
+
+def _tp_cfg(dtype: str):
+    """Mixtral-8x7B at full width, TP_LAYERS layers, ``dtype`` compute (fp32
+    compute takes fp32 parameters, as the LM paths' gates)."""
+    from repro_torch.configs.registry import get_arch
+
+    over = {"dtype": "float32", "param_dtype": "float32"} if dtype == "float32" else {}
+    cfg = dataclasses.replace(get_arch(TP_ARCH), n_layers=TP_LAYERS, remat=True, **over)
+    require((cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab, cfg.moe_experts)
+            == (4096, 32, 8, 14336, 32000, 8), f"tp: not Mixtral's full width: {cfg}")
+    return cfg
+
+
+class _KernelSpy:
+    """Records the shape and dtypes of every call of the four clipping
+    kernels' dispatch entries (the kernel phase's shape keys) while active;
+    the calls themselves go through unchanged."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab  # the ids' range at the embedding norm (a rank's rows)
+        self.calls: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import dispatch
+
+        self.saved = {attr: getattr(dispatch, attr) for attr, _, _ in TP_SPY}
+        for attr, kernel, _ in TP_SPY:
+            setattr(dispatch, attr, self._wrap(kernel, self.saved[attr]))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import dispatch
+
+        for attr, fn in self.saved.items():
+            setattr(dispatch, attr, fn)
+
+    def _wrap(self, kernel: str, fn):
+        def spied(*args, **kw):
+            x = args[0]
+            if kernel == "psg_contract":
+                key = ((x[0].shape[0], tuple((t.shape[1], 0) for t in x)),
+                       tuple(_name(t.dtype) for t in x))
+            elif kernel == "embedding_ghost_norm_sq":
+                key = ((*x.shape, args[1].shape[-1], self.vocab),
+                       (_name(x.dtype), _name(args[1].dtype)))
+            else:
+                key = (tuple(x.shape[:-1]) + (x.shape[-1], args[1].shape[-1]),
+                       (_name(x.dtype), _name(args[1].dtype)))
+            self.calls[(kernel, key)] = self.calls.get((kernel, key), 0) + 1
+            return fn(*args, **kw)
+        return spied
+
+
+def _tp_step(cfg, mode: str, mesh, rank: int, n: int, seq: int, full_ref: bool) -> dict:
+    """One clipped call plus the noise-and-update tail (SGD with momentum:
+    linear in the gradient, as the dist gate) of Mixtral on the (1, n)
+    mesh, and the same on one rank, held against each other.  The
+    one-rank step runs on one rank at a time (the card holds one at once),
+    each keeping its slices of the reference's gradient and parameters
+    (``full_ref``; else only the loss, norms and factors, on rank 0).
+    Returns the errors, the sharded step's launches, collective bytes, ms
+    and peak, the reference's peak, each rank's stored share, and the
+    kernel calls' shapes."""
+    import torch
+
+    from repro_torch.configs.registry import build_model
+    from repro_torch.data.synthetic import synthetic_arch_batch
+    from repro_torch.kernels import launches
+    from repro_torch.launch.flops import abstract_params
+    from repro_torch.launch.steps import (
+        DPTrainConfig,
+        make_clipped_microstep,
+        make_noise_finalize,
+        make_train_state,
+    )
+    from repro_torch.optim import constant, sgd
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.fsdp import ShardLayout
+    from repro_torch.parallel.reshard import use_reshard_rules
+    from repro_torch.parallel.sharding import state_shardings
+    from repro_torch.utils.tree import flatten_dict
+
+    world = torch.distributed.group.WORLD
+    model = build_model(cfg, device="cuda")
+    opt = sgd(momentum=0.9)
+    policy = _dist_policy("fixed")
+    dp = DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
+                       logical_batch=TP_BATCH, policy=policy)
+    batch = synthetic_arch_batch(cfg, batch=TP_BATCH, seq=seq, device="cuda")
+    sched = constant(1e-3)
+
+    def run(state, shardings=None):
+        loss, g, aux = make_clipped_microstep(model, dp, shardings)(state["params"], batch,
+                                                                    state["policy"])
+        new = make_noise_finalize(opt, sched, dp, shardings=shardings)(
+            state, g, aux["per_sample_norms"], None)
+        return loss, g, aux, new
+
+    abstract = abstract_params(model)
+    shardings = state_shardings(model, mesh, cfg, {"params": abstract, "opt": {"m": abstract},
+                                                   "step": 0})
+    layout = ShardLayout(mesh, shardings["params"])
+    out = {"mode": mode, "dtype": cfg.dtype, "seq": seq}
+    ref = None
+    for r in range(n):  # the one-rank step, one rank at a time
+        if r == rank and (full_ref or rank == 0):
+            torch.cuda.reset_peak_memory_stats()
+            loss, g, aux, new = run(make_train_state(model, 0, opt, policy))
+            ref = {"loss": float(loss), "norms": aux["per_sample_norms"],
+                   "factors": aux["clip_factors"]}
+            if full_ref:
+                ref["grads"] = {k: layout.local(k, v) for k, v in flatten_dict(g).items()}
+                ref["params"] = {k: layout.local(k, v)
+                                 for k, v in flatten_dict(new["params"]).items()}
+            torch.cuda.synchronize()
+            out["ref_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del loss, g, aux, new
+            _free()
+        torch.distributed.barrier(group=world)
+    state = make_train_state(model, 0, opt, policy)
+    full = layout.local_bytes(state["params"])
+    state = layout.shard_state(state)
+    _free()
+    out["stored_share"] = layout.local_bytes(state["params"]) / full
+    out["model_split_leaves"] = sum(d is not None for d in layout.model_dims.values())
+    out["leaves"] = len(layout.model_dims)
+    spy = _KernelSpy(cfg.vocab // n)
+    with use_reshard_rules(mesh, cfg), spy:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.distributed.barrier(group=world)
+        launches.reset()
+        collectives.reset_bytes()
+        t0 = time.perf_counter()
+        loss, g, aux, new = run(state, shardings)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        counts = launches.snapshot()
+        out["bytes"] = dict(collectives.BYTES)
+        out["launches"] = {k: counts[k]["cuda"] for k in KERNEL_INFO}
+        out["plain_calls"] = sum(counts[k]["torch"] for k in KERNEL_INFO)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["kernel_calls"] = spy.calls
+    if ref is not None:
+        out["err"] = {
+            "loss": abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+            "norms": float((aux["per_sample_norms"] - ref["norms"]).abs().max()
+                           / ref["norms"].abs().max()) if mode != "non_private" else 0.0,
+            "factors": float((aux["clip_factors"] - ref["factors"]).abs().max()
+                             / ref["factors"].abs().max()),
+        }
+        if full_ref:  # this rank's shards against its slices of the one-rank tensors
+            for part, tree in (("grads", g), ("params", new["params"])):
+                got, want = flatten_dict(tree), ref[part]
+                top = max(float(v.abs().max()) for v in want.values())
+                errs = {k: float((got[k].float() - w.float()).abs().max())
+                        / max(float(w.abs().max()), 1e-6 * top) for k, w in want.items()}
+                out["err"][part] = max(errs.values())
+                worst = max(errs, key=errs.get)
+                out.setdefault("worst", {})[part] = (
+                    worst, float(want[worst].abs().max()) / top,
+                    float(got[worst].float().sub(want[worst].float()).abs().max()) / top)
+    del model, state, g, new, ref
+    _free()
+    return out
+
+
+def _tp_part(rank: int, n: int) -> dict:
+    """The dist phase's tp part on this rank: the fp32 gates, then bf16."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(TP_MESH, "cuda")
+    t0 = time.perf_counter()
+    steps = [_tp_step(_tp_cfg("float32"), m, mesh, rank, n, TP_SEQ, True) for m in TP_MODES]
+    steps += [_tp_step(_tp_cfg("bfloat16"), m, mesh, rank, n, TP_BF16_SEQ, False)
+              for m in TP_BF16_MODES]
+    return {"steps": steps, "seconds": time.perf_counter() - t0}
+
+
 def _dist_rank(rank: int, n: int, port: int, queue, plan_path: str, tmp: str) -> None:
     """One rank of the dist phase, in a process of its own (spawn): join the
     group as ``torch.distributed.run`` would have it join (the CLI's
@@ -3877,6 +4094,8 @@ def _dist_rank(rank: int, n: int, port: int, queue, plan_path: str, tmp: str) ->
         res["steps"] = [_dist_case(*c, mesh, rank) for c in cases]
         res["nccl"] = _dist_nccl(cfg32, rank)
         res["cli"] = _dist_cli(rank, plan_path, Path(tmp))
+        _free()
+        res["tp"] = _tp_part(rank, n)
         queue.put((rank, "ok", res))
     except BaseException:  # noqa: BLE001 - reported to the parent
         queue.put((rank, "error", traceback.format_exc()))
@@ -3935,7 +4154,19 @@ def phase_dist() -> dict:
        Poisson, --consensus on a plan measured here): both ranks adopt the
        plan's hash, a run crashed at DIST_CLI_CRASH and auto-restarted lands
        bit-identical to the straight run, and the checkpoint holds the
-       one-rank state's leaf names and shapes.
+       one-rank state's leaf names and shapes;
+    4. the tp part: the model axis on a TP_MESH (1, 2) mesh of the same
+       ranks (``launch.mesh.make_mesh``), Mixtral-8x7B at full width (4
+       experts a rank, half the q/k/v/o columns, half the vocabulary of the
+       embedding and the head), TP_LAYERS layer, remat on: a step in each of
+       TP_MODES in fp32 at b TP_BATCH x TP_SEQ held against the one-rank
+       step (run one rank at a time) at DIST_TOL (loss, norms, factors, the
+       clipped sum before the noise and the parameters after an SGD +
+       momentum update, each rank's shards against its slices), the launches
+       (no plain call), the bytes all-reduced, each rank's peak and stored
+       share, then TP_BF16_MODES in bf16 at TP_BF16_SEQ reported; the four
+       clipping kernels against their plain versions at the local shapes
+       the fp32 steps gave them (``_KernelSpy``).
     Timings of ranks that share a card are not a speed figure."""
     import shutil
     import socket
@@ -4048,9 +4279,82 @@ def phase_dist() -> dict:
     print(f"dist cli: straight and restarted (crash at step {DIST_CLI_CRASH}) bit-identical over "
           f"{out['checkpoint_leaves']} leaves, the one-rank state's names and shapes; phase "
           f"processes {out['seconds']:.1f} s")
+    out["tp"] = _tp_report(results)
     out["results"] = results
     out["plan_hash"] = plan_hash
     out["launches"] = main
+    return out
+
+
+def _tp_report(results: dict) -> dict:
+    """The tp part's gates and figures from both ranks' results, then the
+    four clipping kernels against their plain versions at the shapes rank 0
+    recorded on the fp32 main path (``kernel_cases``, PERF.md's "tp per
+    rank" counts)."""
+    import torch
+
+    out = {"mesh": TP_MESH, "arch": TP_ARCH, "layers": TP_LAYERS, "batch": TP_BATCH,
+           "seq": TP_SEQ, "bf16_seq": TP_BF16_SEQ}
+    r0 = results[0]["tp"]
+    bad = []
+    for i, st in enumerate(r0["steps"]):
+        gated = st["dtype"] == "float32"
+        for res in results.values():
+            mine = res["tp"]["steps"][i]
+            require(mine["plain_calls"] == 0, f"tp rank {res['rank']}: plain calls in {mine}")
+            if gated:
+                bad += [(st["mode"], res["rank"], k, v) for k, v in mine["err"].items()
+                        if not v <= DIST_TOL]
+        errs = ({k: max(res["tp"]["steps"][i]["err"][k] for res in results.values())
+                 for k in st["err"]} if gated else st["err"])
+        st["err_all_ranks"] = errs
+        line = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        peaks = [res["tp"]["steps"][i]["peak_gib"] for res in sorted(results.values(),
+                                                                    key=lambda r: r["rank"])]
+        ref_peaks = [res["tp"]["steps"][i].get("ref_peak_gib") for res in results.values()]
+        print(f"dist tp: {st['mode']} {st['dtype']} b{TP_BATCH} x {st['seq']}: vs one rank "
+              f"{line} ({'gated' if gated else 'reported'}); rank 0 {st['ms']:.1f} ms (not a "
+              f"speed figure: the ranks share the card over host-staged gloo); all-reduces "
+              f"{st['bytes']['all_reduce'] / 2**20:.1f} MiB, gathers "
+              f"{st['bytes']['all_gather'] / 2**20:.1f} MiB a rank; peak per rank "
+              f"{', '.join(f'{p:.2f}' for p in peaks)} GiB, one-rank reference "
+              f"{max(p for p in ref_peaks if p is not None):.2f} GiB; stored share "
+              f"{st['stored_share']:.4f} ({st['model_split_leaves']} of {st['leaves']} leaves "
+              f"split on model); launches {st['launches']}; worst leaves (path, leaf max / "
+              f"tree max, error / tree max) "
+              + "; ".join(f"rank {res['rank']} {res['tp']['steps'][i].get('worst')}"
+                          for res in results.values()))
+    require(not bad, f"dist tp: off the one-rank step at {DIST_TOL}: {bad}")
+    fp32 = [i for i, st in enumerate(r0["steps"]) if st["dtype"] == "float32"]
+    out["launches"] = {k: sum(res["tp"]["steps"][i]["launches"][k] for res in results.values()
+                              for i in fp32) for k in KERNEL_INFO}
+    require(all(out["launches"][k] for k in ("ghost_norm_sq", "embedding_ghost_norm_sq",
+                                             "book_weighted_grad", "psg_contract")),
+            f"dist tp: a clipping kernel never launched on the model axis: {out['launches']}")
+    print("dist tp: launches on the fp32 main path per rank "
+          + "; ".join(f"rank {r} " + str({k: sum(res["tp"]["steps"][i]["launches"][k]
+                                                 for i in fp32) for k in KERNEL_INFO})
+                      for r, res in sorted(results.items())))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {k: [] for k in KERNEL_INFO}
+    by_mode = {st["mode"]: st for st in r0["steps"] if st["dtype"] == "float32"}
+    print("dist tp: the clipping kernels at rank 0's main-path shapes, against their plain "
+          "versions:")
+    for _, kernel, mode in TP_SPY:
+        for (k, (shape, dtypes)), calls in sorted(by_mode[mode]["kernel_calls"].items(),
+                                                  key=str):
+            if k != kernel:
+                continue
+            case = _kernel_case(kernel, shape, dtypes, gen, timed=True)
+            case["path"], case["calls_per_step"] = "tp", calls
+            cases[kernel].append(case)
+            _free()
+    out["kernel_cases"] = cases
+    out["seconds"] = r0["seconds"]
+    out["steps"] = r0["steps"]
+    for res in results.values():  # tuple keys: not for the JSON record
+        for st in res["tp"]["steps"]:
+            st.pop("kernel_calls", None)
     return out
 
 
@@ -4120,11 +4424,12 @@ def run() -> dict:
     tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
     train_cli = phase("train_cli", phase_train_cli)
     dist = phase("dist", phase_dist)
-    for kernel, cases in train_cli.pop("kernel_cases").items():
-        kernels[kernel].extend(cases)
+    for source in (train_cli, dist["tp"]):
+        for kernel, cases in source.pop("kernel_cases").items():
+            kernels[kernel].extend(cases)
     runs = {**slices, "serve": serve, "moe_serve": moe_serve, "hybrid_serve": hybrid_serve,
             "wave_serve": wave_serve, "train_cli": train_cli,
-            "dist": {"launches": dist["launches"]}}
+            "dist": {"launches": dist["launches"]}, "tp": {"launches": dist["tp"]["launches"]}}
     summary = summary_line(kernels, runs)
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())

@@ -74,7 +74,7 @@ import torch
 from repro_torch.core import ghost
 from repro_torch.core.taps import ClipRuntime, Ctx, TapMeta, bank_keys
 from repro_torch.kernels import dispatch
-from repro_torch.parallel import reshard
+from repro_torch.parallel import collectives, reshard
 from repro_torch.policies.base import GroupedFactors, group_index
 from repro_torch.utils.tree import flatten_dict, tree_map, unflatten_dict
 
@@ -314,15 +314,31 @@ class ClipExecutor:
 
     def _tally(self, per_tap: Iterable[tuple[TapMeta, torch.Tensor]], b: int,
                device: torch.device):
-        """(norms2 (B,), path_norms2 or None) from each tap's (B,) norm."""
-        norms2 = torch.zeros(b, dtype=torch.float32, device=device)
-        path_norms2: Optional[dict[str, torch.Tensor]] = {} if self.grouped else None
+        """(norms2 (B,), path_norms2 or None) from each tap's (B,) norm.
+
+        On a model axis a split tap's norm is this rank's part: the split
+        taps' sums (and their per-path sums) are added up over the model
+        axis in one all-reduce, then the whole taps' are added once."""
+        parts = {True: torch.zeros(b, dtype=torch.float32, device=device)}
+        parts[False] = parts[True]
+        paths: dict[bool, dict[str, torch.Tensor]] = {True: {}, False: {}}
         for m, n in per_tap:
-            norms2 = norms2 + n
-            if path_norms2 is not None:
-                prev = path_norms2.get(m.param_path)
-                path_norms2[m.param_path] = n if prev is None else prev + n
-        return norms2, path_norms2
+            parts[m.split] = parts[m.split] + n
+            if self.grouped:
+                prev = paths[m.split].get(m.param_path)
+                paths[m.split][m.param_path] = n if prev is None else prev + n
+        group = reshard.model_group()
+        if group is None:  # no model axis: every tap is whole
+            norms2 = parts[False]
+        else:
+            keys = sorted(paths[True])
+            summed = collectives.all_reduce(
+                torch.stack([parts[True]] + [paths[True][k] for k in keys]), group)
+            paths[True] = dict(zip(keys, summed[1:]))
+            norms2 = summed[0] + parts[False]
+        if not self.grouped:
+            return norms2, None
+        return norms2, {**paths[False], **paths[True]}
 
     def _explicit_norm(self, name: str, m: TapMeta, a, g, mode: str, overrides: dict,
                        kernels: dict) -> torch.Tensor:
@@ -380,8 +396,8 @@ class ClipExecutor:
 
 
 class VmapUnderShardingError(NotImplementedError):
-    """The ``vmap`` oracle under a data axis of more than one rank:
-    ``torch.func``'s transforms cannot issue the weight gathers."""
+    """The ``vmap`` oracle on a mesh with a data or model axis of more than
+    one rank: ``torch.func``'s transforms cannot issue the collectives."""
 
 
 class NonPrivateExecutor(ClipExecutor):
@@ -417,10 +433,11 @@ class VmapExecutor(ClipExecutor):
     def _norm_state(self, params, batch) -> _NormState:
         from torch.func import grad_and_value, vmap
 
-        if reshard.data_size() > 1:
+        mesh = reshard.active_mesh()
+        if mesh is not None and max(mesh.shape.get(a, 1) for a in ("data", "model")) > 1:
             raise VmapUnderShardingError(
-                "the vmap oracle cannot issue collectives: run it on one rank "
-                f"(the data axis has {reshard.data_size()})")
+                f"the vmap oracle cannot issue collectives: run it on one rank (mesh "
+                f"{mesh.shape})")
 
         def single(p, ex):
             # torch.func refuses checkpointing's saved-tensor hooks: no remat

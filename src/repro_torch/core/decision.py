@@ -87,8 +87,8 @@ def decide(
                 raise ValueError(f"invalid branch override {override!r}")
             return override
         if mode == "bk_mixed":
-            a_elems = None
-            if meta.a_shape is not None:
+            a_elems = None  # a tap the model axis splits: the full G*T*D
+            if meta.a_shape is not None and meta.local is None:
                 rows = max(meta.n_stack * meta.batch_size, 1)
                 a_elems = math.prod(meta.a_shape) // rows
             return "ghost" if bk_bank_prefers_ghost(

@@ -54,6 +54,13 @@ The tuner's knobs arrive per call, as in the JAX package: ``decision_by``
 kind or a reference mode, ``decision.decide``), ``ghost_block`` and
 ``inst_block_d`` (the plain versions' tiles) and ``kernels`` (the plan's
 ``{op: impl}`` for this tap, ``kernels/dispatch.py``).
+
+A tap the model axis splits (``TapMeta.local``) is decided on its full
+shape and computed on this rank's slice (``TapMeta.local_view``): its norm
+is this rank's part of the per-sample sum, which the clipping engine adds
+up over the model axis, and its gradients are this rank's slice.  A
+row-parallel product's bias is whole on every model rank: its part of the
+norm is counted on model rank 0 only.
 """
 from __future__ import annotations
 
@@ -68,10 +75,17 @@ from repro_torch.core.taps import TapMeta
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.ghost_norm import ops as gops
 from repro_torch.nn.conv import conv_padding, pad_nchw, unfold2d
+from repro_torch.parallel import reshard
 
 KernelChoices = Optional[Mapping[str, str]]  # {dispatch op: impl} of one tap
 
 SMALL_KINDS = ("scale", "bias", "dw_conv", "scale_grouped")  # forced instantiate
+
+
+def _bias_counted(meta: TapMeta) -> bool:
+    """Whether this rank adds the tap's bias part to its norm: always, but
+    for a whole bias of a split tap, which model rank 0 alone counts."""
+    return not meta.split or meta.bias_split or reshard.model_coord() == 0
 
 
 def _unsupported(meta: TapMeta) -> ValueError:
@@ -127,9 +141,12 @@ def tap_norm_sq(
     include_bias: bool = True,
 ) -> torch.Tensor:
     """Per-sample squared norm contributions: (B,) fp32 (weight + bias)."""
+    branch = decide(meta, mode=mode, by=decision_by, override=override)
+    include_bias = include_bias and _bias_counted(meta)
+    meta = meta.local_view()
     b = meta.batch_size
     if meta.kind == "matmul":
-        if decide(meta, mode=mode, by=decision_by, override=override) == "ghost":
+        if branch == "ghost":
             rows = _ghost_rows(meta, a, g, block=ghost_block,  # g in its stored dtype
                                impl=dispatch.kernels_arg(kernels, "ghost_norm"))
         else:
@@ -158,8 +175,9 @@ def psg_param_shape(meta: TapMeta) -> tuple[int, ...]:
     """Shape of one sample's banked gradient = the parameter's layout.
 
     conv (p, d, kh, kw) | dense (D, p) | grouped (G, D, p) | scale, bias (p,)
-    | dw_conv (k, d) | scale_grouped (h,).
+    | dw_conv (k, d) | scale_grouped (h,); this rank's slice of a split tap.
     """
+    meta = meta.local_view()
     if meta.kind == "matmul":
         if meta.conv is not None:
             d_in = meta.D // (meta.conv.kernel[0] * meta.conv.kernel[1])
@@ -255,20 +273,23 @@ def tap_bank(
                  inst_block_d=inst_block_d, kernels=kernels)
     if mode != "bk_mixed":
         return {"n": tap_norm_sq(meta, a, g, mode=mode, override=override, **knobs)}
+    branch = decide(meta, mode="bk_mixed", by=decision_by, override=override)
+    count_bias = _bias_counted(meta)
+    full, meta = meta, meta.local_view()
     b = meta.batch_size
     g32 = g.float()
     bank: dict[str, torch.Tensor] = {}
     if meta.kind == "matmul":
-        if decide(meta, mode="bk_mixed", by=decision_by, override=override) == "instantiate":
+        if branch == "instantiate":
             psg = _matmul_psg(meta, a, g32)
             bank["psg"] = psg
             n = psg.square().reshape(b, -1).sum(dim=-1)
         else:
             bank["a"], bank["g"] = a, g
-            n = tap_norm_sq(meta, a, g, mode="ghost", include_bias=False, **knobs)
+            n = tap_norm_sq(full, a, g, mode="ghost", include_bias=False, **knobs)
     elif meta.kind == "embedding":
         bank["a"], bank["g"] = a, g
-        n = tap_norm_sq(meta, a, g, mode="bk_mixed", include_bias=False, **knobs)
+        n = tap_norm_sq(full, a, g, mode="bk_mixed", include_bias=False, **knobs)
     elif meta.kind in SMALL_KINDS:
         psg = _small_psg(meta, a, g32)[0]
         bank["psg"] = psg
@@ -281,7 +302,8 @@ def tap_bank(
         if "g" not in bank:
             # the book reconstructs the bias grad itself; psg banks keep it
             bank["psg_b"] = bias_grad
-        n = n + bias_grad.square().sum(dim=-1)
+        if count_bias:
+            n = n + bias_grad.square().sum(dim=-1)
     bank["n"] = n
     return bank
 
@@ -319,6 +341,7 @@ def tap_weighted_grads(
     depthwise conv's and a grouped scale's per-sample gradients are summed
     against the factors.  Returns {param_path: grad, [bias_path: grad]}.
     """
+    meta = meta.local_view()
     if meta.kind not in ("matmul", "embedding") + SMALL_KINDS:
         raise _unsupported(meta)
     b = meta.batch_size
@@ -367,6 +390,7 @@ def psg_segment_sizes(meta: TapMeta) -> list[int]:
     """Columns of a psg-banked tap's contraction segments, in the order
     ``psg_segments`` gives them: one per layer for the weight, then one per
     layer for a bias."""
+    meta = meta.local_view()
     sizes = [math.prod(psg_param_shape(meta))] * meta.n_stack
     if meta.bias_path is not None:
         sizes += [meta.p] * meta.n_stack
@@ -384,6 +408,7 @@ def psg_segments(
     axis, layers back to back, gives the gradient in the parameter's own
     layout (the banks are in it already); the banks are reshaped, never
     stacked or copied."""
+    meta = meta.local_view()
     b = meta.batch_size
     out = [(meta.param_path, param_shape, [bk["psg"].reshape(b, -1) for bk in banks])]
     if "psg_b" in banks[0]:

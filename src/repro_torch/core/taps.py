@@ -58,6 +58,17 @@ A rematerialised stack runs each layer's forward again in the backward;
 ``Ctx.tap`` and ``Ctx.record_act`` keep what the first forward recorded
 under a key (the meta it writes again is equal): a late tap's record is
 its activation, which outlives the executor's emptying of ``zs``.
+
+On a model axis (tensor and expert parallelism) a rank computes a slice
+of a tap: a column-parallel product's outputs, a row-parallel product's
+inputs, a vocabulary slice of a table, its experts.  ``TapMeta`` keeps the
+tap's full ``D``, ``p`` and ``n_groups``, on which the layerwise decision
+(Eq. 4.1) and a tuned plan are taken, so every rank and the one-rank step
+pick the same branch, as the JAX package decides on global shapes; its
+``local`` holds this rank's ``(D, p, n_groups)``, and ``local_view()`` is
+the meta of the tensors the rank holds (``s_shape`` and ``a_shape`` are
+recorded from them).  Such a tap's per-sample norm is a partial sum over
+the model ranks; a whole tap's is the same on every rank.
 """
 from __future__ import annotations
 
@@ -98,6 +109,27 @@ class TapMeta:
     a_shape: Optional[tuple[int, ...]] = None  # None: no activation, or a late tap's
     a_dtype: Any = None
     late: bool = False  # the activation arrives through Ctx.record_act
+    # this rank's (D, p, n_groups) where the model axis splits the tap
+    local: Optional[tuple[int, int, int]] = None
+
+    @property
+    def split(self) -> bool:
+        """Whether the model axis splits this tap (its norm sums over it)."""
+        return self.local is not None
+
+    @property
+    def bias_split(self) -> bool:
+        """Whether a bias is split with the tap: a column-parallel one (its
+        fan-out is local); a row-parallel product's bias is whole."""
+        return self.local is not None and self.local[1] != self.p
+
+    def local_view(self) -> "TapMeta":
+        """The meta of this rank's slice of the tap: ``D``, ``p`` and
+        ``n_groups`` as its tensors hold them."""
+        if self.local is None:
+            return self
+        d, p, groups = self.local
+        return dataclasses.replace(self, D=d, p=p, n_groups=groups, local=None)
 
     def with_stack(self, n: int) -> "TapMeta":
         """The meta of ``n`` stacked copies of this tap."""
@@ -234,9 +266,13 @@ class Ctx:
         conv: Optional[ConvInfo] = None,
         n_groups: int = 1,
         late: bool = False,
+        local: Optional[tuple[int, int, int]] = None,
     ) -> torch.Tensor:
         """Register pre-activation ``s`` with recorded input ``a`` (None for a
-        bias tap, and for a late tap, whose ``a`` comes by ``record_act``)."""
+        bias tap, and for a late tap, whose ``a`` comes by ``record_act``).
+        ``T``, ``D``, ``p`` and ``n_groups`` are the tap's full ones;
+        ``local`` this rank's ``(D, p, n_groups)`` where the model axis
+        splits it."""
         if not self.collect:
             return s
         full = self._join(name)
@@ -255,6 +291,7 @@ class Ctx:
             a_shape=None if a is None else tuple(int(d) for d in a.shape),
             a_dtype=None if a is None else a.dtype,
             late=late,
+            local=local,
         )
         self.meta[full] = meta if self.stack is None else meta.with_stack(self.stack[1])
         key = self._key(full)

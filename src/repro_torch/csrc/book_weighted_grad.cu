@@ -7,23 +7,29 @@
 // What bounds it on the H100: operations.  A row-scaled GEMM (D x R)(R x p)
 // does 2 R D p multiply-adds' worth of flops on (D + p + 1) R values, ~110
 // flop/byte at VGG-19's conv taps and ~600 at ViT-Base's MLP, so the
-// tensor cores' rate is the limit.  Tensor cores have no fp32 product,
-// and the result is held to 1e-4 of its largest entry, so operands are
-// split into bf16 pairs (x = hi + lo, |x - hi - lo| <= 2^-18 |x|) as they
-// land in shared memory, and each tile product is a sum of bf16 MMAs:
+// tensor cores' rate is the limit.  Tensor cores have no fp32 product, so
+// operands are split into bf16 pieces as they land in shared memory, and
+// each tile product is a sum of bf16 MMAs:
 //
 // - g is always scaled by its row weight w[m,r] in fp32 on chip (the
 //   weighted cotangent never exists in device memory, the point of the
-//   Pallas kernel) and split: g' = g_hi + g_lo.
-// - a in bf16 is exact (ViT-Base's book): a g' = a g_hi + a g_lo, 2 MMAs.
-// - a in fp32 (VGG-19's book) is split too: a_lo g_hi + a_hi g_lo +
-//   a_hi g_hi, 3 MMAs (bf16x3; the dropped a_lo g_lo is <= 2^-16 of |a g'|).
-// Each product is then within ~2^-16 of a g' (relative), with random sign
-// over R, against the 1e-4 gate; one bf16 product of rounded operands
-// (2^-8 per product) would not meet it.  The tensor cores' fp32 sums
-// inside an MMA chain need not round to nearest, so each k-step's chain
-// (2 x 16 rows) starts from zero and is added to the running fp32 sum
-// with an ordinary rounded add.
+//   Pallas kernel) and split.
+// - a in bf16 is exact (ViT-Base's book, bf16 compute): g' = g_hi + g_lo
+//   (|g' - g_hi - g_lo| <= 2^-18 |g'|), a g' = a g_lo + a g_hi, 2 MMAs;
+//   each product within ~2^-18 of a g', against the 1e-4 gate.
+// - a in fp32 (fp32 compute: VGG-19, the LMs' fp32 gates): a and g' are
+//   split into three pieces each (x = hi + mid + lo, |x - hi - mid - lo|
+//   <= 2^-27 |x|) and six MMAs keep every product of pieces down to 2^-18
+//   of |a g'|: mid mid + lo hi + hi lo + mid hi + hi mid + hi hi (bf16x6;
+//   the dropped mid lo, lo mid, lo lo are <= 2^-26).  A two-piece split
+//   (bf16x3) is within ~2^-16 of each product: a sum that one product
+//   dominates (a vocabulary head's column of one target token) then
+//   carries that product's ~1e-5 error, which the fp32 gates between two
+//   equivalent steps (the model axis against one rank, 1e-5) see.
+// One bf16 product of rounded operands (2^-8 per product) would not meet
+// the 1e-4 gate.  The tensor cores' fp32 sums inside an MMA chain need not
+// round to nearest, so each k-step's chain (2 x 16 rows) starts from zero
+// and is added to the running fp32 sum with an ordinary rounded add.
 //
 // Design:
 // - One 128 x 128 tile of out[m] per block, 8 warps of 64 x 32.  R runs in
@@ -54,14 +60,20 @@ constexpr int kBR = 32;    // rows of R per k-step
 constexpr int kPad = 8;    // bf16 per split row: 16-byte shift, ldmatrix conflict-free
 constexpr int kSD = kBD + kPad, kSP = kBP + kPad;
 
+// an fp32 a takes the three-piece split (and g' with it): the mid tiles
+template <typename TA>
+constexpr int kMidRows = std::is_same_v<TA, bf16> ? 1 : kBR;
+
 template <typename TA, typename TG>
 struct Smem {
   TA a_raw[2][kBR][kBD];
   TG g_raw[2][kBR][kBP];
   float w[2][kBR];
   bf16 a_hi[kBR][kSD];
+  bf16 a_mid[kMidRows<TA>][kSD];
   bf16 a_lo[kBR][kSD];
   bf16 g_hi[kBR][kSP];
+  bf16 g_mid[kMidRows<TA>][kSP];
   bf16 g_lo[kBR][kSP];
 };
 
@@ -122,12 +134,31 @@ __device__ __forceinline__ void split8(const float (&x)[8], bf16* hi, bf16* lo) 
   if constexpr (kLo) *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
+// x = hi + mid + lo in bf16 (each remainder exact in fp32)
+__device__ __forceinline__ void split8x3(const float (&x)[8], bf16* hi, bf16* mid, bf16* lo) {
+  uint32_t h[4], m[4], l[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 hv = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+    const float2 hf = __bfloat1622float2(hv);
+    const float r0 = x[2 * j] - hf.x, r1 = x[2 * j + 1] - hf.y;
+    const __nv_bfloat162 mv = __floats2bfloat162_rn(r0, r1);
+    const float2 mf = __bfloat1622float2(mv);
+    h[j] = repro::bits(hv);
+    m[j] = repro::bits(mv);
+    l[j] = repro::pack_bf16(r0 - mf.x, r1 - mf.y);
+  }
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(mid) = make_uint4(m[0], m[1], m[2], m[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
 template <typename TA, typename TG, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     book_weighted_grad_kernel(const TA* __restrict__ a, const TG* __restrict__ g,
                               const float* __restrict__ w, float* __restrict__ out, int m_count,
                               int r, int d, int p, int rows_per_split) {
-  constexpr bool kSplitA = !std::is_same_v<TA, bf16>;  // a bf16 is exact
+  constexpr bool kSplitA = !std::is_same_v<TA, bf16>;  // a bf16 is exact; fp32: 3 pieces
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<TA, TG>& sm = *reinterpret_cast<Smem<TA, TG>*>(smem_raw);
 
@@ -175,7 +206,11 @@ __global__ void __launch_bounds__(kThreads)
       const int rr = i / (kBD / 8), c = (i % (kBD / 8)) * 8;
       float x[8];
       load8(&sm.a_raw[stage][rr][c], x);
-      split8<kSplitA>(x, &sm.a_hi[rr][c], &sm.a_lo[rr][c]);
+      if constexpr (kSplitA) {
+        split8x3(x, &sm.a_hi[rr][c], &sm.a_mid[rr][c], &sm.a_lo[rr][c]);
+      } else {
+        split8<false>(x, &sm.a_hi[rr][c], &sm.a_lo[rr][c]);
+      }
     }
     for (int i = threadIdx.x; i < kBR * kBP / 8; i += kThreads) {
       const int rr = i / (kBP / 8), c = (i % (kBP / 8)) * 8;
@@ -184,14 +219,18 @@ __global__ void __launch_bounds__(kThreads)
       const float wr = sm.w[stage][rr];
 #pragma unroll
       for (int j = 0; j < 8; ++j) x[j] *= wr;
-      split8<true>(x, &sm.g_hi[rr][c], &sm.g_lo[rr][c]);
+      if constexpr (kSplitA) {
+        split8x3(x, &sm.g_hi[rr][c], &sm.g_mid[rr][c], &sm.g_lo[rr][c]);
+      } else {
+        split8<true>(x, &sm.g_hi[rr][c], &sm.g_lo[rr][c]);
+      }
     }
     __syncthreads();  // the split tiles are ready; this raw stage is free
     if (step + 2 < n_steps) load_step(step + 2);
     repro::cp_async_commit();
 
     // B fragments of both k16 halves: 4 n8 tiles of the warp's 32 columns
-    uint32_t bh[2][4][2], bl[2][4][2];
+    uint32_t bh[2][4][2], bm[2][4][2], bl[2][4][2];
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
 #pragma unroll
@@ -205,26 +244,41 @@ __global__ void __launch_bounds__(kThreads)
         repro::ldmatrix_x4_trans(f, &sm.g_lo[row][col]);
         bl[kk][2 * ni2][0] = f[0]; bl[kk][2 * ni2][1] = f[1];
         bl[kk][2 * ni2 + 1][0] = f[2]; bl[kk][2 * ni2 + 1][1] = f[3];
+        if constexpr (kSplitA) {
+          repro::ldmatrix_x4_trans(f, &sm.g_mid[row][col]);
+          bm[kk][2 * ni2][0] = f[0]; bm[kk][2 * ni2][1] = f[1];
+          bm[kk][2 * ni2 + 1][0] = f[2]; bm[kk][2 * ni2 + 1][1] = f[3];
+        }
       }
     }
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
       // A fragments (rows d, k = r) of both k16 halves, from the [r][d] tiles
-      uint32_t ah[2][4], al[2][4];
+      uint32_t ah[2][4], am[2][4], al[2][4];
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const int row = kk * 16 + (lane & 7) + ((lane >> 4) << 3);
         const int col = dw + mi * 16 + ((lane >> 3) & 1) * 8;
         repro::ldmatrix_x4_trans(ah[kk], &sm.a_hi[row][col]);
-        if constexpr (kSplitA) repro::ldmatrix_x4_trans(al[kk], &sm.a_lo[row][col]);
+        if constexpr (kSplitA) {
+          repro::ldmatrix_x4_trans(am[kk], &sm.a_mid[row][col]);
+          repro::ldmatrix_x4_trans(al[kk], &sm.a_lo[row][col]);
+        }
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         float c[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step's chain, small terms first
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
-          if constexpr (kSplitA) repro::mma_bf16(c, al[kk], bh[kk][ni][0], bh[kk][ni][1]);
-          repro::mma_bf16(c, ah[kk], bl[kk][ni][0], bl[kk][ni][1]);
+          if constexpr (kSplitA) {
+            repro::mma_bf16(c, am[kk], bm[kk][ni][0], bm[kk][ni][1]);
+            repro::mma_bf16(c, al[kk], bh[kk][ni][0], bh[kk][ni][1]);
+            repro::mma_bf16(c, ah[kk], bl[kk][ni][0], bl[kk][ni][1]);
+            repro::mma_bf16(c, am[kk], bh[kk][ni][0], bh[kk][ni][1]);
+            repro::mma_bf16(c, ah[kk], bm[kk][ni][0], bm[kk][ni][1]);
+          } else {
+            repro::mma_bf16(c, ah[kk], bl[kk][ni][0], bl[kk][ni][1]);
+          }
           repro::mma_bf16(c, ah[kk], bh[kk][ni][0], bh[kk][ni][1]);
         }
 #pragma unroll

@@ -6,8 +6,16 @@ that own its devices and their device kinds.  The sharding rules
 here (the production ``(16, 16)`` pod), as the JAX package's rules do on an
 ``AbstractMesh``; a ``DeviceMesh`` would need the devices.  A *live* mesh
 also holds the process group of each axis that has one and this process's
-coordinate on it: ``make_host_mesh`` builds it from the initialised
-``torch.distributed`` group.
+coordinate on it: ``make_mesh`` builds one of any ``(data, model)`` shape
+from the initialised ``torch.distributed`` group, ``make_host_mesh`` the
+``(world, 1)`` one the train CLI runs (the JAX CLI's ``make_host_mesh`` is
+``(n, 1)`` too).
+
+Rank ``r`` of a ``(d, m)`` mesh sits at ``(r // m, r % m)``, as
+``jax.make_mesh`` lays the devices out row-major: the "model" group holds
+``m`` consecutive ranks, the "data" group the ranks with the same model
+coordinate, and "batch" every rank (the batch group of a ``dp_only``
+configuration, whose batch spans both axes).
 """
 from __future__ import annotations
 
@@ -25,8 +33,8 @@ class Mesh:
     axis_sizes: tuple[int, ...]
     hosts: int = 1  # processes owning the mesh's devices (mesh_host_count)
     device_kinds: tuple[str, ...] = ()
-    # live meshes only: the process group of each axis with more than one
-    # member's worth of collectives, and this process's coordinates
+    # live meshes only: the process group of each axis ("data", "model",
+    # and "batch", all of them), and this process's coordinates
     groups: Mapping[str, Any] = dataclasses.field(default_factory=dict, compare=False)
     coords: Mapping[str, int] = dataclasses.field(default_factory=dict, compare=False)
 
@@ -68,19 +76,45 @@ def make_host_mesh(device: DeviceLike = None) -> Mesh:
     ("data", "model") mesh, or ``(1, 1)`` without one.  ``device`` is this
     process's device (None: the current GPU); the fleet's device kinds are
     gathered from every rank."""
-    from repro_torch.tuner.plan import device_string
-
-    dev = resolve_device(device)
-    kind = device_string(dev)
     dist = torch.distributed
     if not (dist.is_available() and dist.is_initialized()):
-        return Mesh(("data", "model"), (1, 1), hosts=1, device_kinds=(kind,))
+        from repro_torch.tuner.plan import device_string
+
+        return Mesh(("data", "model"), (1, 1), hosts=1,
+                    device_kinds=(device_string(resolve_device(device)),))
+    return make_mesh((dist.get_world_size(), 1), device)
+
+
+def make_mesh(shape: tuple[int, int], device: DeviceLike = None) -> Mesh:
+    """A live ``(data, model)`` mesh of ``shape`` over every process of the
+    initialised process group (the JAX package's ``_make_mesh(shape,
+    ("data", "model"))``): one process a device, rank ``r`` at ``(r // m,
+    r % m)``.  Every rank must call it (it creates the axes' groups)."""
+    from repro_torch.tuner.plan import device_string
+
+    dist = torch.distributed
+    n_data, n_model = (int(s) for s in shape)
     world, rank = dist.get_world_size(), dist.get_rank()
+    if n_data * n_model != world:
+        raise ValueError(f"mesh {shape} over {world} processes")
     kinds: list = [None] * world
-    dist.all_gather_object(kinds, kind)
+    dist.all_gather_object(kinds, device_string(resolve_device(device)))
+    groups = {"batch": dist.group.WORLD}
+    if n_model == 1:
+        groups["data"] = dist.group.WORLD
+    else:  # every rank creates every group, in the same order
+        for i in range(n_data):
+            g = dist.new_group([i * n_model + j for j in range(n_model)])
+            if i == rank // n_model:
+                groups["model"] = g
+        for j in range(n_model):
+            g = dist.new_group([i * n_model + j for i in range(n_data)])
+            if j == rank % n_model:
+                groups["data"] = g
     return Mesh(
-        ("data", "model"), (world, 1), hosts=world, device_kinds=tuple(sorted(set(kinds))),
-        groups={"data": dist.group.WORLD}, coords={"data": rank, "model": 0},
+        ("data", "model"), (n_data, n_model), hosts=world,
+        device_kinds=tuple(sorted(set(kinds))), groups=groups,
+        coords={"data": rank // n_model, "model": rank % n_model},
     )
 
 

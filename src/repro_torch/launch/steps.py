@@ -21,20 +21,29 @@ into the same tensors.  ``make_prefill_step`` and ``make_decode_step`` are
 the serving steps (the decode greedy).
 
 The sharded step (data parallelism with FSDP of the parameters and the
-optimizer moments): every train-step builder takes ``shardings``, the
-state's placements (``parallel.sharding.state_shardings``), as the JAX
-package's jitted step takes them as ``in_shardings``, and then runs inside
-``parallel.reshard.use_reshard_rules`` on a live mesh.  The state holds
-this rank's shards of the parameters and moments (``parallel.fsdp``); the
-step counter, the policy state and the generator are replicated.  Every
-rank is given the same global batch and keeps its rows.  The per-sample
-norms and clip factors are computed locally, since the gathered weights
-put each sample's whole gradient on one rank; they are all-gathered, with
-the loss, so the replicated policy update and the metrics see the global
-batch.  The gradient sum comes back reduce-scattered (``fsdp.ShardLayout
-.reduce_grads``); the noise is drawn full-size from the replicated
+optimizer moments, and the model axis): every train-step builder takes
+``shardings``, the state's placements (``parallel.sharding
+.state_shardings``), as the JAX package's jitted step takes them as
+``in_shardings``, and then runs inside ``parallel.reshard
+.use_reshard_rules`` on a live ``(data, model)`` mesh
+(``launch.mesh.make_mesh``).  The state holds this rank's shards of the
+parameters and moments (``parallel.fsdp``); the step counter, the policy
+state and the generator are replicated.  Every rank is given the same
+global batch and keeps its rows (over the data axis; under ``dp_only``
+over data x model).  The gathered weights put each sample's whole
+gradient on one data rank; on a tensor-parallel model axis it lies across
+the model ranks, and the clipping engine adds the per-sample squared norms
+up over that axis (one all-reduce a call) before the clip factors, which
+are then the same on every model rank.  Norms and factors are all-gathered
+over the batch axes, and the loss averaged over them, so the replicated
+policy update and the metrics see the global batch.  The gradient sum
+comes back at each stored shard's shape (``fsdp.ShardLayout
+.reduce_grads``: reduced over the data axis, and over the model axis only
+under ``dp_only``); the noise is drawn full-size from the replicated
 generator and each rank keeps its slice, so it equals the one-rank step's;
-the optimizer updates the shards.
+the optimizer updates the shards.  Still refused on a model axis larger
+than one (``reshard.ModelAxisNotPorted``): Mamba's heads, the
+convolutions, and the prefill and decode steps.
 """
 from __future__ import annotations
 
@@ -84,7 +93,7 @@ def _layout(shardings: Any) -> Optional[ShardLayout]:
     if mesh is None or not mesh.live:
         raise ValueError("a sharded step runs inside use_reshard_rules(mesh) on a live mesh "
                          "(launch.mesh.make_host_mesh)")
-    return ShardLayout(mesh, shardings["params"])
+    return ShardLayout(mesh, shardings["params"], batch_axes=reshard.batch_axes())
 
 
 def make_train_state(model, seed: int, optimizer: Optimizer, policy: Any = None) -> dict:
@@ -156,7 +165,9 @@ def make_clipped_microstep(model, dp: DPTrainConfig, shardings: Any = None) -> C
     With ``shardings`` it takes the global batch and this rank's parameter
     shards and clips this rank's rows; it returns the global mean loss,
     this rank's shards of the fleet's gradient sum, and the global batch's
-    per-sample norms and clip factors (all-gathered in rank order)."""
+    per-sample norms and clip factors (all-gathered in rank order).  The
+    clipping engine builds its book-keeping sums at the compute shapes
+    (full over the data axis, this rank's slice over the model axis)."""
     clip_cfg = ClipConfig(
         mode=dp.clipping_mode, clip_norm=dp.clip_norm, clip_fn=dp.clip_fn,
         plan=dp.plan, policy=_policy_for(dp),
@@ -168,7 +179,7 @@ def make_clipped_microstep(model, dp: DPTrainConfig, shardings: Any = None) -> C
     def sharded(params, batch, policy_state=None):
         layout = _layout(shardings)
         loss, g, aux = grad_fn(params, layout.local_rows(batch), policy_state,
-                               shapes=layout.full_shapes(params))
+                               shapes=layout.compute_shapes(params))
         return layout.mean(loss), layout.reduce_grads(g, params), {
             "per_sample_norms": layout.gather_rows(aux["per_sample_norms"]),
             "clip_factors": layout.gather_rows(aux["clip_factors"]),

@@ -60,9 +60,10 @@ from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core.taps import Ctx
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import build_period
-from repro_torch.models.losses import per_sample_xent
+from repro_torch.models.losses import per_sample_xent, vocab_parallel_xent
 from repro_torch.nn.module import Dense, Embedding, LayerNorm, RMSNorm
 from repro_torch.nn.stack import ScannedStack
+from repro_torch.parallel import collectives, reshard
 from repro_torch.utils.tree import tree_map
 
 
@@ -156,6 +157,9 @@ class DecoderLM:
 
         def head_loss(head_params, x_in):
             logits = self.lm_head(head_params, x_in, ctx.scope("lm_head"))
+            if self._vocab_split():  # (B, S, V / model): never gathered
+                return vocab_parallel_xent(logits, batch["labels"], batch.get("mask"),
+                                           reshard.model_group())
             return per_sample_xent(logits, batch["labels"], batch.get("mask"))
 
         if self.cfg.remat and ctx.remat and torch.is_grad_enabled():
@@ -171,7 +175,14 @@ class DecoderLM:
         x, _ = self._trunk(params, batch["tokens"], Ctx.disabled(), prefix=prefix)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
-        return self.lm_head(params["lm_head"], x, Ctx.disabled())
+        logits = self.lm_head(params["lm_head"], x, Ctx.disabled())
+        if self._vocab_split():
+            logits = collectives.all_gather_dim(logits, -1, reshard.model_group())
+        return logits
+
+    def _vocab_split(self) -> bool:
+        """Whether the head's vocabulary is split over the model axis here."""
+        return reshard.model_dim(self.lm_head.w_axes, (self.cfg.d_model, self.cfg.vocab)) == 1
 
     # -- serving -------------------------------------------------------------
     def init_state(self, batch: int, max_len: int) -> dict:

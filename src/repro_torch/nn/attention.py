@@ -45,6 +45,17 @@ step (``kv_src=None``) reads them; both attend through the static form of
 ``dispatch.flash_attention``, so every cross-attention call on the card,
 prefill or decode, launches the kernel.
 
+On a model axis (training; ``reshard.model_dim``) the q/k/v projections
+are column-parallel and ``o`` row-parallel, and a rank attends with the
+heads its columns hold: with "heads" split whole heads to a rank (``H %
+model == 0``) its q heads ``[r H/m, (r + 1) H/m)``, each with its global KV
+head (GQA).  K/V projections split the same way give those KV heads
+locally; K/V that stay whole (``copy_to_model``: each rank's heads add to
+their gradient) or split inside a head (``gather_along_sum``) are taken
+whole and the needed heads picked.  Where "heads" splits inside a head,
+every rank gathers q and attends with all heads, and hands ``o`` its own
+columns.
+
 Divergences by design: the cache's ``pos`` (B, length) and ``idx`` (B,)
 are per lane, where the JAX cache has one ``pos`` (length,) and a scalar
 ``idx`` under the engine's ``vmap``, so one batched decode serves lanes at
@@ -62,6 +73,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import flash_attention_train
 from repro_torch.nn.module import AxesTree, Dense, Module, Params
 from repro_torch.nn.rotary import apply_rope
+from repro_torch.parallel import collectives, reshard
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -196,11 +208,21 @@ class Attention(Module):
         """Without ``cache`` returns y; with it, (y, cache) after writing the
         new rows into ``cache`` in place."""
         b, s, _ = x.shape
-        q = self.wq(params["q"], x, ctx.scope("q")).reshape(b, s, self.n_heads, self.head_dim)
+        q = self.wq(params["q"], x, ctx.scope("q"))
         if self.cross:
+            q = q.reshape(b, s, self.n_heads, self.head_dim)
             return self._cross(params, q, ctx, cache=cache, kv_src=kv_src)
-        k = self.wk(params["k"], x, ctx.scope("k")).reshape(b, s, self.n_kv, self.head_dim)
-        v = self.wv(params["v"], x, ctx.scope("v")).reshape(b, s, self.n_kv, self.head_dim)
+        k = self.wk(params["k"], x, ctx.scope("k"))
+        v = self.wv(params["v"], x, ctx.scope("v"))
+        narrow_out = False
+        if reshard.model_size() > 1:
+            if cache is not None:
+                reshard.refuse_model_axis(f"{self.name}: the KV cache")
+            q, k, v, narrow_out = self._model_heads(q, k, v)
+        else:
+            q = q.reshape(b, s, self.n_heads, self.head_dim)
+            k = k.reshape(b, s, self.n_kv, self.head_dim)
+            v = v.reshape(b, s, self.n_kv, self.head_dim)
         if positions is None:
             positions = torch.arange(s, device=x.device)
         if self.use_rope:
@@ -213,7 +235,10 @@ class Attention(Module):
                                             block_q=self.block_q, block_kv=self.block_kv)
             else:
                 out = attention(q, k, v)
-            return self.wo(params["o"], out.reshape(b, s, -1), ctx.scope("o"))
+            out = out.reshape(b, s, -1)
+            if narrow_out:  # every head computed here; o takes this rank's columns
+                out = collectives.split_along(out, -1, reshard.model_group())
+            return self.wo(params["o"], out, ctx.scope("o"))
 
         idx, length = cache["idx"], cache["k"].shape[1]
         kc, vc = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
@@ -245,6 +270,38 @@ class Attention(Module):
         idx += s
         y = self.wo(params["o"], out.reshape(b, s, -1), ctx.scope("o"))
         return y, cache
+
+    def _model_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """This rank's attention heads on the model axis, from the projections'
+        outputs (B, S, columns): (q (B, S, hq, hd), k, v (B, S, hk, hd),
+        whether ``o``'s input must be narrowed to this rank's columns)."""
+        n, r, group = reshard.model_size(), reshard.model_coord(), reshard.model_group()
+        b, s = q.shape[:2]
+        hd, heads, kv = self.head_dim, self.n_heads, self.n_kv
+        q_split, kv_split = q.shape[-1] != heads * hd, k.shape[-1] != kv * hd
+        local = q_split and heads % n == 0  # whole heads to a rank
+        if q_split and not local:  # split inside a head: every rank attends with all
+            q = collectives.gather_along(q, -1, group)
+        first, hq = (r * heads // n, heads // n) if local else (0, heads)
+        group_size = heads // kv
+        need = [(first + i) // group_size for i in range(hq)]  # each q head's KV head
+        lo, hi = need[0], need[-1] + 1
+        if not (kv_split and kv % n == 0 and local and lo == r * kv // n and hi - lo == kv // n):
+            if kv_split:  # taken whole; the others' heads add to its gradient if local
+                gather = collectives.gather_along_sum if local else collectives.gather_along
+                k, v = gather(k, -1, group), gather(v, -1, group)
+            elif local:  # whole on every rank, used by this rank's heads only
+                k, v = collectives.copy_to_model(k, group), collectives.copy_to_model(v, group)
+            k, v = (x.reshape(b, s, kv, hd) for x in (k, v))
+            if hq % (hi - lo) == 0 and need == [lo + i * (hi - lo) // hq
+                                                 for i in range(hq)]:  # a GQA block
+                k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+            else:  # one KV head per q head
+                idx = torch.tensor(need, device=k.device)
+                k, v = k.index_select(2, idx), v.index_select(2, idx)
+        q = q.reshape(b, s, hq, hd)
+        k, v = (x.reshape(b, s, -1, hd) for x in (k, v))
+        return q, k, v, q_split and not local
 
     def _cross(self, params: Params, q: torch.Tensor, ctx: Ctx, *, cache: Optional[dict],
                kv_src: Optional[torch.Tensor]):

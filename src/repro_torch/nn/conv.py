@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import ConvInfo, Ctx
-from repro_torch.parallel.reshard import reshard_param
+from repro_torch.parallel.reshard import refuse_model_axis, reshard_param
 from repro_torch.nn.module import AxesTree, Module, Params, normal_init
 
 
@@ -115,6 +115,7 @@ class Conv2d(Module):
         return a
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        refuse_model_axis(f"{self.name}: a convolution")
         w = reshard_param(params["w"].to(self.dtype), self.W_AXES,
                           (self.d_out, self.d_in, *self.kernel))
         x = x.to(self.dtype)
@@ -179,6 +180,7 @@ class DepthwiseConv1d(Module):
                  state: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """(y, new state): the state is the last k - 1 rows of the padded
         input, the carried ones included where the call is shorter."""
+        refuse_model_axis(f"{self.name}: a depthwise convolution")
         x = x.to(self.dtype)
         xp = self.padded(x, state)
         unf = xp.unfold(1, self.k, 1).transpose(2, 3)  # (B, T, k, d), a view

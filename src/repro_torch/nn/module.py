@@ -15,6 +15,16 @@ gathers the dims a sharded train state stores over the data axis (a no-op
 on one process), after the cast to the compute dtype.  A module keeps its
 parameters in ``param_dtype`` and computes in ``dtype`` (fp32 parameters
 under bf16 compute, as the transformer configs declare).
+
+On a model axis (``reshard.model_dim``) ``Dense`` runs Megatron's two
+forms: column-parallel (its output dim on "model": ``copy_to_model`` on
+the input, the output this rank's columns) and row-parallel (its input
+dim on "model": the input arrives as this rank's columns, and
+``reduce_from_model`` sums the partial products; a bias is whole and is
+added once, after the sum).  ``Embedding`` runs vocab-parallel (its rows
+on "model": ids outside this rank's ``[lo, hi)`` give zero rows, then
+``reduce_from_model``).  Their taps record this rank's ``a`` and ``g``
+with the full ``D`` and ``p`` (``TapMeta.local``).
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
+from repro_torch.parallel import collectives, reshard
 from repro_torch.parallel.reshard import reshard_param
 
 NORM_EPS = 1e-5  # GroupNorm and LayerNorm, as the JAX package's defaults
@@ -94,19 +105,31 @@ class Dense(Module):
         return a
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        split = reshard.model_dim(self.w_axes, (self.d_in, self.d_out))
         w = reshard_param(params["w"].to(self.dtype), self.w_axes, (self.d_in, self.d_out))
         x = x.to(self.dtype)
-        s = x @ w
+        if split == 0 and x.shape[-1] != w.shape[0]:
+            raise ValueError(f"{self.name}: a row-parallel input of {x.shape[-1]} columns, "
+                             f"this rank's slice is {w.shape[0]} of {self.d_in}")
+        s = (collectives.copy_to_model(x, reshard.model_group()) if split == 1 else x) @ w
+        b = None
         if self.use_bias:
-            s = s + reshard_param(params["b"].to(self.dtype), self.w_axes[-1:], (self.d_out,))
+            b = reshard_param(params["b"].to(self.dtype), self.w_axes[-1:], (self.d_out,))
+            if split != 0:
+                s = s + b
         if ctx.collect:
             batch = x.shape[0]
             t = int(math.prod(x.shape[1:-1])) if x.ndim > 2 else 1
             s = ctx.tap(
-                "out", s, kind="matmul", a=x.reshape(batch, t, self.d_in),
+                "out", s, kind="matmul", a=x.reshape(batch, t, x.shape[-1]),
                 T=t, D=self.d_in, p=self.d_out, param_path="w",
                 bias_path="b" if self.use_bias else None,
+                local=None if split is None else (w.shape[0], w.shape[1], 1),
             )
+        if split == 0:  # the partial products summed, then the whole bias
+            s = collectives.reduce_from_model(s, reshard.model_group())
+            if b is not None:
+                s = s + b
         return s
 
 
@@ -188,14 +211,24 @@ class Embedding(Module):
         return {"e": self.axes_}
 
     def __call__(self, params: Params, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        split = reshard.model_dim(self.axes_, (self.vocab, self.d))  # rows ("vocab") or None
         e = reshard_param(params["e"].to(self.dtype), self.axes_, (self.vocab, self.d))
+        if split == 0:  # this rank's rows [lo, lo + rows): the others' ids read row 0
+            rows = e.shape[0]
+            local = ids - reshard.model_coord() * rows
+            mine = (local >= 0) & (local < rows)
+            ids = torch.where(mine, local, torch.zeros_like(local))
         s = F.embedding(ids, e)
         if ctx.collect:
             batch, t = ids.shape[0], int(math.prod(ids.shape[1:]))
             s = ctx.tap(
                 "out", s, kind="embedding", a=ids.reshape(batch, t),
                 T=t, D=self.vocab, p=self.d, param_path="e",
+                local=None if split is None else (e.shape[0], self.d, 1),
             )
+        if split == 0:  # zero rows (and tap cotangents) for the others' ids
+            s = collectives.reduce_from_model(s * mine[..., None].to(s.dtype),
+                                              reshard.model_group())
         return s
 
 

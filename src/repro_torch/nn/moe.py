@@ -19,16 +19,28 @@ built batched over samples with functional scatters and gathers, so the
 ``vmap`` oracle (``torch.func``) runs the same code.  An empty slot holds
 the sentinel token ``T`` and gathers a zero row.  Expert weights are
 (E, d, f) and (E, f, d), the JAX layout; the router is an fp32 ``Dense``.
+
+On a model axis (training), from the rules' placements: with "expert" on
+it (``E % model == 0``) a rank holds ``E / model`` experts and runs their
+slots; with "moe_mlp" on it every rank holds every expert's slice of
+``d_ff`` (``wg``/``wu`` column-parallel, ``wo`` row-parallel inside each
+expert).  The router is whole and its fp32 logits the same on every rank,
+so the dispatch tables, capacity drops included, are the one-rank step's.
+The input enters through ``copy_to_model`` and the gates too (each rank's
+slots add to their gradients), and the combine is this rank's partial sum,
+then ``reduce_from_model``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.module import AxesTree, Dense, Module, Params, normal_init
+from repro_torch.parallel import collectives, reshard
 from repro_torch.parallel.reshard import reshard_param
 
 
@@ -65,11 +77,18 @@ def dispatch_tokens(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.gather(xp, 1, rows).reshape(b, e, c, d)
 
 
-def combine(ye: torch.Tensor, idx, slot, gates, keep) -> torch.Tensor:
+def combine(ye: torch.Tensor, idx, slot, gates, keep,
+            first: Optional[int] = None) -> torch.Tensor:
     """ye (B, E, C, p) -> (B, T, p): each token's kept choices weighted by
-    their gates (fp32 where ye is narrower), the batched ``_combine_one``."""
+    their gates (fp32 where ye is narrower), the batched ``_combine_one``.
+    ``first``: ``ye`` holds only experts ``[first, first + E)``, and the
+    other experts' choices weigh zero (a model rank's partial sum)."""
     b, e, c, p = ye.shape
     t, k = idx.shape[1:]
+    if first is not None:
+        local = idx - first
+        mine = (local >= 0) & (local < e)
+        idx, keep = torch.where(mine, local, torch.zeros_like(local)), keep & mine
     flat = (idx * c + slot.clamp(0, c - 1)).reshape(b, t * k, 1).expand(b, t * k, p)
     picked = torch.gather(ye.reshape(b, e * c, p), 1, flat)  # (B, T*k, p)
     w = (gates * keep.to(gates.dtype)).reshape(b, t * k, 1)
@@ -129,25 +148,40 @@ class MoE(Module):
             x = x.reshape(1, b * t, d)
         elif dispatch != "per_sample":
             raise ValueError(f"dispatch {dispatch!r}: 'per_sample' or 'global'")
+        f, e = self.d_ff, self.n_experts
+        up_axes, down_axes = ("expert", "embed", "moe_mlp"), ("expert", "moe_mlp", "embed")
+        split = reshard.model_dim(up_axes, (e, d, f))  # 0: experts, 2: d_ff, None
+        group = reshard.model_group()
+        if split is not None and dispatch != "per_sample":
+            reshard.refuse_model_axis(f"{self.name}: global dispatch (serving)")
         logits = self.router(params["router"], x, ctx.scope("router"))  # fp32
         cap = self.capacity(x.shape[1])
         table, idx, slot, gates, keep = dispatch_tables(logits, self.top_k, cap)
-        xe = dispatch_tokens(x, table).to(self.dtype)  # (B, E, C, d)
-        f, e = self.d_ff, self.n_experts
-        up_axes, down_axes = ("expert", "embed", "moe_mlp"), ("expert", "moe_mlp", "embed")
+        first = None
+        if split is not None:  # every rank's slots add to x's and the gates' gradients
+            x = collectives.copy_to_model(x, group)
+            gates = collectives.copy_to_model(gates, group)
         wg = reshard_param(params["wg"].to(self.dtype), up_axes, (e, d, f))
         wu = reshard_param(params["wu"].to(self.dtype), up_axes, (e, d, f))
         wo = reshard_param(params["wo"].to(self.dtype), down_axes, (e, f, d))
+        if split == 0:  # this rank's experts' slots
+            first = reshard.model_coord() * wg.shape[0]
+            table = table[:, first:first + wg.shape[0]]
+        xe = dispatch_tokens(x, table).to(self.dtype)  # (B, E, C, d)
         gate = torch.matmul(xe, wg)
         up = torch.matmul(xe, wu)
         if ctx.collect:
-            tap = dict(kind="matmul", a=xe, T=cap, D=d, p=f, n_groups=e)
+            local = None if split is None else (d, wg.shape[-1], wg.shape[0])
+            tap = dict(kind="matmul", a=xe, T=cap, D=d, p=f, n_groups=e, local=local)
             gate = ctx.tap("wg@out", gate, param_path="wg", **tap)
             up = ctx.tap("wu@out", up, param_path="wu", **tap)
         act = F.silu(gate) * up
         ye = torch.matmul(act, wo)
         if ctx.collect:
             ye = ctx.tap("wo@out", ye, kind="matmul", a=act, T=cap, D=f, p=d, n_groups=e,
-                         param_path="wo")
-        y = combine(ye, idx, slot, gates, keep).to(self.dtype)
-        return y.reshape(b, t, d)
+                         param_path="wo",
+                         local=None if split is None else (wo.shape[1], d, wo.shape[0]))
+        y = combine(ye, idx, slot, gates, keep, first)
+        if split is not None:  # this rank's partial sum
+            y = collectives.reduce_from_model(y, group)
+        return y.to(self.dtype).reshape(b, t, d)

@@ -53,6 +53,14 @@ every layer's recomputation, the same sums as without remat.  Its cross
 k/v taps are recorded once per layer by the first forward, like every
 other tap.
 
+Sequence parallelism (a model axis that splits, ``reshard.shard_seq``):
+the carry between layers is stored as this rank's T / model slice, so a
+checkpointed layer keeps only that slice as its input (the JAX docstring's
+"activation-checkpoint residuals ... stored sharded T/model_size");
+each layer gathers the whole sequence first (``unshard_seq``), so its taps
+and norms see all of it, and the stack hands the whole sequence on.
+Serving on such an axis is refused (the next slice).
+
 ``SequentialBlocks`` runs a period of different blocks in order (Jamba's
 Mamba and attention layers, xLSTM's sLSTM and mLSTMs), its parameters and
 cache keyed by position (``"0"``, ``"1"``, ...) as in the JAX package.  A
@@ -69,7 +77,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.module import AxesTree, Module, Params
-from repro_torch.parallel.reshard import shard_seq
+from repro_torch.parallel.reshard import refuse_model_axis, shard_seq, unshard_seq
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 
@@ -148,10 +156,12 @@ class ScannedStack(Module):
         per_layer = zip(*(leaf.unbind(0) for leaf in flat.values()))
         if cache is None:
             remat = self.remat and ctx.remat and torch.is_grad_enabled()
+            t = x.shape[1]
             for index, leaves in enumerate(per_layer):
                 lctx = ctx.layer(index, self.n)
 
                 def layer(h, *ls, lctx=lctx):
+                    h = unshard_seq(h, t)
                     return shard_seq(
                         self.block(unflatten_dict(dict(zip(flat, ls))), h, lctx, **kw))
 
@@ -160,11 +170,11 @@ class ScannedStack(Module):
                                    preserve_rng_state=False)
                 else:
                     x = layer(x, *leaves)
-            return x
+            return unshard_seq(x, t)
+        refuse_model_axis(f"{self.name}: prefill and decode")
         flat_cache = flatten_dict(cache)
         for index, leaves in enumerate(per_layer):
             layer_cache = unflatten_dict({k: v[index] for k, v in flat_cache.items()})
             x, _ = self.block(unflatten_dict(dict(zip(flat, leaves))), x,
                               ctx.layer(index, self.n), cache=layer_cache, **kw)
-            x = shard_seq(x)
         return x, cache

@@ -11,7 +11,32 @@ program issue the same collectives in the same order.
 
 ``BYTES`` counts, per op, the bytes of this rank's full-size buffer (an
 all_gather's output, a reduce_scatter's input, an all_reduce's tensor):
-the traffic a step puts on the data axis (``reset_bytes`` zeroes it).
+the traffic a step puts on the mesh's axes (``reset_bytes`` zeroes it).
+
+The autograd functions of tensor and sequence parallelism (Megatron's
+conjugate pairs) are here too, each over the group it is given:
+
+- ``copy_to_model``      identity forward, all-reduce backward: the input
+                         of a column-parallel product (each rank's part of
+                         the input's gradient is summed);
+- ``reduce_from_model``  all-reduce forward, identity backward: the output
+                         of a row-parallel product (its partial sums);
+- ``split_along``        this rank's slice forward, all-gather backward: a
+                         replicated activation stored sharded (the sequence
+                         of a layer carry);
+- ``gather_along``       all-gather forward, this rank's slice backward:
+                         a sharded activation used whole by a computation
+                         every rank repeats (its gradient is the same on
+                         every rank);
+- ``gather_along_sum``   all-gather forward, reduce-scatter backward: a
+                         sharded tensor used whole by computations that
+                         differ per rank (an FSDP weight, a KV projection
+                         split inside a head), whose gradient parts sum.
+
+Their backwards run where autograd runs them (for a CUDA tensor, its
+device thread; also in a checkpointed layer's recomputation and in a
+second backward over a retained graph).  Ranks that build the same graph
+run them in the same order.
 """
 from __future__ import annotations
 
@@ -44,11 +69,13 @@ def _staged(op: str, x: torch.Tensor, group) -> bool:
     return x.is_cuda and backend_of(group) == "gloo" and op not in _GLOO_CUDA_OPS
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over the group (a new tensor; ``x`` is untouched)."""
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (or ``op="max"``: the maximum) of ``x`` over the group (a new
+    tensor; ``x`` is untouched)."""
     out = x.detach().clone().contiguous()
     _count("all_reduce", out)
-    _dist().all_reduce(out, group=group)
+    ops = _dist().ReduceOp
+    _dist().all_reduce(out, op=ops.MAX if op == "max" else ops.SUM, group=group)
     return out
 
 
@@ -83,3 +110,86 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     _dist().all_reduce(total, group=group)
     return total.narrow(dim, r * (x.shape[dim] // n), x.shape[dim] // n).contiguous()
 
+
+
+def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's contiguous 1/n of ``x`` along ``dim``."""
+    n, r = _dist().get_world_size(group), _dist().get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"slice: dim {dim} of {tuple(x.shape)} over {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFrom.apply(x, group)
+
+
+def split_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _Split.apply(x, dim % x.ndim, group)
+
+
+def gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _Gather.apply(x, dim % x.ndim, group)
+
+
+def gather_along_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherSum.apply(x, dim % x.ndim, group)

@@ -1,22 +1,30 @@
-"""The sharded train state on the data axis: which rows of which leaf a
-rank stores, and the collectives that move between shards and leaves.
+"""The sharded train state on the ("data", "model") mesh: which slice of
+which leaf a rank stores, and the collectives that move between shards and
+leaves.
 
 ``ShardLayout`` reads the parameters' placements (``sharding
 .param_shardings`` / ``state_shardings``) on a live mesh: a leaf whose
-placement puts a dim on "data" is stored as this rank's contiguous
-1/n slice of that dim (rank order, as ``jax.device_put`` lays out a
-``NamedSharding``); every other leaf is stored whole on every rank.  The
-optimizer moments mirror the parameters.  The model axis must be one
-(``reshard.ModelAxisNotPorted`` otherwise).
+placement puts a dim on "data" is stored as this rank's contiguous 1/n
+slice of that dim, and one that puts a dim on "model" as its 1/m slice of
+that dim (rank order, as ``jax.device_put`` lays out a ``NamedSharding``);
+a leaf may be split on both, and is whole on an axis that places none of
+its dims.  The optimizer moments mirror the parameters.
 
-The gradient of a sharded leaf reaches the step by one of two routes:
-through autograd, ``reshard_param``'s backward has reduce-scattered it
-already (it arrives at the shard's shape); as a full-shape sum (the
+Three shapes of a leaf: its *stored* shape (both splits), its *compute*
+shape (full over the data axis, this rank's slice over the model axis: what
+``reshard_param`` hands the modules) and its *full* shape.  The gradient of
+a data-sharded leaf reaches the step by one of two routes: through
+autograd, ``reshard_param``'s backward has reduce-scattered it already (it
+arrives at the stored shape); as a sum at the compute shape (the
 book-keeping books and psg banks, ``bk_mixed`` and ``bk_mixed_taps``), it
-is reduce-scattered here.  A whole leaf's gradient is all-reduced.  So
-``reduce_grads`` tells the routes apart by shape, which differs on every
-sharded leaf when n > 1; with one rank every gradient is full-shape and
-goes through a one-rank collective.
+is reduce-scattered here.  A leaf whole on the data axis has its gradient
+all-reduced over it.  ``reduce_grads`` tells the routes apart by shape,
+which differs on every data-sharded leaf when n > 1.  A model-sharded dim
+is never reduced over "model": each model rank's slice is its own; a leaf
+whole on the model axis comes out the same on every model rank (the
+modules' collectives make its gradient complete there).  Under ``dp_only``
+the model axis carries batch: the batch group is data x model, and every
+gradient is also summed over the model axis.
 """
 from __future__ import annotations
 
@@ -27,55 +35,76 @@ import torch
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.parallel import collectives
-from repro_torch.parallel.reshard import ModelAxisNotPorted
-from repro_torch.parallel.sharding import Placement, batch_shardings
+from repro_torch.parallel.sharding import Placement
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 
-def data_dim(placement: Placement, mesh: Mesh) -> Optional[int]:
-    """The dim ``placement`` puts on the data axis (None: stored whole)."""
-    out = None
+def _entry_names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def axis_dim(placement: Placement, axis: str) -> Optional[int]:
+    """The dim ``placement`` puts on mesh axis ``axis`` (None: whole on it)."""
     for dim, entry in enumerate(placement):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        for a in names:
-            if a is None or a == "data":
-                continue
-            if mesh.shape[a] > 1:
-                raise ModelAxisNotPorted(f"placement {placement} on mesh {mesh.shape}")
-        if "data" in names:
-            out = dim
-    return out
+        if axis in _entry_names(entry):
+            return dim
+    return None
 
 
 class ShardLayout:
-    """The data-axis layout of a parameter tree on a live mesh."""
+    """The layout of a parameter tree on a live mesh.  ``batch_axes``: the
+    axes the batch shards over (``mesh_axes(mesh, cfg)["batch"]``)."""
 
-    def __init__(self, mesh: Mesh, param_placements: Any):
+    def __init__(self, mesh: Mesh, param_placements: Any, batch_axes: tuple = ("data",)):
         self.mesh = mesh
         self.group = mesh.group("data")
         self.n = mesh.shape["data"]
         self.rank = mesh.coord("data")
-        self.dims = {path: data_dim(p, mesh)
-                     for path, p in flatten_dict(param_placements).items()}
+        self.n_model = mesh.shape.get("model", 1)
+        self.model_rank = mesh.coord("model")
+        self.model_group = mesh.group("model") if self.n_model > 1 else None
+        flat = flatten_dict(param_placements)
+        self.dims = {path: axis_dim(p, "data") for path, p in flat.items()}
+        self.model_dims = {path: axis_dim(p, "model") if self.n_model > 1 else None
+                           for path, p in flat.items()}
+        # the batch: over data, or (dp_only) over data x model, row-major
+        self.batch_over_model = "model" in batch_axes and self.n_model > 1
+        if self.batch_over_model:
+            self.batch_group = mesh.group("batch")
+            self.n_batch = self.n * self.n_model
+            self.batch_rank = self.rank * self.n_model + self.model_rank
+        else:
+            self.batch_group, self.n_batch, self.batch_rank = self.group, self.n, self.rank
 
     # -- shapes ------------------------------------------------------------
-    def full_shape(self, path: str, local_shape) -> tuple:
+    def compute_shape(self, path: str, local_shape) -> tuple:
+        """The shape the modules compute with: full over the data axis."""
         shape = list(local_shape)
         d = self.dims[path]
         if d is not None:
             shape[d] *= self.n
         return tuple(shape)
 
-    def full_shapes(self, local: Any) -> dict[str, tuple]:
-        return {path: self.full_shape(path, x.shape) for path, x in flatten_dict(local).items()}
+    def full_shape(self, path: str, local_shape) -> tuple:
+        shape = list(self.compute_shape(path, local_shape))
+        d = self.model_dims[path]
+        if d is not None:
+            shape[d] *= self.n_model
+        return tuple(shape)
+
+    def compute_shapes(self, local: Any) -> dict[str, tuple]:
+        return {path: self.compute_shape(path, x.shape)
+                for path, x in flatten_dict(local).items()}
 
     def local(self, path: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of a full-shape leaf (a copy)."""
-        d = self.dims[path]
-        if d is None:
-            return full
-        size = full.shape[d] // self.n
-        return full.narrow(d, self.rank * size, size).clone()
+        out = full
+        for d, n, r in ((self.dims[path], self.n, self.rank),
+                        (self.model_dims[path], self.n_model, self.model_rank)):
+            if d is not None:
+                size = out.shape[d] // n
+                out = out.narrow(d, r * size, size)
+        return out if out is full else out.clone()
 
     def local_bytes(self, tree: Any) -> int:
         return sum(x.numel() * x.element_size() for x in flatten_dict(tree).values())
@@ -89,11 +118,15 @@ class ShardLayout:
 
     def gather(self, local_tree: Any) -> Any:
         """The full leaves of a parameter-shaped tree: one all-gather per
-        sharded leaf, in path order (the same on every rank)."""
+        sharded dim of each leaf (data, then model), in path order (the same
+        on every rank)."""
         out = {}
         for path, x in flatten_dict(local_tree).items():
-            d = self.dims[path]
-            out[path] = x if d is None else collectives.all_gather_dim(x, d, self.group)
+            if self.dims[path] is not None:
+                x = collectives.all_gather_dim(x, self.dims[path], self.group)
+            if self.model_dims[path] is not None:
+                x = collectives.all_gather_dim(x, self.model_dims[path], self.model_group)
+            out[path] = x
         return unflatten_dict(out)
 
     def shard_state(self, state: dict) -> dict:
@@ -118,42 +151,42 @@ class ShardLayout:
         for path, g in flatten_dict(grads).items():
             d = self.dims[path]
             if d is None:
-                out[path] = collectives.all_reduce(g, self.group)
+                g = collectives.all_reduce(g, self.group)
             elif self.n > 1 and tuple(g.shape) == tuple(flat_p[path].shape):
-                out[path] = g  # reduce-scattered by reshard_param's backward
+                pass  # reduce-scattered by reshard_param's backward
+            elif tuple(g.shape) == self.compute_shape(path, flat_p[path].shape):
+                g = collectives.reduce_scatter_dim(g, d, self.group)
             else:
-                out[path] = collectives.reduce_scatter_dim(g, d, self.group)
+                raise ValueError(f"gradient of {path}: {tuple(g.shape)}, stored "
+                                 f"{tuple(flat_p[path].shape)} on {self.mesh.shape}")
+            if self.batch_over_model:  # dp_only: the model ranks held other rows
+                g = collectives.all_reduce(g, self.model_group)
+            out[path] = g
         return unflatten_dict(out)
 
     def local_rows(self, batch: Any) -> Any:
-        """This rank's rows of a global batch (dim 0 over the data axis, as
-        ``batch_shardings`` places it); a batch that does not divide over
-        the data axis raises: its rows would be counted on every rank."""
-        places = flatten_dict(batch_shardings(batch, self.mesh))
+        """This rank's rows of a global batch (dim 0 over the batch axes,
+        row-major); a batch that does not divide over them raises: its rows
+        would be counted on several ranks."""
         out = {}
         for path, x in flatten_dict(batch).items():
-            if self.n > 1 and "data" not in _names(places[path]):
+            if self.n_batch > 1 and (not x.ndim or x.shape[0] % self.n_batch):
                 raise ValueError(
                     f"batch[{path!r}] of {tuple(x.shape)} does not divide over "
-                    f"{self.n} data ranks")
-            rows = x.shape[0] // self.n
-            out[path] = x.narrow(0, self.rank * rows, rows)
+                    f"{self.n_batch} batch ranks")
+            rows = x.shape[0] // self.n_batch
+            out[path] = x.narrow(0, self.batch_rank * rows, rows)
         return unflatten_dict(out)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of a per-sample tensor, in rank order."""
-        return collectives.all_gather_dim(x, 0, self.group)
+        """Every batch rank's rows of a per-sample tensor, in rank order."""
+        return collectives.all_gather_dim(x, 0, self.batch_group)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of one scalar per rank."""
-        return collectives.all_gather_dim(x.detach().reshape(1).float(), 0, self.group).mean()
-
-
-def _names(entry_tuple: tuple) -> tuple:
-    out: list = []
-    for e in entry_tuple:
-        out.extend(e if isinstance(e, tuple) else (e,))
-    return tuple(out)
+        """The mean over the batch ranks of one scalar per rank (model ranks
+        that share rows hold the same scalar)."""
+        return collectives.all_gather_dim(x.detach().reshape(1).float(), 0,
+                                          self.batch_group).mean()
 
 
 def sharded_fraction(layout: ShardLayout, local: Any) -> dict[str, float]:

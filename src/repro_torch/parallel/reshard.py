@@ -1,4 +1,5 @@
-"""Explicit FSDP weight gathering (port of ``parallel/reshard.py``).
+"""Explicit FSDP weight gathering and the model axis's placements (port of
+``parallel/reshard.py``).
 
 Parameters are stored sharded over the fsdp axes (the data axis): that is
 the optimizer-state win.  Compute sees them gathered, with the activations
@@ -7,24 +8,33 @@ data axis, every dim of ``w`` that is stored sharded; its backward is the
 reduce-scatter (sum) of the weight's gradient, FSDP's semantics, so the
 gradient reaching the stored shard is already the fleet's sum.  Callers
 cast to the compute dtype FIRST, so the gather moves the compute dtype
-(bf16 under bf16 compute), as the JAX package prescribes.
+(bf16 under bf16 compute), as the JAX package prescribes.  A dim the rules
+put on the model axis stays this rank's slice: the JAX docstring's plan
+("drops the fsdp axes ... and keeps the tensor-parallel axes").
 
 Where the JAX package reads a tensor's sharding from the array, a torch
 tensor carries none: the caller gives ``shape``, the full shape of the
-weight at this use, and a dim is gathered where the stored tensor is
-smaller.  Which dims may be sharded comes from the rules
-(``parallel.sharding``): a dim the rules do not put on the data axis, or
-one that does not divide, must arrive whole.
+weight at this use, and the rules (``parallel.sharding``) say which of its
+dims are stored over which axes; a dim that does not divide stays whole.
 
-Active inside ``use_reshard_rules(mesh, cfg)`` on a live mesh whose data
-axis has more than one rank; a no-op otherwise.  The rules are process-wide
-(a stack), not a context variable as in the JAX package: autograd runs a
-CUDA backward, and with it the recomputation of a checkpointed layer, on a
-device thread of its own, which would not see a context variable set on
-the step's thread.  The model axis (tensor,
-expert and sequence parallelism) comes with a later slice: where it is
-larger than one, ``reshard_param``, ``shard_seq`` and ``shard_heads``
-raise ``ModelAxisNotPorted``; at one they are identities.
+The model axis (tensor, expert and sequence parallelism), which GSPMD
+writes for the JAX package, is written by hand in the modules (Megatron's
+collectives, ``parallel.collectives``).  A module asks ``model_dim(axes,
+shape)`` which dim of a weight is on "model" at this use, from the
+resolved placement, and runs its column- or row-parallel form.
+``shard_seq`` stores the layer carry as this rank's 1/model of the
+sequence and ``unshard_seq`` gathers it back.  Ported: the training step
+of the dense and MoE decoder LMs, and ``dp_only`` configurations, whose
+model axis carries batch (``model_size`` is then 1: no module splits).
+Still refused, with ``ModelAxisNotPorted`` naming the next slice, where
+the model axis is larger than one: ``shard_heads`` (Mamba, Jamba), the
+convolutions (CNNs, ViTs) and the sharded prefill and decode steps.
+
+Active inside ``use_reshard_rules(mesh, cfg)`` on a live mesh; a no-op
+otherwise.  The rules are process-wide (a stack), not a context variable
+as in the JAX package: autograd runs a CUDA backward, and with it the
+recomputation of a checkpointed layer, on a device thread of its own,
+which would not see a context variable set on the step's thread.
 """
 from __future__ import annotations
 
@@ -37,7 +47,10 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import _spec_for, axis_size, logical_rules, mesh_axes
 
-_STACK: list[tuple] = []  # (mesh, rules, fsdp axes) of each enclosing context
+_STACK: list[tuple] = []  # (mesh, rules, fsdp axes, mesh_axes) of each enclosing context
+
+NEXT_SLICE = ("the next slice of the port (Mamba's shard_heads, convolutions and sharded "
+              "serving on the model axis)")
 
 
 def _state() -> Optional[tuple]:
@@ -45,15 +58,14 @@ def _state() -> Optional[tuple]:
 
 
 class ModelAxisNotPorted(NotImplementedError):
-    """A mesh whose model axis is larger than one: tensor, expert and
-    sequence parallelism are not in the port yet."""
+    """A path the port does not run on a model axis larger than one yet."""
 
 
 @contextlib.contextmanager
 def use_reshard_rules(mesh: Mesh, cfg=None):
     rules = logical_rules(mesh, cfg)
-    fsdp = set(mesh_axes(mesh)["fsdp"])
-    _STACK.append((mesh, rules, fsdp))
+    axes = mesh_axes(mesh, cfg)
+    _STACK.append((mesh, rules, set(axes["fsdp"]), axes))
     try:
         yield
     finally:
@@ -66,72 +78,100 @@ def active_mesh() -> Optional[Mesh]:
     return None if state is None else state[0]
 
 
-def data_size() -> int:
-    """Ranks on the data axis of the enclosing context (1 outside one)."""
-    mesh = active_mesh()
-    return 1 if mesh is None else mesh.shape.get("data", 1)
+def batch_axes() -> tuple[str, ...]:
+    """The mesh axes the batch shards over in the enclosing context."""
+    state = _state()
+    return ("data",) if state is None else tuple(state[3]["batch"])
 
 
-def _model_size(mesh: Mesh) -> int:
-    return mesh.shape.get("model", 1)
+def model_size() -> int:
+    """Ranks that split the model (tensor, expert, sequence parallelism):
+    the model axis under a tensor-parallel configuration, else 1 (also
+    under ``dp_only``, whose model axis carries batch)."""
+    state = _state()
+    if state is None or not state[3]["model"]:
+        return 1
+    return axis_size(state[0], state[3]["model"])
 
 
-class _GatherDim(torch.autograd.Function):
-    """All-gather along ``dim`` forward, reduce-scatter (sum) backward."""
+def model_group():
+    """The model axis's process group where ``model_size() > 1``, else None."""
+    return active_mesh().group("model") if model_size() > 1 else None
 
-    @staticmethod
-    def forward(ctx, w, dim: int, group):
-        ctx.dim, ctx.group = dim, group
-        return collectives.all_gather_dim(w, dim, group)
 
-    @staticmethod
-    def backward(ctx, g):
-        return collectives.reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+def model_coord() -> int:
+    """This rank's coordinate on the model axis (0 without one)."""
+    return active_mesh().coord("model") if model_size() > 1 else 0
+
+
+def model_dim(axes: tuple, shape: tuple) -> Optional[int]:
+    """The dim of a weight of full ``shape`` and logical ``axes`` that the
+    resolved placement puts on the model axis at this use (None: the weight
+    is whole on every model rank)."""
+    if model_size() <= 1:
+        return None
+    mesh, rules = _state()[:2]
+    for dim, entry in enumerate(_spec_for(tuple(shape), axes, rules, mesh)):
+        if "model" in (entry if isinstance(entry, tuple) else (entry,)):
+            return dim
+    return None
+
+
+def refuse_model_axis(what: str) -> None:
+    """Raise ``ModelAxisNotPorted`` for ``what`` where the model axis splits."""
+    if model_size() > 1:
+        raise ModelAxisNotPorted(
+            f"{what} on mesh {active_mesh().shape}: the model axis comes with {NEXT_SLICE}")
 
 
 def reshard_param(w: torch.Tensor, axes: tuple, shape: tuple) -> torch.Tensor:
-    """``w`` with its fsdp-sharded dims gathered: its compute placement."""
+    """``w`` with its fsdp-sharded dims gathered: its compute placement
+    (full over the data axis, this rank's slice over the model axis)."""
     state = _state()
     if state is None:
         return w
-    mesh, rules, fsdp = state
-    if _model_size(mesh) > 1:
-        raise ModelAxisNotPorted(f"reshard_param on mesh {mesh.shape}: the model axis")
-    n = mesh.shape.get("data", 1)
-    if n <= 1:
+    mesh, rules, fsdp, _ = state
+    n_model = model_size()
+    if mesh.shape.get("data", 1) <= 1 and n_model <= 1:
         return w
     if len(shape) != w.ndim:
         raise ValueError(f"reshard_param: {tuple(w.shape)} vs full shape {tuple(shape)}")
     spec = _spec_for(tuple(shape), axes, rules, mesh)
     for dim, (entry, full) in enumerate(zip(spec, shape)):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        sharded = bool(fsdp.intersection(a for a in names if a is not None))
-        size = axis_size(mesh, tuple(a for a in names if a in fsdp)) if sharded else 1
-        if w.shape[dim] * size != full:
+        names = tuple(a for a in (entry if isinstance(entry, tuple) else (entry,))
+                      if a is not None)
+        size = axis_size(mesh, tuple(a for a in names if a in fsdp))
+        split = n_model if "model" in names else 1
+        if w.shape[dim] * size * split != full:
             raise ValueError(
                 f"reshard_param: dim {dim} of {tuple(w.shape)} (axes {axes}) is not the "
                 f"stored placement {spec} of {tuple(shape)} on {mesh.shape}")
         if size > 1:
-            w = _GatherDim.apply(w, dim, mesh.group("data"))
+            w = collectives.gather_along_sum(w, dim, mesh.group("data"))
     return w
 
 
-def _check_model_axis(what: str) -> None:
-    state = _state()
-    if state is not None and _model_size(state[0]) > 1:
-        raise ModelAxisNotPorted(f"{what} on mesh {state[0].shape}: the model axis")
-
-
 def shard_seq(x: torch.Tensor) -> torch.Tensor:
-    """Sequence parallelism of a (B, T, d) layer carry over the model axis:
-    the identity while the model axis is one."""
-    _check_model_axis("shard_seq")
-    return x
+    """Sequence parallelism of a (B, T, d) layer carry: this rank's T/model
+    slice (its backward all-gathers), where the model axis splits and T
+    divides; the identity otherwise, as the JAX constraint."""
+    n = model_size()
+    if n <= 1 or x.ndim != 3 or x.shape[1] % n:
+        return x
+    return collectives.split_along(x, 1, model_group())
+
+
+def unshard_seq(x: torch.Tensor, t: int) -> torch.Tensor:
+    """The whole sequence of ``t`` positions from a carry ``shard_seq``
+    sliced (its backward keeps this rank's slice); a whole carry as it is."""
+    if x.shape[1] == t:
+        return x
+    return collectives.gather_along(x, 1, model_group())
 
 
 def shard_heads(x: torch.Tensor, axis: int = 2) -> torch.Tensor:
     """A (B, T, H, d) tensor's heads on the model axis: the identity while
-    the model axis is one."""
+    the model axis does not split (Mamba's heads come with the next slice)."""
     del axis
-    _check_model_axis("shard_heads")
+    refuse_model_axis("shard_heads")
     return x

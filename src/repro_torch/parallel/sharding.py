@@ -15,9 +15,11 @@ Every rule is guarded by divisibility: a dim that does not divide evenly on
 its target axes stays replicated (never a padded sharding).
 
 A placement is one leaf's ``PartitionSpec`` entries as a plain tuple: per
-dim ``None``, one mesh axis name, or a tuple of them.  Which of these the
-port runs is the step's business (``parallel.fsdp``): this slice runs the
-data axis; the rules are evaluated for any mesh.
+dim ``None``, one mesh axis name, or a tuple of them.  The rules are
+evaluated for any mesh; the step runs them on a live one (``parallel
+.fsdp``, ``parallel.reshard``): the data axis, and the model axis of the
+training step of the dense and MoE decoder LMs and of the ``dp_only``
+configurations.
 """
 from __future__ import annotations
 

@@ -152,7 +152,8 @@ def _synthetic(meta: TapMeta, n: int, device: torch.device, seed: int):
     if meta.kind == "embedding":
         a = torch.randint(0, max(meta.D, 1), (n, meta.T), generator=gen, device=device)
     else:
-        a_shape = m1.a_shape if m1.a_shape is not None else (n, meta.T, meta.D)
+        a_shape = m1.a_shape if m1.a_shape is not None else (n, meta.T,
+                                                               meta.local_view().D)
         a = torch.randn(a_shape, generator=gen, device=device).to(a_dt)
     c = torch.rand(n, generator=gen, device=device)
     return m1, a, g, c
@@ -207,7 +208,9 @@ def measure_tap(
 ) -> Optional[TapTiming]:
     """Time every branch of the three-way decision for one matmul tap on
     synthetic data of its shape (``None`` for the other kinds, whose branch
-    is forced).  ``kernels`` pins the impl per dispatch op."""
+    is forced).  ``kernels`` pins the impl per dispatch op.  A tap the model
+    axis splits is timed at this rank's slice (``TapMeta.local_view``), the
+    work the rank does; the plan keys it on its full shape."""
     if meta.kind != "matmul":
         return None
     dev = resolve_device(device)
@@ -227,8 +230,10 @@ def measure_tap(
         norms = ghost.tap_norm_sq(m1, x, y, mode="ghost", **knobs)
         return norms, ghost.tap_weighted_grads(m1, x, y, cc, shape, kernels=kernels)
 
+    local = m1.local_view()
+
     def bk_inst(x, y, cc):
-        psg = ghost._matmul_psg(m1, x, y.float())
+        psg = ghost._matmul_psg(local, x, y.float())
         norms = psg.square().reshape(n, -1).sum(dim=-1)
         return norms, dispatch.psg_contract(psg, cc, impl=k_psg)
 
@@ -239,11 +244,11 @@ def measure_tap(
         a2 = unfold2d(a, meta.conv)
     else:
         a2 = a
-    a2 = a2.reshape(-1, meta.D)
-    w = torch.randn(meta.D, meta.p, device=dev).to(a2.dtype)
+    a2 = a2.reshape(-1, local.D)
+    w = torch.randn(local.D, local.p, device=dev).to(a2.dtype)
 
     def second_bwd(x, y, ww):
-        yy = y.reshape(-1, meta.p).to(x.dtype)
+        yy = y.reshape(-1, local.p).to(x.dtype)
         return x.t() @ yy, yy @ ww.t()
 
     r = dict(repeats=cfg.repeats, warmup=cfg.warmup)

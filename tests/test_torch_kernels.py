@@ -565,10 +565,15 @@ def test_ghost_tile_choice_follows_t():
 
 # ------------------------------------ the card's book kernel, emulated --
 # csrc/book_weighted_grad.cu multiplies on the tensor cores, which take no
-# fp32 operand: each fp32 value x is split into x_hi + x_lo and a tile
-# product becomes a sum of low-precision products.  These tests emulate that
-# rounding on the CPU at the main path's reduction length (VGG-19's R =
-# 8192 taps) and predict the card's reading against the 1e-4 gate.
+# fp32 operand: an fp32 value x is split into bf16 pieces and a tile product
+# becomes a sum of low-precision products (an fp32 activation and the
+# weighted cotangent three pieces each, six products; the weighted
+# cotangent two pieces beside a bf16 activation, which is exact).  These
+# tests emulate that rounding on the CPU at the main path's reduction
+# length (VGG-19's R = 8192 taps) and predict the card's reading against
+# the 1e-4 gate, and on a book whose sums one product dominates (a
+# vocabulary head) the reading between two equivalent steps against the
+# fp32 gates' 1e-5.
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
@@ -585,20 +590,36 @@ def _split(x: torch.Tensor, kind: str) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def _emulate_book(a, g, w, *, kind="bf16", products=3):
-    """The kernel's arithmetic for one m: g scaled by w in fp32 and split,
-    a split unless it is bf16 (then exact); per 32-row k-step the chain of
-    ``products`` MMAs (small terms first) summed exactly and rounded to
-    fp32, added to an fp32 running sum; R cut as book_splits cuts it on a
-    132-SM card, the splits' sums added in split order."""
+def _split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x = hi + mid + lo in bf16 (the kernel's three-piece split)."""
+    hi = _bf16(x)
+    mid = _bf16(x - hi)
+    return hi, mid, _bf16(x - hi - mid)
+
+
+def _emulate_book(a, g, w, *, kind="bf16", products=None):
+    """The kernel's arithmetic for one m: g scaled by w in fp32 and split;
+    per 32-row k-step the chain of MMAs (small terms first) summed exactly
+    and rounded to fp32, added to an fp32 running sum; R cut as book_splits
+    cuts it on a 132-SM card, the splits' sums added in split order.
+    ``products`` None is the kernel: an fp32 a and w g in three bf16 pieces
+    each, six products (bf16x6), a bf16 a exact beside w g in two pieces;
+    3 is the two-piece split with a's lo g's lo dropped (bf16x3, the
+    kernel's before the model axis's fp32 gates, or 3xTF32 with
+    ``kind="tf32"``);
+    1 one product of the rounded operands."""
     r, d = a.shape
     gw = g.float() * w[:, None]
-    g_hi, g_lo = _split(gw, kind)
-    if a.dtype == torch.bfloat16:
-        a_hi, a_lo = a.float(), torch.zeros(r, d)
+    if products is None and kind == "bf16" and a.dtype != torch.bfloat16:
+        (ah, am, al), (gh, gm, gl) = _split3(a.float()), _split3(gw)
+        terms = [(am, gm), (al, gh), (ah, gl), (am, gh), (ah, gm), (ah, gh)]
     else:
-        a_hi, a_lo = _split(a, kind)
-    terms = [(a_lo, g_hi), (a_hi, g_lo), (a_hi, g_hi)][3 - products:]
+        g_hi, g_lo = _split(gw, kind)
+        if a.dtype == torch.bfloat16:
+            a_hi, a_lo = a.float(), torch.zeros(r, d)
+        else:
+            a_hi, a_lo = _split(a, kind)
+        terms = [(a_lo, g_hi), (a_hi, g_lo), (a_hi, g_hi)][3 - (products or 3):]
     splits, rows = tpc.book_splits(1, r, d, g.shape[1], 132)
     total = torch.zeros(d, g.shape[1])
     for s in range(splits):
@@ -633,11 +654,38 @@ BOOK_GATE = 1e-4  # chip_smoke.py TOL["book_weighted_grad"], kernel vs plain
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
 ])
 def test_book_split_emulation_meets_the_gate_at_r8192(a_dtype, g_dtype, kind):
-    """The 3-product split (bf16x3, as the kernel does it, or 3xTF32) at
-    R = 8192 stays within a tenth of the card's 1e-4 gate."""
+    """The kernel's split (bf16x6 for an fp32 activation, two products
+    beside a bf16 one), or 3xTF32, at R = 8192 stays within a tenth of the
+    card's 1e-4 gate."""
     a, g, w, exact = _book_inputs(8192, 130, 70, a_dtype, g_dtype)
     err = _rel_to_largest(_emulate_book(a, g, w, kind=kind), exact)
     assert err <= BOOK_GATE / 10, err
+
+
+def test_book_fp32_split_holds_equivalent_steps_together():
+    """Two equivalent fp32 steps (the model axis against one rank) hand the
+    book inputs an ulp or two apart.  On a vocabulary head's book, where
+    one product dominates each column's sum, the kernel's bf16x6 keeps the
+    two contractions as far apart as the exact ones (and within 1e-6 of
+    them), well under the fp32 gates' 1e-5; the two-piece bf16x3 moves
+    each by up to ~1e-5 of the largest entry on its own (the card read
+    1.15e-5 between the sharded and the one-rank Mixtral-8x7B head, on
+    one H100)."""
+    rng = np.random.default_rng(0)
+    r, d, p = 256, 64, 8192
+    a = torch.from_numpy(_np(rng, r, d))
+    logits = torch.from_numpy(_np(rng, r, p))
+    g = (torch.softmax(logits, -1) - torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, p, r)), p)) / r
+    w = torch.from_numpy(rng.uniform(0.2, 1.0, r).astype(np.float32))
+    a2 = a + a.abs() * 2.0**-22 * torch.from_numpy(_np(rng, r, d))
+    g2 = g + g.abs() * 2.0**-23 * torch.from_numpy(_np(rng, r, p))
+    exact = [x.double().T @ (y.double() * w.double()[:, None]) for x, y in ((a, g), (a2, g2))]
+    apart = _rel_to_largest(exact[1].float(), exact[0])
+    six = [_emulate_book(x, y, w) for x, y in ((a, g), (a2, g2))]
+    assert _rel_to_largest(six[0], exact[0]) <= 1e-6
+    assert _rel_to_largest(six[1], six[0].double()) <= apart + 1e-6 <= 2e-6
+    three = [_emulate_book(x, y, w, products=3) for x, y in ((a, g), (a2, g2))]
+    assert _rel_to_largest(three[1], three[0].double()) >= 4e-6
 
 
 def test_book_single_bf16_product_misses_the_gate():
