@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # from the repository root; one CUDA device
 
 The main paths: DP-SGD training of VGG-19 (CIFAR-10 widths, 32x32, 10
-classes, GroupNorm, fp32) at batch 128, of ViT-Base/16 (12 layers, d_model
-768, 224x224, 10 classes) and of BEiT-Large/16 (full width, d_model 1024,
-6 of its 24 layers, 224x224, 1000 classes) at batch 32, both ViTs in bf16
+classes, GroupNorm, fp32) at batch 128, of ViT-Base/16 (full width, d_model
+768, 4 of its 12 layers, 224x224, 10 classes; the dist phase's cnn part
+runs all 12) and of BEiT-Large/16 (full width, d_model 1024,
+3 of its 24 layers, 224x224, 1000 classes) at batch 32, both ViTs in bf16
 compute with fp32 parameters and each layer rematerialised in the backward
 (the configs' remat); DP training of the decoder LMs at full width, depth
 cut: Yi-6B (1 of 32 layers since the tp part, 2 before, 8 until the
@@ -110,12 +111,13 @@ failure exits non-zero and prints no result:
             tokens, Phi-3-vision 1 layer, batch 2, 576 + 64 positions); VGG-19's
             fixed-policy modes also reported against vmap with cuDNN off and
             vmap in fp64 compute;
-7. accum    VGG-19: a logical batch of 512 as 4 microbatches of 128 through
+7. accum    VGG-19: a logical batch of 256 as 2 microbatches of 128 (4 until
+            the dist phase's cnn and mamba parts came) through
             make_accum_* in mixed_ghost and bk_mixed, the microsteps under
             torch.cuda.set_sync_debug_mode("error"): norms, gradient sum and
-            finalized update against four direct 128-sample clipped calls
+            finalized update against two direct 128-sample clipped calls
             and make_noise_finalize (gated with cuDNN on and off), and
-            against one direct 512-sample step and make_train_step on the
+            against one direct 256-sample step and make_train_step on the
             same samples and generator seed (gated with PyTorch's own
             convolutions, reported with cuDNN: its algorithms differ by
             batch size, and the backward amplifies their rounding); every
@@ -235,6 +237,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -300,14 +303,21 @@ GROUP_PREFIXES = {"vgg19": ("conv", "gn"), "vit_base": ("layers", "patch_embed")
                   "jamba": ("layers", "embed"), "xlstm": ("layers", "embed"),
                   "whisper": ("decoder", "encoder"), "phi3v": ("layers", "embed")}
 # the accum phase: a logical batch of ACCUM_MICRO * ACCUM_STEPS samples
-ACCUM_MICRO, ACCUM_STEPS = 128, 4
+# (4 microsteps until the dist phase's cnn and mamba parts came: cut for
+# the run's time)
+ACCUM_MICRO, ACCUM_STEPS = 128, 2
 # the remat phase: these paths and modes with ScannedStack's remat on and
 # off, REMAT_ROUNDS rounds of REMAT_STEPS timed steps each way, interleaved;
 # their norms and clipped sums in fp32 compute within REMAT_TOL
 REMAT_PATHS = ("vit_base", "beit_large")
-# BEiT-Large at full width, 6 of its 24 layers (all 24 until the recurrent
-# LMs came, 12 until the dist phase came: cut for the run's time)
-BEIT_LAYERS = 6
+# ViT-Base at full width, 4 of its 12 layers (all 12 until the dist
+# phase's cnn and mamba parts came: cut for the run's time; the cnn part
+# runs all 12)
+VIT_BASE_LAYERS = 4
+# BEiT-Large at full width, 3 of its 24 layers (all 24 until the recurrent
+# LMs came, 12 until the dist phase came, 6 until its cnn and mamba parts
+# came: cut for the run's time)
+BEIT_LAYERS = 3
 REMAT_MODES = ("non_private", "mixed_ghost", "bk_mixed")
 REMAT_ROUNDS, REMAT_STEPS = 1, 2  # 2 rounds until the dist phase came
 REMAT_TOL = 1e-6
@@ -317,10 +327,10 @@ REMAT_TOL = 1e-6
 # analytic step within PLAN_TOL (a plan moves cost, never the math)
 TUNE_PATHS = ("vgg19", "vit_base")
 TUNE_LOGICAL = 1024
-# the tune phase's per-tap timings: 3 timed calls after 1 warm-up (the
-# MeasureConfig defaults, 5 after 2, until the tp part came: cut for the
-# run's time)
-TUNE_MEASURE_REPEATS, TUNE_MEASURE_WARMUP = 3, 1
+# the tune phase's per-tap timings: 1 timed call after 1 warm-up (3 until
+# the dist phase's cnn and mamba parts came; the MeasureConfig defaults, 5
+# after 2, until the tp part came: cut for the run's time)
+TUNE_MEASURE_REPEATS, TUNE_MEASURE_WARMUP = 1, 1
 PLAN_TOL = 1e-4
 # the max_batch phase (the paper's Table 7): the largest physical batch
 # under the paper's 16 GB budget, by trial, per model and mode
@@ -334,7 +344,8 @@ MAX_BATCH_HI_CAP = 4096
 # slots, page 16, 8 requests of these prompt lengths with MAX_NEW new
 # tokens each (32 until then), max_len = the longest prompt + MAX_NEW
 SERVE_ARCH = "yi-6b"
-SERVE_LAYERS = 4  # 8 until the tp part came, 16 until the dist phase
+SERVE_LAYERS = 2  # 4 until the model axis's cnn and mamba parts came, 8
+# until the tp part came, 16 until the dist phase
 PROMPT_LENS = (2048, 131, 1000, 517, 1536, 250, 777, 2000)
 MAX_NEW = 16
 SLOTS = 4
@@ -2895,12 +2906,14 @@ def _paths() -> dict:
                       batch=128, image=32, n_classes=10, modes=MODES,
                       lr={"non_private": 0.05 / (128 * 200), "dp": 0.05}),
         # ViT-Base/16 on CIFAR-10 upscaled to 224, as the paper fine-tunes
-        # its ViTs; small learning rates keep 86M noisy coordinates finite.
-        # bf16 compute, each layer rematerialised (the config's default); the
-        # oracle's gate runs it in fp32 compute
-        "vit_base": dict(build=vit(VIT_BASE, 10), batch=32, image=224, n_classes=10,
+        # its ViTs (VIT_BASE_LAYERS of its 12 layers); small learning rates
+        # keep its noisy coordinates finite.  bf16 compute, each layer
+        # rematerialised (the config's default); the oracle's gate runs it
+        # in fp32 compute
+        "vit_base": dict(build=vit(dataclasses.replace(VIT_BASE, n_layers=VIT_BASE_LAYERS), 10),
+                         batch=32, image=224, n_classes=10,
                          modes=MODES, lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
-        # BEiT-Large/16 (full width, d_model 1024; 12 of 24 layers), the
+        # BEiT-Large/16 (full width, d_model 1024; BEIT_LAYERS of 24 layers), the
         # paper's headline model, at 1000 classes: bf16 compute, remat on;
         # the oracle at 8 samples in fp32 compute
         "beit_large": dict(build=vit(dataclasses.replace(BEIT_LARGE, n_layers=BEIT_LAYERS), 1000),
@@ -3870,9 +3883,10 @@ def _dist_cli(rank: int, plan_path: str, tmp: Path) -> dict:
     return out
 
 
-# the dist phase's tp part: the model axis (tensor, expert and sequence
-# parallelism) on a (1, 2) mesh of the same two gloo ranks, Mixtral-8x7B at
-# full width, TP_LAYERS of its 32 layers, remat on
+# the dist phase's model-axis parts, on a (1, 2) mesh of the same two gloo
+# ranks, each at full width: tp (Mixtral-8x7B, TP_LAYERS of its 32 layers,
+# remat on), cnn (VGG-19 and ViT-Base/16, the paper's models) and mamba
+# (Jamba-1.5-Large's first layer, a Mamba layer with its dense MLP)
 TP_ARCH = "mixtral-8x7b"
 TP_LAYERS = 1
 TP_MESH = (1, DIST_RANKS)
@@ -3880,9 +3894,24 @@ TP_MODES = ("non_private", "mixed_ghost", "bk_mixed")  # fp32, gated at DIST_TOL
 TP_BATCH, TP_SEQ = 2, 1024
 TP_BF16_MODES = ("mixed_ghost", "bk_mixed")  # reported
 TP_BF16_SEQ = 4096  # the mixtral path's length
-# the kernels' wrappers whose calls the tp part records: (module attribute of
+CNN_VGG_BATCH, CNN_VIT_BATCH = 128, 8  # VGG-19 as its path; ViT-Base at 224 x 224
+CNN_VIT_MODES = ("mixed_ghost",)
+MAMBA_BATCH, MAMBA_SEQ = 2, 1024
+MAMBA_F64_SEQ = 256  # the fp64 witness's length (its fp64 weight copies and fp32 state)
+# the fp32 main path's clipped-sum limit against the one-rank step where
+# fp32 rounding alone moves it past DIST_TOL (every other reading, and
+# every other model, at DIST_TOL): between the sharded step's readings
+# (<= 4.6e-5) and a bf16-compute control's (>= 3.0e-2), from
+# ``scripts/axis_parts.py vgg19_sound mamba_sound`` (PERF.md §6).
+# VGG-19's one-rank step takes conv1's weight gradient from cuDNN's
+# Winograd (5.3e-5 from fp64), its half-channel convs from another
+# algorithm (7.9e-7); Jamba's A_log and dt_bias gradients sum 2 x 1024
+# positions of every head (the one-rank step 2.0-2.4e-5 from fp64 at 2 x 256)
+AXIS_TOL = {"vgg19": {"grads": 2e-4}, "jamba-1.5-large-398b": {"grads": 2e-4}}
+# the kernels' wrappers whose calls the parts record: (module attribute of
 # kernels.dispatch, kernel, the mode whose step gives its main-path shapes)
 TP_SPY = (("ghost_norm_sq", "ghost_norm_sq", "mixed_ghost"),
+          ("conv_ghost_norm_sq", "conv_ghost_norm_sq", "mixed_ghost"),
           ("embedding_ghost_norm_sq", "embedding_ghost_norm_sq", "mixed_ghost"),
           ("book_weighted_grad", "book_weighted_grad", "bk_mixed"),
           ("psg_contract_grouped", "psg_contract", "bk_mixed"))
@@ -3900,10 +3929,70 @@ def _tp_cfg(dtype: str):
     return cfg
 
 
+def _mamba_cfg(dtype: str):
+    """Jamba-1.5-Large at full width cut to its first layer (JAMBA_PERIOD[0],
+    a Mamba layer with its dense SwiGLU MLP), ``dtype`` compute, fp32
+    parameters."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b"), n_layers=1,
+                              block_pattern=JAMBA_PERIOD[:1], remat=True, dtype=dtype,
+                              param_dtype="float32")
+    require((cfg.d_model, cfg.d_ff, cfg.vocab, cfg.ssm_head_dim, cfg.ssm_d_state)
+            == (8192, 24576, 65536, 64, 64) and JAMBA_PERIOD[0] == "mamba",
+            f"mamba: not Jamba's full width: {cfg}")
+    return cfg
+
+
+def _lm_part(cfg, batch: int, seq: int) -> dict:
+    """A model-axis part's model of a registry LM config."""
+    def build():
+        from repro_torch.configs.registry import build_model
+
+        return build_model(cfg, device="cuda")
+
+    def make_batch():
+        from repro_torch.data.synthetic import synthetic_arch_batch
+
+        return synthetic_arch_batch(cfg, batch=batch, seq=seq, device="cuda")
+
+    return {"build": build, "cfg": cfg, "batch": make_batch, "vocab": cfg.vocab // TP_MESH[1],
+            "seq": seq, "dtype": cfg.dtype, "abstract": True, "model": cfg.name}
+
+
+def _vision_part(name: str, batch: int, dtype: str) -> dict:
+    """A model-axis part's model of the paper's: VGG-19 (CIFAR-10 widths,
+    GroupNorm, 32 x 32) or ViT-Base/16 (224 x 224), 10 classes, ``dtype``
+    compute, fp32 parameters."""
+    from repro_torch.configs.paper_native import VIT_BASE
+
+    cfg = dataclasses.replace(VIT_BASE, dtype=dtype) if name == "vit_base" else None
+
+    def build():
+        import torch
+
+        from repro_torch.models.cnn import VGG
+        from repro_torch.models.vit import ViT
+
+        if name == "vgg19":
+            return VGG("vgg19", dtype=getattr(torch, dtype), device="cuda")
+        return ViT(cfg, image_size=224, patch=16, n_classes=10, device="cuda")
+
+    def make_batch():
+        from repro_torch.data.synthetic import synthetic_vision_batch
+
+        return synthetic_vision_batch(batch=batch, image=32 if name == "vgg19" else 224,
+                                      channels=3, n_classes=10, step=0, device="cuda")
+
+    return {"build": build, "cfg": cfg, "batch": make_batch, "vocab": (224 // 16) ** 2,
+            "seq": None, "dtype": dtype, "abstract": False, "model": name, "ref": "together"}
+
+
 class _KernelSpy:
     """Records the shape and dtypes of every call of the four clipping
-    kernels' dispatch entries (the kernel phase's shape keys) while active;
-    the calls themselves go through unchanged."""
+    kernels' dispatch entries (the kernel phase's shape keys; the ghost
+    norm's conv entry its own) while active; the calls themselves go
+    through unchanged."""
 
     def __init__(self, vocab: int):
         self.vocab = vocab  # the ids' range at the embedding norm (a rank's rows)
@@ -3932,6 +4021,10 @@ class _KernelSpy:
             elif kernel == "embedding_ghost_norm_sq":
                 key = ((*x.shape, args[1].shape[-1], self.vocab),
                        (_name(x.dtype), _name(args[1].dtype)))
+            elif kernel == "conv_ghost_norm_sq":
+                info = args[2]
+                key = ((*x.shape, *info.kernel, *info.strides, info.padding,
+                        args[1].shape[-1]), (_name(x.dtype), _name(args[1].dtype)))
             else:
                 key = (tuple(x.shape[:-1]) + (x.shape[-1], args[1].shape[-1]),
                        (_name(x.dtype), _name(args[1].dtype)))
@@ -3940,72 +4033,142 @@ class _KernelSpy:
         return spied
 
 
-def _tp_step(cfg, mode: str, mesh, rank: int, n: int, seq: int, full_ref: bool) -> dict:
-    """One clipped call plus the noise-and-update tail (SGD with momentum:
-    linear in the gradient, as the dist gate) of Mixtral on the (1, n)
-    mesh, and the same on one rank, held against each other.  The
-    one-rank step runs on one rank at a time (the card holds one at once),
-    each keeping its slices of the reference's gradient and parameters
-    (``full_ref``; else only the loss, norms and factors, on rank 0).
-    Returns the errors, the sharded step's launches, collective bytes, ms
-    and peak, the reference's peak, each rank's stored share, and the
-    kernel calls' shapes."""
+def _one_rank(part: dict, mode: str, keep_slice) -> dict:
+    """A part's one-rank step in ``mode``: loss, norms and factors, and
+    where ``keep_slice`` (this rank's slice of a full leaf) is given, its
+    clipped gradient sum and its parameters after the update."""
     import torch
 
-    from repro_torch.configs.registry import build_model
-    from repro_torch.data.synthetic import synthetic_arch_batch
-    from repro_torch.kernels import launches
-    from repro_torch.launch.flops import abstract_params
-    from repro_torch.launch.steps import (
-        DPTrainConfig,
-        make_clipped_microstep,
-        make_noise_finalize,
-        make_train_state,
-    )
-    from repro_torch.optim import constant, sgd
-    from repro_torch.parallel import collectives
-    from repro_torch.parallel.fsdp import ShardLayout
-    from repro_torch.parallel.reshard import use_reshard_rules
-    from repro_torch.parallel.sharding import state_shardings
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_train_state
     from repro_torch.utils.tree import flatten_dict
 
-    world = torch.distributed.group.WORLD
-    model = build_model(cfg, device="cuda")
-    opt = sgd(momentum=0.9)
+    model = part["build"]()
+    opt, policy, dp, sched, batch = _axis_setup(part, mode)
+    torch.cuda.reset_peak_memory_stats()
+    with dispatch.force_impl("torch") if part.get("plain") else contextlib.nullcontext():
+        loss, g, aux, new = _axis_run(model, opt, dp, sched, batch,
+                                      make_train_state(model, 0, opt, policy))
+    out = {"loss": float(loss), "norms": aux["per_sample_norms"],
+           "factors": aux["clip_factors"]}
+    if keep_slice is not None:
+        out["grads"] = {k: keep_slice(k, v) for k, v in flatten_dict(g).items()}
+        out["params"] = {k: keep_slice(k, v) for k, v in flatten_dict(new["params"]).items()}
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, g, aux, new, batch
+    _free()
+    return out
+
+
+def _axis_setup(part: dict, mode: str) -> tuple:
+    """(optimizer, policy, DPTrainConfig, schedule, batch) of a part's step:
+    SGD with momentum (linear in the gradient, as the dist gate), the fixed
+    policy at norm 1, noise multiplier 1."""
+    from repro_torch.launch.steps import DPTrainConfig
+    from repro_torch.optim import constant, sgd
+
+    batch = part["batch"]()
     policy = _dist_policy("fixed")
     dp = DPTrainConfig(clipping_mode=mode, clip_norm=1.0, noise_multiplier=1.0,
-                       logical_batch=TP_BATCH, policy=policy)
-    batch = synthetic_arch_batch(cfg, batch=TP_BATCH, seq=seq, device="cuda")
-    sched = constant(1e-3)
+                       logical_batch=int(batch["mask"].shape[0]), policy=policy)
+    return sgd(momentum=0.9), policy, dp, constant(1e-3), batch
 
-    def run(state, shardings=None):
-        loss, g, aux = make_clipped_microstep(model, dp, shardings)(state["params"], batch,
-                                                                    state["policy"])
-        new = make_noise_finalize(opt, sched, dp, shardings=shardings)(
-            state, g, aux["per_sample_norms"], None)
-        return loss, g, aux, new
 
-    abstract = abstract_params(model)
-    shardings = state_shardings(model, mesh, cfg, {"params": abstract, "opt": {"m": abstract},
-                                                   "step": 0})
-    layout = ShardLayout(mesh, shardings["params"])
-    out = {"mode": mode, "dtype": cfg.dtype, "seq": seq}
+def _axis_run(model, opt, dp, sched, batch, state, shardings=None):
+    """One clipped call plus the noise-and-update tail."""
+    from repro_torch.launch.steps import make_clipped_microstep, make_noise_finalize
+
+    loss, g, aux = make_clipped_microstep(model, dp, shardings)(state["params"], batch,
+                                                                state["policy"])
+    new = make_noise_finalize(opt, sched, dp, shardings=shardings)(
+        state, g, aux["per_sample_norms"], None)
+    return loss, g, aux, new
+
+
+def _axis_errs(got: dict, want: dict, mode: str) -> tuple[dict, dict]:
+    """({quantity: error}, {tree: worst leaf, "exempt": leaves}) of a
+    step's readings against a reference's: loss, norms and factors relative
+    to the reference's largest; the clipped sum and the parameters leaf by
+    leaf, each leaf's error over its largest entry (a leaf zero up to
+    rounding, under 1e-6 of the tree's largest entry, over the tree's
+    largest, as _rel_tree: ``exempt`` lists them)."""
+    import torch
+
+    err = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "norms": float((got["norms"].double() - want["norms"].double()).abs().max()
+                          / want["norms"].abs().max()) if mode != "non_private" else 0.0,
+           "factors": float((got["factors"].double() - want["factors"].double()).abs().max()
+                            / want["factors"].abs().max())}
+    worst = {}
+    for what in ("grads", "params") if "grads" in want else ():
+        g, w = got[what], want[what]
+        top = max(float(v.abs().max()) for v in w.values())
+        errs, exempt = {}, []
+        for k, ref in w.items():  # leaf by leaf on the card (a reference may be on the host)
+            a, b = g[k], ref.to(g[k].device)
+            dt = torch.promote_types(a.dtype, b.dtype)
+            leaf = float(b.abs().max())
+            if leaf < 1e-6 * top:
+                exempt.append(k)
+            errs[k] = float((a.to(dt) - b.to(dt)).abs().max()) / (
+                leaf if leaf >= 1e-6 * top else top)
+        err[what] = max(errs.values())
+        k = max(errs, key=errs.get)
+        worst[what] = (k, float(w[k].abs().max()) / top, errs[k])
+        worst[f"{what}_exempt"] = exempt
+    return err, worst
+
+
+def _axis_layout(part: dict, model, mesh) -> tuple:
+    """(shardings, ShardLayout) of a part's train state on ``mesh``."""
+    import torch
+
+    from repro_torch.launch.flops import abstract_params
+    from repro_torch.parallel.fsdp import ShardLayout
+    from repro_torch.parallel.sharding import state_shardings
+
+    if part["abstract"]:
+        abstract = abstract_params(model)
+    else:
+        abstract = model.init(torch.Generator(device="cuda").manual_seed(0))
+    shardings = state_shardings(model, mesh, part["cfg"],
+                                {"params": abstract, "opt": {"m": abstract}, "step": 0})
+    return shardings, ShardLayout(mesh, shardings["params"])
+
+
+def _axis_ref(part: dict, mode: str, rank: int, n: int, keep_slice, how: str):
+    """The one-rank step, keeping ``keep_slice`` of its gradient and
+    parameters (None: loss, norms and factors only), ``how``: "each" rank
+    one at a time (the card holds one at once), "together" (the card holds
+    both), "rank0" alone, or "none"; None where this rank ran none."""
+    import torch
+
+    if how == "together":
+        return _one_rank(part, mode, keep_slice)
     ref = None
-    for r in range(n):  # the one-rank step, one rank at a time
-        if r == rank and (full_ref or rank == 0):
-            torch.cuda.reset_peak_memory_stats()
-            loss, g, aux, new = run(make_train_state(model, 0, opt, policy))
-            ref = {"loss": float(loss), "norms": aux["per_sample_norms"],
-                   "factors": aux["clip_factors"]}
-            if full_ref:
-                ref["grads"] = {k: layout.local(k, v) for k, v in flatten_dict(g).items()}
-                ref["params"] = {k: layout.local(k, v)
-                                 for k, v in flatten_dict(new["params"]).items()}
-            torch.cuda.synchronize()
-            out["ref_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            del loss, g, aux, new
-            _free()
-        torch.distributed.barrier(group=world)
+    for r in range(n if how != "none" else 0):
+        if r == rank and (how == "each" or rank == 0):
+            ref = _one_rank(part, mode, keep_slice)
+        torch.distributed.barrier(group=torch.distributed.group.WORLD)
+    return ref
+
+
+def _axis_sharded(part: dict, mode: str, model, mesh, shardings, layout, spy=None):
+    """The sharded step of a part's ``model`` on ``mesh``: (readings: loss,
+    norms, factors, this rank's clipped-sum and parameter shards; figures:
+    batch, stored share, split leaves, ms, collective bytes, launches,
+    plain calls, peak)."""
+    import torch
+
+    from repro_torch.kernels import dispatch, launches
+    from repro_torch.launch.steps import make_train_state
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.reshard import use_reshard_rules
+    from repro_torch.utils.tree import flatten_dict
+
+    opt, policy, dp, sched, batch = _axis_setup(part, mode)
+    out = {"batch": int(batch["mask"].shape[0])}
     state = make_train_state(model, 0, opt, policy)
     full = layout.local_bytes(state["params"])
     state = layout.shard_state(state)
@@ -4013,15 +4176,15 @@ def _tp_step(cfg, mode: str, mesh, rank: int, n: int, seq: int, full_ref: bool) 
     out["stored_share"] = layout.local_bytes(state["params"]) / full
     out["model_split_leaves"] = sum(d is not None for d in layout.model_dims.values())
     out["leaves"] = len(layout.model_dims)
-    spy = _KernelSpy(cfg.vocab // n)
-    with use_reshard_rules(mesh, cfg), spy:
+    with (use_reshard_rules(mesh, part["cfg"]), spy or contextlib.nullcontext(),
+          dispatch.force_impl("torch") if part.get("plain") else contextlib.nullcontext()):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        torch.distributed.barrier(group=world)
+        torch.distributed.barrier(group=torch.distributed.group.WORLD)
         launches.reset()
         collectives.reset_bytes()
         t0 = time.perf_counter()
-        loss, g, aux, new = run(state, shardings)
+        loss, g, aux, new = _axis_run(model, opt, dp, sched, batch, state, shardings)
         torch.cuda.synchronize()
         out["ms"] = (time.perf_counter() - t0) * 1e3
         counts = launches.snapshot()
@@ -4029,27 +4192,46 @@ def _tp_step(cfg, mode: str, mesh, rank: int, n: int, seq: int, full_ref: bool) 
         out["launches"] = {k: counts[k]["cuda"] for k in KERNEL_INFO}
         out["plain_calls"] = sum(counts[k]["torch"] for k in KERNEL_INFO)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["kernel_calls"] = spy.calls
+    got = {"loss": float(loss), "norms": aux["per_sample_norms"],
+           "factors": aux["clip_factors"], "grads": flatten_dict(g),
+           "params": flatten_dict(new["params"])}
+    del state, batch
+    return got, out
+
+
+def _axis_step(part: dict, mode: str, mesh, rank: int, n: int) -> dict:
+    """One clipped call plus the noise-and-update tail of a part's model on
+    the (1, n) mesh, and the same on one rank (``_axis_ref``), held against
+    each other: each rank that ran the reference holds its shards against
+    its slices of the reference's gradient and parameters.  A part's keys:
+    ``ref`` (``_axis_ref``'s ``how``, default "each"); ``ref_on_host``
+    keeps the slices on the host (the two ranks' sharded steps then have
+    the card to themselves); ``plain`` runs both steps in the plain PyTorch
+    versions (else the kernels: the main path); ``gated`` (default: fp32
+    compute) gates the errors in the report at ``tol`` ({quantity: limit},
+    DIST_TOL elsewhere).  Returns the errors, the sharded step's figures,
+    the reference's peak and the kernel calls' shapes."""
+    model = part["build"]()
+    shardings, layout = _axis_layout(part, model, mesh)
+
+    def keep_slice(k, v):
+        v = layout.local(k, v)
+        return v.cpu() if part.get("ref_on_host") else v
+
+    plain = part.get("plain", False)
+    out = {"mode": mode, "dtype": part["dtype"], "seq": part["seq"], "model": part["model"],
+           "gated": part.get("gated", part["dtype"] == "float32"), "plain": plain,
+           "tol": {k: part.get("tol", {}).get(k, DIST_TOL)
+                   for k in ("loss", "norms", "factors", "grads", "params")}}
+    ref = _axis_ref(part, mode, rank, n, keep_slice, part.get("ref", "each"))
     if ref is not None:
-        out["err"] = {
-            "loss": abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
-            "norms": float((aux["per_sample_norms"] - ref["norms"]).abs().max()
-                           / ref["norms"].abs().max()) if mode != "non_private" else 0.0,
-            "factors": float((aux["clip_factors"] - ref["factors"]).abs().max()
-                             / ref["factors"].abs().max()),
-        }
-        if full_ref:  # this rank's shards against its slices of the one-rank tensors
-            for part, tree in (("grads", g), ("params", new["params"])):
-                got, want = flatten_dict(tree), ref[part]
-                top = max(float(v.abs().max()) for v in want.values())
-                errs = {k: float((got[k].float() - w.float()).abs().max())
-                        / max(float(w.abs().max()), 1e-6 * top) for k, w in want.items()}
-                out["err"][part] = max(errs.values())
-                worst = max(errs, key=errs.get)
-                out.setdefault("worst", {})[part] = (
-                    worst, float(want[worst].abs().max()) / top,
-                    float(got[worst].float().sub(want[worst].float()).abs().max()) / top)
-    del model, state, g, new, ref
+        out["ref_peak_gib"] = ref["peak_gib"]
+    spy = _KernelSpy(part["vocab"])
+    got, figures = _axis_sharded(part, mode, model, mesh, shardings, layout, spy)
+    out.update(figures, kernel_calls=spy.calls)
+    if ref is not None:  # this rank's shards against its slices of the one-rank tensors
+        out["err"], out["worst"] = _axis_errs(got, ref, mode)
+    del model, got, ref
     _free()
     return out
 
@@ -4060,16 +4242,57 @@ def _tp_part(rank: int, n: int) -> dict:
 
     mesh = make_mesh(TP_MESH, "cuda")
     t0 = time.perf_counter()
-    steps = [_tp_step(_tp_cfg("float32"), m, mesh, rank, n, TP_SEQ, True) for m in TP_MODES]
-    steps += [_tp_step(_tp_cfg("bfloat16"), m, mesh, rank, n, TP_BF16_SEQ, False)
-              for m in TP_BF16_MODES]
+    steps = [_axis_step(_lm_part(_tp_cfg("float32"), TP_BATCH, TP_SEQ), m, mesh, rank, n)
+             for m in TP_MODES]
+    steps += [_axis_step(dict(_lm_part(_tp_cfg("bfloat16"), TP_BATCH, TP_BF16_SEQ), ref="none"),
+                         m, mesh, rank, n) for m in TP_BF16_MODES]
     return {"steps": steps, "seconds": time.perf_counter() - t0}
 
 
-def _dist_rank(rank: int, n: int, port: int, queue, plan_path: str, tmp: str) -> None:
-    """One rank of the dist phase, in a process of its own (spawn): join the
-    group as ``torch.distributed.run`` would have it join (the CLI's
-    ``init_distributed``), then the sharded steps, the NCCL rank, the CLI."""
+def _cnn_part(rank: int, n: int) -> dict:
+    """The dist phase's cnn part on this rank: VGG-19 in TP_MODES on the
+    fp32 main path (gated at AXIS_TOL) and in fp64 compute with the plain
+    versions (gated at DIST_TOL), ViT-Base/16 in CNN_VIT_MODES in fp32; the
+    one-rank steps on both ranks at once (a few GiB each)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(TP_MESH, "cuda")
+    t0 = time.perf_counter()
+    vgg = dict(_vision_part("vgg19", CNN_VGG_BATCH, "float32"), tol=AXIS_TOL["vgg19"])
+    witness = dict(_vision_part("vgg19", CNN_VGG_BATCH, "float64"), plain=True, gated=True)
+    vit = _vision_part("vit_base", CNN_VIT_BATCH, "float32")
+    steps = [_axis_step(p, m, mesh, rank, n) for p in (vgg, witness) for m in TP_MODES]
+    steps += [_axis_step(vit, m, mesh, rank, n) for m in CNN_VIT_MODES]
+    return {"steps": steps, "seconds": time.perf_counter() - t0}
+
+
+def _mamba_part(rank: int, n: int) -> dict:
+    """The dist phase's mamba part on this rank: Jamba's Mamba layer in
+    TP_MODES on the fp32 main path at MAMBA_BATCH x MAMBA_SEQ (gated at
+    AXIS_TOL; the one-rank step on rank 0, its slices on the card: each
+    takes 47-55 GiB, and rank 1's shards meet the fp64 witness) and in fp64
+    compute with the plain versions at MAMBA_F64_SEQ (gated at DIST_TOL,
+    every rank's shards, the slices kept on the host)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(TP_MESH, "cuda")
+    t0 = time.perf_counter()
+    cfg = _mamba_cfg("float32")
+    main = dict(_lm_part(cfg, MAMBA_BATCH, MAMBA_SEQ), ref="rank0", tol=AXIS_TOL[cfg.name])
+    witness = dict(_lm_part(_mamba_cfg("float64"), MAMBA_BATCH, MAMBA_F64_SEQ),
+                   ref_on_host=True, plain=True, gated=True)
+    steps = [_axis_step(p, m, mesh, rank, n) for p in (main, witness) for m in TP_MODES]
+    return {"steps": steps, "seconds": time.perf_counter() - t0}
+
+
+AXIS_PARTS = {"tp": _tp_part, "cnn": _cnn_part, "mamba": _mamba_part}
+
+
+def _rank_main(rank: int, n: int, port: int, queue, body, args: tuple) -> None:
+    """One of ``spawn_ranks``'s processes: join the gloo group as
+    ``torch.distributed.run`` would have it join (the CLI's
+    ``init_distributed``), TF32 off, then ``body(rank, n, *args)``, whose
+    result (or traceback) goes to ``queue``."""
     import os
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
@@ -4081,22 +4304,10 @@ def _dist_rank(rank: int, n: int, port: int, queue, plan_path: str, tmp: str) ->
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         from repro_torch.launch import train
-        from repro_torch.launch.mesh import make_host_mesh
 
-        res = {"rank": rank, "backend": train.init_distributed()}
-        require(res["backend"] == "gloo", f"dist: {n} ranks on one card chose {res['backend']}")
-        mesh = make_host_mesh("cuda")
-        cfg32 = dataclasses.replace(_train_cli_cfg(), dtype="float32")
-        cfg16 = _train_cli_cfg()
-        cases = [(cfg32, m, "fixed", False) for m in DIST_MODES]
-        cases += [(cfg32, "bk_mixed", "quantile", True)]
-        cases += [(cfg16, m, "fixed", False) for m in DIST_BF16_MODES]
-        res["steps"] = [_dist_case(*c, mesh, rank) for c in cases]
-        res["nccl"] = _dist_nccl(cfg32, rank)
-        res["cli"] = _dist_cli(rank, plan_path, Path(tmp))
-        _free()
-        res["tp"] = _tp_part(rank, n)
-        queue.put((rank, "ok", res))
+        backend = train.init_distributed()
+        require(backend == "gloo", f"dist: {n} ranks on one card chose {backend}")
+        queue.put((rank, "ok", body(rank, n, *args)))
     except BaseException:  # noqa: BLE001 - reported to the parent
         queue.put((rank, "error", traceback.format_exc()))
     finally:
@@ -4104,6 +4315,61 @@ def _dist_rank(rank: int, n: int, port: int, queue, plan_path: str, tmp: str) ->
 
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(body, *args, n: int = DIST_RANKS) -> dict:
+    """``body(rank, n, *args)`` in ``n`` spawned processes joined in one
+    gloo group on the card (``_rank_main``): {rank: result}; any rank's
+    traceback fails the phase.  Every process is joined, or killed after a
+    minute, before this returns."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(r, n, port, queue, body, args))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:
+            rank, status, value = queue.get(timeout=DIST_TIMEOUT_S)
+            (results.__setitem__(rank, value) if status == "ok"
+             else errors.append(f"rank {rank}:\n{value}"))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    require(not errors, "dist: " + "\n".join(errors))
+    return results
+
+
+def _dist_rank(rank: int, n: int, plan_path: str, tmp: str) -> dict:
+    """One rank of the dist phase: the sharded steps, the NCCL rank, the
+    CLI, then the model-axis parts."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    res = {"rank": rank}
+    mesh = make_host_mesh("cuda")
+    cfg32 = dataclasses.replace(_train_cli_cfg(), dtype="float32")
+    cfg16 = _train_cli_cfg()
+    cases = [(cfg32, m, "fixed", False) for m in DIST_MODES]
+    cases += [(cfg32, "bk_mixed", "quantile", True)]
+    cases += [(cfg16, m, "fixed", False) for m in DIST_BF16_MODES]
+    res["steps"] = [_dist_case(*c, mesh, rank) for c in cases]
+    res["nccl"] = _dist_nccl(cfg32, rank)
+    res["cli"] = _dist_cli(rank, plan_path, Path(tmp))
+    for name, part in AXIS_PARTS.items():
+        _free()
+        res[name] = part(rank, n)
+    return res
 
 
 def _dist_plan(path: Path) -> str:
@@ -4166,14 +4432,32 @@ def phase_dist() -> dict:
        (no plain call), the bytes all-reduced, each rank's peak and stored
        share, then TP_BF16_MODES in bf16 at TP_BF16_SEQ reported; the four
        clipping kernels against their plain versions at the local shapes
-       the fp32 steps gave them (``_KernelSpy``).
-    Timings of ranks that share a card are not a speed figure."""
+       the fp32 steps gave them (``_KernelSpy``);
+    5. the cnn part, the same way on the same mesh: VGG-19 (CIFAR-10 widths,
+       GroupNorm, 32 x 32) at b CNN_VGG_BATCH in TP_MODES and ViT-Base/16
+       (224 x 224) at b CNN_VIT_BATCH in CNN_VIT_MODES: every conv split on
+       its output channels and gathered, the classifier's 10 classes split,
+       ViT-Base's blocks tensor-parallel and its ``pos_embed`` whole;
+    6. the mamba part: Jamba-1.5-Large at full width cut to its first layer
+       (a Mamba layer, 128 of its 256 heads a rank, with its dense MLP), b
+       MAMBA_BATCH x MAMBA_SEQ, in TP_MODES, the references' slices kept on
+       the host.
+    Every part's fp32 main path (the kernels) is gated against the
+    one-rank step, at DIST_TOL where fp32 rounding stays under it (the tp
+    part, ViT-Base, Jamba's loss, norms and factors) and at AXIS_TOL where
+    it does not: VGG-19's sharded and one-rank forwards round apart at
+    ~1e-7, which flips a few ReLU signs and max-pool picks of its last
+    blocks and moves those samples' gradients by ~1e-3; Jamba's A_log and
+    dt_bias gradients sum 2 x 1024 positions of every head.  Each limit
+    lies between sound fp32 runs' readings and a bf16-compute control's
+    (``scripts/axis_parts.py vgg19_sound mamba_sound``).  A second witness
+    holds both models at DIST_TOL in fp64 compute, the plain PyTorch
+    versions on both sides (the kernels take fp32 and bf16; Jamba at b
+    MAMBA_BATCH x MAMBA_F64_SEQ).  Each part requires the
+    four clipping kernels launched on its fp32 main path.  Timings of
+    ranks that share a card are not a speed figure."""
     import shutil
-    import socket
     import tempfile
-
-    import torch
-    import torch.multiprocessing as mp
 
     from repro_torch.configs.base import torch_dtype
     from repro_torch.configs.registry import build_model
@@ -4196,31 +4480,9 @@ def phase_dist() -> dict:
         del state
         del model
         _free()
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        ctx = mp.get_context("spawn")
-        queue = ctx.Queue()
-        procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, port, queue,
-                                                      str(tmp / "plan.json"), str(tmp)))
-                 for r in range(DIST_RANKS)]
         t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        results, errors = {}, []
-        try:
-            for _ in procs:
-                rank, status, value = queue.get(timeout=DIST_TIMEOUT_S)
-                (results.__setitem__(rank, value) if status == "ok"
-                 else errors.append(f"rank {rank}:\n{value}"))
-        finally:
-            for p in procs:
-                p.join(timeout=60)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
+        results = spawn_ranks(_dist_rank, str(tmp / "plan.json"), str(tmp))
         out["seconds"] = time.perf_counter() - t0
-        require(not errors, "dist: " + "\n".join(errors))
         final = f"step_{DIST_CLI_STEPS}.npz"
         straight = _npz_leaves(tmp / "straight" / final)
         restarted = _npz_leaves(tmp / "restarted" / final)
@@ -4269,7 +4531,8 @@ def phase_dist() -> dict:
           f"params {st['stored_fraction']['params']:.4f}, momentum "
           f"{st['stored_fraction']['m']:.4f} of one rank's bytes; launches on the fp32 main "
           f"path per rank "
-          + "; ".join(f"rank {r} " + str({k: sum(s['launches'][k] for s in res['steps'][:6])
+          + "; ".join(f"rank {r} " + str({k: sum(s['launches'][k] for s in
+                                                 res['steps'][:len(DIST_MODES) + 1])
                                           for k in KERNEL_INFO})
                       for r, res in sorted(results.items())))
     for name in ("straight", "restarted"):
@@ -4279,81 +4542,101 @@ def phase_dist() -> dict:
     print(f"dist cli: straight and restarted (crash at step {DIST_CLI_CRASH}) bit-identical over "
           f"{out['checkpoint_leaves']} leaves, the one-rank state's names and shapes; phase "
           f"processes {out['seconds']:.1f} s")
-    out["tp"] = _tp_report(results)
+    for name in AXIS_PARTS:
+        out[name] = _axis_report(results, name)
+        require(all(out[name]["launches"][k]
+                    for k in ("ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad",
+                              "psg_contract")),
+                f"dist {name}: a clipping kernel never launched on the model axis: "
+                f"{out[name]['launches']}")
     out["results"] = results
     out["plan_hash"] = plan_hash
     out["launches"] = main
     return out
 
 
-def _tp_report(results: dict) -> dict:
-    """The tp part's gates and figures from both ranks' results, then the
-    four clipping kernels against their plain versions at the shapes rank 0
-    recorded on the fp32 main path (``kernel_cases``, PERF.md's "tp per
+def _axis_report(results: dict, name: str) -> dict:
+    """A model-axis part's gates and figures from both ranks' results, then
+    the four clipping kernels against their plain versions at the shapes
+    rank 0 recorded on the main path (``kernel_cases``, PERF.md's "per
     rank" counts)."""
     import torch
 
-    out = {"mesh": TP_MESH, "arch": TP_ARCH, "layers": TP_LAYERS, "batch": TP_BATCH,
-           "seq": TP_SEQ, "bf16_seq": TP_BF16_SEQ}
-    r0 = results[0]["tp"]
+    out = {"mesh": TP_MESH, "part": name}
+    r0 = results[0][name]
     bad = []
     for i, st in enumerate(r0["steps"]):
-        gated = st["dtype"] == "float32"
+        gated = st["gated"]
         for res in results.values():
-            mine = res["tp"]["steps"][i]
-            require(mine["plain_calls"] == 0, f"tp rank {res['rank']}: plain calls in {mine}")
+            mine = res[name]["steps"][i]
+            require(mine["plain_calls"] == 0 or mine["plain"],
+                    f"{name} rank {res['rank']}: plain calls in {mine}")
+            require(mine["launches"] == dict.fromkeys(KERNEL_INFO, 0) or not mine["plain"],
+                    f"{name} rank {res['rank']}: kernels launched on a plain step: {mine}")
             if gated:
-                bad += [(st["mode"], res["rank"], k, v) for k, v in mine["err"].items()
-                        if not v <= DIST_TOL]
-        errs = ({k: max(res["tp"]["steps"][i]["err"][k] for res in results.values())
-                 for k in st["err"]} if gated else st["err"])
+                bad += [(st["model"], st["mode"], st["dtype"], res["rank"], k, v)
+                        for k, v in mine.get("err", {}).items() if not v <= st["tol"][k]]
+        held = [res[name]["steps"][i]["err"] for res in results.values()
+                if "err" in res[name]["steps"][i]]  # the ranks that ran the reference
+        require(held or not gated, f"{name}: {st['model']} {st['mode']} gated, no reference")
+        errs = {k: max(e[k] for e in held) for k in held[0]} if held else {}
         st["err_all_ranks"] = errs
-        line = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        peaks = [res["tp"]["steps"][i]["peak_gib"] for res in sorted(results.values(),
-                                                                    key=lambda r: r["rank"])]
-        ref_peaks = [res["tp"]["steps"][i].get("ref_peak_gib") for res in results.values()]
-        print(f"dist tp: {st['mode']} {st['dtype']} b{TP_BATCH} x {st['seq']}: vs one rank "
-              f"{line} ({'gated' if gated else 'reported'}); rank 0 {st['ms']:.1f} ms (not a "
-              f"speed figure: the ranks share the card over host-staged gloo); all-reduces "
-              f"{st['bytes']['all_reduce'] / 2**20:.1f} MiB, gathers "
+        line = ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) or "not run"
+        peaks = [res[name]["steps"][i]["peak_gib"]
+                 for res in sorted(results.values(), key=lambda r: r["rank"])]
+        ref_peaks = [res[name]["steps"][i].get("ref_peak_gib") for res in results.values()]
+        shape = f"b{st['batch']}" + (f" x {st['seq']}" if st["seq"] else "")
+        how = "plain versions" if st["plain"] else "kernels"
+        limits = ", ".join(f"{k} {v:.0e}" for k, v in st["tol"].items())
+        gate = f"gated at {limits}" if gated else "reported"
+        print(f"dist {name}: {st['model']} {st['mode']} {st['dtype']} {shape}, {how}: vs one "
+              f"rank {line} ({gate}); rank 0 {st['ms']:.1f} "
+              f"ms (not a speed figure: the ranks share the card over host-staged gloo); "
+              f"all-reduces {st['bytes']['all_reduce'] / 2**20:.1f} MiB, gathers "
               f"{st['bytes']['all_gather'] / 2**20:.1f} MiB a rank; peak per rank "
               f"{', '.join(f'{p:.2f}' for p in peaks)} GiB, one-rank reference "
-              f"{max(p for p in ref_peaks if p is not None):.2f} GiB; stored share "
+              f"{max((p for p in ref_peaks if p is not None), default=0.0):.2f} GiB; stored share "
               f"{st['stored_share']:.4f} ({st['model_split_leaves']} of {st['leaves']} leaves "
               f"split on model); launches {st['launches']}; worst leaves (path, leaf max / "
-              f"tree max, error / tree max) "
-              + "; ".join(f"rank {res['rank']} {res['tp']['steps'][i].get('worst')}"
+              f"tree max, error) "
+              + "; ".join(f"rank {res['rank']} {res[name]['steps'][i].get('worst')}"
                           for res in results.values()))
-    require(not bad, f"dist tp: off the one-rank step at {DIST_TOL}: {bad}")
-    fp32 = [i for i, st in enumerate(r0["steps"]) if st["dtype"] == "float32"]
-    out["launches"] = {k: sum(res["tp"]["steps"][i]["launches"][k] for res in results.values()
-                              for i in fp32) for k in KERNEL_INFO}
-    require(all(out["launches"][k] for k in ("ghost_norm_sq", "embedding_ghost_norm_sq",
-                                             "book_weighted_grad", "psg_contract")),
-            f"dist tp: a clipping kernel never launched on the model axis: {out['launches']}")
-    print("dist tp: launches on the fp32 main path per rank "
-          + "; ".join(f"rank {r} " + str({k: sum(res["tp"]["steps"][i]["launches"][k]
-                                                 for i in fp32) for k in KERNEL_INFO})
+    require(not bad, f"dist {name}: off the one-rank step: {bad}")
+    main = [i for i, st in enumerate(r0["steps"]) if not st["plain"] and st["dtype"] == "float32"]
+    out["launches"] = {k: sum(res[name]["steps"][i]["launches"][k]
+                              for res in results.values() for i in main) for k in KERNEL_INFO}
+    out["launches_by_model"] = {
+        model: {k: sum(res[name]["steps"][i]["launches"][k] for res in results.values()
+                       for i in main if r0["steps"][i]["model"] == model) for k in KERNEL_INFO}
+        for model in dict.fromkeys(r0["steps"][i]["model"] for i in main)}
+    print(f"dist {name}: launches on the fp32 main path per rank "
+          + "; ".join(f"rank {r} " + str({k: sum(res[name]["steps"][i]["launches"][k]
+                                                 for i in main) for k in KERNEL_INFO})
                       for r, res in sorted(results.items())))
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {k: [] for k in KERNEL_INFO}
-    by_mode = {st["mode"]: st for st in r0["steps"] if st["dtype"] == "float32"}
-    print("dist tp: the clipping kernels at rank 0's main-path shapes, against their plain "
-          "versions:")
-    for _, kernel, mode in TP_SPY:
-        for (k, (shape, dtypes)), calls in sorted(by_mode[mode]["kernel_calls"].items(),
-                                                  key=str):
-            if k != kernel:
+    cases["conv_ghost_norm_sq"] = []
+    print(f"dist {name}: the clipping kernels at rank 0's main-path shapes, against their "
+          "plain versions:")
+    for model in out["launches_by_model"]:
+        by_mode = {r0["steps"][i]["mode"]: r0["steps"][i] for i in main
+                   if r0["steps"][i]["model"] == model}
+        for _, kernel, mode in TP_SPY:
+            if mode not in by_mode:
                 continue
-            case = _kernel_case(kernel, shape, dtypes, gen, timed=True)
-            case["path"], case["calls_per_step"] = "tp", calls
-            cases[kernel].append(case)
-            _free()
+            for (k, (shape, dtypes)), calls in sorted(by_mode[mode]["kernel_calls"].items(),
+                                                      key=str):
+                if k != kernel:
+                    continue
+                case = _kernel_case(kernel, shape, dtypes, gen, timed=True)
+                case["path"], case["calls_per_step"] = f"{name}:{model}", calls
+                cases[kernel].append(case)
+                _free()
     out["kernel_cases"] = cases
     out["seconds"] = r0["seconds"]
     out["steps"] = r0["steps"]
     for res in results.values():  # tuple keys: not for the JSON record
-        for st in res["tp"]["steps"]:
+        for st in res[name]["steps"]:
             st.pop("kernel_calls", None)
     return out
 
@@ -4424,12 +4707,15 @@ def run() -> dict:
     tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
     train_cli = phase("train_cli", phase_train_cli)
     dist = phase("dist", phase_dist)
-    for source in (train_cli, dist["tp"]):
+    for source in (train_cli, *(dist[name] for name in AXIS_PARTS)):
         for kernel, cases in source.pop("kernel_cases").items():
             kernels[kernel].extend(cases)
     runs = {**slices, "serve": serve, "moe_serve": moe_serve, "hybrid_serve": hybrid_serve,
             "wave_serve": wave_serve, "train_cli": train_cli,
-            "dist": {"launches": dist["launches"]}, "tp": {"launches": dist["tp"]["launches"]}}
+            "dist": {"launches": dist["launches"]},
+            **{f"{name}:{model}": {"launches": launched}
+               for name in AXIS_PARTS
+               for model, launched in dist[name]["launches_by_model"].items()}}
     summary = summary_line(kernels, runs)
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())

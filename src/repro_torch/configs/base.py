@@ -13,11 +13,13 @@ from typing import Optional
 
 import torch
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64: compute for gates that an fp32 reduction's rounding would blur
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """A configuration's dtype name ("float32", "bfloat16") as a torch dtype."""
+    """A configuration's dtype name ("float32", "bfloat16", "float64") as a
+    torch dtype."""
     try:
         return _DTYPES[name]
     except KeyError:

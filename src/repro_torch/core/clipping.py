@@ -226,18 +226,29 @@ def _grouped_second_backward(st: "_NormState", c: GroupedFactors) -> Any:
     return unflatten_dict({path: out[path] for path in st.leaves})
 
 
-def _assemble_bk_grads(params: Any, parts: Iterable[dict[str, torch.Tensor]]) -> Any:
-    """Book-keeping gradient assembly: sum every part's {path: grad}, zero-fill
-    the uncovered (frozen) leaves and cast back to each leaf's dtype."""
+def _assemble_bk_grads(params: Any, parts: Iterable[dict[str, torch.Tensor]],
+                       shape_of: Callable[[str], tuple]) -> Any:
+    """Book-keeping gradient assembly: sum every part's {path: grad}, gather
+    over the model axis a leaf stored whole that split taps computed at
+    their slices (``ghost.grad_shape``; ``shape_of(path)`` is the leaf's
+    compute shape), zero-fill the uncovered (frozen) leaves and cast back to
+    each leaf's dtype."""
     flat_params = flatten_dict(params)
     flat_grads: dict[str, torch.Tensor] = {}
     for part in parts:
         for path, val in part.items():
             flat_grads[path] = flat_grads[path] + val if path in flat_grads else val
-    return unflatten_dict({
-        path: flat_grads[path].to(leaf.dtype) if path in flat_grads else torch.zeros_like(leaf)
-        for path, leaf in flat_params.items()
-    })
+    out = {}
+    for path, leaf in flat_params.items():  # the same order on every model rank
+        if path not in flat_grads:
+            out[path] = torch.zeros_like(leaf)
+            continue
+        g, want = flat_grads[path], tuple(shape_of(path))
+        if tuple(g.shape) != want:
+            dim = next(d for d, (a, b) in enumerate(zip(g.shape, want)) if a != b)
+            g = collectives.all_gather_dim(g, dim, reshard.model_group())
+        out[path] = g.to(leaf.dtype)
+    return unflatten_dict(out)
 
 
 def _stacked(xs: list[Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
@@ -533,7 +544,7 @@ class FusedExecutor(ClipExecutor):
         kernels = st.runtime.kernels
         parts, segments, psg_taps = [], [], []
         for name, m in st.meta.items():
-            shape = self._shape(st, m.param_path, flat_params)
+            shape = ghost.grad_shape(m, self._shape(st, m.param_path, flat_params))
             if m.late:  # the explicit channel: a book contraction
                 cw = c.for_path(m.param_path) if grouped else c
                 parts.append(ghost.tap_weighted_grads(m, st.acts[name], st.gs[name], cw, shape,
@@ -562,7 +573,8 @@ class FusedExecutor(ClipExecutor):
                 part[path] = sums[at:at + size].reshape(shape)
                 at += size
             parts.append(part)
-        return _assemble_bk_grads(params, parts)
+        return _assemble_bk_grads(params, parts,
+                                  lambda path: self._shape(st, path, flat_params))
 
 
 def _stack_banks(banks: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
@@ -636,10 +648,11 @@ class TapsExecutor(ClipExecutor):
         return _assemble_bk_grads(params, (
             ghost.tap_weighted_grads(m, st.acts[name], st.gs[name],
                                      c.for_path(m.param_path) if grouped else c,
-                                     self._shape(st, m.param_path, flat_params),
+                                     ghost.grad_shape(m, self._shape(st, m.param_path,
+                                                                     flat_params)),
                                      kernels=st.kernels.get(name))
             for name, m in st.meta.items()
-        ))
+        ), lambda path: self._shape(st, path, flat_params))
 
 
 _EXECUTORS = {

@@ -87,8 +87,13 @@ def decide(
                 raise ValueError(f"invalid branch override {override!r}")
             return override
         if mode == "bk_mixed":
-            a_elems = None  # a tap the model axis splits: the full G*T*D
-            if meta.a_shape is not None and meta.local is None:
+            # a tap whose activation the model axis splits (a row-parallel
+            # input, the experts): the full G*T*D; a whole one (a conv's raw
+            # input) as recorded
+            a_elems = None
+            whole_a = meta.local is None or (meta.local[0], meta.local[2]) == (meta.D,
+                                                                                meta.n_groups)
+            if meta.a_shape is not None and whole_a:
                 rows = max(meta.n_stack * meta.batch_size, 1)
                 a_elems = math.prod(meta.a_shape) // rows
             return "ghost" if bk_bank_prefers_ghost(

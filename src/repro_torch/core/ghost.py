@@ -60,7 +60,10 @@ shape and computed on this rank's slice (``TapMeta.local_view``): its norm
 is this rank's part of the per-sample sum, which the clipping engine adds
 up over the model axis, and its gradients are this rank's slice.  A
 row-parallel product's bias is whole on every model rank: its part of the
-norm is counted on model rank 0 only.
+norm is counted on model rank 0 only.  A split small tap may belong to a
+leaf stored whole (Mamba's per-head ``D``, a norm gain over split
+channels): its gradient is computed at this rank's slice (``grad_shape``)
+and the clipping engine gathers the slices.
 """
 from __future__ import annotations
 
@@ -190,6 +193,15 @@ def psg_param_shape(meta: TapMeta) -> tuple[int, ...]:
     if meta.kind in ("scale", "bias", "scale_grouped"):
         return (meta.p,)
     raise _unsupported(meta)
+
+
+def grad_shape(meta: TapMeta, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The shape this rank computes a tap's weight gradient in: the leaf's
+    compute shape ``shape``, but this rank's slice for a split small tap
+    (its leaf may be stored whole: the engine then gathers the slices)."""
+    if meta.split and meta.kind in SMALL_KINDS:
+        return meta.stack_dims + psg_param_shape(meta)
+    return tuple(shape)
 
 
 def _conv_psg(meta: TapMeta, a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

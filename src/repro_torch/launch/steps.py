@@ -41,9 +41,12 @@ comes back at each stored shard's shape (``fsdp.ShardLayout
 .reduce_grads``: reduced over the data axis, and over the model axis only
 under ``dp_only``); the noise is drawn full-size from the replicated
 generator and each rank keeps its slice, so it equals the one-rank step's;
-the optimizer updates the shards.  Still refused on a model axis larger
-than one (``reshard.ModelAxisNotPorted``): Mamba's heads, the
-convolutions, and the prefill and decode steps.
+the optimizer updates the shards.  The model axis runs the dense and MoE
+LMs, the CNNs and ViTs (their convolutions split on output channels) and
+Mamba's heads; still refused on a model axis larger than one
+(``reshard.ModelAxisNotPorted``): the prefill and decode steps.  The
+``vmap`` oracle raises ``VmapUnderShardingError`` on any mesh axis larger
+than one.
 """
 from __future__ import annotations
 

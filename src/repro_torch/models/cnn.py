@@ -8,6 +8,14 @@ channels-last; the convolutions hand cuDNN permuted views.
 
 Constructors take ``device``: ``None`` is the GPU (and raises without one),
 ``"cpu"`` must be asked for.
+
+``axes()`` gives the JAX modules' logical axes (the JAX models have none
+of their own; their ``Conv2D``, ``GroupNorm`` and ``Dense`` pin them where
+used), from which ``parallel.sharding`` places the train state.  On a
+model axis every convolution splits its output channels and gathers them
+(``nn/conv.py``), so GroupNorm, pooling and the residual adds run whole;
+the classifier's logits, split where the classes divide, are gathered
+before the loss.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.losses import per_sample_xent
 from repro_torch.nn.conv import Conv2d, global_avg_pool, max_pool2d
 from repro_torch.nn.module import Dense, GroupNorm
+from repro_torch.parallel.reshard import whole_cols
 
 VGG_PLANS = {
     "vgg11": (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
@@ -34,6 +43,12 @@ VGG_PLANS = {
 
 def _loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
     return per_sample_xent(logits[:, None, :], batch["label"][:, None], batch.get("mask"))
+
+
+def head_logits(head: Dense, params, h: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """The classifier on pooled features (B, d): (B, classes) logits, all
+    classes (gathered where the model axis split them)."""
+    return whole_cols(head(params, h[:, None, :], ctx.scope("head"))[:, 0], head.d_out)
 
 
 class VGG:
@@ -70,6 +85,18 @@ class VGG:
         params["head"] = self.head.init(generator)
         return params
 
+    def axes(self) -> dict:
+        out: dict[str, Any] = {}
+        ni = 0
+        for i, c in enumerate(self.convs):
+            if c == "M":
+                continue
+            out[f"conv{i}"] = c.axes()
+            out[f"gn{i}"] = self.norms[ni].axes()
+            ni += 1
+        out["head"] = self.head.axes()
+        return out
+
     def features(self, params, x, ctx: Ctx) -> torch.Tensor:
         ni = 0
         for i, c in enumerate(self.convs):
@@ -82,8 +109,7 @@ class VGG:
         return global_avg_pool(x)
 
     def logits(self, params, x, ctx: Ctx) -> torch.Tensor:
-        h = self.features(params, x, ctx)
-        return self.head(params["head"], h[:, None, :], ctx.scope("head"))[:, 0]
+        return head_logits(self.head, params["head"], self.features(params, x, ctx), ctx)
 
     def loss_with_ctx(self, params, batch, ctx: Ctx) -> torch.Tensor:
         return _loss(self.logits(params, batch["image"], ctx), batch)
@@ -140,6 +166,16 @@ class ResNet:
         params["head"] = self.head.init(generator)
         return params
 
+    def axes(self) -> dict:
+        out: dict[str, Any] = {"stem": self.stem.axes()}
+        for name, c1, g1, c2, g2, proj in self.units:
+            out[name] = {"g1": g1.axes(), "c1": c1.axes(), "g2": g2.axes(), "c2": c2.axes()}
+            if proj is not None:
+                out[name]["proj"] = proj.axes()
+        out["final_gn"] = self.final_gn.axes()
+        out["head"] = self.head.axes()
+        return out
+
     def logits(self, params, x, ctx: Ctx) -> torch.Tensor:
         x = self.stem(params["stem"], x, ctx.scope("stem"))
         for name, c1, g1, c2, g2, proj in self.units:
@@ -151,8 +187,7 @@ class ResNet:
             h = c2(p["c2"], F.relu(g2(p["g2"], h, sub.scope("g2"))), sub.scope("c2"))
             x = shortcut + h
         x = F.relu(self.final_gn(params["final_gn"], x, ctx.scope("final_gn")))
-        h = global_avg_pool(x)
-        return self.head(params["head"], h[:, None, :], ctx.scope("head"))[:, 0]
+        return head_logits(self.head, params["head"], global_avg_pool(x), ctx)
 
     def loss_with_ctx(self, params, batch, ctx: Ctx) -> torch.Tensor:
         return _loss(self.logits(params, batch["image"], ctx), batch)

@@ -10,6 +10,11 @@ pooling over patches and a ``Dense`` head on a T = 1 tap.  Compute runs in
 (fp32).  The public batch is the JAX package's: ``batch["image"]``
 (B, H, W, C), ``batch["label"]`` (B,), ``batch["mask"]`` (B,).
 
+On a model axis the patch embedding splits its output channels and
+gathers them (``nn/conv.py``), so the whole ``pos_embed`` and the residual
+stream see all of them; the blocks run tensor-parallel as the LMs' do, and
+the head's logits are gathered where the classes split.
+
 ``device``: ``None`` is the GPU (and raises without one), ``"cpu"`` must be
 asked for.
 """
@@ -23,6 +28,7 @@ from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core.taps import Ctx
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import TransformerBlock
+from repro_torch.models.cnn import head_logits
 from repro_torch.models.losses import per_sample_xent
 from repro_torch.nn.conv import Conv2d
 from repro_torch.nn.module import Dense, Embedding, LayerNorm
@@ -77,8 +83,7 @@ class ViT:
         x = x + self.pos_embed(params["pos_embed"], pos, ctx.scope("pos_embed"))
         x = self.layers(params["layers"], x, ctx.scope("layers"))
         x = self.norm_f(params["norm_f"], x, ctx.scope("norm_f"))
-        h = x.mean(dim=1)
-        return self.head(params["head"], h[:, None, :], ctx.scope("head"))[:, 0]
+        return head_logits(self.head, params["head"], x.mean(dim=1), ctx)
 
     def loss_with_ctx(self, params, batch, ctx: Ctx) -> torch.Tensor:
         logits = self.logits(params, batch["image"], ctx)

@@ -12,6 +12,18 @@ unfolds lazily (``unfold2d``) only on the branch that needs the patches.
 (0, 1), not torch's symmetric (1, 1), so it is computed per dim and applied
 the same way by the conv and by ``unfold2d``.
 
+On a model axis (``reshard.model_dim``) ``Conv2d`` is column-parallel on
+its output channels, as the JAX package's ``(None, None, "embed", "mlp")``
+placement puts them: ``copy_to_model`` on the whole input (each rank's part
+of its gradient is summed), this rank's ``p / model`` channels computed and
+tapped (``TapMeta.local``: the full ``D`` and ``p`` kept, the norm this
+rank's part, the split bias counted on every rank), then all channels
+gathered (``reshard.whole_cols``, whose backward hands the tap a contiguous
+NHWC slice of the cotangent), so GroupNorm, pooling, the next conv, a
+residual add or a ViT's stream see the whole activation.  ``DepthwiseConv1d``
+splits its channels with its input (Mamba's column-parallel ``in_x``): a
+per-channel op needs no collective.
+
 ``DepthwiseConv1d`` is the causal depthwise conv of the Mamba and xLSTM
 blocks, with its weight in the JAX layout (k, d) (so ``interop`` copies it
 unchanged: it is no ``Conv2d`` weight) and a ``dw_conv`` tap.  Its window
@@ -28,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import ConvInfo, Ctx
-from repro_torch.parallel.reshard import refuse_model_axis, reshard_param
+from repro_torch.parallel import collectives, reshard
+from repro_torch.parallel.reshard import reshard_param
 from repro_torch.nn.module import AxesTree, Module, Params, normal_init
 
 
@@ -115,10 +128,12 @@ class Conv2d(Module):
         return a
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        refuse_model_axis(f"{self.name}: a convolution")
-        w = reshard_param(params["w"].to(self.dtype), self.W_AXES,
-                          (self.d_out, self.d_in, *self.kernel))
+        full = (self.d_out, self.d_in, *self.kernel)
+        split = reshard.model_dim(self.W_AXES, full)  # 0 (output channels) or None
+        w = reshard_param(params["w"].to(self.dtype), self.W_AXES, full)
         x = x.to(self.dtype)
+        if split == 0:
+            x = collectives.copy_to_model(x, reshard.model_group())
         pads = conv_padding(self.padding, x.shape[1:3], self.kernel, self.strides)
         xc = x.permute(0, 3, 1, 2)
         if all(lo == hi for lo, hi in pads):
@@ -127,15 +142,17 @@ class Conv2d(Module):
             s = F.conv2d(pad_nchw(xc, pads), w, stride=self.strides)
         s = s.permute(0, 2, 3, 1)  # back to (B, H_out, W_out, p)
         if self.use_bias:
-            s = s + params["b"].to(self.dtype)
+            s = s + reshard_param(params["b"].to(self.dtype), self.W_AXES[:1], (self.d_out,))
         if ctx.collect:
             s = ctx.tap(
                 "out", s, kind="matmul", a=x,  # raw input; the engine unfolds lazily
                 T=int(s.shape[1] * s.shape[2]), D=self.d_in * math.prod(self.kernel),
                 p=self.d_out, param_path="w", bias_path="b" if self.use_bias else None,
                 conv=ConvInfo(kernel=self.kernel, strides=self.strides, padding=self.padding),
+                local=None if split is None else (self.d_in * math.prod(self.kernel),
+                                                  w.shape[0], 1),
             )
-        return s
+        return reshard.whole_cols(s, self.d_out)
 
 
 class DepthwiseConv1d(Module):
@@ -171,7 +188,7 @@ class DepthwiseConv1d(Module):
     def padded(self, x: torch.Tensor, state: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T + k - 1, d): the carried state (zeros without one), then x."""
         if state is None:
-            pad = x.new_zeros((x.shape[0], self.k - 1, self.d))
+            pad = x.new_zeros((x.shape[0], self.k - 1, x.shape[-1]))
         else:
             pad = state.to(x.dtype)
         return torch.cat([pad, x], dim=1)
@@ -180,17 +197,18 @@ class DepthwiseConv1d(Module):
                  state: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """(y, new state): the state is the last k - 1 rows of the padded
         input, the carried ones included where the call is shorter."""
-        refuse_model_axis(f"{self.name}: a depthwise convolution")
+        split = reshard.model_dim((None, "mlp"), (self.k, self.d))  # 1 (channels) or None
+        w = reshard_param(params["w"].to(self.dtype), (None, "mlp"), (self.k, self.d))
         x = x.to(self.dtype)
         xp = self.padded(x, state)
         unf = xp.unfold(1, self.k, 1).transpose(2, 3)  # (B, T, k, d), a view
-        w = reshard_param(params["w"].to(self.dtype), (None, "mlp"), (self.k, self.d))
         s = torch.einsum("btkd,kd->btd", unf, w)
         if self.use_bias:
-            s = s + params["b"].to(self.dtype)
+            s = s + reshard_param(params["b"].to(self.dtype), ("mlp",), (self.d,))
         if ctx.collect:
             s = ctx.tap("out", s, kind="dw_conv", a=unf, T=int(x.shape[1]), D=self.k,
-                        p=self.d, param_path="w", bias_path="b" if self.use_bias else None)
+                        p=self.d, param_path="w", bias_path="b" if self.use_bias else None,
+                        local=None if split is None else (self.k, w.shape[1], 1))
         return s, xp[:, xp.shape[1] - (self.k - 1):]
 
 

@@ -13,8 +13,21 @@ port keeps it.  Every trainable parameter enters through a tap:
 - ``D``: a ``scale_grouped`` tap on the skip stream (one gain per head of
   ``head_dim`` channels),
 
-so per-sample clipping covers the whole block exactly.  The JAX package's
-``shard_heads`` is a sharding constraint with no counterpart on one device.
+so per-sample clipping covers the whole block exactly.
+
+On a model axis the heads split, as the JAX package's placements and its
+``shard_heads`` constraint put them: ``in_z`` and ``in_x`` are
+column-parallel (this rank's H/model heads of channels), the depthwise conv
+runs on those channels, ``out_proj`` is row-parallel.  ``in_bcdt`` is
+whole, and its B and C columns feed every local head, so each rank's
+cotangent of them is a partial sum: ``copy_to_model`` completes it before
+the tap, whose norm is then counted once.  The dt stream stays whole
+through its ``dt_bias`` and ``A_log`` taps; ``shard_heads`` then keeps this
+rank's heads of the decay and the step size, and its backward completes the
+stream's cotangent.  ``D`` (whole) enters as this rank's slice
+(``reshard.slice_whole``) on a split ``scale_grouped`` tap, and the
+``RMSNorm`` over ``d_inner`` sums its squares over the ranks; ``chunked_ssm``
+runs on the local heads unchanged.
 With a cache (serving) the block reads its conv and SSM states and writes
 the new ones into the cache it is given, in place, as the attention block
 writes its KV rows: one token goes through ``ssm_decode_step``, a prompt
@@ -30,8 +43,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.conv import DepthwiseConv1d
-from repro_torch.nn.module import AxesTree, Dense, Module, Params, RMSNorm
+from repro_torch.nn.module import AxesTree, Dense, Module, Params, RMSNorm, at_least_fp32
 from repro_torch.nn.ssm_scan import chunked_ssm, ssm_decode_step
+from repro_torch.parallel import collectives, reshard
 from repro_torch.parallel.reshard import shard_heads
 
 
@@ -109,6 +123,15 @@ class MambaBlock(Module):
         xs = self.in_x(params["in_x"], x, ctx.scope("in_x"))
         bcdt = self.in_bcdt(params["in_bcdt"], x, ctx.scope("in_bcdt"))
         b_in, c_in, dt = bcdt[..., :ds], bcdt[..., ds:2 * ds], bcdt[..., 2 * ds:]
+        hl = xs.shape[-1] // dh  # this rank's heads
+        split = hl != h
+        if split:
+            if h % reshard.model_size():
+                raise ValueError(f"{self.name}: {h} heads do not divide over the model axis "
+                                 f"of {reshard.model_size()} (a head would split)")
+            group = reshard.model_group()
+            b_in, c_in = collectives.copy_to_model(b_in, group), collectives.copy_to_model(
+                c_in, group)
 
         xs, conv_state = self.conv(params["conv"], xs, ctx.scope("conv"),
                                    state=None if cache is None else cache["conv"])
@@ -117,32 +140,32 @@ class MambaBlock(Module):
         dt = dt + params["dt_bias"].to(dt.dtype)  # the dt stream, with its bias tap
         if ctx.collect:
             dt = ctx.tap("dt_bias@out", dt, kind="bias", T=t, D=1, p=h, param_path="dt_bias")
-        delta = F.softplus(dt.float())  # (B, T, H)
+        delta = F.softplus(at_least_fp32(dt))  # (B, T, H)
 
         # the decay stream: log_a = -exp(A_log) * delta, d(log_a)/d(A_log) = log_a
-        log_a = -torch.exp(params["A_log"].float()) * delta
+        log_a = -torch.exp(params["A_log"].to(delta.dtype)) * delta
         if ctx.collect:
             log_a = ctx.tap("A_log@out", log_a, kind="scale", a=log_a, T=t, D=h, p=h,
                             param_path="A_log")
+        if split:  # this rank's heads of the whole streams
+            delta, log_a = shard_heads(delta), shard_heads(log_a)
 
-        v = xs.reshape(bsz, t, h, dh) * delta[..., None].to(xs.dtype)
-        q = c_in[:, :, None, :].expand(bsz, t, h, ds)  # B and C are shared by the heads
-        k = b_in[:, :, None, :].expand(bsz, t, h, ds)
-        if t > 1:  # decode (t = 1) tensors are tiny; the constraints would only reshard
-            v, q, k = shard_heads(v), shard_heads(q), shard_heads(k)
-            log_a = shard_heads(log_a, axis=2) if log_a.ndim > 2 else log_a
+        v = xs.reshape(bsz, t, hl, dh) * delta[..., None].to(xs.dtype)
+        q = c_in[:, :, None, :].expand(bsz, t, hl, ds)  # B and C are shared by the heads
+        k = b_in[:, :, None, :].expand(bsz, t, hl, ds)
         if cache is not None and t == 1:
             y, ssm_state = ssm_decode_step(q, k, v, log_a, cache["ssm"])
         else:
             y, ssm_state = chunked_ssm(q, k, v, log_a, chunk=self.chunk,
                                        state0=None if cache is None else cache["ssm"])
-        y = y.reshape(bsz, t, self.d_inner)
+        y = y.reshape(bsz, t, hl * dh)
 
         # the D skip: one gain per head (a scale_grouped tap, a = xs)
-        skip = xs * params["D"].to(xs.dtype).repeat_interleave(dh)
+        d_skip = reshard.slice_whole(params["D"], 0) if split else params["D"]
+        skip = xs * d_skip.to(xs.dtype).repeat_interleave(dh)
         if ctx.collect:
             skip = ctx.tap("D@out", skip, kind="scale_grouped", a=xs, T=t, D=dh, p=h,
-                           param_path="D")
+                           param_path="D", local=(dh, hl, 1) if split else None)
         y = (y + skip) * F.silu(z)
         y = self.norm(params["norm"], y, ctx.scope("norm"))
         out = self.out_proj(params["out_proj"], y, ctx.scope("out_proj"))

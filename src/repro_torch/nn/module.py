@@ -24,7 +24,12 @@ dim on "model": the input arrives as this rank's columns, and
 added once, after the sum).  ``Embedding`` runs vocab-parallel (its rows
 on "model": ids outside this rank's ``[lo, hi)`` give zero rows, then
 ``reduce_from_model``).  Their taps record this rank's ``a`` and ``g``
-with the full ``D`` and ``p`` (``TapMeta.local``).
+with the full ``D`` and ``p`` (``TapMeta.local``).  ``RMSNorm`` given this
+rank's channels of a split input (Mamba's ``d_inner``) sums the squares
+over the model axis (``collectives.sum_parts``) and scales by its slice of
+the whole gain (``reshard.slice_whole``): a split tap.  ``GroupNorm`` and
+``LayerNorm`` always see whole channels (a split convolution gathers its
+output).
 """
 from __future__ import annotations
 
@@ -59,6 +64,12 @@ class Module:
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx):
         raise NotImplementedError
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in its own dtype where that is wider (fp64 compute
+    keeps fp64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def normal_init(
@@ -167,8 +178,7 @@ class GroupNorm(Module):
         # x: (B, *spatial, d)
         batch = x.shape[0]
         # statistics in fp32 at least (fp64 compute keeps fp64)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
-            batch, -1, self.groups, self.d // self.groups)
+        xf = at_least_fp32(x).reshape(batch, -1, self.groups, self.d // self.groups)
         mu = xf.mean(dim=(1, 3), keepdim=True)
         var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
         x_hat = ((xf - mu) * torch.rsqrt(var + NORM_EPS)).reshape(x.shape).to(self.dtype)
@@ -277,9 +287,9 @@ class LayerNorm(Module):
 class RMSNorm(Module):
     """RMSNorm with a DP "scale" tap on the gain product.
 
-    ``x_hat`` in fp32, cast to the compute dtype, *then* multiplied by the
-    gain cast to the compute dtype, in the JAX package's order (the order
-    decides the bf16 rounding).
+    ``x_hat`` in fp32 (fp64 under fp64 compute), cast to the compute dtype,
+    *then* multiplied by the gain cast to the compute dtype, in the JAX
+    package's order (the order decides the bf16 rounding).
     """
 
     def __init__(
@@ -301,14 +311,26 @@ class RMSNorm(Module):
         return {"g": (None,)}
 
     def __call__(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        xf = x.float()
-        x_hat = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)).to(self.dtype)
-        s = x_hat * params["g"].to(self.dtype)
+        xf = at_least_fp32(x)
+        d = x.shape[-1]
+        g = params["g"]
+        if d != self.d:  # this rank's channels of a split input: the squares summed over all
+            if d * reshard.model_size() != self.d:
+                raise ValueError(f"{self.name}: {d} of {self.d} channels on a model axis of "
+                                 f"{reshard.model_size()}")
+            group = reshard.model_group()
+            ms = collectives.sum_parts(xf.square().sum(dim=-1, keepdim=True), group) / self.d
+            g = reshard.slice_whole(g)
+        else:
+            ms = xf.square().mean(dim=-1, keepdim=True)
+        x_hat = (xf * torch.rsqrt(ms + self.eps)).to(self.dtype)
+        s = x_hat * g.to(self.dtype)
         if ctx.collect:
             batch = x.shape[0]
             t = int(math.prod(x.shape[1:-1])) if x.ndim > 2 else 1
             s = ctx.tap(
-                "out", s, kind="scale", a=x_hat.reshape(batch, t, self.d),
+                "out", s, kind="scale", a=x_hat.reshape(batch, t, d),
                 T=t, D=self.d, p=self.d, param_path="g",
+                local=None if d == self.d else (d, d, 1),
             )
         return s

@@ -21,7 +21,8 @@ Numerics, the JAX package's:
   width each of q, k, v is (B, T, 256, 64) broadcast or projected); q and
   k may be broadcast views (Mamba's B and C are shared by every head), and
   only a chunk's slice is materialised;
-- the state is fp32, and every exponent is of a non-positive sum (decay
+- the state is fp32 (fp64 under fp64 compute, as the decay logs), and
+  every exponent is of a non-positive sum (decay
   logs are <= 0): exp(cum_t) and exp(total - cum_s) by construction, and
   the within-chunk exp(cum_t - cum_s) only where s <= t: the entries above
   the diagonal are set to -inf before the exponent, so they are 0 and
@@ -38,6 +39,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.nn.module import at_least_fp32
 
 
 def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -56,19 +59,20 @@ def chunked_ssm(
     chunk: int = 256,
     state0: Optional[torch.Tensor] = None,  # (B, H, dk, dv) fp32
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, T, H, dv) in v's dtype, final state (B, H, dk, dv) fp32)."""
+    """(y (B, T, H, dv) in v's dtype, final state (B, H, dk, dv) fp32, or in
+    the decay logs' dtype where that is wider)."""
     b, t, h, dk = q.shape
     dv = v.shape[-1]
     chunk = min(chunk, t)
     pad = (-t) % chunk
     q, k, v, log_a = (_pad_time(x, pad) for x in (q, k, v, log_a))
-    la = log_a.float()
-    state = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
-             if state0 is None else state0.float())
+    la = at_least_fp32(log_a)
+    state = (torch.zeros((b, h, dk, dv), dtype=la.dtype, device=q.device)
+             if state0 is None else state0.to(la.dtype))
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
     ys = []
     for lo in range(0, t + pad, chunk):
-        qc, kc, vc = (x[:, lo:lo + chunk].float() for x in (q, k, v))  # (B, L, H, .)
+        qc, kc, vc = (x[:, lo:lo + chunk].to(la.dtype) for x in (q, k, v))  # (B, L, H, .)
         cum = torch.cumsum(la[:, lo:lo + chunk], dim=1)  # (B, L, H) inclusive
         total = cum[:, -1]  # (B, H)
         # inter-chunk: y_t += exp(cum_t) q_t @ S0

@@ -21,6 +21,10 @@ conjugate pairs) are here too, each over the group it is given:
                          the input's gradient is summed);
 - ``reduce_from_model``  all-reduce forward, identity backward: the output
                          of a row-parallel product (its partial sums);
+- ``sum_parts``          all-reduce forward and backward: a sum of the
+                         ranks' parts that each rank then uses for its own
+                         slice (a norm's sum of squares over split
+                         channels), so its gradient parts sum too;
 - ``split_along``        this rank's slice forward, all-gather backward: a
                          replicated activation stored sharded (the sequence
                          of a layer carry);
@@ -90,7 +94,10 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         _dist().all_gather_into_tensor(out, src, group=group)
     else:
         _dist().all_gather(list(out.chunk(n)), src, group=group)
-    out = out.movedim(0, dim)
+    # contiguous in ``x``'s dim order, as one rank holds the tensor: a view
+    # with the gathered dim outermost would make later reductions (a
+    # GroupNorm's statistics) sum in another order
+    out = out.movedim(0, dim).contiguous()
     return out.to(x.device) if staged else out
 
 
@@ -142,6 +149,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _SumParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 class _Split(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -181,6 +199,10 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
+
+
+def sum_parts(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumParts.apply(x, group)
 
 
 def split_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:

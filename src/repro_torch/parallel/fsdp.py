@@ -22,7 +22,10 @@ all-reduced over it.  ``reduce_grads`` tells the routes apart by shape,
 which differs on every data-sharded leaf when n > 1.  A model-sharded dim
 is never reduced over "model": each model rank's slice is its own; a leaf
 whole on the model axis comes out the same on every model rank (the
-modules' collectives make its gradient complete there).  Under ``dp_only``
+modules' collectives make its gradient complete there: ``copy_to_model``
+where a whole tensor feeds split work, ``reshard.slice_whole`` where a
+whole leaf does; the clipping engine gathers the book-keeping gradient
+that split taps of such a leaf computed at their slices).  Under ``dp_only``
 the model axis carries batch: the batch group is data x model, and every
 gradient is also summed over the model axis.
 """

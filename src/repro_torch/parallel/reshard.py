@@ -23,12 +23,18 @@ collectives, ``parallel.collectives``).  A module asks ``model_dim(axes,
 shape)`` which dim of a weight is on "model" at this use, from the
 resolved placement, and runs its column- or row-parallel form.
 ``shard_seq`` stores the layer carry as this rank's 1/model of the
-sequence and ``unshard_seq`` gathers it back.  Ported: the training step
-of the dense and MoE decoder LMs, and ``dp_only`` configurations, whose
-model axis carries batch (``model_size`` is then 1: no module splits).
-Still refused, with ``ModelAxisNotPorted`` naming the next slice, where
-the model axis is larger than one: ``shard_heads`` (Mamba, Jamba), the
-convolutions (CNNs, ViTs) and the sharded prefill and decode steps.
+sequence and ``unshard_seq`` gathers it back; ``shard_heads`` keeps this
+rank's 1/model of a tensor's heads (Mamba's decay stream), ``whole_cols``
+gathers the channels a column-parallel product split (a convolution's
+output, a classifier's logits) and ``slice_whole`` gives this rank's slice
+of a leaf stored whole (a norm gain over split channels), each with the
+backward that leaves every model rank a complete gradient.  Ported: the
+training step of the dense and MoE decoder LMs, the CNNs, the ViTs and
+Mamba's heads (Jamba), and ``dp_only`` configurations, whose model axis
+carries batch (``model_size`` is then 1: no module splits).  Still
+refused, with ``ModelAxisNotPorted`` naming the next slice, where the model
+axis is larger than one: the sharded prefill and decode steps (the layer
+stack's serving path, the KV cache, the MoE's global dispatch).
 
 Active inside ``use_reshard_rules(mesh, cfg)`` on a live mesh; a no-op
 otherwise.  The rules are process-wide (a stack), not a context variable
@@ -49,8 +55,7 @@ from repro_torch.parallel.sharding import _spec_for, axis_size, logical_rules, m
 
 _STACK: list[tuple] = []  # (mesh, rules, fsdp axes, mesh_axes) of each enclosing context
 
-NEXT_SLICE = ("the next slice of the port (Mamba's shard_heads, convolutions and sharded "
-              "serving on the model axis)")
+NEXT_SLICE = "the next slice of the port (sharded prefill and decode on the model axis)"
 
 
 def _state() -> Optional[tuple]:
@@ -170,8 +175,29 @@ def unshard_seq(x: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def shard_heads(x: torch.Tensor, axis: int = 2) -> torch.Tensor:
-    """A (B, T, H, d) tensor's heads on the model axis: the identity while
-    the model axis does not split (Mamba's heads come with the next slice)."""
-    del axis
-    refuse_model_axis("shard_heads")
-    return x
+    """This rank's 1/model of the heads (dim ``axis``) of a tensor every
+    model rank holds whole (its backward all-gathers, so the whole tensor's
+    gradient is complete on every rank), where the model axis splits and
+    the heads divide; the identity otherwise, as the JAX constraint."""
+    n = model_size()
+    if n <= 1 or x.ndim <= axis or x.shape[axis] % n:
+        return x
+    return collectives.split_along(x, axis, model_group())
+
+
+def whole_cols(x: torch.Tensor, full: int) -> torch.Tensor:
+    """The ``full`` columns (last dim) of a column-parallel product's output
+    of which this rank holds its slice, gathered (the backward keeps this
+    rank's slice: every rank repeats what consumes them); a whole output as
+    it is."""
+    if x.shape[-1] == full:
+        return x
+    return collectives.gather_along(x, -1, model_group())
+
+
+def slice_whole(w: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's 1/model of dim ``dim`` of a leaf stored whole on the model
+    axis and used by this rank's slice of split work (Mamba's per-head
+    ``D``, a norm gain over split channels): its backward all-gathers, so
+    every model rank gets the leaf's complete gradient."""
+    return collectives.split_along(w, dim, model_group())

@@ -18,8 +18,8 @@ A placement is one leaf's ``PartitionSpec`` entries as a plain tuple: per
 dim ``None``, one mesh axis name, or a tuple of them.  The rules are
 evaluated for any mesh; the step runs them on a live one (``parallel
 .fsdp``, ``parallel.reshard``): the data axis, and the model axis of the
-training step of the dense and MoE decoder LMs and of the ``dp_only``
-configurations.
+training step of the decoder LMs (dense, MoE, Jamba's Mamba heads), the
+CNNs and ViTs, and of the ``dp_only`` configurations.
 """
 from __future__ import annotations
 

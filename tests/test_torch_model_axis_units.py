@@ -22,8 +22,10 @@
   and clipped sums equal to one rank's, the split bias's norm summed over
   the ranks, the whole one counted once;
 - ``per_host_batch`` on a model axis that spans processes;
-- the refusals that stay: ``shard_heads``, a convolution (VGG-11: ``cfg``
-  None resolves as tensor-parallel), Jamba's Mamba, Mixtral's prefill;
+- the refusal that stays, Mixtral's prefill (naming the sharded serving
+  slice), and what the convolutions' and Mamba's slice ported running and
+  splitting: ``shard_heads``, a convolution (VGG-11: ``cfg`` None resolves
+  as tensor-parallel), Jamba's Mamba;
 - the tuner on a split tap: timed at the slice, keyed on the full shape.
 
 Tolerance 1e-5 relative (fp32; the sums run in another order).
@@ -167,9 +169,26 @@ def test_reduce_grads_on_both_axes():
 
 @pytest.mark.parametrize("path", ["shard_heads", "conv", "mamba", "prefill"])
 def test_refusals_name_the_next_slice(path):
+    """Sharded prefill and decode stay refused, naming their slice; the
+    paths the convolutions' and Mamba's slice ported run and split: a
+    tensor's heads, VGG-11's first conv (64 output channels, 32 a rank),
+    Jamba's ``in_x`` (this rank's half of d_inner 128) beside its whole
+    ``in_bcdt``."""
     for res in _fleets()[2]:
         msg = res["refusals"][path]
-        assert msg != "ran" and "the next slice" in msg, msg
+        if path == "prefill":
+            assert msg != "ran" and "the next slice" in msg, msg
+            assert "prefill and decode" in msg, msg
+            continue
+        assert msg == "ran", msg
+        shards = res["refusals"]["shards"][path]
+        if path == "shard_heads":
+            assert shards == (2, 4, 2, 8)
+        elif path == "conv":
+            assert shards == {"conv0/out": (27, 32, 1)}
+        else:
+            assert shards == {"layers/0/mamba/in_x/out": (64, 64, 1),
+                              "layers/0/mamba/in_bcdt/out": None}
 
 
 @pytest.mark.parametrize("local", [(16, 12, 1), (8, 24, 1), (16, 24, 2)],

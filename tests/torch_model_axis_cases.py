@@ -330,28 +330,34 @@ def _sharded(model, cfg, mesh):
 
 
 def unit_refusals(rank: int, n: int) -> dict:
-    """The paths still refused on a model axis larger than one: {path: the
-    error's message, or "ran"}."""
+    """The paths once refused on a model axis larger than one: {path: the
+    error's message, or "ran"}, and under "shards" what the ported ones
+    split (``shard_heads``' output shape, the taps' ``local``)."""
     from repro_torch.core.taps import Ctx
     from repro_torch.models.cnn import VGG
 
     mesh = make_mesh((1, n), "cpu")
-    out = {}
+    out = {"shards": {}}
 
     def attempt(name, fn):
         try:
             with torch.no_grad():
-                fn()
+                out["shards"][name] = fn()
             out[name] = "ran"
         except ModelAxisNotPorted as e:
             out[name] = str(e)
 
+    def taps(model, params, batch, *names):
+        """The ``local`` of the named taps, from one discovering forward."""
+        meta: dict = {}
+        model.loss_with_ctx(params, batch, Ctx(meta=meta))
+        return {k: meta[k].local for k in names}
+
     vgg = VGG("vgg11", device="cpu")
     images = {"image": torch.zeros(2, 32, 32, 3), "label": torch.zeros(2, dtype=torch.long)}
     with use_reshard_rules(mesh, None):  # cfg None resolves as "tp": the CNNs and ViTs
-        attempt("shard_heads", lambda: reshard.shard_heads(torch.zeros(2, 4, 4, 8)))
-        attempt("conv", lambda: vgg.loss_with_ctx(vgg.init(torch.Generator().manual_seed(0)),
-                                                  images, Ctx.disabled()))
+        attempt("shard_heads", lambda: tuple(reshard.shard_heads(torch.zeros(2, 4, 4, 8)).shape))
+        attempt("conv", lambda: taps(vgg, _sharded(vgg, None, mesh), images, "conv0/out"))
     for arch in ("jamba-1.5-large-398b", "mixtral-8x7b"):
         cfg = get_arch(arch).reduced()
         model = build_model(cfg, device="cpu")
@@ -362,7 +368,9 @@ def unit_refusals(rank: int, n: int) -> dict:
                 attempt("prefill", lambda: model.prefill(params, {"tokens": batch["tokens"]},
                                                          model.init_state(2, 16)))
             else:
-                attempt("mamba", lambda: model.loss_with_ctx(params, batch, Ctx.disabled()))
+                attempt("mamba", lambda: taps(model, params, batch,
+                                              "layers/0/mamba/in_x/out",
+                                              "layers/0/mamba/in_bcdt/out"))
     return out
 
 
