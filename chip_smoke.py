@@ -37,7 +37,9 @@ checkpoints, a crash and its auto-restart, a profile and the obs streams;
 and, last, the same cut as a data-parallel fleet of two ranks that share
 the card (gloo), with one NCCL rank, then Mixtral-8x7B at full width (1
 layer) on a (1, 2) mesh of the same two ranks: tensor, expert and
-sequence parallelism (the model axis).
+sequence parallelism (the model axis), with VGG-19, ViT-Base/16 and
+Jamba's Mamba layer, and its sharded prefill and decode (Mixtral-8x7B's
+window ring by KV head; Jamba's period over a 32768-row cache by position).
 Random weights from seed 0 throughout.  Phases, in order, each one's seconds printed; any
 failure exits non-zero and prints no result:
 
@@ -193,8 +195,8 @@ failure exits non-zero and prints no result:
             fp32 compute on 2 samples;
 16. train_cli  launch/train.py's main, in process, on Whisper-large-v3 at full
             width (1 + 1 layers, batch 4 x 448 over 1500 frames, bf16, adam),
-            checkpoints in a temporary directory: a straight 6-step bk_mixed
-            run under the quantile policy and the same run crashed at step 5
+            checkpoints in a temporary directory: a straight 4-step bk_mixed
+            run under the quantile policy and the same run crashed at step 3
             and auto-restarted, their final checkpoints bit-identical leaf by
             leaf (generator and policy state included) with equal epsilon;
             every run's launches from the card's kernels only (the straight
@@ -226,8 +228,14 @@ failure exits non-zero and prints no result:
             mixed_ghost and bk_mixed in bf16 at 2 x 4096 reported; the
             bytes all-reduced, each rank's stored share and peak, and the
             four clipping kernels against their plain versions at the
-            shapes a rank gives them.  Ranks that share a card give no
-            speed.
+            shapes a rank gives them; the cnn and mamba parts the same way
+            (VGG-19 and ViT-Base/16; Jamba's Mamba layer); and the serve
+            part: sharded prefill and greedy decode of Mixtral-8x7B (its
+            window ring split by KV head) and of Jamba's (mamba, attn)
+            period (a 32768-row cache split by position, Mamba's heads
+            split) against the one-rank steps, the attention kernel
+            launched on every rank's prefill.  Ranks that share a card give
+            no speed.
 
 TF32 is off for cuDNN convolutions and for matmuls throughout, so the fp32
 comparisons are in full fp32.  Details go to chiprun_out/chip_smoke.json.
@@ -239,6 +247,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -446,7 +455,7 @@ WAVE_ARCHS = ("whisper-large-v3", "phi-3-vision-4.2b")
 TRAIN_CLI_ARCH = "whisper-large-v3"
 TRAIN_CLI_LAYERS = 1
 TRAIN_CLI_BATCH, TRAIN_CLI_SEQ = 4, 448
-TRAIN_CLI_STEPS, TRAIN_CLI_CKPT_EVERY, TRAIN_CLI_CRASH = 6, 3, 5
+TRAIN_CLI_STEPS, TRAIN_CLI_CKPT_EVERY, TRAIN_CLI_CRASH = 4, 2, 3  # 6, 3, 5 until the serve part
 TRAIN_CLI_SYNC_STEPS = 3
 TRAIN_CLI_PROFILE, TRAIN_CLI_PROFILE_STEPS = (2, 3), 4
 
@@ -1315,7 +1324,7 @@ def phase_slice(tag: str, path: dict, n_steps: int) -> dict:
 
 
 def _recurrent_times(tag: str, path: dict) -> dict:
-    """Host-clock ms (the better of 2, synchronized) of the recurrent pieces alone
+    """Host-clock ms (one reading, synchronized) of the recurrent pieces alone
     at the path's shapes, in its bf16 compute: ``chunked_ssm`` at the Mamba
     or mLSTM layer's shapes and, on xLSTM, the sLSTM time loop
     (``SLSTMScan``), each forward and forward + backward, to set against a
@@ -1340,8 +1349,8 @@ def _recurrent_times(tag: str, path: dict) -> dict:
             torch.autograd.backward([o for o in outs if o.requires_grad],
                                     [torch.ones_like(o) for o in outs if o.requires_grad])
         with torch.no_grad():
-            out[f"{name} forward ms"] = min(_median_ms(lambda: fn(*inputs), 1) for _ in "ab")
-        out[f"{name} forward+backward ms"] = min(_median_ms(fwd_bwd, 1) for _ in "ab")
+            out[f"{name} forward ms"] = _median_ms(lambda: fn(*inputs), 1)
+        out[f"{name} forward+backward ms"] = _median_ms(fwd_bwd, 1)
 
     r = path["recurrent"]
     h, dk, dv = r["heads"], r["dk"], r["dv"]
@@ -1833,12 +1842,36 @@ def phase_accum(path: dict) -> dict:
 
 
 def _free() -> None:
-    import gc
-
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# Host seconds in the cyclic collector, from gc.callbacks.  ``_settle``
+# collects, then freezes what outlives a phase (imports, the paths, earlier
+# phases' results): the collections that follow (``_free``, the max-batch
+# search's recovered allocator before every trial) scan what the phase made
+# since, not the whole heap.  Objects frozen stay collectable by their
+# reference counts; a cycle among them is kept to the end of the process.
+GC_SECONDS = {"seconds": 0.0, "collections": 0, "start": None}
+
+
+def _gc_timer(stage: str, info: dict) -> None:
+    if stage == "start":
+        GC_SECONDS["start"] = time.perf_counter()
+    elif GC_SECONDS["start"] is not None:
+        GC_SECONDS["seconds"] += time.perf_counter() - GC_SECONDS["start"]
+        GC_SECONDS["collections"] += 1
+        GC_SECONDS["start"] = None
+
+
+def _settle() -> None:
+    """Collect, then freeze every object still alive (``gc.freeze``)."""
+    if _gc_timer not in gc.callbacks:
+        gc.callbacks.append(_gc_timer)
+    _free()
+    gc.freeze()
 
 
 def phase_remat(paths: dict, slices: dict) -> dict:
@@ -2291,9 +2324,15 @@ def _sdpa_repeated(q, k, v, causal: bool, window):
     return F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt, attn_mask=mask)
 
 
-def _flash_case(spec, dtype: str, gen, timed: bool, repeated_kv: bool = False) -> dict:
+def _flash_case(spec, dtype: str, gen, timed: bool, repeated_kv: bool = False,
+                plain_rows: int = None) -> dict:
     """``repeated_kv``: the yardstick is ``_sdpa_repeated`` (the MoE and
-    hybrid serve prefills), else SDPA's own causal GQA."""
+    hybrid serve prefills), else SDPA's own causal GQA.  ``plain_rows``: the
+    plain version runs that many query rows at a time (each block over every
+    key, its ``q_offset`` the block's first row), where its whole scores
+    would not fit; a causal call at ``SERVE_JAMBA_ROWS // 2`` rows or more
+    is timed against SDPA's ``is_causal`` with the KV heads repeated, whose
+    mask is not materialised."""
     import torch
     import torch.nn.functional as F
 
@@ -2307,8 +2346,16 @@ def _flash_case(spec, dtype: str, gen, timed: bool, repeated_kv: bool = False) -
 
     q, k, v = rnd(b, sq, h, hd), rnd(b, skv, kh, hd), rnd(b, skv, kh, hd)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+
+    def plain():
+        if plain_rows is None or sq <= plain_rows:
+            return fa.flash_attention_plain(q, k, v, **kw)
+        return torch.cat([fa.flash_attention_plain(q[:, i:i + plain_rows], k, v, causal=causal,
+                                                   window=window, q_offset=q_offset + i)
+                          for i in range(0, sq, plain_rows)], dim=1)
+
     got = fa.flash_attention_cuda(q, k, v, **kw)
-    want = fa.flash_attention_plain(q, k, v, **kw)
+    want = plain()
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got).all()), f"flash_attention {spec}: non-finite output")
     diff, ref = (got.float() - want.float()).abs(), want.float().abs()
@@ -2328,8 +2375,13 @@ def _flash_case(spec, dtype: str, gen, timed: bool, repeated_kv: bool = False) -
         iters = 10
         case["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters)
         case["device_ms"] = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters)
-        case["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters)
-        if repeated_kv:
+        case["plain_ms"] = cuda_ms(plain, iters)
+        if plain_rows is not None and causal and window is None and not repeated_kv:
+            g = h // kh
+            kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+            case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters)
+        elif repeated_kv:
             case["library_ms"] = cuda_ms(lambda: _sdpa_repeated(q, k, v, causal, window), iters)
         else:
             case["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -3341,7 +3393,7 @@ def phase_tuner_cli(path: dict) -> dict:
 
     out_path = ROOT / "build" / "plans" / "yi-6b.json"
     argv = ["--arch", "yi-6b", "--seq", str(path["seq"]), "--batch", str(path["batch"]),
-            "--skip-max-batch", "--repeats", "2", "--warmup", "1", "--plan", str(out_path)]
+            "--skip-max-batch", "--repeats", "1", "--warmup", "1", "--plan", str(out_path)]
     print(f"tuner_cli: python -m repro_torch.tuner {' '.join(argv)}")
     table = io.StringIO()
     t0 = time.perf_counter()
@@ -3909,12 +3961,14 @@ MAMBA_F64_SEQ = 256  # the fp64 witness's length (its fp64 weight copies and fp3
 # positions of every head (the one-rank step 2.0-2.4e-5 from fp64 at 2 x 256)
 AXIS_TOL = {"vgg19": {"grads": 2e-4}, "jamba-1.5-large-398b": {"grads": 2e-4}}
 # the kernels' wrappers whose calls the parts record: (module attribute of
-# kernels.dispatch, kernel, the mode whose step gives its main-path shapes)
+# kernels.dispatch, kernel, the training mode whose step gives its main-path
+# shapes; None: the serve part's prefill)
 TP_SPY = (("ghost_norm_sq", "ghost_norm_sq", "mixed_ghost"),
           ("conv_ghost_norm_sq", "conv_ghost_norm_sq", "mixed_ghost"),
           ("embedding_ghost_norm_sq", "embedding_ghost_norm_sq", "mixed_ghost"),
           ("book_weighted_grad", "book_weighted_grad", "bk_mixed"),
-          ("psg_contract_grouped", "psg_contract", "bk_mixed"))
+          ("psg_contract_grouped", "psg_contract", "bk_mixed"),
+          ("flash_attention", "flash_attention", None))
 
 
 def _tp_cfg(dtype: str):
@@ -3989,12 +4043,14 @@ def _vision_part(name: str, batch: int, dtype: str) -> dict:
 
 
 class _KernelSpy:
-    """Records the shape and dtypes of every call of the four clipping
-    kernels' dispatch entries (the kernel phase's shape keys; the ghost
-    norm's conv entry its own) while active; the calls themselves go
-    through unchanged."""
+    """Records the shape and dtypes of every call of the kernels' dispatch
+    entries in TP_SPY (the kernel phase's shape keys; the ghost norm's conv
+    entry its own; the attention's ``_flash_case`` spec, of its kernel's
+    calls only: not the serving form's traced ``q_offset`` or
+    ``kv_positions``) while active; the calls themselves go through
+    unchanged."""
 
-    def __init__(self, vocab: int):
+    def __init__(self, vocab: int = None):
         self.vocab = vocab  # the ids' range at the embedding norm (a rank's rows)
         self.calls: dict = {}
 
@@ -4015,7 +4071,14 @@ class _KernelSpy:
     def _wrap(self, kernel: str, fn):
         def spied(*args, **kw):
             x = args[0]
-            if kernel == "psg_contract":
+            if kernel == "flash_attention":
+                q, k = x, args[1]
+                q_offset = kw.get("q_offset", 0)
+                if kw.get("kv_positions") is not None or not isinstance(q_offset, int):
+                    return fn(*args, **kw)
+                key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                       kw.get("causal", True), kw.get("window"), q_offset)
+            elif kernel == "psg_contract":
                 key = ((x[0].shape[0], tuple((t.shape[1], 0) for t in x)),
                        tuple(_name(t.dtype) for t in x))
             elif kernel == "embedding_ghost_norm_sq":
@@ -4285,7 +4348,271 @@ def _mamba_part(rank: int, n: int) -> dict:
     return {"steps": steps, "seconds": time.perf_counter() - t0}
 
 
-AXIS_PARTS = {"tp": _tp_part, "cnn": _cnn_part, "mamba": _mamba_part}
+# the serve part: sharded prefill and greedy decode on the same (1, 2) mesh
+# (launch.steps.make_prefill_step / make_decode_step with the serve state's
+# placements), fp32 compute: Mixtral-8x7B (TP_LAYERS layer, its 4096-row
+# window ring split by KV head) at SERVE_MIXTRAL (lanes, prompt), and
+# Jamba-1.5-Large's (mamba, attn) period (JAMBA_EXPERTS experts, the
+# config's bf16 parameters) at SERVE_JAMBA into a SERVE_JAMBA_ROWS-row cache
+# (split by position: 16384 rows a rank; SSM state by head), each then
+# SERVE_STEPS greedy decode steps fed the one-rank steps' tokens; gated
+# against the one-rank steps on rank 0 at SERVE_AXIS_TOL
+SERVE_MIXTRAL = ((2, 4608), (2, 1024))  # past the window (the ring), then within it
+SERVE_JAMBA = ((1, 16640),)  # both ranks hold prompt rows
+SERVE_JAMBA_ROWS = 32768
+SERVE_STEPS = 16
+SERVE_AXIS_TOL = DIST_TOL  # logits (of the largest |logit|), the gathered state (of a leaf's)
+SERVE_PLAIN_ROWS = 2048  # the plain attention's query rows at a time (its scores (H, rows, S))
+
+
+def _serve_models() -> list:
+    """(name, config, [(lanes, prompt, max_len)]) of the serve part."""
+    from repro_torch.configs.registry import get_arch
+
+    jamba = dataclasses.replace(get_arch("jamba-1.5-large-398b"), n_layers=len(JAMBA_PERIOD),
+                                block_pattern=JAMBA_PERIOD, moe_experts=JAMBA_EXPERTS,
+                                dtype="float32")
+    require((jamba.d_model, jamba.n_heads, jamba.n_kv, jamba.vocab) == (8192, 64, 8, 65536),
+            f"serve: not Jamba's full width: {jamba}")
+    return [("mixtral-8x7b", _tp_cfg("float32"),
+             [(b, s, s + SERVE_STEPS) for b, s in SERVE_MIXTRAL]),
+            ("jamba-1.5-large-398b", jamba,
+             [(b, s, SERVE_JAMBA_ROWS) for b, s in SERVE_JAMBA])]
+
+
+def _serve_run(model, params, batch: dict, state: dict, steps: int, tokens=None,
+               shardings=None) -> dict:
+    """A prefill then ``steps`` greedy decode steps through the serving
+    steps; ``tokens`` (each step's input, B x 1) feeds the decode steps
+    (None: its own greedy tokens).  Every step's logits, its greedy tokens,
+    the final state, host ms (after a sync) and the bytes the collectives
+    moved in the prefill and in each decode step."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel import collectives
+
+    prefill = make_prefill_step(model, shardings)
+    decode = make_decode_step(model, shardings)
+    out = {"logits": [], "greedy": [], "decode_ms": [], "decode_bytes": []}
+    torch.cuda.synchronize()
+    collectives.reset_bytes()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch, state)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_bytes"] = sum(collectives.BYTES.values())
+    nxt = logits[:, -1:].argmax(dim=-1)
+    out["logits"].append(logits.float().cpu())
+    out["greedy"].append(nxt.cpu())
+    for i in range(steps):
+        given = nxt if tokens is None else tokens[i].to(nxt.device)
+        collectives.reset_bytes()
+        t0 = time.perf_counter()
+        nxt, logits, state = decode(params, given, state)
+        torch.cuda.synchronize()
+        out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["decode_bytes"].append(sum(collectives.BYTES.values()))
+        out["logits"].append(logits.float().cpu())
+        out["greedy"].append(nxt.cpu())
+    out["state"] = state
+    return out
+
+
+def _serve_part(rank: int, n: int) -> dict:
+    """The dist phase's serve part on this rank: for each of _serve_models'
+    runs, the one-rank prefill and decode steps on rank 0 (the full
+    parameters and state), then every rank's sharded steps (its slices of
+    the parameters, its serve state built at its local shapes) fed the
+    one-rank greedy tokens, with the kernel launches counted from just
+    before the prefill to just after the last decode step; rank 0 holds
+    the logits and the gathered state against the one-rank run's."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import build_model
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import local_serve_state, serve_state_specs
+    from repro_torch.parallel.fsdp import ShardLayout
+    from repro_torch.parallel.reshard import use_reshard_rules
+    from repro_torch.parallel.sharding import local_serve_shardings, param_shardings
+    from repro_torch.utils.tree import flatten_dict
+
+    mesh = make_mesh(TP_MESH, "cuda")
+    t_part = time.perf_counter()
+    runs = []
+    for name, cfg, shapes in _serve_models():
+        model = build_model(cfg, device="cuda")
+        full = model.init(torch.Generator(device="cuda").manual_seed(0))
+        local = ShardLayout(mesh, param_shardings(model, mesh, cfg, full)).shard(full)
+        if rank != 0:  # only rank 0 runs the one-rank steps
+            full = None
+            _free()
+        for lanes, prompt, max_len in shapes:
+            gen = torch.Generator(device="cuda").manual_seed(prompt)
+            batch = {"tokens": torch.randint(1, cfg.vocab, (lanes, prompt), generator=gen,
+                                             device="cuda")}
+            run = {"model": name, "lanes": lanes, "prompt": prompt, "rows": max_len,
+                   "steps": SERVE_STEPS}
+            ref = None
+            if rank == 0:
+                torch.cuda.reset_peak_memory_stats()
+                ref = _serve_run(model, full, batch, model.init_state(lanes, max_len),
+                                 SERVE_STEPS)
+                run["ref_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            # every rank decodes the one-rank greedy tokens
+            fed = [ref["greedy"][:SERVE_STEPS] if rank == 0 else None]
+            torch.distributed.broadcast_object_list(fed, src=0)
+            shape = ShapeConfig("serve", max_len, lanes, "decode")
+            placements = local_serve_shardings(
+                mesh, cfg, serve_state_specs(model, cfg, shape, lanes), lanes)
+            state = local_serve_state(model, cfg, shape, lanes, placements, mesh)
+            run["state_share"] = (
+                sum(x.numel() * x.element_size() for x in flatten_dict(state).values())
+                / sum(x.numel() * x.element_size()
+                      for x in flatten_dict(serve_state_specs(model, cfg, shape,
+                                                              lanes)).values()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            torch.distributed.barrier(group=torch.distributed.group.WORLD)
+            with use_reshard_rules(mesh, cfg), _KernelSpy() as spy:
+                launches.reset()  # the main path's counts start here ...
+                got = _serve_run(model, local, batch, state, SERVE_STEPS, tokens=fed[0],
+                                 shardings=placements)
+                counts = launches.snapshot()  # ... and are read here
+                run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                whole = ShardLayout(mesh, placements).gather(got.pop("state"))
+            run.update(launches={k: counts[k]["cuda"] for k in KERNEL_INFO},
+                       plain_calls=sum(counts[k]["torch"] for k in KERNEL_INFO),
+                       attention_calls={key: calls for (k, key), calls in spy.calls.items()
+                                        if k == "flash_attention"},
+                       prefill_ms=got["prefill_ms"],
+                       decode_ms=statistics.median(got["decode_ms"]),
+                       prefill_bytes=got["prefill_bytes"],
+                       decode_bytes=statistics.median(got["decode_bytes"]),
+                       # numpy: the rank's tensors do not outlive its process
+                       logits=[x.numpy() for x in got["logits"]],
+                       greedy=[x.numpy() for x in got["greedy"]])
+            if ref is not None:
+                run["err"] = _serve_errs(got, ref, whole)
+            runs.append(run)
+            del ref, got, whole, state
+            _free()
+        del model, full, local
+        _free()
+    return {"runs": runs, "seconds": time.perf_counter() - t_part}
+
+
+def _serve_errs(got: dict, ref: dict, whole: dict) -> dict:
+    """The sharded run against the one-rank run: every step's logits over
+    the one-rank logits' largest entry, the greedy tokens (equal wherever
+    the one-rank top-2 gap exceeds the logits' error), and the gathered
+    state leaf by leaf (floats over each leaf's largest entry, positions
+    and fill levels exact)."""
+    import torch
+
+    from repro_torch.utils.tree import flatten_dict
+
+    logits = [float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got["logits"], ref["logits"])]
+    differ, near = 0, 0
+    for a, b, la, lb in zip(got["greedy"], ref["greedy"], got["logits"], ref["logits"]):
+        err = float((la - lb).abs().max())
+        for lane in range(b.shape[0]):
+            if _top2_gap(lb[lane, -1]) > err:
+                differ += int(not torch.equal(a[lane], b[lane]))
+            else:
+                near += 1
+    state, worst = 0.0, None
+    want = flatten_dict(ref["state"])
+    for k, v in flatten_dict(whole).items():
+        w = want[k].to(v.device)
+        if v.dtype.is_floating_point:
+            e = float((v.double() - w.double()).abs().max() / w.abs().max().clamp_min(1e-30))
+        else:
+            e = 0.0 if torch.equal(v, w) else float("inf")
+        if e >= state:
+            state, worst = e, k
+    return {"prefill_logits": logits[0], "decode_logits": max(logits[1:]),
+            "tokens_differ": differ, "near_ties": near, "state": state, "state_worst": worst}
+
+
+def _serve_report(results: dict, name: str = "serve") -> dict:
+    """The serve part's gates and figures from both ranks' results, then the
+    attention kernel against its plain version (and SDPA with the KV heads
+    repeated) at the prefill shapes rank 0 gave it."""
+    import numpy as np
+    import torch
+
+    r0 = results[0][name]
+    bad = []
+    for i, run in enumerate(r0["runs"]):
+        mine = [res[name]["runs"][i] for res in sorted(results.values(),
+                                                       key=lambda r: r["rank"])]
+        for other in mine[1:]:  # every rank holds every lane's logits and tokens
+            require(all(np.array_equal(a, b) for a, b in zip(other["logits"], run["logits"]))
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(other["greedy"], run["greedy"])),
+                    f"serve {run['model']} b{run['lanes']} x {run['prompt']}: ranks differ")
+        attn = JAMBA_PERIOD.count("attn") if run["model"].startswith("jamba") else TP_LAYERS
+        for res in mine:
+            require(res["launches"]["flash_attention"] == attn and res["plain_calls"] == 0
+                    and sum(res["launches"].values()) == attn,
+                    f"serve {run['model']} rank: launches {res['launches']}, plain calls "
+                    f"{res['plain_calls']} (want {attn} flash_attention a prefill)")
+        err = run["err"]
+        bad += [(run["model"], run["prompt"], k, err[k]) for k in
+                ("prefill_logits", "decode_logits", "state") if not err[k] <= SERVE_AXIS_TOL]
+        if err["tokens_differ"]:
+            bad.append((run["model"], run["prompt"], "tokens_differ", err["tokens_differ"]))
+        print(f"dist serve: {run['model']} b{run['lanes']} x {run['prompt']} into {run['rows']} "
+              f"rows, {run['steps']} decode steps, fp32, kernels: vs one rank prefill logits "
+              f"{err['prefill_logits']:.3g}, decode logits {err['decode_logits']:.3g}, state "
+              f"{err['state']:.3g} ({err['state_worst']}), greedy tokens differ "
+              f"{err['tokens_differ']} ({err['near_ties']} near ties) (gated at "
+              f"{SERVE_AXIS_TOL:.0e}); per rank prefill "
+              + ", ".join(f"{r['prefill_ms']:.1f}" for r in mine) + " ms, decode step "
+              + ", ".join(f"{r['decode_ms']:.2f}" for r in mine) + " ms (not a speed figure: "
+              "the ranks share the card over host-staged gloo); bytes a rank per prefill "
+              + ", ".join(f"{r['prefill_bytes'] / 2**20:.1f}" for r in mine)
+              + " MiB, per decode step "
+              + ", ".join(f"{r['decode_bytes'] / 2**20:.3f}" for r in mine) + " MiB; peak "
+              + ", ".join(f"{r['peak_gib']:.2f}" for r in mine) + f" GiB a rank (one rank "
+              f"{run['ref_peak_gib']:.2f}); state share {run['state_share']:.4f}; launches "
+              + "; ".join(f"rank {j} {r['launches']}" for j, r in enumerate(mine)))
+    require(not bad, f"dist serve: off the one-rank steps: {bad}")
+    out = {"mesh": TP_MESH, "part": name, "seconds": r0["seconds"], "kernel_cases": {}}
+    out["launches_by_model"] = {
+        model: {k: sum(res[name]["runs"][i]["launches"][k] for res in results.values()
+                       for i, run in enumerate(r0["runs"]) if run["model"] == model)
+                for k in KERNEL_INFO}
+        for model in dict.fromkeys(run["model"] for run in r0["runs"])}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    print("dist serve: flash_attention at rank 0's prefill shapes, fp32 (yardstick: SDPA with "
+          "the KV heads repeated; the masks as one mask, or is_causal at "
+          f">= {SERVE_JAMBA_ROWS // 2} rows; the plain version {SERVE_PLAIN_ROWS} query rows "
+          "at a time)")
+    for run in r0["runs"]:
+        for spec, calls in sorted(run["attention_calls"].items(), key=str):
+            big = spec[1] >= SERVE_JAMBA_ROWS // 2
+            case = _flash_case(spec, "float32", gen, timed=True, repeated_kv=not big,
+                               plain_rows=SERVE_PLAIN_ROWS)
+            case["path"], case["calls_per_step"] = f"{name}:{run['model']}", calls
+            cases.append(case)
+            _free()
+    out["kernel_cases"]["flash_attention"] = cases
+    out["runs"] = [{k: v for k, v in run.items()
+                    if k not in ("logits", "greedy", "attention_calls")} for run in r0["runs"]]
+    for res in results.values():  # tensors and tuple keys: not for the JSON record
+        for run in res[name]["runs"]:
+            for k in ("logits", "greedy", "attention_calls"):
+                run.pop(k, None)
+    return out
+
+
+AXIS_PARTS = {"tp": _tp_part, "cnn": _cnn_part, "mamba": _mamba_part, "serve": _serve_part}
 
 
 def _rank_main(rank: int, n: int, port: int, queue, body, args: tuple) -> None:
@@ -4307,6 +4634,7 @@ def _rank_main(rank: int, n: int, port: int, queue, body, args: tuple) -> None:
 
         backend = train.init_distributed()
         require(backend == "gloo", f"dist: {n} ranks on one card chose {backend}")
+        _settle()
         queue.put((rank, "ok", body(rank, n, *args)))
     except BaseException:  # noqa: BLE001 - reported to the parent
         queue.put((rank, "error", traceback.format_exc()))
@@ -4367,8 +4695,9 @@ def _dist_rank(rank: int, n: int, plan_path: str, tmp: str) -> dict:
     res["nccl"] = _dist_nccl(cfg32, rank)
     res["cli"] = _dist_cli(rank, plan_path, Path(tmp))
     for name, part in AXIS_PARTS.items():
-        _free()
+        _settle()
         res[name] = part(rank, n)
+    res["gc_seconds"] = GC_SECONDS["seconds"]
     return res
 
 
@@ -4441,8 +4770,26 @@ def phase_dist() -> dict:
     6. the mamba part: Jamba-1.5-Large at full width cut to its first layer
        (a Mamba layer, 128 of its 256 heads a rank, with its dense MLP), b
        MAMBA_BATCH x MAMBA_SEQ, in TP_MODES, the references' slices kept on
-       the host.
-    Every part's fp32 main path (the kernels) is gated against the
+       the host;
+    7. the serve part: sharded prefill and greedy decode (``launch.steps
+       .make_prefill_step`` / ``make_decode_step`` with the serve state's
+       placements, ``parallel.sharding.local_serve_shardings``) on the same
+       mesh, fp32 compute, each rank holding its slices of the parameters
+       and a serve state built at its local shapes: Mixtral-8x7B (TP_LAYERS
+       layer, 4 of 8 experts, 16 of 32 q heads and 4 of 8 KV heads a rank;
+       its 4096-row window ring split by KV head) at b2 x 4608 (the ring
+       prefill) and b2 x 1024, and Jamba-1.5-Large's (mamba, attn) period
+       (JAMBA_EXPERTS experts, the config's bf16 parameters; 128 of 256
+       Mamba heads a rank) at b1 x 16640 into a 32768-row cache split by
+       position (16384 rows a rank, both holding prompt rows), each then
+       SERVE_STEPS decode steps fed the one-rank greedy tokens: every step's
+       logits and the gathered state against the one-rank steps (on rank 0)
+       at SERVE_AXIS_TOL, the greedy tokens equal wherever the one-rank top-2
+       gap exceeds the logits' error; one flash_attention launch a prefill on
+       each rank and no plain call; the bytes a prefill and a decode step
+       move a rank, peaks, ms; then the attention kernel against its plain
+       version and SDPA at rank 0's prefill shapes.
+    Every training part's fp32 main path (the kernels) is gated against the
     one-rank step, at DIST_TOL where fp32 rounding stays under it (the tp
     part, ViT-Base, Jamba's loss, norms and factors) and at AXIS_TOL where
     it does not: VGG-19's sharded and one-rank forwards round apart at
@@ -4453,7 +4800,7 @@ def phase_dist() -> dict:
     (``scripts/axis_parts.py vgg19_sound mamba_sound``).  A second witness
     holds both models at DIST_TOL in fp64 compute, the plain PyTorch
     versions on both sides (the kernels take fp32 and bf16; Jamba at b
-    MAMBA_BATCH x MAMBA_F64_SEQ).  Each part requires the
+    MAMBA_BATCH x MAMBA_F64_SEQ).  Each training part requires the
     four clipping kernels launched on its fp32 main path.  Timings of
     ranks that share a card are not a speed figure."""
     import shutil
@@ -4543,12 +4890,7 @@ def phase_dist() -> dict:
           f"{out['checkpoint_leaves']} leaves, the one-rank state's names and shapes; phase "
           f"processes {out['seconds']:.1f} s")
     for name in AXIS_PARTS:
-        out[name] = _axis_report(results, name)
-        require(all(out[name]["launches"][k]
-                    for k in ("ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad",
-                              "psg_contract")),
-                f"dist {name}: a clipping kernel never launched on the model axis: "
-                f"{out[name]['launches']}")
+        out[name] = (_serve_report if name == "serve" else _axis_report)(results, name)
     out["results"] = results
     out["plan_hash"] = plan_hash
     out["launches"] = main
@@ -4609,6 +4951,10 @@ def _axis_report(results: dict, name: str) -> dict:
         model: {k: sum(res[name]["steps"][i]["launches"][k] for res in results.values()
                        for i in main if r0["steps"][i]["model"] == model) for k in KERNEL_INFO}
         for model in dict.fromkeys(r0["steps"][i]["model"] for i in main)}
+    require(all(out["launches"][k] for k in ("ghost_norm_sq", "embedding_ghost_norm_sq",
+                                             "book_weighted_grad", "psg_contract")),
+            f"dist {name}: a clipping kernel never launched on the model axis: "
+            f"{out['launches']}")
     print(f"dist {name}: launches on the fp32 main path per rank "
           + "; ".join(f"rank {r} " + str({k: sum(res[name]["steps"][i]["launches"][k]
                                                  for i in main) for k in KERNEL_INFO})
@@ -4647,14 +4993,17 @@ def run() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for cuDNN and matmuls: fp32 comparisons in full fp32")
-    seconds = {}
+    seconds, gc_seconds = {}, {}
 
     def phase(name, fn, *args, **kw):
-        t0 = time.perf_counter()
+        _settle()
+        t0, gc0 = time.perf_counter(), GC_SECONDS["seconds"]
         res = fn(*args, **kw)
         seconds[name] = time.perf_counter() - t0
+        gc_seconds[name] = GC_SECONDS["seconds"] - gc0
         _free()
-        print(f"phase {name}: {seconds[name]:.1f} s")
+        print(f"phase {name}: {seconds[name]:.1f} s ({gc_seconds[name]:.1f} s of it in the "
+              "host's cyclic collector)")
         return res
 
     card = phase("card", phase_card)
@@ -4720,9 +5069,15 @@ def run() -> dict:
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f}")
+    print(f"host cyclic collector: {GC_SECONDS['seconds']:.1f} s in "
+          f"{GC_SECONDS['collections']} collections here (phases "
+          + ", ".join(f"{k} {v:.1f}" for k, v in gc_seconds.items() if v >= 0.5)
+          + "); dist ranks " + ", ".join(f"{res['gc_seconds']:.1f}"
+                                         for _, res in sorted(dist["results"].items())) + " s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build": build, "steps": STEPS, "seconds": seconds,
+        "gc_seconds": gc_seconds,
         "paths": {tag: {"batch": path["batch"], "image": path.get("image"),
                         "seq": path.get("seq"), "dtype": path["dtype"],
                         "expected": path["expected"], "modes": path["modes"]}

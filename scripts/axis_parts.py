@@ -7,10 +7,10 @@ then each named part on two gloo ranks sharing the card
     python3 scripts/axis_parts.py                 # the cnn and mamba parts
     python3 scripts/axis_parts.py conv_halves vgg19_forward vgg19_sound mamba_sound mamba
 
-Parts: ``tp``, ``cnn``, ``mamba`` (``chip_smoke.AXIS_PARTS``: their gates,
-then the kernels against their plain versions at the ranks' shapes, with
-the summed ms, plain, library, bound and profiler device ms of one step's
-calls); and
+Parts: ``tp``, ``cnn``, ``mamba``, ``serve`` (``chip_smoke.AXIS_PARTS``:
+their gates, then the kernels against their plain versions at the ranks'
+shapes, with the summed ms, plain, library, bound and profiler device ms
+of one step's calls, or of the serve part's prefills); and
 
 - ``conv_halves`` (one process): each VGG-19 convolution at b128 fp32,
   cuDNN on and off, computed whole and as its two halves of output
@@ -363,7 +363,7 @@ def _print_sound(name: str, res: dict) -> None:
 
 
 def _print_part(name: str, results: dict) -> None:
-    rep = cs._axis_report(results, name)
+    rep = (cs._serve_report if name == "serve" else cs._axis_report)(results, name)
     rows: dict = {}
     for kernel, cases in rep["kernel_cases"].items():
         for c in cases:

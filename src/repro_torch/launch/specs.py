@@ -66,6 +66,26 @@ def serve_state_specs(model, cfg: ArchConfig, shape: ShapeConfig, batch: int) ->
     return twin.init_state(batch, shape.seq_len)
 
 
+def local_serve_state(model, cfg: ArchConfig, shape: ShapeConfig, batch: int,
+                      placements: Any, mesh) -> dict:
+    """This rank's serve state of ``shape`` on the model's device, built at
+    its local shapes under ``placements`` (``parallel.sharding
+    .local_serve_shardings``) without the full state: every leaf holds the
+    value ``init_state`` fills it with (zeros, -1 in an empty cache row's
+    position, the sLSTM's stabiliser start).  ``parallel.fsdp.ShardLayout``
+    (``shard``, ``gather``) moves a full state to and from a rank's."""
+    from repro_torch.parallel.fsdp import local_shape
+
+    fills = flatten_dict(model.init_state(1, 1))
+    flat_p = flatten_dict(placements)
+    out = {}
+    for path, sp in flatten_dict(serve_state_specs(model, cfg, shape, batch)).items():
+        out[path] = torch.full(local_shape(sp.shape, flat_p[path], mesh),
+                               fills[path].reshape(-1)[0].item(), dtype=sp.dtype,
+                               device=model.device)
+    return unflatten_dict(out)
+
+
 def materialize(specs: Any, generator: torch.Generator, vocab: int = 128,
                 device=None) -> Any:
     """Concrete tensors from specs, on ``device`` (default: the generator's):

@@ -43,13 +43,21 @@ under ``dp_only``); the noise is drawn full-size from the replicated
 generator and each rank keeps its slice, so it equals the one-rank step's;
 the optimizer updates the shards.  The model axis runs the dense and MoE
 LMs, the CNNs and ViTs (their convolutions split on output channels) and
-Mamba's heads; still refused on a model axis larger than one
-(``reshard.ModelAxisNotPorted``): the prefill and decode steps.  The
-``vmap`` oracle raises ``VmapUnderShardingError`` on any mesh axis larger
-than one.
+Mamba's heads.  The ``vmap`` oracle raises ``VmapUnderShardingError`` on
+any mesh axis larger than one.
+
+The serving steps take ``shardings`` too: the serve state's placements
+(``parallel.sharding.local_serve_shardings``, the JAX package's
+``serve_state_shardings`` with the port's divergences), under which each
+rank holds its slices of the parameters and of the serve state: KV caches
+by KV head or, from 32768 rows, by position (context parallelism), SSM
+states by head.  Every rank is given the global prompts or tokens, keeps
+its lanes (over the batch axes, where they divide) and returns every
+lane's logits, so the greedy tokens are the same on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -61,6 +69,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 from repro_torch.parallel import reshard
 from repro_torch.parallel.fsdp import ShardLayout
+from repro_torch.parallel.sharding import entry_names
 from repro_torch.utils.tree import flatten_dict, tree_map
 
 
@@ -325,24 +334,65 @@ def make_noise_finalize(
     return finalize
 
 
-def make_prefill_step(model) -> Callable:
-    """(params, batch, state) -> (last-position logits (B, 1, V), state)."""
+def _lanes(shardings: Any) -> Optional[ShardLayout]:
+    """The lanes' layout of a sharded serve step (None: one process, or
+    lanes whole on every rank): the axes the state's per-lane ``pos``
+    splits over."""
+    if shardings is None:
+        return None
+    mesh = reshard.active_mesh()
+    if mesh is None or not mesh.live:
+        raise ValueError("a sharded serve step runs inside use_reshard_rules(mesh) on a live "
+                         "mesh (launch.mesh.make_mesh)")
+    axes = tuple(a for a in entry_names(shardings["pos"][0]) if a is not None)
+    lanes = ShardLayout(mesh, {}, batch_axes=axes)
+    return lanes if axes and lanes.n_batch > 1 else None
 
+
+def _serving(shardings: Any, lanes: Optional[ShardLayout]):
+    return (contextlib.nullcontext() if shardings is None
+            else reshard.use_serve_placements(shardings, lanes))
+
+
+def make_prefill_step(model, shardings: Any = None) -> Callable:
+    """(params, batch, state) -> (last-position logits (B, 1, V), state).
+
+    Sharded (``shardings``: the serve state's placements, ``parallel
+    .sharding.local_serve_shardings``; inside ``use_reshard_rules`` on a
+    live mesh): ``params`` and ``state`` are this rank's parts
+    (``parallel.fsdp.ShardLayout``, ``launch.specs.local_serve_state``),
+    ``batch`` the global one, of which the rank keeps its lanes; the logits
+    of every lane come back on every rank.
+    """
+    lanes = _lanes(shardings)
+
+    @torch.no_grad()
     def prefill_step(params, batch: dict, state: dict):
-        return model.prefill(params, batch, state)
+        with _serving(shardings, lanes):
+            logits, state = model.prefill(params, lanes.local_rows(batch) if lanes else batch,
+                                          state)
+        return (lanes.gather_rows(logits) if lanes else logits), state
 
     return prefill_step
 
 
-def make_decode_step(model) -> Callable:
+def make_decode_step(model, shardings: Any = None) -> Callable:
     """(params, tokens (B, 1), state) -> (next tokens (B, 1), logits, state).
 
     Greedy: ``torch.argmax`` returns the first index of a tie, as
-    ``jnp.argmax`` does.
+    ``jnp.argmax`` does.  ``shardings`` as ``make_prefill_step``'s: every
+    lane's tokens in, every lane's logits and next tokens out, on every
+    rank.
     """
+    lanes = _lanes(shardings)
 
+    @torch.no_grad()
     def decode_step(params, tokens: torch.Tensor, state: dict):
-        logits, state = model.decode_step(params, tokens, state)
+        with _serving(shardings, lanes):
+            logits, state = model.decode_step(
+                params, lanes.local_rows({"t": tokens})["t"] if lanes else tokens, state)
+        if lanes:
+            logits = lanes.gather_rows(logits)
         return logits[:, -1:].argmax(dim=-1), logits, state
 
     return decode_step

@@ -41,6 +41,15 @@ A recurrent layer's state is the same at every position, so its cache
 does not grow with the prompt; the serving engine carries it in its dense
 per-lane state.
 
+On a model axis (``launch.steps.make_prefill_step`` / ``make_decode_step``
+with the serve state's placements) the layers run on each rank's part of
+the state and weights, the embedding's lookup is vocabulary-parallel as in
+training, and ``prefill`` and ``decode_step`` gather the head's
+vocabulary-split logits, as ``forward_logits`` does.  With a data axis
+above one the lanes split over it and ``reshard_param`` gathers the
+fsdp-stored dims of every weight at its use; the JAX dry run leaves that
+plan to GSPMD (a divergence of communication only).
+
 The VLM family (``cfg.prefix_tokens``): ``batch["prefix"]`` (B,
 prefix_tokens, prefix_dim) holds the image tower's patch embeddings (the
 JAX package's stub for CLIP ViT-L/14), which the ``prefix_proj`` Dense (a
@@ -175,9 +184,14 @@ class DecoderLM:
         x, _ = self._trunk(params, batch["tokens"], Ctx.disabled(), prefix=prefix)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
-        logits = self.lm_head(params["lm_head"], x, Ctx.disabled())
+        return self._whole_logits(self.lm_head(params["lm_head"], x, Ctx.disabled()))
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Every vocabulary entry's logits, gathered where the head's
+        vocabulary is split over the model axis (every rank then holds the
+        same logits, and the same greedy token)."""
         if self._vocab_split():
-            logits = collectives.all_gather_dim(logits, -1, reshard.model_group())
+            return collectives.all_gather_dim(logits, -1, reshard.model_group())
         return logits
 
     def _vocab_split(self) -> bool:
@@ -198,7 +212,7 @@ class DecoderLM:
         x, cache = self._trunk(params, batch["tokens"], Ctx.disabled(),
                                prefix=batch.get("prefix"), cache=state["cache"],
                                dispatch="global")
-        logits = self.lm_head(params["lm_head"], x[:, -1:], Ctx.disabled())
+        logits = self._whole_logits(self.lm_head(params["lm_head"], x[:, -1:], Ctx.disabled()))
         return logits, {"cache": cache, "pos": state["pos"] + x.shape[1]}
 
     def decode_step(self, params, tokens: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
@@ -207,6 +221,6 @@ class DecoderLM:
         positions = state["pos"][:, None] + torch.arange(tokens.shape[1], device=tokens.device)
         x, cache = self._trunk(params, tokens, Ctx.disabled(), cache=state["cache"],
                                positions=positions, dispatch="per_sample")  # per lane
-        logits = self.lm_head(params["lm_head"], x, Ctx.disabled())
+        logits = self._whole_logits(self.lm_head(params["lm_head"], x, Ctx.disabled()))
         return logits, {"cache": cache, "pos": state["pos"] + tokens.shape[1]}
 

@@ -56,6 +56,31 @@ whole and the needed heads picked.  Where "heads" splits inside a head,
 every rank gathers q and attends with all heads, and hands ``o`` its own
 columns.
 
+Serving on the model axis, the layout chosen by the serve state's
+placements (``parallel.sharding.local_serve_shardings``), never by the
+call: a rank takes its q heads as in training, and its cache holds
+
+- this rank's KV heads (a cache shorter than 32768 rows whose KV heads
+  divide the axis: Mixtral's 4096-row ring), exactly the heads its q heads
+  read: prefill, ring prefill and decode run on them unchanged;
+- every KV head (the heads do not divide): the new rows are gathered whole,
+  and the rank reads the KV heads its q heads need;
+- every KV head of rows ``[c S / n, (c + 1) S / n)`` on rank ``c`` of
+  ``reshard.cache_seq_group()`` (a cache of 32768 rows or more: context
+  parallelism; also under ``dp_only``, where the weights are whole).  A
+  prefill gathers the prompt's KV heads, attends through the kernel with
+  the rank's q heads and keeps the rows of the rank's positions; a decode
+  step writes each lane's row on the rank that owns its slot, gathers the
+  query's heads, takes every head's partial softmax ``(o, m, l)`` over the
+  rank's rows (``decode_partials``: the flash form's one block, or the
+  blocked form's ``cp_blocks / n``) and merges the ranks' partials
+  (``collectives.merge_softmax``, as ``blocked_decode_attention`` merges
+  its blocks), keeping the rank's heads for the row-parallel ``o``.  Where
+  the JAX package leaves this plan to GSPMD, the merge here is explicit.
+
+Cross-attention runs on the ``dp_only`` families only, whose weights are
+whole: its cache stays whole.
+
 Divergences by design: the cache's ``pos`` (B, length) and ``idx`` (B,)
 are per lane, where the JAX cache has one ``pos`` (length,) and a scalar
 ``idx`` under the engine's ``vmap``, so one batched decode serves lanes at
@@ -106,6 +131,22 @@ def blocked_decode_attention(
     empty are masked, as in the JAX function (whose ``causal`` flag it
     ignores: decode is causal by construction)."""
     b, _, h, hd = q.shape
+    o, _, l = decode_partials(q, k, v, pos, qpos, n_blocks=n_blocks, window=window)
+    o = o / l.clamp_min(1e-30)[..., None]
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_partials(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor, qpos: torch.Tensor,
+    *, n_blocks: int = 1, window: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The partial softmax of one query per lane over the cache rows given,
+    fp32: (o (B, K, g, hd), the unnormalised sum of exp(s - m) v; m (B, K,
+    g), the largest live score, -1e30 where no row is live; l (B, K, g), the
+    sum of exp(s - m)), from a partial per block of S / n_blocks rows
+    combined over the blocks.  A masked row adds nothing, so a cache with no
+    live row gives o = 0, l = 0."""
+    b, _, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
     s_len = k.shape[1]
@@ -123,18 +164,17 @@ def blocked_decode_attention(
     mask = (pb <= qp) & (pb >= 0)
     if window is not None:
         mask &= (qp - pb) < window
-    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+    live = mask[:, :, None, None, :]
+    scores = scores.masked_fill(~live, -1e30)
 
     m_b = scores.amax(dim=-1)  # (B, nb, K, g)
-    p = torch.exp(scores - m_b[..., None])
+    p = torch.exp(scores - m_b[..., None]) * live
     l_b = p.sum(dim=-1)
     o_b = torch.einsum("bnkgs,bnskd->bnkgd", p, vb)
     # combine across blocks (the JAX package's only cross-shard reduction)
     m = m_b.amax(dim=1, keepdim=True)
     w = torch.exp(m_b - m)
-    l = (w * l_b).sum(dim=1)
-    o = (w[..., None] * o_b).sum(dim=1) / l.clamp_min(1e-30)[..., None]
-    return o.reshape(b, 1, h, hd).to(q.dtype)
+    return (w[..., None] * o_b).sum(dim=1), m[:, 0], (w * l_b).sum(dim=1)
 
 
 def make_kv_cache(
@@ -214,62 +254,132 @@ class Attention(Module):
             return self._cross(params, q, ctx, cache=cache, kv_src=kv_src)
         k = self.wk(params["k"], x, ctx.scope("k"))
         v = self.wv(params["v"], x, ctx.scope("v"))
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        if cache is not None:
+            return self._serve(params, q, k, v, ctx, positions, cache)
         narrow_out = False
         if reshard.model_size() > 1:
-            if cache is not None:
-                reshard.refuse_model_axis(f"{self.name}: the KV cache")
             q, k, v, narrow_out = self._model_heads(q, k, v)
         else:
             q = q.reshape(b, s, self.n_heads, self.head_dim)
             k = k.reshape(b, s, self.n_kv, self.head_dim)
             v = v.reshape(b, s, self.n_kv, self.head_dim)
-        if positions is None:
-            positions = torch.arange(s, device=x.device)
         if self.use_rope:
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
+        if self.causal or self.window is not None or self.n_kv != self.n_heads:
+            out = flash_attention_train(q, k, v, causal=self.causal, window=self.window,
+                                        block_q=self.block_q, block_kv=self.block_kv)
+        else:
+            out = attention(q, k, v)
+        out = out.reshape(b, s, -1)
+        if narrow_out:  # every head computed here; o takes this rank's columns
+            out = collectives.split_along(out, -1, reshard.model_group())
+        return self.wo(params["o"], out, ctx.scope("o"))
 
-        if cache is None:
-            if self.causal or self.window is not None or self.n_kv != self.n_heads:
-                out = flash_attention_train(q, k, v, causal=self.causal, window=self.window,
-                                            block_q=self.block_q, block_kv=self.block_kv)
-            else:
-                out = attention(q, k, v)
-            out = out.reshape(b, s, -1)
-            if narrow_out:  # every head computed here; o takes this rank's columns
-                out = collectives.split_along(out, -1, reshard.model_group())
-            return self.wo(params["o"], out, ctx.scope("o"))
-
-        idx, length = cache["idx"], cache["k"].shape[1]
+    def _serve(self, params: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               ctx: Ctx, positions: torch.Tensor, cache: dict):
+        """A prefill or decode step over ``cache`` from the projections'
+        outputs (B, S, columns), writing the new rows in place: (y, cache).
+        The cache's layout is its placement's: whole, this rank's KV heads
+        (its shapes say so: the heads its q heads read), or, where the serve
+        step's placements split the rows (``reshard.cache_seq_group()``),
+        rows ``[c S / n, (c + 1) S / n)`` of every KV head on rank ``c`` of
+        that group."""
+        b, s = q.shape[:2]
+        hd, heads, kv = self.head_dim, self.n_heads, self.n_kv
+        n, group = reshard.model_size(), reshard.model_group()
+        q_split = q.shape[-1] != heads * hd
+        local = q_split and heads % n == 0  # whole q heads to a rank
+        if q_split and not local:  # split inside a head: every rank attends with all
+            q = collectives.all_gather_dim(q, -1, group)
+        first, hq = (reshard.model_coord() * heads // n, heads // n) if local else (0, heads)
+        if k.shape[-1] % hd:  # K/V split inside a head: taken whole
+            k, v = (collectives.all_gather_dim(x, -1, group) for x in (k, v))
+        q, k, v = (x.reshape(b, s, -1, hd) for x in (q, k, v))
+        if self.use_rope:
+            q = apply_rope(q, positions, self.rope_theta)
+            k = apply_rope(k, positions, self.rope_theta)
+        cached, seq_group = cache["k"].shape[2], reshard.cache_seq_group()
+        if cached == kv and k.shape[2] != kv:  # a whole cache of heads split by rank
+            k, v = (collectives.all_gather_dim(x, 2, group) for x in (k, v))
+        elif cached != k.shape[2] or (seq_group is not None and cached != kv):
+            raise ValueError(f"{self.name}: a cache of {cached} KV heads, this rank's "
+                             f"projections give {k.shape[2]} of {kv}")
+        g = heads // kv
+        need = [(first + i) // g for i in range(hq)] if cached == kv else None
         kc, vc = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
         mask = dict(causal=self.causal, window=self.window)
-        if s == 1:  # decode: one row per lane at its ring slot
-            lanes = torch.arange(b, device=x.device)
+        idx = cache["idx"]
+        if seq_group is not None:
+            out = self._serve_rows(q, kc, vc, cache, seq_group, need, first, hq, mask)
+        elif s == 1:  # decode: one row per lane at its ring slot
+            length = cache["k"].shape[1]
+            lanes = torch.arange(b, device=q.device)
             slot = idx % length
             cache["k"][lanes, slot] = kc[:, 0]
             cache["v"][lanes, slot] = vc[:, 0]
             cache["pos"][lanes, slot] = idx
+            ck, cv = _needed(cache["k"], cache["v"], need)
             if length >= self.cp_threshold:
-                out = blocked_decode_attention(q, cache["k"], cache["v"], cache["pos"], idx,
+                out = blocked_decode_attention(q, ck, cv, cache["pos"], idx,
                                                n_blocks=self.cp_blocks, window=self.window)
             else:
-                out = dispatch.flash_attention(q, cache["k"], cache["v"], q_offset=idx,
+                out = dispatch.flash_attention(q, ck, cv, q_offset=idx,
                                                kv_positions=cache["pos"], **mask)
-        elif s <= length:  # prefill from empty (idx 0): the prompt's own K/V
-            cache["k"][:, :s] = kc
-            cache["v"][:, :s] = vc
-            cache["pos"][:, :s] = torch.arange(s, device=x.device)
-            out = dispatch.flash_attention(q, kc, vc, **mask)
-        else:  # ring prefill: only the last ``length`` rows stay reachable
-            shift = s % length
-            cache["k"].copy_(torch.roll(kc[:, s - length:], shift, dims=1))
-            cache["v"].copy_(torch.roll(vc[:, s - length:], shift, dims=1))
-            ring = torch.roll(torch.arange(s - length, s, device=x.device), shift)
-            cache["pos"].copy_(ring.expand(b, length))
-            out = dispatch.flash_attention(q, kc, vc, **mask)
+        else:
+            rows, pos = _prefill_rows(kc, vc, cache["k"].shape[1])
+            cache["k"][:, :rows[0].shape[1]] = rows[0]
+            cache["v"][:, :rows[1].shape[1]] = rows[1]
+            cache["pos"][:, :pos.shape[0]] = pos
+            out = dispatch.flash_attention(q, *_needed(kc, vc, need), **mask)
         idx += s
-        y = self.wo(params["o"], out.reshape(b, s, -1), ctx.scope("o"))
-        return y, cache
+        out = out.reshape(b, s, -1)
+        if q_split and not local:  # every head computed here; o takes this rank's columns
+            out = collectives.split_along(out, -1, group)
+        return self.wo(params["o"], out, ctx.scope("o")), cache
+
+    def _serve_rows(self, q, kc, vc, cache: dict, group, need, first: int, hq: int,
+                    mask: dict) -> torch.Tensor:
+        """Prefill or decode over a cache whose rows are split over ``group``
+        (context parallelism), every KV head whole: (B, S, hq, hd), this
+        rank's q heads.  A prefill attends over the prompt's own K/V through
+        the kernel and keeps the rows of this rank's positions; a decode
+        writes each lane's row on the rank that owns its slot, gathers the
+        query's heads, takes a partial softmax over this rank's rows for
+        every head (``decode_partials``: one block, or ``cp_blocks / n``
+        once the cache holds ``cp_threshold`` rows) and merges the ranks'
+        partials (``collectives.merge_softmax``)."""
+        b, s = q.shape[:2]
+        dist = torch.distributed
+        n, c = dist.get_world_size(group), dist.get_rank(group)
+        rows = cache["k"].shape[1]
+        length = rows * n
+        lo = c * rows
+        if s > 1:  # the prompt's rows of this rank's positions
+            (k_rows, v_rows), pos = _prefill_rows(kc, vc, length)
+            cnt = max(0, min(pos.shape[0] - lo, rows))
+            cache["k"][:, :cnt] = k_rows[:, lo:lo + cnt]
+            cache["v"][:, :cnt] = v_rows[:, lo:lo + cnt]
+            cache["pos"][:, :cnt] = pos[lo:lo + cnt]
+            return dispatch.flash_attention(q, *_needed(kc, vc, need), **mask)
+        idx = cache["idx"]
+        lanes = torch.arange(b, device=q.device)
+        slot = idx % length
+        mine = (slot // rows) == c  # the lanes whose new row this rank holds
+        at = slot % rows
+        for name, new in (("k", kc[:, 0]), ("v", vc[:, 0]), ("pos", idx)):
+            old = cache[name][lanes, at]
+            cache[name][lanes, at] = torch.where(mine.reshape(-1, *[1] * (new.ndim - 1)),
+                                                 new, old)
+        if hq != self.n_heads:
+            q = collectives.all_gather_dim(q, 2, reshard.model_group())
+        blocks = self.cp_blocks // n if length >= self.cp_threshold else 1
+        o, m, l = decode_partials(q, cache["k"], cache["v"], cache["pos"], idx,
+                                  n_blocks=blocks, window=self.window)
+        out = collectives.merge_softmax(o, m, l, group).reshape(b, 1, self.n_heads, -1)
+        return out[:, :, first:first + hq].to(q.dtype)
 
     def _model_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         """This rank's attention heads on the model axis, from the projections'
@@ -292,13 +402,7 @@ class Attention(Module):
                 k, v = gather(k, -1, group), gather(v, -1, group)
             elif local:  # whole on every rank, used by this rank's heads only
                 k, v = collectives.copy_to_model(k, group), collectives.copy_to_model(v, group)
-            k, v = (x.reshape(b, s, kv, hd) for x in (k, v))
-            if hq % (hi - lo) == 0 and need == [lo + i * (hi - lo) // hq
-                                                 for i in range(hq)]:  # a GQA block
-                k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-            else:  # one KV head per q head
-                idx = torch.tensor(need, device=k.device)
-                k, v = k.index_select(2, idx), v.index_select(2, idx)
+            k, v = _needed(*(x.reshape(b, s, kv, hd) for x in (k, v)), need)
         q = q.reshape(b, s, hq, hd)
         k, v = (x.reshape(b, s, -1, hd) for x in (k, v))
         return q, k, v, q_split and not local
@@ -327,3 +431,29 @@ class Attention(Module):
             return self.wo(params["o"], out.reshape(b, s, -1), ctx.scope("o"))
         out = dispatch.flash_attention(q, k, v, causal=False)
         return self.wo(params["o"], out.reshape(b, s, -1), ctx.scope("o")), cache
+
+
+def _needed(k: torch.Tensor, v: torch.Tensor, need: Optional[list]) -> tuple:
+    """The KV heads (dim 2) that q heads read, ``need[i]`` for q head i: a
+    GQA block as a view, else one KV head per q head; all of them for
+    ``need`` None."""
+    if need is None:
+        return k, v
+    lo, hi, hq = need[0], need[-1] + 1, len(need)
+    if hq % (hi - lo) == 0 and need == [lo + i * (hi - lo) // hq for i in range(hq)]:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor(need, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _prefill_rows(k: torch.Tensor, v: torch.Tensor, length: int) -> tuple:
+    """A prompt's cache rows from an empty cache of ``length`` rows:
+    ((k, v) (B, R, K, hd), positions (R,)), rows 0..R-1.  A prompt that fits
+    fills its own rows; a longer one (a window's ring) keeps its last
+    ``length``, slot ``j`` holding position ``p`` with ``p % length == j``."""
+    s = k.shape[1]
+    if s <= length:
+        return (k, v), torch.arange(s, device=k.device)
+    shift = s % length
+    ring = torch.roll(torch.arange(s - length, s, device=k.device), shift)
+    return tuple(torch.roll(x[:, s - length:], shift, dims=1) for x in (k, v)), ring

@@ -31,7 +31,12 @@ runs on the local heads unchanged.
 With a cache (serving) the block reads its conv and SSM states and writes
 the new ones into the cache it is given, in place, as the attention block
 writes its KV rows: one token goes through ``ssm_decode_step``, a prompt
-through ``chunked_ssm`` from the carried state.
+through ``chunked_ssm`` from the carried state.  On a model axis the cache
+holds this rank's part: the SSM state (B, H / model, ds, dh) of its heads,
+as the JAX placement splits it, and the conv state (B, k - 1, d_inner /
+model) of its channels, where the JAX placement keeps it whole (a
+divergence by design: the depthwise conv runs on the rank's channels, so
+the whole state would only be sliced, and gathered back to be written).
 """
 from __future__ import annotations
 
@@ -133,6 +138,9 @@ class MambaBlock(Module):
             b_in, c_in = collectives.copy_to_model(b_in, group), collectives.copy_to_model(
                 c_in, group)
 
+        if cache is not None and cache["ssm"].shape[1] != hl:
+            raise ValueError(f"{self.name}: a serve state of {cache['ssm'].shape[1]} heads, "
+                             f"this rank runs {hl} (parallel.sharding.local_serve_shardings)")
         xs, conv_state = self.conv(params["conv"], xs, ctx.scope("conv"),
                                    state=None if cache is None else cache["conv"])
         xs = F.silu(xs)

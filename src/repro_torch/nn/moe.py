@@ -28,7 +28,14 @@ expert).  The router is whole and its fp32 logits the same on every rank,
 so the dispatch tables, capacity drops included, are the one-rank step's.
 The input enters through ``copy_to_model`` and the gates too (each rank's
 slots add to their gradients), and the combine is this rank's partial sum,
-then ``reduce_from_model``.
+then ``reduce_from_model``.  Serving runs the same split: the prefill's
+``global`` dispatch routes all B x T tokens, then each rank runs its slots;
+the decode keeps its per-lane dispatch (``models/lm.py``).  Where the
+serve step's lanes split over the batch axes (``reshard.serve_lanes()``),
+each rank holds B/n of them: the router's fp32 logits are all-gathered
+over the lanes' group, the tables are built over every lane's tokens with
+the capacity of B x T, as on one rank, and each rank keeps the entries of
+its own tokens (another rank's token in a slot reads as empty).
 """
 from __future__ import annotations
 
@@ -66,6 +73,17 @@ def dispatch_tables(logits: torch.Tensor, top_k: int, capacity: int):
     table = table.reshape(b, e, capacity + 1)[:, :, :capacity]
     shape = (b, t, top_k)
     return table, idx, slot.reshape(shape), gates, keep.reshape(shape)
+
+
+def local_tables(table, idx, slot, gates, keep, first: int, count: int):
+    """Of tables ``dispatch_tables`` built over the tokens of every lane
+    (one dispatch row), those of the ``count`` tokens from ``first``: their
+    routing entries, and the slot table with their indices made local and
+    every other token's slot empty (index ``count``)."""
+    mine = (table >= first) & (table < first + count)
+    table = torch.where(mine, table - first, torch.full_like(table, count))
+    rows = slice(first, first + count)
+    return (table, idx[:, rows], slot[:, rows], gates[:, rows], keep[:, rows])
 
 
 def dispatch_tokens(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -152,11 +170,16 @@ class MoE(Module):
         up_axes, down_axes = ("expert", "embed", "moe_mlp"), ("expert", "moe_mlp", "embed")
         split = reshard.model_dim(up_axes, (e, d, f))  # 0: experts, 2: d_ff, None
         group = reshard.model_group()
-        if split is not None and dispatch != "per_sample":
-            reshard.refuse_model_axis(f"{self.name}: global dispatch (serving)")
         logits = self.router(params["router"], x, ctx.scope("router"))  # fp32
-        cap = self.capacity(x.shape[1])
-        table, idx, slot, gates, keep = dispatch_tables(logits, self.top_k, cap)
+        lanes = reshard.serve_lanes() if dispatch == "global" else None
+        if lanes is None:
+            cap = self.capacity(x.shape[1])
+            table, idx, slot, gates, keep = dispatch_tables(logits, self.top_k, cap)
+        else:  # every lane's tokens share the capacity, as on one rank
+            every = lanes.gather_rows(logits.reshape(b, t, e)).reshape(1, -1, e)
+            cap = self.capacity(every.shape[1])
+            table, idx, slot, gates, keep = local_tables(
+                *dispatch_tables(every, self.top_k, cap), lanes.batch_rank * b * t, b * t)
         first = None
         if split is not None:  # every rank's slots add to x's and the gates' gradients
             x = collectives.copy_to_model(x, group)

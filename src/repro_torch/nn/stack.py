@@ -59,7 +59,9 @@ checkpointed layer keeps only that slice as its input (the JAX docstring's
 "activation-checkpoint residuals ... stored sharded T/model_size");
 each layer gathers the whole sequence first (``unshard_seq``), so its taps
 and norms see all of it, and the stack hands the whole sequence on.
-Serving on such an axis is refused (the next slice).
+Serving keeps the whole sequence on every rank; its caches hold each
+rank's part of the serve state (``parallel.sharding.local_serve_shardings``),
+and the blocks run on them as they are.
 
 ``SequentialBlocks`` runs a period of different blocks in order (Jamba's
 Mamba and attention layers, xLSTM's sLSTM and mLSTMs), its parameters and
@@ -77,7 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.taps import Ctx
 from repro_torch.nn.module import AxesTree, Module, Params
-from repro_torch.parallel.reshard import refuse_model_axis, shard_seq, unshard_seq
+from repro_torch.parallel.reshard import shard_seq, unshard_seq
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
 
 
@@ -171,7 +173,6 @@ class ScannedStack(Module):
                 else:
                     x = layer(x, *leaves)
             return unshard_seq(x, t)
-        refuse_model_axis(f"{self.name}: prefill and decode")
         flat_cache = flatten_dict(cache)
         for index, leaves in enumerate(per_layer):
             layer_cache = unflatten_dict({k: v[index] for k, v in flat_cache.items()})

@@ -13,6 +13,11 @@ program issue the same collectives in the same order.
 all_gather's output, a reduce_scatter's input, an all_reduce's tensor):
 the traffic a step puts on the mesh's axes (``reset_bytes`` zeroes it).
 
+Serving on the model axis (no autograd) uses ``all_reduce`` with ``op="max"``,
+``all_gather_dim`` over heads (a decode's query heads, a cache's KV heads)
+and ``merge_softmax``, the context-parallel decode's merge of each rank's
+partial softmax ``(o, m, l)``.
+
 The autograd functions of tensor and sequence parallelism (Megatron's
 conjugate pairs) are here too, each over the group it is given:
 
@@ -83,6 +88,20 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return out
 
 
+@torch.no_grad()
+def merge_softmax(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, group) -> torch.Tensor:
+    """The attention output of every rank's rows from each rank's partial
+    softmax: ``o`` (..., hd) the unnormalised sum of exp(s - m) v over this
+    rank's rows, ``m`` (...) their largest score, ``l`` (...) the sum of
+    exp(s - m).  One all-reduce ``max`` of m, then one all-reduce of l and o
+    rescaled to it (packed in one tensor); a rank that holds no live row
+    (m at the masked score, l = 0, o = 0) adds nothing."""
+    top = all_reduce(m, group, op="max")
+    w = torch.exp(m - top)
+    packed = all_reduce(torch.cat([w[..., None] * o, (w * l)[..., None]], dim=-1), group)
+    return packed[..., :-1] / packed[..., -1:].clamp_min(1e-30)
+
+
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     n = _dist().get_world_size(group)
@@ -116,7 +135,6 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     total = x.detach().clone().contiguous()
     _dist().all_reduce(total, group=group)
     return total.narrow(dim, r * (x.shape[dim] // n), x.shape[dim] // n).contiguous()
-
 
 
 def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -28,6 +28,11 @@ whole leaf does; the clipping engine gathers the book-keeping gradient
 that split taps of such a leaf computed at their slices).  Under ``dp_only``
 the model axis carries batch: the batch group is data x model, and every
 gradient is also summed over the model axis.
+
+A ``ShardLayout`` moves any tree between its full leaves and a rank's
+slices under its placements, a serve state too (whose lanes may split
+one dim over data x model, row-major); ``local_shape`` gives a leaf's
+slice shape on any mesh.
 """
 from __future__ import annotations
 
@@ -38,18 +43,14 @@ import torch
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import Placement
+from repro_torch.parallel.sharding import Placement, axis_size, entry_names
 from repro_torch.utils.tree import flatten_dict, unflatten_dict
-
-
-def _entry_names(entry) -> tuple:
-    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def axis_dim(placement: Placement, axis: str) -> Optional[int]:
     """The dim ``placement`` puts on mesh axis ``axis`` (None: whole on it)."""
     for dim, entry in enumerate(placement):
-        if axis in _entry_names(entry):
+        if axis in entry_names(entry):
             return dim
     return None
 
@@ -120,15 +121,15 @@ class ShardLayout:
                                for path, x in flatten_dict(full_tree).items()})
 
     def gather(self, local_tree: Any) -> Any:
-        """The full leaves of a parameter-shaped tree: one all-gather per
-        sharded dim of each leaf (data, then model), in path order (the same
-        on every rank)."""
+        """The full leaves of a sharded tree: one all-gather per sharded dim
+        of each leaf (model, then data: a dim split over data x model is
+        row-major), in path order (the same on every rank)."""
         out = {}
         for path, x in flatten_dict(local_tree).items():
-            if self.dims[path] is not None:
-                x = collectives.all_gather_dim(x, self.dims[path], self.group)
             if self.model_dims[path] is not None:
                 x = collectives.all_gather_dim(x, self.model_dims[path], self.model_group)
+            if self.dims[path] is not None:
+                x = collectives.all_gather_dim(x, self.dims[path], self.group)
             out[path] = x
         return unflatten_dict(out)
 
@@ -190,6 +191,13 @@ class ShardLayout:
         that share rows hold the same scalar)."""
         return collectives.all_gather_dim(x.detach().reshape(1).float(), 0,
                                           self.batch_group).mean()
+
+
+def local_shape(shape, placement: Placement, mesh: Mesh) -> tuple:
+    """A leaf's shape on one rank of ``mesh`` (live or not) under
+    ``placement``: each placed dim over the product of its axes."""
+    return tuple(n // axis_size(mesh, tuple(a for a in entry_names(e) if a is not None))
+                 for n, e in zip(shape, placement))
 
 
 def sharded_fraction(layout: ShardLayout, local: Any) -> dict[str, float]:

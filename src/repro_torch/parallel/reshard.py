@@ -31,10 +31,10 @@ of a leaf stored whole (a norm gain over split channels), each with the
 backward that leaves every model rank a complete gradient.  Ported: the
 training step of the dense and MoE decoder LMs, the CNNs, the ViTs and
 Mamba's heads (Jamba), and ``dp_only`` configurations, whose model axis
-carries batch (``model_size`` is then 1: no module splits).  Still
-refused, with ``ModelAxisNotPorted`` naming the next slice, where the model
-axis is larger than one: the sharded prefill and decode steps (the layer
-stack's serving path, the KV cache, the MoE's global dispatch).
+carries batch (``model_size`` is then 1: no module splits); and the
+decoder LMs' prefill and decode steps, whose serve state is held at the
+placements ``use_serve_placements`` declares: ``cache_seq_group`` is the
+group a KV cache's rows are split over (context parallelism).
 
 Active inside ``use_reshard_rules(mesh, cfg)`` on a live mesh; a no-op
 otherwise.  The rules are process-wide (a stack), not a context variable
@@ -51,19 +51,20 @@ import torch
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import _spec_for, axis_size, logical_rules, mesh_axes
+from repro_torch.parallel.sharding import (
+    _spec_for,
+    axis_size,
+    kv_rows_split,
+    logical_rules,
+    mesh_axes,
+)
 
 _STACK: list[tuple] = []  # (mesh, rules, fsdp axes, mesh_axes) of each enclosing context
-
-NEXT_SLICE = "the next slice of the port (sharded prefill and decode on the model axis)"
+_SERVE: list[tuple] = []  # of each enclosing serve step: (KV cache rows split, lanes)
 
 
 def _state() -> Optional[tuple]:
     return _STACK[-1] if _STACK else None
-
-
-class ModelAxisNotPorted(NotImplementedError):
-    """A path the port does not run on a model axis larger than one yet."""
 
 
 @contextlib.contextmanager
@@ -122,11 +123,37 @@ def model_dim(axes: tuple, shape: tuple) -> Optional[int]:
     return None
 
 
-def refuse_model_axis(what: str) -> None:
-    """Raise ``ModelAxisNotPorted`` for ``what`` where the model axis splits."""
-    if model_size() > 1:
-        raise ModelAxisNotPorted(
-            f"{what} on mesh {active_mesh().shape}: the model axis comes with {NEXT_SLICE}")
+@contextlib.contextmanager
+def use_serve_placements(placements, lanes=None):
+    """The serve state's placements (``sharding.local_serve_shardings``) for
+    the prefill or decode step run inside: where they put a KV cache's rows
+    on "model", the attention blocks run their context-parallel forms over
+    ``cache_seq_group()``.  ``lanes``: the ``fsdp.ShardLayout`` the step's
+    lanes split over (None: every lane on every rank), ``serve_lanes()``."""
+    _SERVE.append((kv_rows_split(placements), lanes))
+    try:
+        yield
+    finally:
+        _SERVE.pop()
+
+
+def cache_seq_group():
+    """The process group a KV cache's rows (S) are split over in the
+    enclosing serve step, or None (every row on every rank): the mesh's
+    "model" axis, which is not always ``model_group()``: under ``dp_only``
+    ``model_size()`` is 1 and the weights are whole, yet a long cache of a
+    batch that does not divide still splits its rows there."""
+    if not (_SERVE and _SERVE[-1][0]):
+        return None
+    return active_mesh().group("model")
+
+
+def serve_lanes():
+    """The layout of the lanes in the enclosing serve step where they split
+    over the batch axes (each rank holds ``n_batch``-th of them, in rank
+    order), or None: the MoE's global dispatch routes every rank's tokens
+    together over it."""
+    return _SERVE[-1][1] if _SERVE else None
 
 
 def reshard_param(w: torch.Tensor, axes: tuple, shape: tuple) -> torch.Tensor:

@@ -19,7 +19,10 @@ dim ``None``, one mesh axis name, or a tuple of them.  The rules are
 evaluated for any mesh; the step runs them on a live one (``parallel
 .fsdp``, ``parallel.reshard``): the data axis, and the model axis of the
 training step of the decoder LMs (dense, MoE, Jamba's Mamba heads), the
-CNNs and ViTs, and of the ``dp_only`` configurations.
+CNNs and ViTs, and of the ``dp_only`` configurations; and the serve
+state of the decoder LMs' prefill and decode steps
+(``local_serve_shardings``: the JAX rule's placements with the port's
+divergences).
 """
 from __future__ import annotations
 
@@ -244,3 +247,51 @@ def serve_state_shardings(
         return tuple(spec)
 
     return unflatten_dict({k: one(k, v) for k, v in flatten_dict(abstract_state).items()})
+
+
+def local_serve_shardings(
+    mesh: Mesh, cfg: ArchConfig, abstract_state: Any, batch_size: int
+) -> Any:
+    """The serve state's placements as a rank of the port holds it: the JAX
+    rule's (``serve_state_shardings``) with three divergences by design.
+
+    - A KV cache's ``pos`` (..., B, S), one row of positions per lane (the
+      JAX cache has one ``pos`` (S,)), follows its ``k``'s S entry; ``idx``
+      (..., B) stays whole on the model axis.
+    - A Mamba conv state (..., B, k - 1, d_inner) keeps this rank's channels
+      where its SSM state splits by head, as the depthwise conv runs on the
+      rank's channels (the JAX rule keeps it whole).
+    - Under ``dp_only`` (the weights whole: every rank computes every head)
+      a leaf the rule splits by head stays whole (KV caches by KV head, SSM
+      states); only a long cache's rows split over "model".  Cross-attention
+      caches (``xkv``, the ``dp_only`` families') stay whole everywhere.
+    """
+    flat = flatten_dict(serve_state_shardings(mesh, cfg, abstract_state, batch_size))
+    dp_only = not mesh_axes(mesh, cfg)["model"]
+    out = {}
+    for path, spec in flat.items():
+        spec = list(spec)
+        name = path.rsplit("/", 1)[-1]
+        parent = path[: -len(name) - 1]
+        if parent.endswith("/xkv") or (dp_only and name in ("k", "v")):
+            spec[-2] = None  # the KV heads whole
+        if dp_only and name == "ssm":
+            spec[-3] = None
+        if name == "pos" and f"{parent}/k" in flat:
+            spec[-1] = flat[f"{parent}/k"][-3]
+        if name == "conv" and f"{parent}/ssm" in flat and not dp_only:
+            spec[-1] = flat[f"{parent}/ssm"][-3]
+        out[path] = tuple(spec)
+    return unflatten_dict(out)
+
+
+def kv_rows_split(placements: Any) -> bool:
+    """Whether a serve state's placements put its KV caches' rows (S, dim
+    -3 of ``.../kv/k``) on the model axis."""
+    return any(path.endswith("/kv/k") and "model" in entry_names(spec[-3])
+               for path, spec in flatten_dict(placements).items())
+
+
+def entry_names(entry) -> tuple:
+    """The mesh axes of one placement entry (None: none)."""
+    return entry if isinstance(entry, tuple) else (entry,)

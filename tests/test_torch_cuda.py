@@ -783,3 +783,19 @@ def test_reduced_wave_on_the_card(gen, name):
     got = torch.cat(wave["logits"], dim=1)
     assert _rel(got, want) < 1e-4
     assert torch.equal(got.argmax(-1), wave["stepped"])
+
+
+def test_sharded_prefill_launches_the_kernel(gen):
+    """Reduced Mixtral's prefill on a (1, 2) mesh of two gloo ranks sharing
+    the card (``make_prefill_step`` with the serve state's placements): each
+    rank's prefill launches the attention kernel once a layer, no plain
+    call, and both ranks return the same logits."""
+    import numpy as np
+
+    from torch_dist import run_ranks
+    from torch_model_axis_serve_cases import prefill_launches
+
+    ranks = run_ranks(prefill_launches, 2)
+    for res in ranks:
+        assert res["launches"] == {"cuda": res["layers"], "torch": 0}, res["launches"]
+    assert np.array_equal(ranks[0]["logits"], ranks[1]["logits"])

@@ -194,3 +194,17 @@ def test_lm_example_runs_on_the_cpu(arch, mode):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert f"{mode} on cpu" in out.stdout and "step 0: loss" in out.stdout
+
+
+def test_quickstart_example_runs_on_the_cpu():
+    """``examples/quickstart_torch.py``: the privacy engine on reduced Yi-6B
+    (mixed_ghost, validate, clipped gradients, privatize, the accountant)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py"), "--device", "cpu",
+         "--steps", "1"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "sigma=" in out.stdout and "step 0: loss=" in out.stdout
+    assert "privacy spent: eps=" in out.stdout

@@ -22,10 +22,9 @@
   and clipped sums equal to one rank's, the split bias's norm summed over
   the ranks, the whole one counted once;
 - ``per_host_batch`` on a model axis that spans processes;
-- the refusal that stays, Mixtral's prefill (naming the sharded serving
-  slice), and what the convolutions' and Mamba's slice ported running and
-  splitting: ``shard_heads``, a convolution (VGG-11: ``cfg`` None resolves
-  as tensor-parallel), Jamba's Mamba;
+- the paths once refused, running and splitting: ``shard_heads``, a
+  convolution (VGG-11: ``cfg`` None resolves as tensor-parallel), Jamba's
+  Mamba, Mixtral's sharded prefill;
 - the tuner on a split tap: timed at the slice, keyed on the full shape.
 
 Tolerance 1e-5 relative (fp32; the sums run in another order).
@@ -169,20 +168,20 @@ def test_reduce_grads_on_both_axes():
 
 @pytest.mark.parametrize("path", ["shard_heads", "conv", "mamba", "prefill"])
 def test_refusals_name_the_next_slice(path):
-    """Sharded prefill and decode stay refused, naming their slice; the
-    paths the convolutions' and Mamba's slice ported run and split: a
+    """The paths once refused on a model axis above one run and split: a
     tensor's heads, VGG-11's first conv (64 output channels, 32 a rank),
     Jamba's ``in_x`` (this rank's half of d_inner 128) beside its whole
-    ``in_bcdt``."""
+    ``in_bcdt``, and Mixtral's prefill through ``make_prefill_step`` (its
+    16-row cache by KV head, 2 of 4 a rank; every lane's logits over the
+    whole vocabulary, the one-rank prefill's at 1e-5)."""
     for res in _fleets()[2]:
         msg = res["refusals"][path]
-        if path == "prefill":
-            assert msg != "ran" and "the next slice" in msg, msg
-            assert "prefill and decode" in msg, msg
-            continue
         assert msg == "ran", msg
         shards = res["refusals"]["shards"][path]
-        if path == "shard_heads":
+        if path == "prefill":
+            assert shards["k"] == (4, 2, 16, 2, 16) and shards["logits"] == (2, 1, 128)
+            assert shards["err"] <= TOL, shards
+        elif path == "shard_heads":
             assert shards == (2, 4, 2, 8)
         elif path == "conv":
             assert shards == {"conv0/out": (27, 32, 1)}

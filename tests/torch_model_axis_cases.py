@@ -38,7 +38,7 @@ from repro_torch.launch.steps import (
 from repro_torch.optim import adam, sgd, warmup_cosine
 from repro_torch.parallel import collectives, reshard
 from repro_torch.parallel.fsdp import ShardLayout, sharded_fraction
-from repro_torch.parallel.reshard import ModelAxisNotPorted, use_reshard_rules
+from repro_torch.parallel.reshard import use_reshard_rules
 from repro_torch.parallel.sharding import state_shardings
 from repro_torch.policies import make_policy
 from repro_torch.tuner.plan import shape_fingerprint
@@ -143,7 +143,7 @@ def fleet_cases(rank: int, n: int, arch: str, shape: tuple, cases: list) -> dict
     for c in cases:
         try:
             out[c.key] = step_case(arch, c, shape)
-        except (VmapUnderShardingError, ModelAxisNotPorted) as e:
+        except VmapUnderShardingError as e:
             out[c.key] = type(e).__name__
     return out
 
@@ -330,11 +330,15 @@ def _sharded(model, cfg, mesh):
 
 
 def unit_refusals(rank: int, n: int) -> dict:
-    """The paths once refused on a model axis larger than one: {path: the
-    error's message, or "ran"}, and under "shards" what the ported ones
-    split (``shard_heads``' output shape, the taps' ``local``)."""
+    """The paths once refused on a model axis larger than one: {path: "ran"
+    or the error's message}, and under "shards" what each splits
+    (``shard_heads``' output shape, the taps' ``local``, the sharded
+    prefill's cache leaf and logits shapes and its error against one
+    rank's)."""
     from repro_torch.core.taps import Ctx
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.cnn import VGG
+    from repro_torch.parallel.sharding import local_serve_shardings
 
     mesh = make_mesh((1, n), "cpu")
     out = {"shards": {}}
@@ -344,8 +348,19 @@ def unit_refusals(rank: int, n: int) -> dict:
             with torch.no_grad():
                 out["shards"][name] = fn()
             out[name] = "ran"
-        except ModelAxisNotPorted as e:
-            out[name] = str(e)
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+
+    def prefill(model, cfg, params, tokens, want):
+        """The sharded prefill: the rank's first KV cache leaf, the logits'
+        shape and their error against the one-rank prefill's ``want``."""
+        state = model.init_state(2, 16)
+        placements = local_serve_shardings(mesh, cfg, state, 2)
+        logits, state = make_prefill_step(model, placements)(
+            params, {"tokens": tokens}, ShardLayout(mesh, placements).shard(state))
+        k = next(v for p, v in flatten_dict(state).items() if p.endswith("/kv/k"))
+        return {"k": tuple(k.shape), "logits": tuple(logits.shape),
+                "err": float((logits - want).abs().max() / want.abs().max())}
 
     def taps(model, params, batch, *names):
         """The ``local`` of the named taps, from one discovering forward."""
@@ -363,10 +378,13 @@ def unit_refusals(rank: int, n: int) -> dict:
         model = build_model(cfg, device="cpu")
         params = _sharded(model, cfg, mesh)
         batch = synthetic_arch_batch(cfg, batch=2, seq=8, device="cpu")
+        if arch == "mixtral-8x7b":  # the one-rank prefill, outside the mesh's rules
+            with torch.no_grad():
+                want, _ = model.prefill(model.init(torch.Generator().manual_seed(0)),
+                                        {"tokens": batch["tokens"]}, model.init_state(2, 16))
         with use_reshard_rules(mesh, cfg):
             if arch == "mixtral-8x7b":
-                attempt("prefill", lambda: model.prefill(params, {"tokens": batch["tokens"]},
-                                                         model.init_state(2, 16)))
+                attempt("prefill", lambda: prefill(model, cfg, params, batch["tokens"], want))
             else:
                 attempt("mamba", lambda: taps(model, params, batch,
                                               "layers/0/mamba/in_x/out",
