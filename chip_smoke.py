@@ -89,7 +89,8 @@ failure exits non-zero and prints no result:
             loss, kernel launches per
             step against the taps' expectation (and no plain-version call),
             step time (median and quartiles), peak memory, and one profiled
-            step's device busy time and idle share.  The launch counts are
+            step's device busy time and idle share (not measured where the
+            trace lacks a launch's device event).  The launch counts are
             zeroed just before each path's steps and read just after them;
 5. compare  per training path, one clipped step's per-sample norms and
             gradient sum on the kernels against the plain versions
@@ -208,7 +209,23 @@ failure exits non-zero and prints no result:
             beside the trace's, checkpoint bytes, snapshot, write and restore
             seconds, the deterministic embedding gradient's cost, peak
             memory, the four clipping kernels at this path's shapes;
-17. dist     data-parallel + FSDP DP-SGD (parallel/, launch/steps with
+17. dryrun   the dry run (python -m repro_torch.launch.dryrun's evaluation,
+            launch/dryrun.py) in a subprocess of its own (its cells in a
+            pool of processes, on the host's CPU): this torch's
+            version, its fake process group and the trackers printed; one
+            rank's step over fake tensors predicted for the card (the
+            kernels' abstract evaluation at the H100's constants) for
+            VGG-19 b128 mixed_ghost and bk_mixed, Yi-6B (1 layer, 4 x 4096)
+            and Mixtral-8x7B (1 layer, 2 x 4096) bk_mixed: the kernels'
+            launches per step and the state's bytes gated equal to the slice
+            phase's live steps, the predicted peak reported against
+            max_memory_allocated with their ratio; the dist phase's tp part
+            (its fp32 steps on the (1, 2) mesh) predicted too, and after the
+            dist phase its bytes a rank and launches gated equal to rank 0's
+            readings; the target constants of the kernels' abstract
+            evaluation (132 SMs, the embedding norm's occupancy and sort
+            capacity) gated against this card's;
+18. dist     data-parallel + FSDP DP-SGD (parallel/, launch/steps with
             shardings) on the train_cli cut, two gloo ranks spawned on the
             one card: a step in non_private, ghost, fastgradclip,
             mixed_ghost and bk_mixed and a quantile bk_mixed step with a
@@ -250,6 +267,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1166,18 +1185,31 @@ def _profiled(fn, median_ms: float, host_ops: bool = True) -> dict:
     kept only to report that overhead.  ``host_ops=False`` traces the
     device activity alone and reads its raw events (the busy time is the
     kernels' either way): an xLSTM step's ~3.4e5 small launches took
-    minutes to trace with the host ops on the H100 80GB HBM3 (700 W).
+    minutes to trace with the host ops on the H100 80GB HBM3 (700 W).  As
+    ``device_ms`` counts its trace's device events, the trace must hold one
+    device event for every kernel launch, copy and memset the host made,
+    under the same correlation id (``_trace_complete``); else CUPTI dropped
+    events, and the busy time and idle share are None, not measured, with
+    the counts printed.  The trace follows a dropped warm-up holding one
+    small kernel: a session's first device event goes missing on the card
+    (each LM step's trace lacked exactly one without it).
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    complete, ran, launched, unmatched = _trace_complete(prof)
     by_name, calls, kernels = {}, {}, 0
     if host_ops:
         events = ((evt.key, getattr(evt, "self_device_time_total", None), evt.count,
@@ -1186,17 +1218,22 @@ def _profiled(fn, median_ms: float, host_ops: bool = True) -> dict:
         events = ((e.name(), e.duration_ns() / 1e3, 1, e.device_type())
                   for e in prof.profiler.kineto_results.events())
     for key, us, count, device in events:
-        if us and us > 0 and device == torch.autograd.DeviceType.CUDA:
+        if (us and us > 0 and device == torch.autograd.DeviceType.CUDA
+                and not key.startswith("ProfilerStep")):
             by_name[key] = by_name.get(key, 0.0) + us / 1e3
             calls[key] = calls.get(key, 0) + count
             kernels += count
-    busy = sum(by_name.values())
-    idle = 1 - busy / median_ms
+    busy = sum(by_name.values()) if complete else None
+    idle = 1 - busy / median_ms if complete else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # the patch copies (im2col) are listed whatever their rank
     im2col = {k: (by_name[k], calls[k]) for k in by_name if "im2col" in k}
-    print(f"  traced step: device busy {busy:.2f} ms of a {median_ms:.2f} ms median step "
-          f"(idle share {idle:.2f}) in {kernels} device kernels; traced wall {wall_ms:.2f} "
+    measured = (f"device busy {busy:.2f} ms of a {median_ms:.2f} ms median step (idle share "
+                f"{idle:.2f})" if complete else
+                f"device busy not measured: the trace holds {ran} device events for "
+                f"{launched} launches, copies and memsets, not one each (unmatched: "
+                f"{unmatched})")
+    print(f"  traced step: {measured} in {kernels} device kernels; traced wall {wall_ms:.2f} "
           f"ms ({wall_ms / median_ms:.2f}x the median, profiler overhead); "
           "top kernels by device time:")
     for name, ms in top:
@@ -1206,6 +1243,30 @@ def _profiled(fn, median_ms: float, host_ops: bool = True) -> dict:
     return {"traced_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
             "device_kernels": kernels, "top": [(k, ms, calls[k]) for k, ms in top],
             "im2col": im2col}
+
+
+# the host calls whose device work a trace records under their correlation id
+_TRACED_CALLS = ("Launch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
+def _trace_complete(prof) -> tuple[bool, int, int, list]:
+    """(complete, device events, host launches, copies and memsets, the
+    first few names without a partner) of a profiler trace: complete where
+    every such host call's correlation id has its device event and every
+    device event its host call."""
+    import torch
+
+    ran, launched = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("ProfilerStep"):  # the schedule's step annotation
+            continue
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ran[e.correlation_id()] = e.name()
+        elif any(k in e.name() for k in _TRACED_CALLS) and "HostFunc" not in e.name():
+            launched[e.correlation_id()] = e.name()
+    unmatched = [name[:60] for c, name in {**ran, **launched}.items()
+                 if (c in ran) != (c in launched)][:3]
+    return bool(ran) and ran.keys() == launched.keys(), len(ran), len(launched), unmatched
 
 
 def _time_train_steps(model, path: dict, mode: str, batches: list, n_steps: int,
@@ -1917,15 +1978,16 @@ def phase_remat(paths: dict, slices: dict) -> dict:
                        "losses": [x for r in rs for x in r["losses"]],
                        "plain_calls": sum(r["plain_calls"] for r in rs)}
                 busy = row["trace"]["device_busy_ms"]
-                row["idle_share"] = 1 - busy / row["median_step_ms"]
+                row["idle_share"] = None if busy is None else 1 - busy / row["median_step_ms"]
                 key = f"{mode} remat {'on' if remat else 'off'}"
                 print(f"remat {tag} b{path['batch']} {key}: step ms median "
                       f"{row['median_step_ms']:.2f} (q1 {row['q1_step_ms']:.2f}, q3 "
                       f"{row['q3_step_ms']:.2f}; round medians "
                       + " ".join(f"{x:.2f}" for x in row["round_median_ms"])
                       + f"), host enqueue {row['median_host_ms']:.2f} ms, device busy "
-                      f"{busy:.2f} ms (idle share {row['idle_share']:.2f}), peak "
-                      f"{row['peak_bytes'] / 2**20:.1f} MiB")
+                      + (f"{busy:.2f} ms (idle share {row['idle_share']:.2f})"
+                         if busy is not None else "not measured")
+                      + f", peak {row['peak_bytes'] / 2**20:.1f} MiB")
                 require(all(math.isfinite(x) for x in row["losses"]), f"remat {tag} {key}: loss")
                 require(row["plain_calls"] == 0, f"remat {tag} {key}: plain-version calls")
                 rows[key] = row
@@ -1936,7 +1998,8 @@ def phase_remat(paths: dict, slices: dict) -> dict:
                   f"({on['median_step_ms'] - off['median_step_ms']:+.2f} ms), host enqueue "
                   f"{on['median_host_ms'] / off['median_host_ms']:.3f} "
                   f"({on['median_host_ms'] - off['median_host_ms']:+.2f} ms), device busy "
-                  f"{on_busy / off_busy:.3f} ({on_busy - off_busy:+.2f} ms)")
+                  + (f"{on_busy / off_busy:.3f} ({on_busy - off_busy:+.2f} ms)"
+                     if on_busy is not None and off_busy is not None else "not measured"))
         del models, batches
         _free()
         for mode in REMAT_MODES:
@@ -2557,9 +2620,10 @@ def phase_serve() -> dict:
     print(f"serve: kernel launches {counts}")
     require(m["tokens"] == len(PROMPT_LENS) * MAX_NEW and m["requests"] == len(PROMPT_LENS),
             f"serve: {m['tokens']} tokens from {m['requests']} requests")
-    require(counts["flash_attention"] == {"cuda": cfg.n_layers * len(PROMPT_LENS), "torch": 0},
+    require(counts["flash_attention"] == {"cuda": cfg.n_layers * len(PROMPT_LENS), "torch": 0,
+                                          "fake": 0},
             f"serve: flash_attention launches {counts['flash_attention']}")
-    require(all(v == {"cuda": 0, "torch": 0} for k, v in counts.items()
+    require(all(v == {"cuda": 0, "torch": 0, "fake": 0} for k, v in counts.items()
                 if k != "flash_attention"), f"serve: other kernels ran {counts}")
     out = {"metrics": m, "wall_s": wall_s, "peak_bytes": peak, "engine_steps": engine.steps,
            "n_params": n_params, "init_s": init_s,
@@ -2932,10 +2996,27 @@ def _model_params_batch(path: dict, dtype=None, remat: bool = True, batch: int =
 
 
 def _paths() -> dict:
-    """The three training paths, with the kernel shapes and expected
-    launches of their taps.  Each phase builds a path's model anew (seed 0)
-    and drops it after, so one path's memory never counts in another's
-    peak."""
+    """The training paths (``_path_specs``), with the kernel shapes and
+    expected launches of their taps.  Each phase builds a path's model anew
+    (seed 0) and drops it after, so one path's memory never counts in
+    another's peak."""
+    specs = _path_specs()
+    for tag, path in specs.items():
+        model, params, batch = _model_params_batch(path)
+        path["dtype"] = _name(model.dtype)
+        path["shapes"], path["expected"], path["taps_shapes"] = main_path_shapes(
+            model, params, batch)
+        if not any(mode.endswith("_taps") for mode in path["modes"]):
+            path["taps_shapes"] = {k: [] for k in path["taps_shapes"]}
+        print(f"{tag} at batch {path['batch']} ({path['dtype']} compute): "
+              f"expected kernel launches per step {path['expected']}")
+        del model, params, batch
+    return specs
+
+
+def _path_specs() -> dict:
+    """The training paths: each one's model builder (on the card unless
+    asked otherwise), batch, modes and optimizer."""
     import torch
 
     from repro_torch.configs.paper_native import BEIT_LARGE, VIT_BASE
@@ -2953,8 +3034,8 @@ def _paths() -> dict:
         # the paper's Table 6 batch; DP modes step on the privatized mean of
         # gradients clipped to norm 1, non_private (as in the JAX package) on
         # the plain sum of unclipped gradients (per-sample norms ~200 at init)
-        "vgg19": dict(build=lambda dtype=None, remat=True: VGG(
-                          "vgg19", dtype=getattr(torch, dtype or "float32"), device="cuda"),
+        "vgg19": dict(build=lambda dtype=None, remat=True, device="cuda": VGG(
+                          "vgg19", dtype=getattr(torch, dtype or "float32"), device=device),
                       batch=128, image=32, n_classes=10, modes=MODES,
                       lr={"non_private": 0.05 / (128 * 200), "dp": 0.05}),
         # ViT-Base/16 on CIFAR-10 upscaled to 224, as the paper fine-tunes
@@ -2974,16 +3055,6 @@ def _paths() -> dict:
                            lr={"non_private": 1e-3 / 32, "dp": 1e-3}),
     }
     specs.update(_lm_paths())
-    for tag, path in specs.items():
-        model, params, batch = _model_params_batch(path)
-        path["dtype"] = _name(model.dtype)
-        path["shapes"], path["expected"], path["taps_shapes"] = main_path_shapes(
-            model, params, batch)
-        if not any(mode.endswith("_taps") for mode in path["modes"]):
-            path["taps_shapes"] = {k: [] for k in path["taps_shapes"]}
-        print(f"{tag} at batch {path['batch']} ({path['dtype']} compute): "
-              f"expected kernel launches per step {path['expected']}")
-        del model, params, batch
     return specs
 
 
@@ -3032,13 +3103,13 @@ def _lm_paths() -> dict:
     from repro_torch.optim import adamw, sgd
 
     def lm(name, layers, **fixed):
-        def build(dtype=None, remat=True, n_layers=layers):
+        def build(dtype=None, remat=True, n_layers=layers, device="cuda"):
             over = {} if dtype is None else {"dtype": dtype, "param_dtype": dtype}
             if get_arch(name).encoder_layers:  # Whisper: the encoder cut to the same depth
                 over["encoder_layers"] = n_layers
             cfg = dataclasses.replace(get_arch(name), n_layers=n_layers, remat=remat,
                                       **fixed, **over)
-            return build_model(cfg, device="cuda")
+            return build_model(cfg, device=device)
         return build
 
     return {
@@ -3124,9 +3195,10 @@ def phase_moe_serve() -> dict:
           f"{m['ttft_p50_ms']:.1f} ms, per-token p50 {m['per_token_p50_ms']:.1f} ms, peak "
           f"{peak / 2**20:.1f} MiB; kernel launches {counts}")
     require(m["tokens"] == len(prompts) * MOE_SERVE_NEW, f"moe_serve: {m['tokens']} tokens")
-    require(counts["flash_attention"] == {"cuda": cfg.n_layers * len(prompts), "torch": 0},
+    require(counts["flash_attention"] == {"cuda": cfg.n_layers * len(prompts), "torch": 0,
+                                          "fake": 0},
             f"moe_serve: flash_attention launches {counts['flash_attention']}")
-    require(all(v == {"cuda": 0, "torch": 0} for k, v in counts.items()
+    require(all(v == {"cuda": 0, "torch": 0, "fake": 0} for k, v in counts.items()
                 if k != "flash_attention"), f"moe_serve: other kernels ran {counts}")
     want = sequential_decode(model, params, prompts, max_new=MOE_SERVE_NEW,
                              view_len=engine.view_len)
@@ -3204,9 +3276,9 @@ def phase_hybrid_serve() -> dict:
               f"{counts}")
         require(m["tokens"] == len(prompts) * HYBRID_SERVE_NEW,
                 f"hybrid_serve {tag}: {m['tokens']} tokens")
-        require(counts["flash_attention"] == {"cuda": attn * len(prompts), "torch": 0},
+        require(counts["flash_attention"] == {"cuda": attn * len(prompts), "torch": 0, "fake": 0},
                 f"hybrid_serve {tag}: flash_attention launches {counts['flash_attention']}")
-        require(all(v == {"cuda": 0, "torch": 0} for k, v in counts.items()
+        require(all(v == {"cuda": 0, "torch": 0, "fake": 0} for k, v in counts.items()
                     if k != "flash_attention"), f"hybrid_serve {tag}: other kernels ran {counts}")
         want = sequential_decode(model, params, prompts, max_new=HYBRID_SERVE_NEW,
                                  view_len=engine.view_len)
@@ -4987,6 +5059,167 @@ def _axis_report(results: dict, name: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- dryrun --
+# The single-card cells the slice phase runs live, (path, mode), that the
+# dry run predicts; and the dist phase's tp part's fp32 steps (TP_MODES; its
+# bf16 steps are left out for the phase's time)
+DRYRUN_CELLS = (("vgg19", "mixed_ghost"), ("vgg19", "bk_mixed"), ("yi_6b", "bk_mixed"),
+                ("mixtral", "bk_mixed"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def _dryrun_task(task: tuple) -> dict:
+    """One prediction of the dryrun phase, ("cell", path tag, mode) or
+    ("tp", None, mode), in a process of the child's pool: the kernels'
+    launches, the state's, arguments' and peak bytes, the bytes accessed
+    and the collectives' bytes by op, and the seconds it took."""
+    import torch
+
+    from repro_torch.configs.registry import build_model
+    from repro_torch.data.synthetic import synthetic_arch_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import constant, sgd
+
+    torch.set_num_threads(1)  # fake tensors compute nothing
+    kind, tag, mode = task
+    t0 = time.perf_counter()
+    if kind == "cell":
+        path = _path_specs()[tag]
+        res = dryrun.evaluate_train(
+            lambda: path["build"](device="cpu"), None, Mesh(("data", "model"), (1, 1)),
+            lambda: _path_batch(path, path["batch"], 0, device="cpu"),
+            path.get("optimizer", lambda: sgd(momentum=0.9))(), mode=mode)
+        head = {"tag": tag, "mode": mode}
+    else:
+        cfg = _tp_cfg("float32")
+        res = dryrun.evaluate_train(
+            lambda: build_model(cfg, device="cpu"), cfg, Mesh(("data", "model"), TP_MESH),
+            lambda: synthetic_arch_batch(cfg, batch=TP_BATCH, seq=TP_SEQ, device="cpu"),
+            sgd(momentum=0.9), mode=mode, schedule=constant(1e-3), policy=_dist_policy("fixed"))
+        head = {"mode": mode, "dtype": cfg.dtype, "seq": TP_SEQ}
+    by_op = dict.fromkeys(("all_gather", "reduce_scatter", "all_reduce"), 0)
+    for op, n, _ in res["records"]:
+        by_op[op] += n
+    return {**head, "launches": {k: res["launches"][k] for k in KERNEL_INFO},
+            "state_bytes": res["state_bytes"], "argument_bytes": res["argument_bytes"],
+            "peak_bytes": res["peak_bytes"], "bytes_accessed": res["bytes_accessed"],
+            "bytes": by_op, "collectives": len(res["records"]),
+            "seconds": time.perf_counter() - t0}
+
+
+def _dryrun_child() -> dict:
+    """The dryrun phase's evaluations (``launch.dryrun``), run in a process
+    of their own so that no process group outlives them: this torch's
+    version, its fake process group and the trackers, then each cell's
+    prediction for the card over fake tensors (the kernels' abstract
+    evaluation at the H100's constants), the cells in a pool of processes
+    (each ``_dryrun_task``; the CPU only)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+    import torch.distributed._tools.mem_tracker as mem_tracker
+    from torch.testing._internal.distributed import fake_pg
+
+    env = {"torch": torch.__version__, "fake_pg": f"{fake_pg.__name__}.FakeStore "
+           f"{'present' if hasattr(fake_pg, 'FakeStore') else 'missing'}",
+           "tracker": "repro_torch.launch.analysis.MemoryTracker (a TorchDispatchMode); "
+           f"torch's MemTracker {'present' if hasattr(mem_tracker, 'MemTracker') else 'missing'}"}
+    tasks = [("cell", tag, mode) for tag, mode in DRYRUN_CELLS]
+    tasks += [("tp", None, mode) for mode in TP_MODES]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(tasks), mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(_dryrun_task, tasks))
+    return {"env": env, "cells": done[:len(DRYRUN_CELLS)], "tp": done[len(DRYRUN_CELLS):]}
+
+
+def phase_dryrun(slices: dict) -> dict:
+    """The dry run's predictions for the card (``_dryrun_child``, in a
+    subprocess) held against what the card ran: per single-card cell the
+    kernels' launches per step and the state's bytes against the slice
+    phase's live step (gated, exactly), the tracked peak against
+    ``max_memory_allocated`` (reported, with the ratio); the tp part's
+    predictions are gated after the dist phase (``dryrun_tp_gate``).  Also
+    the target card's constants of the kernels' abstract evaluation
+    (``kernels.checks.TARGET_*``) against this card's readings."""
+    import torch
+
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.ghost_norm.ghost_norm import embedding_slots, embedding_sort_capacity
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    require(sms == checks.TARGET_SM_COUNT, f"dryrun: {sms} SMs, the target has "
+            f"{checks.TARGET_SM_COUNT}")
+    for dt, per_sm in checks.TARGET_EMBED_BLOCKS_PER_SM.items():
+        require(embedding_slots(0, dt) == sms * per_sm,
+                f"dryrun: embedding slots {embedding_slots(0, dt)} for {dt}, target {per_sm}/SM")
+    require(embedding_sort_capacity(0) == checks.TARGET_EMBED_SORT_CAPACITY,
+            f"dryrun: sort capacity {embedding_sort_capacity(0)}, target "
+            f"{checks.TARGET_EMBED_SORT_CAPACITY}")
+    t0 = time.perf_counter()
+    # a session of its own: on a timeout the child and its pool go together
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys; sys.path[:0] = sys.argv[1:3]; "
+         "import chip_smoke; print(json.dumps(chip_smoke._dryrun_child()))", str(ROOT),
+         str(SRC)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"dryrun: no result within {DRYRUN_TIMEOUT_S} s") from None
+    require(proc.returncode == 0, f"dryrun: the evaluation failed:\n{stderr[-4000:]}")
+    pred = json.loads(stdout.strip().splitlines()[-1])
+    print(f"dryrun: {sys.executable} torch {pred['env']['torch']}; fake process group "
+          f"{pred['env']['fake_pg']}; tracker {pred['env']['tracker']}; {sms} SMs, embedding "
+          f"slots and sort capacity as the target's; evaluated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for cell in pred["cells"]:
+        live = slices[cell["tag"]][cell["mode"]]
+        got = {k: float(v) for k, v in cell["launches"].items()}
+        ratio = cell["peak_bytes"] / live["peak_bytes"]
+        print(f"dryrun {cell['tag']} {cell['mode']}: launches predicted {cell['launches']}, "
+              f"live {live['launches_per_step']}; state {cell['state_bytes']} B predicted, "
+              f"{live['state_bytes']} B live; peak {cell['peak_bytes'] / 2**20:.1f} MiB "
+              f"predicted, {live['peak_bytes'] / 2**20:.1f} MiB max_memory_allocated (ratio "
+              f"{ratio:.3f}, reported); {cell['bytes_accessed']:.3e} bytes accessed op by op; "
+              f"evaluated in {cell['seconds']:.1f} s")
+        require(got == live["launches_per_step"],
+                f"dryrun {cell['tag']} {cell['mode']}: launches {got} predicted, "
+                f"{live['launches_per_step']} live")
+        require(cell["state_bytes"] == live["state_bytes"],
+                f"dryrun {cell['tag']} {cell['mode']}: state {cell['state_bytes']} B predicted, "
+                f"{live['state_bytes']} B live")
+        cell["live_peak_bytes"], cell["peak_ratio"] = live["peak_bytes"], ratio
+    return pred
+
+
+def dryrun_tp_gate(pred: dict, dist: dict) -> dict:
+    """The dry run's tp-part steps against the dist phase's first ones (its
+    fp32 steps, in TP_MODES' order): each step's
+    bytes a rank gathers, reduce-scatters and all-reduces and its kernel
+    launches, predicted for rank 0, against rank 0's ``collectives.BYTES``
+    and launch counts (gated, exactly); the peak reported."""
+    steps = dist["tp"]["steps"]
+    for p, st in zip(pred["tp"], steps):
+        key = (st["mode"], st["dtype"], st["seq"])
+        require((p["mode"], p["dtype"], p["seq"]) == key, f"dryrun tp: {p} against {key}")
+        print(f"dryrun tp {st['mode']} {st['dtype']} b{st['batch']} x {st['seq']}: bytes a rank "
+              f"predicted {p['bytes']}, live rank 0 {st['bytes']}; launches predicted "
+              f"{p['launches']}, live {st['launches']}; peak {p['peak_bytes'] / 2**30:.2f} GiB "
+              f"predicted, {st['peak_gib']:.2f} GiB live (ratio "
+              f"{p['peak_bytes'] / 2**30 / st['peak_gib']:.3f}, reported); "
+              f"{p['collectives']} collectives, evaluated in {p['seconds']:.1f} s")
+        require(p["bytes"] == st["bytes"], f"dryrun tp {key}: bytes {p['bytes']} predicted, "
+                f"{st['bytes']} live")
+        require(p["launches"] == st["launches"], f"dryrun tp {key}: launches {p['launches']} "
+                f"predicted, {st['launches']} live")
+        p["live_peak_gib"] = st["peak_gib"]
+    return pred
+
+
 def run() -> dict:
     import torch
 
@@ -5055,7 +5288,9 @@ def run() -> dict:
     wave_serve = phase("wave_serve", phase_wave_serve)
     tuner_cli = phase("tuner_cli", phase_tuner_cli, paths["yi_6b"])
     train_cli = phase("train_cli", phase_train_cli)
+    dryrun = phase("dryrun", phase_dryrun, slices)
     dist = phase("dist", phase_dist)
+    phase("dryrun tp", dryrun_tp_gate, dryrun, dist)
     for source in (train_cli, *(dist[name] for name in AXIS_PARTS)):
         for kernel, cases in source.pop("kernel_cases").items():
             kernels[kernel].extend(cases)
@@ -5069,6 +5304,7 @@ def run() -> dict:
     per_path = per_path_lines(kernels, runs)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f}")
+    print(card["nvidia_smi"])  # again at the end, beside the summary
     print(f"host cyclic collector: {GC_SECONDS['seconds']:.1f} s in "
           f"{GC_SECONDS['collections']} collections here (phases "
           + ", ".join(f"{k} {v:.1f}" for k, v in gc_seconds.items() if v >= 0.5)
@@ -5085,7 +5321,7 @@ def run() -> dict:
         "kernels": kernels, "slice": slices, "compare": compare, "oracle": oracle,
         "accum": accum, "remat": remat, "tune": tune, "max_batch": max_batch, "serve": serve,
         "moe_serve": moe_serve, "hybrid_serve": hybrid_serve, "wave_serve": wave_serve,
-        "tuner_cli": tuner_cli, "train_cli": train_cli, "dist": dist,
+        "tuner_cli": tuner_cli, "train_cli": train_cli, "dryrun": dryrun, "dist": dist,
         "summary": summary, "per_path": per_path,
     }, indent=1, default=str))
     return {"summary": summary, "card": card}

@@ -96,6 +96,11 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def supports(self, shape: ShapeConfig) -> bool:
+        if shape.name == "long_500k":
+            return self.sub_quadratic
+        return True
+
     def reduced(self) -> "ArchConfig":
         """CPU-smoke variant: same topology, tiny dims."""
         pattern = self.block_pattern

@@ -9,6 +9,16 @@ FLOATS = (torch.float32, torch.bfloat16)
 IDS = (torch.int32, torch.int64)
 INT32_MAX = 2**31 - 1
 
+# The card an abstract evaluation (a dry run over fake tensors) lays the
+# kernels' grids and buffers out for: an H100 SXM5 80GB, whose 132 SMs
+# (NVIDIA's H100 architecture whitepaper, the SXM5 part) are what
+# torch.cuda.get_device_properties reads there; the embedding norm's
+# occupancy and shared-memory sort capacity are the built library's readings
+# on that card (chip_smoke.py's dryrun phase holds them to the live values).
+TARGET_SM_COUNT = 132
+TARGET_EMBED_BLOCKS_PER_SM = {torch.float32: 5, torch.bfloat16: 4}
+TARGET_EMBED_SORT_CAPACITY = 9900
+
 
 def operand(name: str, x: torch.Tensor, ndim: int, dtypes=FLOATS) -> None:
     """A CUDA, contiguous tensor of rank ``ndim`` and one of ``dtypes``."""

@@ -37,6 +37,16 @@ their own tiles.
 
 There is no fallback: a CUDA tensor goes to its kernel, which raises if it
 cannot build or launch, and ``cuda`` asked for a CPU tensor raises too.
+
+Abstract evaluation (``launch.dryrun``): a fake tensor (``FakeTensorMode``)
+that resolves to ``cuda`` goes to the kernel's ``*_fake`` function beside
+its wrapper, which allocates what the wrapper allocates (the output, the
+Gram partials, the book's split sums, the embedding norm's workspace) laid
+out for the target card and counts a ``fake`` launch; nothing launches.  A
+fake CUDA tensor resolves so by itself; inside ``abstract_cuda()`` a fake
+CPU tensor does too, so that a step evaluated on fake CPU tensors
+(on a host whose torch has no CUDA, autograd refuses fake CUDA tensors)
+predicts the card's kernel path.  A real tensor never takes either branch.
 ``flash_attention``'s serving form (per-lane ``kv_positions`` or a tensor
 ``q_offset``) always runs the plain version and counts no launch, as the
 JAX package sends it to XLA whatever impl is resolved: the kernel covers
@@ -48,6 +58,7 @@ import contextlib
 from typing import Iterator, Mapping, Optional, Sequence, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.taps import ConvInfo
 from repro_torch.kernels import launches
@@ -60,6 +71,8 @@ IMPLS = ("cuda", "torch")
 
 # force_impl() state: {op: impl}, consulted per call
 _forced: dict[str, str] = {}
+# abstract_cuda() state: one entry per enclosing context
+_abstract: list[None] = []
 
 
 def available_impls(x: Union[torch.Tensor, torch.device, str]) -> tuple[str, ...]:
@@ -71,10 +84,21 @@ def available_impls(x: Union[torch.Tensor, torch.device, str]) -> tuple[str, ...
 
 
 def default_impl(op: str, x: torch.Tensor) -> str:
-    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    """The kernel for a CUDA tensor, the plain version for a CPU one (a
+    fake tensor inside ``abstract_cuda``: the kernel)."""
     if op not in OPS:
         raise ValueError(f"unknown kernel op {op!r}; have {OPS}")
-    return "cuda" if x.is_cuda else "torch"
+    return "cuda" if x.is_cuda or (_abstract and isinstance(x, FakeTensor)) else "torch"
+
+
+@contextlib.contextmanager
+def abstract_cuda() -> Iterator[None]:
+    """Resolve fake tensors as CUDA ones: the kernels' abstract evaluation."""
+    _abstract.append(None)
+    try:
+        yield
+    finally:
+        _abstract.pop()
 
 
 def resolve(op: str, x: torch.Tensor, impl: Optional[str] = None) -> str:
@@ -121,9 +145,10 @@ def ghost_norm_sq(
 ) -> torch.Tensor:
     """Ghost norm (Eq. 2.7): a (N,T,D), g (N,T,p) -> (N,) fp32."""
     if resolve("ghost_norm", a, impl) == "cuda":
-        from repro_torch.kernels.ghost_norm.ghost_norm import ghost_norm_sq_cuda
+        from repro_torch.kernels.ghost_norm import ghost_norm as k
 
-        return ghost_norm_sq_cuda(a.contiguous(), g.contiguous())
+        fn = k.ghost_norm_sq_fake if isinstance(a, FakeTensor) else k.ghost_norm_sq_cuda
+        return fn(a.contiguous(), g.contiguous())
     launches.record("ghost_norm_sq", "torch")
     return gops.ghost_norm_sq(a, g, block=block)
 
@@ -136,9 +161,11 @@ def conv_ghost_norm_sq(
     -> (N,) fp32.  The kernel builds the patches on chip; the plain version
     unfolds them.  Both count as ``ghost_norm_sq``."""
     if resolve("ghost_norm", x, impl) == "cuda":
-        from repro_torch.kernels.ghost_norm.ghost_norm import conv_ghost_norm_sq_cuda
+        from repro_torch.kernels.ghost_norm import ghost_norm as k
 
-        return conv_ghost_norm_sq_cuda(x.contiguous(), g.contiguous(), info)
+        fn = (k.conv_ghost_norm_sq_fake if isinstance(x, FakeTensor)
+              else k.conv_ghost_norm_sq_cuda)
+        return fn(x.contiguous(), g.contiguous(), info)
     launches.record("ghost_norm_sq", "torch")
     return gops.conv_ghost_norm_sq(x, g, info, block=block)
 
@@ -148,9 +175,11 @@ def embedding_ghost_norm_sq(
 ) -> torch.Tensor:
     """Index-equality ghost norm: ids (N,T) int, g (N,T,p) -> (N,) fp32."""
     if resolve("embedding_ghost_norm", g, impl) == "cuda":
-        from repro_torch.kernels.ghost_norm.ghost_norm import embedding_ghost_norm_sq_cuda
+        from repro_torch.kernels.ghost_norm import ghost_norm as k
 
-        return embedding_ghost_norm_sq_cuda(ids.contiguous(), g.contiguous())
+        fn = (k.embedding_ghost_norm_sq_fake if isinstance(g, FakeTensor)
+              else k.embedding_ghost_norm_sq_cuda)
+        return fn(ids.contiguous(), g.contiguous())
     launches.record("embedding_ghost_norm_sq", "torch")
     return gops.embedding_ghost_norm_sq(ids, g)
 
@@ -163,11 +192,11 @@ def book_weighted_grad(
     a (M,R,D), g (M,R,p), w (M,R) -> (M,D,p) fp32.
     """
     if resolve("psg_contract", a, impl) == "cuda":
-        from repro_torch.kernels.psg_contract.psg_contract import book_weighted_grad_cuda
+        from repro_torch.kernels.psg_contract import psg_contract as k
 
-        return book_weighted_grad_cuda(
-            a.contiguous(), g.contiguous(), w.float().contiguous()
-        )
+        fn = (k.book_weighted_grad_fake if isinstance(a, FakeTensor)
+              else k.book_weighted_grad_cuda)
+        return fn(a.contiguous(), g.contiguous(), w.float().contiguous())
     launches.record("book_weighted_grad", "torch")
     return cops.book_weighted_grad(a, g, w)
 
@@ -184,10 +213,11 @@ def psg_contract_grouped(
     ``psg_contract`` launch), one count on the plain path."""
     flats = [psg if psg.dim() == 2 else psg.reshape(psg.shape[0], -1) for psg in psgs]
     if resolve("psg_contract", c, impl) == "cuda":
-        from repro_torch.kernels.psg_contract.psg_contract import psg_contract_grouped_cuda
+        from repro_torch.kernels.psg_contract import psg_contract as k
 
-        return psg_contract_grouped_cuda([x.contiguous() for x in flats],
-                                         c.float().contiguous(), rows)
+        fn = (k.psg_contract_grouped_fake if isinstance(c, FakeTensor)
+              else k.psg_contract_grouped_cuda)
+        return fn([x.contiguous() for x in flats], c.float().contiguous(), rows)
     launches.record("psg_contract", "torch")
     return cops.psg_contract_grouped(flats, c, rows)
 
@@ -222,9 +252,11 @@ def flash_attention(
         return fops.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, kv_positions=kv_positions)
     if resolve("flash_attention", q, impl) == "cuda":
-        from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+        from repro_torch.kernels.flash_attention import flash_attention as kernel
 
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal=causal, window=window, q_offset=q_offset)
+        fn = (kernel.flash_attention_fake if isinstance(q, FakeTensor)
+              else kernel.flash_attention_cuda)
+        return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                  window=window, q_offset=q_offset)
     launches.record("flash_attention", "torch")
     return fops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -14,7 +14,9 @@ fp32 SIMT instance.  Any other head dim raises: there is no fallback.  The
 TMA tensor maps need 16-byte-aligned rows, so a view at an odd offset is
 copied first.  It launches its kernel on
 CUDA tensors and raises on anything else; ``flash_attention_plain`` beside
-it is the same map in plain PyTorch.
+it is the same map in plain PyTorch, and ``flash_attention_fake`` its
+abstract evaluation (``kernels.dispatch`` sends a fake tensor there): the
+output, the copies of views at odd offsets, and a ``fake`` launch count.
 """
 from __future__ import annotations
 
@@ -25,22 +27,15 @@ import torch
 from repro_torch.kernels import checks, launches
 from repro_torch.kernels.flash_attention.ops import flash_attention as flash_attention_plain
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_fake",
+           "flash_attention_plain"]
 
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
 _MAX_GRID_YZ = 65535
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
-) -> torch.Tensor:
-    """q (B,Sq,H,hd), k/v (B,Skv,K,hd), one dtype (fp32 or bf16) -> (B,Sq,H,hd)."""
-    from repro_torch.kernels.build import check, library
-
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        checks.operand(name, x, 4)
-    checks.same_device(q=q, k=k, v=v)
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+                  q_offset: int) -> None:
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     b, sq, h, hd = q.shape
@@ -62,11 +57,26 @@ def flash_attention_cuda(
     for name, size in (("B*Sq*H*hd", q.numel()), ("B*Skv*K*hd", k.numel()),
                        ("|q_offset| + Sq + Skv", abs(q_offset) + sq + skv)):
         checks.fits_int32(name, size)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+) -> torch.Tensor:
+    """q (B,Sq,H,hd), k/v (B,Skv,K,hd), one dtype (fp32 or bf16) -> (B,Sq,H,hd)."""
+    from repro_torch.kernels.build import check, library
+
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        checks.operand(name, x, 4)
+    checks.same_device(q=q, k=k, v=v)
+    _check_shapes(q, k, v, window, q_offset)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     # the bf16 instances copy 16-byte chunks; a view at an odd offset is copied
     q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         code = library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -75,4 +85,21 @@ def flash_attention_cuda(
         )
     check(code, "flash_attention")
     launches.record("flash_attention", "cuda")
+    return out
+
+
+def flash_attention_fake(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+) -> torch.Tensor:
+    """``flash_attention_cuda``'s abstract evaluation (the allocator's blocks
+    start 16-byte aligned, so a view's offset decides its copy)."""
+    del causal
+    _check_shapes(q, k, v, window, q_offset)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    # a view at an odd offset is copied, and the copy lives through the launch
+    _copies = [x.clone() for x in (q, k, v) if x.storage_offset() * x.element_size() % 16]
+    launches.record("flash_attention", "fake")
     return out

@@ -2,9 +2,10 @@
 
 A CUDA wrapper adds one to its ``cuda`` count where it launches its kernel;
 the dispatch layer adds one to the ``torch`` count where it runs the plain
-version instead.  ``chip_smoke.py`` and the tests zero the counts before
-driving a training step or the serving engine and read them after, to show
-which path ran.
+version instead; an abstract evaluation (a dry run over fake tensors) adds
+one to the ``fake`` count where the kernel would launch.  ``chip_smoke.py``
+and the tests zero the counts before driving a training step or the
+serving engine and read them after, to show which path ran.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ KERNELS = (
     "ghost_norm_sq", "embedding_ghost_norm_sq", "book_weighted_grad", "psg_contract",
     "flash_attention",
 )
-IMPLS = ("cuda", "torch")
+IMPLS = ("cuda", "torch", "fake")
 
 COUNTS: dict[str, dict[str, int]] = {k: {i: 0 for i in IMPLS} for k in KERNELS}
 

@@ -12,8 +12,12 @@ Ports of ``kernels/psg_contract/psg_contract.py``:
   group of one).
 
 Each launches its kernel on CUDA tensors and raises on anything else.  The
-``*_plain`` functions beside them are the same maps in plain PyTorch.
-``book_splits`` is the book kernel's split of R across blocks.
+``*_plain`` functions beside them are the same maps in plain PyTorch; the
+``*_fake`` ones their abstract evaluation (``kernels.dispatch`` sends a fake
+tensor there): the same allocations, the split laid out for the target
+card's SMs (``checks.TARGET_SM_COUNT``), and a ``fake`` launch count where
+each kernel would launch.  ``book_splits`` is the book kernel's split of R
+across blocks.
 """
 from __future__ import annotations
 
@@ -31,9 +35,9 @@ from repro_torch.kernels.psg_contract.ops import (
 )
 
 __all__ = [
-    "book_splits", "book_weighted_grad_cuda", "book_weighted_grad_plain",
-    "psg_contract_cuda", "psg_contract_grouped_cuda", "psg_contract_grouped_plain",
-    "psg_contract_plain",
+    "book_splits", "book_weighted_grad_cuda", "book_weighted_grad_fake",
+    "book_weighted_grad_plain", "psg_contract_cuda", "psg_contract_grouped_cuda",
+    "psg_contract_grouped_fake", "psg_contract_grouped_plain", "psg_contract_plain",
 ]
 
 _MAX_GRID_Z = 65535
@@ -63,16 +67,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def book_weighted_grad_cuda(
-    a: torch.Tensor, g: torch.Tensor, w: torch.Tensor
-) -> torch.Tensor:
-    """a (M,R,D), g (M,R,p), each fp32 or bf16, w (M,R) fp32 -> (M,D,p) fp32."""
-    from repro_torch.kernels.build import check, library
-
-    checks.operand("a", a, 3)
-    checks.operand("g", g, 3)
-    checks.operand("w", w, 2, dtypes=(torch.float32,))
-    checks.same_device(a=a, g=g, w=w)
+def _book_buffers(a: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                  sm_count: Optional[int]) -> tuple:
+    """(out, partial, splits, rows) of one book call; ``partial`` None where
+    no kernel runs (``out`` empty or zeroed: R = 0).  ``sm_count`` None:
+    the SMs of ``a``'s card."""
     m, r, d = a.shape
     p = g.shape[2]
     if g.shape[:2] != (m, r) or tuple(w.shape) != (m, r):
@@ -83,16 +82,33 @@ def book_weighted_grad_cuda(
     checks.fits_int32("R", r + 32)
     out = torch.empty((m, d, p), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
-        return out
+        return out, None, 0, 0
     if r == 0:
-        return out.zero_()
-    splits, rows = book_splits(m, r, d, p, _sm_count(a.device))
+        return out.zero_(), None, 0, 0
+    splits, rows = book_splits(m, r, d, p, sm_count or _sm_count(a.device))
     if m * splits > _MAX_GRID_Z:
         raise ValueError(f"M * splits = {m * splits} exceeds the kernel's grid limit "
                          f"{_MAX_GRID_Z}")
     # the splits' partial sums, added in split order by a second kernel
     partial = torch.empty((splits, m, d, p) if splits > 1 else (0,), dtype=torch.float32,
                           device=a.device)
+    return out, partial, splits, rows
+
+
+def book_weighted_grad_cuda(
+    a: torch.Tensor, g: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """a (M,R,D), g (M,R,p), each fp32 or bf16, w (M,R) fp32 -> (M,D,p) fp32."""
+    from repro_torch.kernels.build import check, library
+
+    checks.operand("a", a, 3)
+    checks.operand("g", g, 3)
+    checks.operand("w", w, 2, dtypes=(torch.float32,))
+    checks.same_device(a=a, g=g, w=w)
+    out, partial, splits, rows = _book_buffers(a, g, w, None)
+    if partial is None:
+        return out
+    (m, r, d), p = a.shape, g.shape[2]
     with torch.cuda.device(a.device):
         code = library().book_weighted_grad_launch(
             a.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -103,6 +119,17 @@ def book_weighted_grad_cuda(
     check(code, "book_weighted_grad")
     for _ in range(1 + (splits > 1)):  # the tile kernel, then the split sum
         launches.record("book_weighted_grad", "cuda")
+    return out
+
+
+def book_weighted_grad_fake(
+    a: torch.Tensor, g: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """``book_weighted_grad_cuda``'s abstract evaluation."""
+    out, partial, splits, _ = _book_buffers(a, g, w, checks.TARGET_SM_COUNT)
+    if partial is not None:
+        for _ in range(1 + (splits > 1)):
+            launches.record("book_weighted_grad", "fake")
     return out
 
 
@@ -152,6 +179,30 @@ def psg_contract_grouped_cuda(
                 ctable, len(chunk) // 5, n, checks.stream(c.device))
             check(code, "psg_contract")
             launches.record("psg_contract", "cuda")
+    return out
+
+
+def psg_contract_grouped_fake(
+    psgs: Sequence[torch.Tensor], c: torch.Tensor, rows: Optional[Sequence[int]] = None
+) -> torch.Tensor:
+    """``psg_contract_grouped_cuda``'s abstract evaluation: its output, and
+    one launch per ``MAX_SEGMENTS`` non-empty banks."""
+    n = c.shape[-1]
+    if rows is not None and len(rows) != len(psgs):
+        raise ValueError(f"{len(psgs)} banks, {len(rows)} row indices")
+    for i, psg in enumerate(psgs):
+        if psg.dim() != 2 or psg.shape[0] != n:
+            raise ValueError(f"psgs[{i}] {tuple(psg.shape)} and c {tuple(c.shape)} "
+                             "disagree on N")
+    banks = sum(1 for psg in psgs if psg.shape[1])
+    out = torch.empty((sum(psg.shape[1] for psg in psgs),), dtype=torch.float32,
+                      device=c.device)
+    if not banks:
+        return out
+    if n == 0:
+        return out.zero_()
+    for _ in range(-(-banks // MAX_SEGMENTS)):
+        launches.record("psg_contract", "fake")
     return out
 
 

@@ -8,20 +8,32 @@ a full-width model costs no memory.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.utils.tree import flatten_dict
+from repro_torch.utils.tree import flatten_dict, tree_map
 
 
 def abstract_params(model) -> dict:
-    """``model``'s parameter tree on the ``meta`` device (a twin of the
-    model is built there when it lives elsewhere)."""
-    if model.device.type != "meta":
+    """``model``'s parameter tree on the ``meta`` device: a registry model's
+    twin is built there when it lives elsewhere; a model no registry
+    configuration builds (the CNNs, the ViTs) runs its ``init`` over fake
+    tensors, which allocate nothing, and its leaves are given on ``meta``."""
+    if model.device.type == "meta":
+        return model.init(torch.Generator())
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and cfg.family not in ("cnn", "vit"):
         from repro_torch.configs.registry import build_model
 
-        model = build_model(model.cfg, device="meta")
-    return model.init(torch.Generator())
+        return build_model(cfg, device="meta").init(torch.Generator())
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake = torch._guards.detect_fake_mode()
+    with contextlib.nullcontext() if fake is not None else FakeTensorMode():
+        params = model.init(torch.Generator(device=model.device))
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), params)
 
 
 def count_params(model, cfg: ArchConfig) -> tuple[int, int]:

@@ -16,11 +16,23 @@ Rank ``r`` of a ``(d, m)`` mesh sits at ``(r // m, r % m)``, as
 ``m`` consecutive ranks, the "data" group the ranks with the same model
 coordinate, and "batch" every rank (the batch group of a ``dp_only``
 configuration, whose batch spans both axes).
+
+The dry run (``launch.dryrun``) builds a live mesh of a production shape
+over a ``fake`` process group (``fake_process_group``: one process as rank
+0 of 256 or 512, collectives that move nothing).  ``live_shape`` gives its
+``(data, model)`` shape: the ``(2, 16, 16)`` mesh's "pod" axis folds into
+"data", a data group of the 32 ranks of pod x data.  The rules put batch
+and FSDP on ("pod", "data") together, which on the folded mesh is "data"
+over the same 32 ranks; a placement would differ only where a dim divides
+by the pod axis but not by pod x data (the rules then name "pod" alone),
+which no leaf of the registry's does.  The dry run checks that, cell by
+cell, rather than building groups that follow such a placement.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import torch
 
@@ -69,6 +81,32 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
         return Mesh(("pod", "data", "model"), (2, 16, 16))
     return Mesh(("data", "model"), (16, 16))
+
+
+def live_shape(mesh: Mesh) -> tuple[int, int]:
+    """The ``(data, model)`` shape a live mesh of ``mesh`` takes: a "pod"
+    axis folded into "data" (module docstring)."""
+    shape = mesh.shape
+    return shape.get("pod", 1) * shape.get("data", 1), shape.get("model", 1)
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int, rank: int = 0) -> Iterator[None]:
+    """This process as ``rank`` of a ``fake`` process group of ``world``
+    ranks (``torch.testing._internal.distributed.fake_pg``): groups and
+    collectives take every call and move no byte, so one process can run
+    one rank's step of a large fleet.  Destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist = torch.distributed
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialised already: the fake one would "
+                           "replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(device: DeviceLike = None) -> Mesh:

@@ -73,16 +73,18 @@ def local_serve_state(model, cfg: ArchConfig, shape: ShapeConfig, batch: int,
     .local_serve_shardings``) without the full state: every leaf holds the
     value ``init_state`` fills it with (zeros, -1 in an empty cache row's
     position, the sLSTM's stabiliser start).  ``parallel.fsdp.ShardLayout``
-    (``shard``, ``gather``) moves a full state to and from a rank's."""
+    (``shard``, ``gather``) moves a full state to and from a rank's.  The
+    fill is copied on the device (no host read: the state of a dry run's
+    fake tensors is built here too)."""
     from repro_torch.parallel.fsdp import local_shape
 
     fills = flatten_dict(model.init_state(1, 1))
     flat_p = flatten_dict(placements)
     out = {}
     for path, sp in flatten_dict(serve_state_specs(model, cfg, shape, batch)).items():
-        out[path] = torch.full(local_shape(sp.shape, flat_p[path], mesh),
-                               fills[path].reshape(-1)[0].item(), dtype=sp.dtype,
-                               device=model.device)
+        leaf = torch.empty(local_shape(sp.shape, flat_p[path], mesh), dtype=sp.dtype,
+                           device=model.device)
+        out[path] = leaf.copy_(fills[path].reshape(-1)[0])
     return unflatten_dict(out)
 
 

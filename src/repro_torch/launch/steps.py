@@ -126,6 +126,35 @@ def make_train_state(model, seed: int, optimizer: Optimizer, policy: Any = None)
     }
 
 
+def abstract_train_state(model, optimizer: Optimizer, policy: Any = None) -> dict:
+    """``make_train_state``'s state with nothing allocated (the JAX
+    package's ``jax.eval_shape`` of it): the parameters and the optimizer
+    moments on the ``meta`` device (``flops.abstract_params``, a meta twin
+    of the model), the step counter, and the policy state on ``meta``.
+
+    The JAX state's ``rng`` leaf is ``PRNGKey(0)``, a uint32[2] array that
+    the step splits; the port's is the ``torch.Generator`` the step draws
+    from, a host object, not a tensor: here a CPU one in the state that
+    ``make_train_state(model, 0, ...)`` seeds it to.  It has no shape or
+    placement (``state_shardings`` gives it ``()``) and holds no device
+    bytes, so the dry run counts nothing for it.
+    """
+    from repro_torch.launch.flops import abstract_params
+
+    if policy is None:
+        from repro_torch.policies.fixed import FixedPolicy
+
+        policy = FixedPolicy()
+    params = abstract_params(model)
+    return {
+        "params": params,
+        "opt": optimizer.init(params),
+        "step": 0,
+        "rng": torch.Generator().manual_seed(1),
+        "policy": policy.init_state(device=torch.device("meta")),
+    }
+
+
 def make_train_step(
     model,
     optimizer: Optimizer,

@@ -12,6 +12,12 @@ program issue the same collectives in the same order.
 ``BYTES`` counts, per op, the bytes of this rank's full-size buffer (an
 all_gather's output, a reduce_scatter's input, an all_reduce's tensor):
 the traffic a step puts on the mesh's axes (``reset_bytes`` zeroes it).
+Inside ``recording()`` each collective is also kept, in issue order, as
+``(op, bytes as BYTES counts them, group)``: the ring model of
+``launch.analysis`` needs each group's size, which ``records()`` reads.
+The record is off by default (a training run that never resets the counts
+would grow it step after step); on, it costs the live path one append a
+collective, and ``reset_bytes`` clears it too.
 
 Serving on the model axis (no autograd) uses ``all_reduce`` with ``op="max"``,
 ``all_gather_dim`` over heads (a decode's query heads, a cache's KV heads)
@@ -49,21 +55,46 @@ run them in the same order.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 # ops gloo runs on CUDA tensors in place; the rest stage through the host
 _GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast"})
 
 BYTES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+_RECORD: list = []  # the open recording()'s list, if any
 
 
 def reset_bytes() -> None:
     for k in BYTES:
         BYTES[k] = 0
+    if _RECORD:
+        _RECORD[-1].clear()
 
 
-def _count(op: str, x: torch.Tensor) -> None:
-    BYTES[op] += x.numel() * x.element_size()
+@contextlib.contextmanager
+def recording() -> Iterator[list]:
+    """Keep every collective issued inside as ``(op, bytes, group)``."""
+    _RECORD.append([])
+    try:
+        yield _RECORD[-1]
+    finally:
+        _RECORD.pop()
+
+
+def records(record: list) -> list[tuple[str, int, int]]:
+    """A ``recording()`` list as ``(op, bytes, group size)`` (read while the
+    groups live)."""
+    return [(op, n, _dist().get_world_size(group)) for op, n, group in record]
+
+
+def _count(op: str, x: torch.Tensor, group) -> None:
+    n = x.numel() * x.element_size()
+    BYTES[op] += n
+    if _RECORD:
+        _RECORD[-1].append((op, n, group))
 
 
 def _dist():
@@ -82,7 +113,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The sum (or ``op="max"``: the maximum) of ``x`` over the group (a new
     tensor; ``x`` is untouched)."""
     out = x.detach().clone().contiguous()
-    _count("all_reduce", out)
+    _count("all_reduce", out, group)
     ops = _dist().ReduceOp
     _dist().all_reduce(out, op=ops.MAX if op == "max" else ops.SUM, group=group)
     return out
@@ -108,7 +139,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     staged = _staged("all_gather", x, group)
     src = (x.detach().cpu() if staged else x.detach()).movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0], *src.shape[1:]))
-    _count("all_gather", out)
+    _count("all_gather", out, group)
     if backend_of(group) == "nccl":
         _dist().all_gather_into_tensor(out, src, group=group)
     else:
@@ -126,7 +157,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n, r = _dist().get_world_size(group), _dist().get_rank(group)
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} over {n} ranks")
-    _count("reduce_scatter", x)
+    _count("reduce_scatter", x, group)
     if backend_of(group) == "nccl":
         src = x.detach().movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n, *src.shape[1:]))

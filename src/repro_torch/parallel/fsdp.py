@@ -27,7 +27,10 @@ where a whole tensor feeds split work, ``reshard.slice_whole`` where a
 whole leaf does; the clipping engine gathers the book-keeping gradient
 that split taps of such a leaf computed at their slices).  Under ``dp_only``
 the model axis carries batch: the batch group is data x model, and every
-gradient is also summed over the model axis.
+gradient is also summed over the model axis; a batch that does not divide
+over data x model splits over the data axis alone, as the JAX rule's longest
+divisible prefix (``sharding.batch_shardings``) places it, and the model
+ranks repeat its rows and sum nothing over the model axis.
 
 A ``ShardLayout`` moves any tree between its full leaves and a rank's
 slices under its placements, a serve state too (whose lanes may split
@@ -171,9 +174,16 @@ class ShardLayout:
     def local_rows(self, batch: Any) -> Any:
         """This rank's rows of a global batch (dim 0 over the batch axes,
         row-major); a batch that does not divide over them raises: its rows
-        would be counted on several ranks."""
+        would be counted on several ranks.  Under ``dp_only`` a batch that
+        divides over data but not over data x model keeps data's rows
+        (module docstring)."""
+        flat = flatten_dict(batch)
+        rows = {x.shape[0] if x.ndim else 0 for x in flat.values()}
+        if self.batch_over_model and all(b % self.n_batch and not b % self.n for b in rows):
+            self.batch_over_model = False
+            self.batch_group, self.n_batch, self.batch_rank = self.group, self.n, self.rank
         out = {}
-        for path, x in flatten_dict(batch).items():
+        for path, x in flat.items():
             if self.n_batch > 1 and (not x.ndim or x.shape[0] % self.n_batch):
                 raise ValueError(
                     f"batch[{path!r}] of {tuple(x.shape)} does not divide over "

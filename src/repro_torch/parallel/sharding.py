@@ -253,7 +253,7 @@ def local_serve_shardings(
     mesh: Mesh, cfg: ArchConfig, abstract_state: Any, batch_size: int
 ) -> Any:
     """The serve state's placements as a rank of the port holds it: the JAX
-    rule's (``serve_state_shardings``) with three divergences by design.
+    rule's (``serve_state_shardings``) with four divergences by design.
 
     - A KV cache's ``pos`` (..., B, S), one row of positions per lane (the
       JAX cache has one ``pos`` (S,)), follows its ``k``'s S entry; ``idx``
@@ -265,12 +265,22 @@ def local_serve_shardings(
       a leaf the rule splits by head stays whole (KV caches by KV head, SSM
       states); only a long cache's rows split over "model".  Cross-attention
       caches (``xkv``, the ``dp_only`` families') stay whole everywhere.
+    - A cache leaf's lanes are its dim 1, after the one layer-stack dim.  The
+      rule finds the batch dim by its size, so where a stack is as long as
+      the batch (32 layers serving 32 prompts) it splits the layers; the
+      port's per-lane serving keeps its lanes split, so the entry moves to
+      dim 1.
     """
     flat = flatten_dict(serve_state_shardings(mesh, cfg, abstract_state, batch_size))
+    shapes = {k: tuple(v.shape) for k, v in flatten_dict(abstract_state).items()}
     dp_only = not mesh_axes(mesh, cfg)["model"]
     out = {}
     for path, spec in flat.items():
         spec = list(spec)
+        shape = shapes[path]
+        if (path.startswith("cache/") and len(shape) >= 2 and shape[:2] == (batch_size,) * 2
+                and spec[0] is not None and spec[1] is None):
+            spec[0], spec[1] = None, spec[0]  # the batch entry off the layer stack
         name = path.rsplit("/", 1)[-1]
         parent = path[: -len(name) - 1]
         if parent.endswith("/xkv") or (dp_only and name in ("k", "v")):

@@ -47,7 +47,7 @@ def test_ghost_norm_kernel(gen, n, t, d, p, dtype):
     a, g = _rnd(gen, n, t, d, dtype=dtype), _rnd(gen, n, t, p, dtype=dtype)
     launches.reset()
     got = gn.ghost_norm_sq_cuda(a, g)
-    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert _rel(got, gn.ghost_norm_sq_plain(a, g)) < 1e-4
     assert torch.equal(got, gn.ghost_norm_sq_cuda(a, g))  # deterministic
@@ -92,7 +92,7 @@ def test_conv_ghost_norm_kernel(gen, shape, kernel, strides, padding, x_dtype, g
     x, g = _rnd(gen, *shape, dtype=x_dtype), _rnd(gen, n, t, 24, dtype=g_dtype)
     launches.reset()
     got = gn.conv_ghost_norm_sq_cuda(x, g, info)
-    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert _rel(got, gn.conv_ghost_norm_sq_plain(x, g, info)) < 1e-4
     assert torch.equal(got, gn.conv_ghost_norm_sq_cuda(x, g, info))  # deterministic
@@ -133,7 +133,7 @@ def test_embedding_ghost_norm_kernel(gen, n, t, vocab, p, skewed, dtype, id_dtyp
     g = _rnd(gen, n, t, p, dtype=dtype)
     launches.reset()
     got = gn.embedding_ghost_norm_sq_cuda(ids, g)
-    assert launches.snapshot()["embedding_ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["embedding_ghost_norm_sq"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert _rel(got, gn.embedding_ghost_norm_sq_plain(ids, g)) < 1e-4
     assert torch.equal(got, gn.embedding_ghost_norm_sq_cuda(ids, g))  # deterministic
@@ -160,7 +160,8 @@ def test_book_weighted_grad_kernel(gen, m, r, d, p, a_dtype, g_dtype):
     splits, _ = pc.book_splits(m, r, d, p, sms)
     launches.reset()
     got = pc.book_weighted_grad_cuda(a, g, w)
-    assert launches.snapshot()["book_weighted_grad"] == {"cuda": 1 + (splits > 1), "torch": 0}
+    assert launches.snapshot()["book_weighted_grad"] == {"cuda": 1 + (splits > 1), "torch": 0,
+                                                          "fake": 0}
     assert _rel(got, pc.book_weighted_grad_plain(a, g, w)) < 1e-4
     assert torch.equal(got, pc.book_weighted_grad_cuda(a, g, w))  # deterministic
     if (m, r) == (1, 8192):
@@ -242,7 +243,7 @@ def test_psg_contract_grouped_kernel(gen, case):
     c = torch.rand(n, generator=gen, device="cuda")
     launches.reset()
     got = pc.psg_contract_grouped_cuda(psgs, c)
-    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert got.shape == (sum(f for f, _, _ in segs),)
     assert _rel(got, pc.psg_contract_grouped_plain(psgs, c)) < 1e-5
     assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c))
@@ -273,7 +274,7 @@ def test_psg_contract_grouped_kernel_with_factor_rows(gen, case, n_rows):
     rows = [i % n_rows for i in range(len(psgs))]
     launches.reset()
     got = pc.psg_contract_grouped_cuda(psgs, c, rows)
-    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert _rel(got, pc.psg_contract_grouped_plain(psgs, c, rows)) < 1e-5
     assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c, rows))
     for part, psg, r in zip(torch.split(got, [f for f, _, _ in segs]), psgs, rows):
@@ -317,7 +318,7 @@ def test_psg_contract_grouped_kernel_on_step_lists(gen, path):
     c = torch.rand(n, generator=gen, device="cuda")
     launches.reset()
     got = pc.psg_contract_grouped_cuda(psgs, c)
-    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["psg_contract"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert _rel(got, pc.psg_contract_grouped_plain(psgs, c)) < 1e-5
     assert torch.equal(got, pc.psg_contract_grouped_cuda(psgs, c))
 
@@ -332,7 +333,7 @@ def test_cuda_tensors_dispatch_to_kernels(gen):
     dispatch.flash_attention(_rnd(gen, 1, 3, 2, 16), _rnd(gen, 1, 3, 1, 16),
                              _rnd(gen, 1, 3, 1, 16))
     snap = launches.snapshot()
-    assert all(v == {"cuda": 1, "torch": 0} for v in snap.values()), snap
+    assert all(v == {"cuda": 1, "torch": 0, "fake": 0} for v in snap.values()), snap
     with pytest.raises(ValueError, match="contiguous"):
         gn.ghost_norm_sq_cuda(a.transpose(0, 1), g.transpose(0, 1))
     with pytest.raises(ValueError, match="dtype"):
@@ -508,7 +509,7 @@ def test_reduced_yi_engine_on_the_card(gen):
     launches.reset()
     got = run()
     snap = launches.snapshot()
-    assert snap["flash_attention"] == {"cuda": len(prompts) * cfg.n_layers, "torch": 0}
+    assert snap["flash_attention"] == {"cuda": len(prompts) * cfg.n_layers, "torch": 0, "fake": 0}
     with dispatch.force_impl("torch"):
         want = run()
     assert got == want
@@ -644,7 +645,7 @@ def test_ghost_norm_kernel_at_lm_shapes(gen, n, t, d, p):
     g = _rnd(gen, n, t, p, dtype=torch.bfloat16)
     launches.reset()
     got = gn.ghost_norm_sq_cuda(a, g)
-    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0}
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 1, "torch": 0, "fake": 0}
     assert _rel(got, gn.ghost_norm_sq_plain(a, g)) < 1e-4
     assert torch.equal(got, gn.ghost_norm_sq_cuda(a, g))
 
@@ -771,8 +772,8 @@ def test_reduced_wave_on_the_card(gen, name):
     args = types.SimpleNamespace(slots=2, prompt_len=8, max_new=5, eos=-1)
     wave = _serve_wave(model, cfg, params, args, keep_logits=True)
     cross = cfg.n_layers if cfg.family == "audio" else 0
-    assert counts[0] == {"cuda": cfg.n_layers + cross, "torch": 0}
-    assert all(c == {"cuda": cross, "torch": 0} for c in counts[1:])
+    assert counts[0] == {"cuda": cfg.n_layers + cross, "torch": 0, "fake": 0}
+    assert all(c == {"cuda": cross, "torch": 0, "fake": 0} for c in counts[1:])
     assert len(counts) == args.max_new
     from repro_torch.launch.serve import wave_batch
 
@@ -797,5 +798,5 @@ def test_sharded_prefill_launches_the_kernel(gen):
 
     ranks = run_ranks(prefill_launches, 2)
     for res in ranks:
-        assert res["launches"] == {"cuda": res["layers"], "torch": 0}, res["launches"]
+        assert res["launches"] == {"cuda": res["layers"], "torch": 0, "fake": 0}, res["launches"]
     assert np.array_equal(ranks[0]["logits"], ranks[1]["logits"])

@@ -124,7 +124,7 @@ def test_dispatch_cpu_forcing_and_counts():
     launches.reset()
     out = dispatch.flash_attention(q, k, k, causal=True)
     torch.testing.assert_close(out, flash_attention(q, k, k, causal=True), rtol=0, atol=0)
-    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1}
+    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1, "fake": 0}
     # the serving form runs the plain version whatever impl is forced, and
     # is not a launch of the kernel's function
     with dispatch.force_impl("cuda"):
@@ -136,7 +136,7 @@ def test_dispatch_cpu_forcing_and_counts():
         dispatch.flash_attention(q, k, k, impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_attention_cuda(q, k, k)
-    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1}
+    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 1, "fake": 0}
 
 
 # -------------------------------- the card's bf16 instance, emulated --

@@ -465,7 +465,7 @@ def test_dispatch_psg_contract_grouped_is_one_call():
     psgs = [torch.from_numpy(_np(rng, 4, *shape)) for shape in ((3, 2), (1,), (5,))]
     launches.reset()
     got = dispatch.psg_contract_grouped(psgs, c)
-    assert launches.snapshot()["psg_contract"] == {"cuda": 0, "torch": 1}
+    assert launches.snapshot()["psg_contract"] == {"cuda": 0, "torch": 1, "fake": 0}
     want = torch.cat([torch.einsum("n...,n->...", x, c).reshape(-1) for x in psgs])
     torch.testing.assert_close(got, want)
     torch.testing.assert_close(dispatch.psg_contract(psgs[0], c), want[:6].reshape(3, 2))
@@ -484,7 +484,7 @@ def test_psg_contract_grouped_plain_with_factor_rows(n_rows):
     rows = [i % n_rows for i in range(len(psgs))]
     launches.reset()
     got = dispatch.psg_contract_grouped(psgs, c, rows)
-    assert launches.snapshot()["psg_contract"] == {"cuda": 0, "torch": 1}
+    assert launches.snapshot()["psg_contract"] == {"cuda": 0, "torch": 1, "fake": 0}
     want = torch.cat([torch.einsum("nf,n->f", x, c[r]) for x, r in zip(psgs, rows)])
     torch.testing.assert_close(got, want)
     torch.testing.assert_close(tpc.psg_contract_grouped_plain(psgs, c, rows), want)
@@ -549,10 +549,10 @@ def test_launch_counts_per_impl():
     dispatch.psg_contract(torch.ones(4, 6), torch.ones(4))
     dispatch.psg_contract(torch.ones(4, 6), torch.ones(4))
     snap = launches.snapshot()
-    assert snap["ghost_norm_sq"] == {"cuda": 0, "torch": 1}
-    assert snap["embedding_ghost_norm_sq"] == {"cuda": 0, "torch": 1}
-    assert snap["book_weighted_grad"] == {"cuda": 0, "torch": 1}
-    assert snap["psg_contract"] == {"cuda": 0, "torch": 2}
+    assert snap["ghost_norm_sq"] == {"cuda": 0, "torch": 1, "fake": 0}
+    assert snap["embedding_ghost_norm_sq"] == {"cuda": 0, "torch": 1, "fake": 0}
+    assert snap["book_weighted_grad"] == {"cuda": 0, "torch": 1, "fake": 0}
+    assert snap["psg_contract"] == {"cuda": 0, "torch": 2, "fake": 0}
     launches.reset()
     assert all(v == 0 for per in launches.snapshot().values() for v in per.values())
 
@@ -905,7 +905,7 @@ def test_conv_ghost_norm_plain_vs_jax(shape, kernel, strides, padding):
     _close(got, want)
     launches.reset()
     _close(dispatch.conv_ghost_norm_sq(torch.from_numpy(x), torch.from_numpy(g), info), want)
-    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 0, "torch": 1}
+    assert launches.snapshot()["ghost_norm_sq"] == {"cuda": 0, "torch": 1, "fake": 0}
 
 
 def test_conv_entry_refuses_a_cpu_tensor():

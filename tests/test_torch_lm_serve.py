@@ -309,7 +309,7 @@ def test_engine_launches_one_flash_per_layer_per_prefill():
     launches.reset()
     _engine_tokens(model, params, _prompts([5, 9, 3], 128), max_new=4, n_slots=2,
                    page_size=8, max_len=16)
-    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 3 * 4}
+    assert launches.snapshot()["flash_attention"] == {"cuda": 0, "torch": 3 * 4, "fake": 0}
 
 
 def test_engine_steps_leave_no_reference_cycles():

@@ -19,7 +19,8 @@ Fleets (spawned processes, ``tests/torch_dist.py``; the rank functions in
   row-parallel ``Dense``, the vocab-parallel embedding and loss,
   ``shard_seq`` under remat, in every fused mode, the ``*_taps``
   executors, a ``per_layer`` policy and a logical batch of 2 microsteps;
-- reduced Yi-6B (``dp_only``) on ``(1, 2)``: the model axis as batch.
+- reduced Yi-6B (``dp_only``) on ``(1, 2)``: the model axis as batch, and
+  a batch of 3 that divides over data alone (the model ranks repeat it).
 
 Held against the one-process step on the same inputs, fp32, at 1e-5:
 the loss, per-sample norms and clip factors (relative), the clipped
@@ -61,7 +62,8 @@ FLEETS = {
     ("mixtral-8x7b", (1, 3)): [Case("mixed_ghost"), Case("bk_mixed_taps")],
     ("qwen1.5-32b", (2, 2)): QWEN,
     ("qwen1.5-32b", (1, 2)): QWEN,
-    ("yi-6b", (1, 2)): [Case("mixed_ghost"), Case("bk_mixed", accum=2)],
+    ("yi-6b", (1, 2)): [Case("mixed_ghost"), Case("bk_mixed", accum=2),
+                        Case("mixed_ghost", batch=3)],  # 3 rows: over data alone
 }
 
 

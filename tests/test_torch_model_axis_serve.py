@@ -335,9 +335,10 @@ def test_rank_placements_follow_jax_at_production_shapes(shape_name):
     """Every registry arch's serve state on the (16, 16) production mesh:
     the port's placements are the JAX rule's, but ``pos`` (one row a lane)
     follows its ``k``'s rows, a Mamba conv state its SSM state's heads by
-    channel, and under ``dp_only`` what the rule splits by head stays whole
-    (the weights are whole there), as do cross-attention caches; a rank's
-    local shape is the full shape over the placed axes."""
+    channel, under ``dp_only`` what the rule splits by head stays whole
+    (the weights are whole there), as do cross-attention caches, and a
+    cache's lanes split where the rule split a layer stack as long as the
+    batch; a rank's local shape is the full shape over the placed axes."""
     seq, batch = PRODUCTION[shape_name]
     amesh, mesh = AbstractMesh((16, 16), ("data", "model")), make_production_mesh()
     seen = 0
@@ -373,6 +374,9 @@ def test_rank_placements_follow_jax_at_production_shapes(shape_name):
                 if leaf_name == "conv" and f"{parent}/ssm" in want and not dp_only:
                     exp[-1] = want[f"{parent}/ssm"][-3]
                 exp = tuple(exp)
+            if (path.startswith("cache/") and tuple(leaf.shape[:2]) == (batch, batch)
+                    and exp[0] is not None and exp[1] is None):
+                exp = (None, exp[0]) + tuple(exp[2:])  # the lanes, off the layer stack
             assert got[path] == tuple(exp), (name, path, got[path], exp)
             local = local_shape(tuple(leaf.shape), got[path], mesh)
             for dim, entry in enumerate(got[path]):

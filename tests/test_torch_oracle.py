@@ -222,7 +222,7 @@ def test_vmap_runs_no_tap_and_no_kernel():
     _, tm, _, tparams, batch = pair("vit")
     launches.reset()
     run_port(tm, tparams, batch, "vmap")
-    assert all(v == {"cuda": 0, "torch": 0} for v in launches.snapshot().values())
+    assert all(v == {"cuda": 0, "torch": 0, "fake": 0} for v in launches.snapshot().values())
 
 
 @pytest.mark.parametrize("mode", ["vmap", "mixed_ghost", "bk_mixed", "mixed_ghost_taps",
